@@ -1,0 +1,260 @@
+"""Config system of the PyTorch port.
+
+The port's own copy of ``repro/configs/base.py``: the same frozen
+dataclasses, with the same fields and defaults, so that a ``RunConfig``
+built from either package describes the same run. The port imports
+nothing of the JAX package, this module included.
+
+The port reads a subset of the knobs; every knob it does not carry yet
+raises ``NotImplementedError`` where it would be consumed (see
+``core/ambdg.py``, ``core/strategy.py`` and ``train/loop.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional
+
+# ---------------------------------------------------------------------------
+# Model families
+# ---------------------------------------------------------------------------
+DENSE = "dense"
+MOE = "moe"
+SSM = "ssm"          # xLSTM-style (mLSTM/sLSTM blocks)
+HYBRID = "hybrid"    # zamba2: mamba2 backbone + shared attention
+ENCDEC = "encdec"    # seamless: encoder-decoder
+VLM = "vlm"          # paligemma: patch-embedding stub + prefix-LM decoder
+LINREG = "linreg"    # paper's own linear-regression experiment
+CNN = "cnn"          # paper's own CIFAR-style CNN experiment
+
+LM_FAMILIES = (DENSE, MOE, SSM, HYBRID, ENCDEC, VLM)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+    dispatch_group: int = 4096
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD parameters (used by hybrid + ssm families)."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block layout: which layer indices are sLSTM (rest mLSTM)."""
+    slstm_every: int = 2
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 1.3333333
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None          # defaults to d_model // n_heads
+    # --- attention flavour ---
+    rope_theta: float = 10000.0
+    rope_partial: float = 1.0
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    sliding_window: Optional[int] = None
+    prefix_lm: bool = False
+    logit_softcap: Optional[float] = None
+    # --- ffn / norms ---
+    act: str = "silu"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # --- family-specific ---
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    shared_attn_every: int = 0
+    n_encoder_layers: int = 0
+    cross_attention: bool = False
+    frontend: Optional[str] = None
+    n_frontend_tokens: int = 0
+    # --- paper's own problems ---
+    linreg_dim: int = 0
+    image_size: int = 0
+    n_classes: int = 0
+    # --- implementation knobs (perf levers, not architecture) ---
+    moe_impl: str = "einsum"
+    attn_impl: str = "xla"
+    scan_unroll: bool = False
+    seq_parallel: bool = False
+    block_remat: str = "full"
+    # --- numerics ---
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    def n_params(self) -> int:
+        """Parameter count of the families the port carries."""
+        if self.family == LINREG:
+            return self.linreg_dim
+        raise NotImplementedError(
+            f"n_params for family {self.family!r} comes with its model "
+            "(ROADMAP A.8, A.13)")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+
+
+# ---------------------------------------------------------------------------
+# AMB-DG technique knobs (paper Sec. III)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class AmbdgConfig:
+    # Timeline (paper): compute epoch T_p, round-trip T_c, staleness tau.
+    t_p: float = 2.5
+    t_c: float = 10.0
+    tau: int = 1
+    # Microbatches a shard accumulates per epoch; the anytime weights
+    # mask the samples a worker did not finish.
+    n_microbatches: int = 4
+    # "scan_masked" (the port's only mode: a Python loop over every
+    # microbatch) | "while_dynamic" (not ported yet)
+    anytime_impl: str = "scan_masked"
+    # Dual averaging step size: alpha(t)^-1 = L + sqrt((t+tau)/b_bar)
+    smoothness_L: float = 1.0
+    b_bar: float = 600.0
+    # Proximal psi: "l2" (psi = 0.5||w||^2) or "l2_ball" (radius C)
+    proximal: str = "l2"
+    radius_C: float = 0.0
+    # Cross-pod gradient compression: "none" | "int8"
+    pod_compression: str = "none"
+    kbatch_K: int = 10
+
+
+@dataclass(frozen=True)
+class DelayConfig:
+    """Staleness process of the cross-pod exchange. The port runs
+    ``process="fixed"`` only (tau_t = tau every step)."""
+    process: str = "fixed"      # fixed | jitter | heavy_tail | bursty
+    tau_max: int = 0
+    delay_min: int = 1
+    jitter: int = 1
+    tail_alpha: float = 1.1
+    p_burst: float = 0.1
+    p_exit: float = 0.3
+    seed: int = 0
+    adaptive_alpha: bool = True
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic-worker process. The port runs ``process="static"`` only
+    (every worker alive at speed 1.0)."""
+    process: str = "static"   # static | heterogeneous | churn | crash_restart
+    speed_sigma: float = 0.5
+    speed_min: float = 0.05
+    p_fail: float = 0.05
+    p_recover: float = 0.5
+    mttf: float = 50.0
+    mttr: float = 5.0
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class BatchScheduleConfig:
+    """Adaptive minibatch schedule b(t). The port runs
+    ``schedule="fixed"`` only (the timing-driven anytime target)."""
+    schedule: str = "fixed"   # fixed | linear | adadamp | delay_aware
+    b0: int = 0
+    b_min: int = 1
+    b_cap: int = 0
+    growth_rate: float = 1.0
+    growth_factor: float = 2.0
+    ema: float = 0.3
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Train-while-serve knobs. The port has no serving path yet;
+    ``publish_period`` must stay 0 (channel off)."""
+    slots: int = 4
+    max_len: int = 128
+    max_new: int = 16
+    publish_period: int = 0
+    staleness_bound: int = 4
+    arrival: str = "poisson"    # poisson | bursty
+    arrival_rate: float = 0.5
+    burst_rate: float = 4.0
+    p_burst: float = 0.1
+    p_exit: float = 0.3
+    prompt_len_min: int = 4
+    prompt_len_max: int = 12
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class ConsensusConfig:
+    """Decentralized AMB-DG (paper Sec. V) knobs; not ported yet."""
+    topology: str = "ring"        # "ring" | "torus" | "complete"
+    n_workers: int = 8
+    delta: float = 0.05
+    msg_norm_J: float = 1.0
+    rounds: int = 0
+    gossip_impl: str = "auto"
+    compression: str = "none"
+    debug_messages: bool = False
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    n_pods: int = 1
+    data: int = 16
+    model: int = 16
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    ambdg: AmbdgConfig = field(default_factory=AmbdgConfig)
+    # "ambdg" | "amb" in the port ("kbatch", "decentralized" not yet)
+    strategy: str = "ambdg"
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+    delay: DelayConfig = field(default_factory=DelayConfig)
+    elastic: ElasticConfig = field(default_factory=ElasticConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+    batch_schedule: BatchScheduleConfig = field(default_factory=BatchScheduleConfig)
+    optimizer: str = "dual_averaging"
+    remat: str = "none"
+    # "arena" (the port's only master pipeline) | "pytree" (not ported)
+    master_impl: str = "arena"
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,70 @@
+"""Carry parameters and master state from the JAX package to the port.
+
+The functions take the JAX package's objects after ``jax.device_get``
+(numpy leaves in the JAX containers: ``ArenaDualAveragingState``,
+``GradArena``, ``TrainState``) and return the port's, so that both
+frameworks can continue from one state. They read the containers by
+attribute name and import nothing of the JAX package. Values are copied
+exactly (same dtype, same bits).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ambdg import TrainState
+from repro_torch.core.arena import GradArena, tree_flatten, tree_unflatten
+from repro_torch.core.dual_averaging import ArenaDualAveragingState
+from repro_torch.device import resolve_device
+
+
+def to_tensor(x, device="cuda") -> torch.Tensor:
+    """An exact copy of a numpy array (or array-like) as a tensor."""
+    return torch.from_numpy(np.array(x, copy=True)).to(
+        resolve_device(device))
+
+
+def params_from_jax(params, device="cuda"):
+    """A params tree (nested dicts of arrays) as tensors, same keys."""
+    leaves, treedef = tree_flatten(params)
+    return tree_unflatten(treedef, [to_tensor(l, device) for l in leaves])
+
+
+def opt_state_from_jax(opt_state, device="cuda") -> ArenaDualAveragingState:
+    """``ArenaDualAveragingState(z, t)``."""
+    return ArenaDualAveragingState(z=to_tensor(opt_state.z, device),
+                                   t=to_tensor(opt_state.t, device))
+
+
+def arena_from_jax(arena, device="cuda"):
+    """A ring-layout-v2 ``GradArena`` (slot tuple, scales tuple,
+    residual, staging, counts, head, phase); None stays None."""
+    if arena is None:
+        return None
+    if not isinstance(arena.ring, (tuple, list)):
+        raise ValueError("only ring layout v2 (a tuple of per-slot "
+                         "buffers) is carried across; convert a v1 ring "
+                         "with repro.core.arena.convert_ring first")
+
+    def opt(x):
+        return None if x is None else to_tensor(x, device)
+
+    def slots(xs):
+        return None if xs is None else tuple(to_tensor(x, device) for x in xs)
+
+    return GradArena(ring=slots(arena.ring), scales=slots(arena.scales),
+                     residual=opt(arena.residual), staging=opt(arena.staging),
+                     counts=to_tensor(arena.counts, device),
+                     head=to_tensor(arena.head, device),
+                     phase=int(arena.phase))
+
+
+def train_state_from_jax(state, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` of the arena master path."""
+    if state.buffer is not None:
+        raise ValueError("the pytree master path (state.buffer) is not "
+                         "ported; carry an arena-path state")
+    return TrainState(params=params_from_jax(state.params, device),
+                      opt_state=opt_state_from_jax(state.opt_state, device),
+                      buffer=None, arena=arena_from_jax(state.arena, device),
+                      step=to_tensor(state.step, device))

@@ -1,0 +1,144 @@
+"""AMB-DG composed train step: anytime accumulation -> delayed pod
+exchange on the arena -> dual-averaging update (ported from
+``repro/core/ambdg.py``).
+
+``build_step_fns(model, rc, device)`` returns ``(init_state,
+train_step)``:
+
+    state = init_state(generator)
+    state, metrics = train_step(state, batch)
+
+Batch leaves are tensors on the model's device with the global batch on
+dim 0; per-sample ``weights`` carry the anytime mask b_i(t). Gradients
+are summed per pod chunk (the pod axis is a written-out leading
+dimension), pushed into the tau-deep ring, and the popped tau-old entry,
+summed over pods, feeds dual averaging: z(t+1) = z(t) + g(t - tau).
+tau = 0 is the synchronous AMB update. ``train_step`` updates the arena
+buffers and z in place: pass each state once and keep the returned one.
+
+The port carries the arena master pipeline with a fixed delay and a
+fixed batch schedule; every other knob raises ``NotImplementedError``
+naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import anytime
+from repro_torch.core import arena as arena_mod
+from repro_torch.core.delayed import pod_sum
+from repro_torch.models.api import Model
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    buffer: None                             # pytree master path: not ported
+    arena: Optional[arena_mod.GradArena]
+    step: torch.Tensor                       # () int32
+
+
+def check_supported(rc: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for every knob of ``rc`` the port's
+    step does not carry yet (never ignore one silently)."""
+    if rc.master_impl != "arena":
+        raise NotImplementedError(
+            f"master_impl={rc.master_impl!r}: the pytree master path is not "
+            "ported (ROADMAP A.4); the port runs master_impl='arena'")
+    if rc.delay.process != "fixed":
+        raise NotImplementedError(
+            f"rc.delay.process={rc.delay.process!r}: stochastic delay is "
+            "not ported yet (ROADMAP A.7)")
+    if rc.batch_schedule.schedule != "fixed":
+        raise NotImplementedError(
+            f"rc.batch_schedule.schedule={rc.batch_schedule.schedule!r}: "
+            "adaptive batch schedules are not ported yet (ROADMAP A.9)")
+    if rc.ambdg.anytime_impl != "scan_masked":
+        raise NotImplementedError(
+            f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while is "
+            "not ported yet (ROADMAP A.2)")
+    if rc.remat == "whole_loss":
+        raise NotImplementedError("rc.remat='whole_loss' is not ported "
+                                  "(ROADMAP A.13)")
+
+
+def arena_master_update(layout, opt, params, opt_state, arena_state,
+                        pod_grads, pod_counts, compression: str = "none"):
+    """The master pipeline on the flat arena: rotate the delay ring with
+    this step's pod-stacked gradient tree and apply the optimizer to the
+    popped sum. Returns (params, opt_state, arena_state, grad_sum_flat,
+    count)."""
+    if arena_state is not None:
+        grad_sum, count, arena_state = arena_mod.push_pop(
+            layout, arena_state, pod_grads, pod_counts, compression)
+    else:  # tau = 0: synchronous exchange, then one flat scatter
+        summed = {k: pod_sum(g) for k, g in pod_grads.items()}
+        grad_sum = arena_mod.flatten_tree(layout, summed)
+        count = torch.sum(pod_counts)
+    params, opt_state = opt.update(opt_state, params, grad_sum, count)
+    return params, opt_state, arena_state, grad_sum, count
+
+
+def build_step_fns(model: Model, rc: RunConfig):
+    """The AMB-DG step factory, internal to the strategies (user code
+    goes through ``repro_torch.api.build``)."""
+    from repro_torch.optim import make_arena_optimizer
+    check_supported(rc)
+    device = model.device
+    n_pods = rc.mesh.n_pods
+    tau = rc.ambdg.tau
+    n_mb = rc.ambdg.n_microbatches
+    compression = rc.ambdg.pod_compression
+    if compression not in ("none", "int8"):
+        raise ValueError(f"unknown pod_compression {compression!r}")
+    layout = arena_mod.make_layout(model.init(None))
+    opt = make_arena_optimizer(rc, layout, device)
+
+    def init_state(generator: Optional[torch.Generator] = None) -> TrainState:
+        params = model.init(generator)
+        return TrainState(
+            params=params, opt_state=opt.init(), buffer=None,
+            arena=arena_mod.init_arena(layout, tau, n_pods, compression,
+                                       device=device),
+            step=torch.zeros((), dtype=torch.int32, device=device))
+
+    def pod_chunk_grads(params, batch):
+        """Pod-stacked (grads {k: (n_pods, ...)}, counts (n_pods,), loss
+        sums (n_pods,)): each pod's chunk of the batch on its own."""
+        chunks = [batch] if n_pods == 1 else [
+            {k: v.reshape((n_pods, v.shape[0] // n_pods)
+                          + tuple(v.shape[1:]))[p] for k, v in batch.items()}
+            for p in range(n_pods)]
+        out = [anytime.accumulate_scan(model.loss, params, c, n_mb)
+               for c in chunks]
+        grads = {k: torch.stack([g[k] for g, _, _ in out])
+                 for k in out[0][0]}
+        counts = torch.stack([c for _, c, _ in out])
+        losses = torch.stack([m["loss_sum"] for _, _, m in out])
+        return grads, counts, losses
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        pod_grads, pod_counts, pod_loss = pod_chunk_grads(state.params, batch)
+        with torch.no_grad():
+            params, opt_state, arena_state, grad_sum, count = \
+                arena_master_update(layout, opt, state.params,
+                                    state.opt_state, state.arena, pod_grads,
+                                    pod_counts, compression)
+            # scalar divide after the reduce: the value of norm(g / c)
+            g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
+                      / torch.clamp(count, min=1e-12))
+            local = torch.sum(pod_counts)
+            metrics = {
+                "loss": torch.sum(pod_loss) / torch.clamp(local, min=1e-12),
+                "applied_count": count,
+                "local_count": local,
+                "grad_norm": g_norm,
+                "step": state.step + 1,
+            }
+        return TrainState(params=params, opt_state=opt_state, buffer=None,
+                          arena=arena_state, step=state.step + 1), metrics
+
+    return init_state, train_step

@@ -1,0 +1,54 @@
+"""Host-side data pipeline with anytime masking, seeded numpy: the same
+batches as ``repro/data/pipeline.py`` for the same seed.
+
+Given per-worker minibatch sizes b_i(t) (the shifted-exponential model,
+or every worker full), it emits a fixed-shape global batch whose
+per-sample ``weights`` zero out the samples slower workers did not
+finish.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.synthetic import make_stream
+from repro_torch.data.timing import ShiftedExponential
+
+
+@dataclass
+class AnytimePipeline:
+    cfg: ModelConfig
+    n_workers: int
+    samples_per_worker: int          # max samples a worker may contribute
+    seed: int = 0
+    timing: Optional[ShiftedExponential] = None
+    t_p: float = 2.5
+
+    def __post_init__(self):
+        self.stream = make_stream(self.cfg, self.seed)
+        self._rng = np.random.default_rng(self.seed + 17)
+        self.b_history = []
+
+    def _draw_b(self) -> np.ndarray:
+        """Per-worker completed sample counts for this epoch."""
+        if self.timing is None:
+            return np.full((self.n_workers,), self.samples_per_worker,
+                           np.int64)
+        b = self.timing.minibatch_in(self._rng, self.n_workers, self.t_p)
+        return np.minimum(b, self.samples_per_worker)
+
+    def next_global_batch(self) -> Dict[str, np.ndarray]:
+        """Fixed-shape (n_workers * samples_per_worker, ...) batch with
+        anytime weights. Worker i's samples occupy the contiguous slice
+        [i*spw, (i+1)*spw); the first b_i(t) carry weight 1."""
+        batch = self.stream.next_batch(self.n_workers * self.samples_per_worker)
+        b = self._draw_b()
+        self.b_history.append(b.copy())
+        w = np.zeros((self.n_workers, self.samples_per_worker), np.float32)
+        for i, bi in enumerate(b):
+            w[i, :bi] = 1.0
+        batch["weights"] = w.reshape(-1)
+        return batch

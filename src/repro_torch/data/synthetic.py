@@ -1,0 +1,50 @@
+"""Synthetic data streams, seeded numpy: the same bytes as the JAX
+package's ``repro/data/synthetic.py`` for the same seed and cursor, so
+both frameworks train on identical batches.
+
+Streams are deterministic functions of (seed, cursor).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import LINREG, ModelConfig
+
+
+@dataclass
+class LinRegStream:
+    """Paper Sec. VI-A: zeta ~ N(0,I_d); y = zeta^T w* + eps,
+    eps ~ N(0, 1e-3). ``seed`` fixes the problem (w*); ``sample_seed``
+    fixes the stream."""
+    dim: int
+    seed: int = 0
+    sample_seed: Optional[int] = None
+    noise_var: float = 1e-3
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.w_star = rng.standard_normal(self.dim).astype(np.float32)
+        if self.sample_seed is None:
+            self.sample_seed = self.seed
+        self._cursor = 0
+
+    def next_batch(self, n: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.sample_seed + 1, self._cursor))
+        self._cursor += 1
+        x = rng.standard_normal((n, self.dim)).astype(np.float32)
+        noise = (self.noise_var ** 0.5) * rng.standard_normal(n)
+        y = (x @ self.w_star + noise).astype(np.float32)
+        return {"x": x, "y": y,
+                "weights": np.ones((n,), np.float32)}
+
+
+def make_stream(cfg: ModelConfig, seed: int = 0,
+                sample_seed: Optional[int] = None):
+    if cfg.family == LINREG:
+        return LinRegStream(cfg.linreg_dim, seed, sample_seed)
+    raise NotImplementedError(
+        f"no data stream for family {cfg.family!r} in the port yet "
+        "(ROADMAP A.8 for images, A.13 for tokens)")

@@ -1,0 +1,39 @@
+"""Arena-form optimizers of the port (``repro/optim/__init__.py``).
+
+An ``ArenaOptimizer`` keeps its state as (rows, 128) buffers and
+consumes the popped, un-normalized gradient sum and its count directly.
+The port carries the paper's dual averaging; the beyond-paper sgd and
+adam arena optimizers come later (ROADMAP A.4).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+from repro_torch.configs.base import RunConfig
+from repro_torch.core import dual_averaging as da
+
+
+class ArenaOptimizer(NamedTuple):
+    init: Callable[[], Any]
+    update: Callable[..., Tuple[Any, Any]]
+    # update(opt_state, params, grad_sum_flat, count) -> (params, state)
+
+
+def arena_dual_averaging_optimizer(rc: RunConfig, layout,
+                                   device) -> ArenaOptimizer:
+    cfg = rc.ambdg
+
+    def update(opt_state: da.ArenaDualAveragingState, params, g_sum, count):
+        # params leaves come back f32, as in the JAX package
+        return da.update_arena(layout, opt_state, g_sum, count, cfg)
+
+    return ArenaOptimizer(init=lambda: da.init_arena(layout, device),
+                          update=update)
+
+
+def make_arena_optimizer(rc: RunConfig, layout, device) -> ArenaOptimizer:
+    if rc.optimizer == "dual_averaging":
+        return arena_dual_averaging_optimizer(rc, layout, device)
+    raise NotImplementedError(
+        f"optimizer {rc.optimizer!r} is not ported yet (ROADMAP A.4: the "
+        "arena sgd and adam optimizers); the port runs 'dual_averaging'")

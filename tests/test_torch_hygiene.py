@@ -1,0 +1,159 @@
+"""The port's boundaries: it imports neither JAX nor the JAX package,
+its entry points run on the card unless the caller asks for the CPU,
+and a kernel asked for on a CPU tensor raises instead of falling back.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
+         "repro_torch.train.loop", "repro_torch.core.ambdg",
+         "repro_torch.core.strategy", "repro_torch.core.arena",
+         "repro_torch.core.dual_averaging", "repro_torch.core.anytime",
+         "repro_torch.core.delayed", "repro_torch.optim",
+         "repro_torch.models.api", "repro_torch.models.linear",
+         "repro_torch.data.pipeline", "repro_torch.configs",
+         "repro_torch.kernels.build",
+         "repro_torch.kernels.dual_update.ops",
+         "repro_torch.kernels.dual_update.kernel",
+         "repro_torch.kernels.delay_ring.ops",
+         "repro_torch.kernels.delay_ring.kernel"]
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in SLICE) +
+            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'repro')"
+            " or m.startswith(('jax.', 'jaxlib.', 'repro.'))]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _cpu_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(get_smoke_config("amb-linreg"), device="cpu")
+
+
+def _rc():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig, TRAIN_4K
+    return RunConfig(model=get_smoke_config("amb-linreg"), shape=TRAIN_4K)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(get_smoke_config("amb-linreg"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.build(_cpu_model(), _rc())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(_cpu_model(), _rc(), LoopConfig(n_steps=1))
+
+
+def test_state_constructors_default_to_cuda_and_raise_without_it():
+    """A JAX state carried across, or a fresh delay ring, lands on the
+    card unless the caller asks for the CPU; never silently on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.core import arena
+    layout = arena.make_layout({"w": torch.zeros(300)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.to_tensor(np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        arena.init_arena(layout, 2, 1, "int8")
+    assert arena.init_arena(layout, 2, 1, "int8",
+                            device="cpu").ring[0].device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("master_impl", "pytree", "A.4"),
+    ("optimizer", "adam", "A.4"),
+    ("strategy", "kbatch", "A.8"),
+    ("strategy", "decentralized", "A.10"),
+    ("delay", "jitter", "A.7"),
+    ("batch_schedule", "linear", "A.9"),
+    ("elastic", "churn", "A.9"),
+])
+def test_unported_knobs_raise(knob, value, item):
+    import dataclasses
+    from repro_torch import api
+    rc = _rc()
+    field = {"delay": "process", "batch_schedule": "schedule",
+             "elastic": "process"}.get(knob)
+    if field:
+        rc = rc.replace(**{knob: dataclasses.replace(getattr(rc, knob),
+                                                     **{field: value})})
+    else:
+        rc = rc.replace(**{knob: value})
+    with pytest.raises(NotImplementedError, match=item):
+        api.build(_cpu_model(), rc, device="cpu")
+
+
+def test_unported_loop_options_raise(tmp_path):
+    import dataclasses
+    from repro_torch.train.loop import LoopConfig, train
+    with pytest.raises(NotImplementedError, match="A.5"):
+        train(_cpu_model(), _rc(), LoopConfig(ckpt_dir=str(tmp_path)),
+              device="cpu")
+    rc = _rc()
+    rc = rc.replace(serve=dataclasses.replace(rc.serve, publish_period=2))
+    with pytest.raises(NotImplementedError, match="A.12"):
+        train(_cpu_model(), rc, LoopConfig(n_steps=1), device="cpu")
+
+
+@pytest.mark.parametrize("op", ["dual_update", "delay_ring"])
+def test_kernel_impl_on_cpu_raises_and_launches_nothing(op):
+    from repro_torch.kernels.delay_ring import kernel as ring_kernel
+    from repro_torch.kernels.delay_ring.ops import ring_slot_rotate_int8
+    from repro_torch.kernels.dual_update import kernel as update_kernel
+    from repro_torch.kernels.dual_update.ops import dual_update_arena
+    before = (update_kernel.KERNEL.launches, ring_kernel.KERNEL.launches)
+    f32 = torch.zeros((1, 256, 128))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if op == "dual_update":
+            dual_update_arena(f32[0], f32[0].clone(), torch.tensor(1.0),
+                              torch.tensor(0.5), impl="kernel")
+        else:
+            i8 = torch.zeros((1, 256, 128), dtype=torch.int8)
+            s = torch.ones((1, 256))
+            ring_slot_rotate_int8(i8, s, i8.clone(), s.clone(), f32, s,
+                                  impl="kernel")
+    assert (update_kernel.KERNEL.launches,
+            ring_kernel.KERNEL.launches) == before
