@@ -157,8 +157,11 @@ class AmbdgConfig:
 
 @dataclass(frozen=True)
 class DelayConfig:
-    """Staleness process of the cross-pod exchange. The port runs
-    ``process="fixed"`` only (tau_t = tau every step)."""
+    """Staleness process of the cross-pod exchange (``core.delay_process``).
+    ``"fixed"`` keeps tau_t = tau on the static ring; a stochastic
+    process (jitter, heavy_tail, bursty) draws tau_t per step within
+    ``[delay_min, tau_max]`` on the delay-tolerant ring, with the
+    delay-adaptive step size unless ``adaptive_alpha`` is False."""
     process: str = "fixed"      # fixed | jitter | heavy_tail | bursty
     tau_max: int = 0
     delay_min: int = 1

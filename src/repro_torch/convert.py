@@ -37,25 +37,27 @@ def opt_state_from_jax(opt_state, device="cuda") -> ArenaDualAveragingState:
 
 
 def arena_from_jax(arena, device="cuda"):
-    """A ring-layout-v2 ``GradArena`` (slot tuple, scales tuple,
-    residual, staging, counts, head, phase); None stays None."""
+    """A ``GradArena`` of any ring layout: v2 (slot and scales tuples,
+    head mirroring the phase), v1 (one stacked ring, head its slot) or
+    v3 (stacked, with the ``due``/``stale`` tags and the absolute step
+    counter as head); residual, staging, counts and phase as they are.
+    None stays None."""
     if arena is None:
         return None
-    if not isinstance(arena.ring, (tuple, list)):
-        raise ValueError("only ring layout v2 (a tuple of per-slot "
-                         "buffers) is carried across; convert a v1 ring "
-                         "with repro.core.arena.convert_ring first")
 
     def opt(x):
         return None if x is None else to_tensor(x, device)
 
-    def slots(xs):
-        return None if xs is None else tuple(to_tensor(x, device) for x in xs)
+    def ring(xs):
+        if isinstance(xs, (tuple, list)):      # v2: per-slot buffers
+            return tuple(to_tensor(x, device) for x in xs)
+        return opt(xs)                         # v1 / v3: stacked
 
-    return GradArena(ring=slots(arena.ring), scales=slots(arena.scales),
+    return GradArena(ring=ring(arena.ring), scales=ring(arena.scales),
                      residual=opt(arena.residual), staging=opt(arena.staging),
                      counts=to_tensor(arena.counts, device),
                      head=to_tensor(arena.head, device),
+                     due=opt(arena.due), stale=opt(arena.stale),
                      phase=int(arena.phase))
 
 

@@ -16,9 +16,16 @@ summed over pods, feeds dual averaging: z(t+1) = z(t) + g(t - tau).
 tau = 0 is the synchronous AMB update. ``train_step`` updates the arena
 buffers and z in place: pass each state once and keep the returned one.
 
-The port carries the arena master pipeline with a fixed delay and a
-fixed batch schedule; every other knob raises ``NotImplementedError``
-naming its ROADMAP item.
+``rc.delay`` selects the staleness process. "fixed" runs the static
+ring (layout v2). A stochastic process (jitter, heavy_tail, bursty)
+runs the delay-tolerant ring (layout v3, ``arena.push_pop_variable``)
+on a per-step ``batch["delay"]`` the host loop draws from
+``core.delay_process``, with the delay-adaptive step size
+(``rc.delay.adaptive_alpha``); its metrics add ``tau_applied``.
+
+The port carries the arena master pipeline with a fixed batch schedule;
+every other knob raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -48,10 +55,6 @@ def check_supported(rc: RunConfig) -> None:
         raise NotImplementedError(
             f"master_impl={rc.master_impl!r}: the pytree master path is not "
             "ported (ROADMAP A.4); the port runs master_impl='arena'")
-    if rc.delay.process != "fixed":
-        raise NotImplementedError(
-            f"rc.delay.process={rc.delay.process!r}: stochastic delay is "
-            "not ported yet (ROADMAP A.7)")
     if rc.batch_schedule.schedule != "fixed":
         raise NotImplementedError(
             f"rc.batch_schedule.schedule={rc.batch_schedule.schedule!r}: "
@@ -85,11 +88,16 @@ def arena_master_update(layout, opt, params, opt_state, arena_state,
 def build_step_fns(model: Model, rc: RunConfig):
     """The AMB-DG step factory, internal to the strategies (user code
     goes through ``repro_torch.api.build``)."""
+    from repro_torch.core.delay_process import resolve_bounds
     from repro_torch.optim import make_arena_optimizer
     check_supported(rc)
     device = model.device
     n_pods = rc.mesh.n_pods
     tau = rc.ambdg.tau
+    variable_delay = rc.delay.process != "fixed"
+    _, tau_max = resolve_bounds(rc.delay, tau)   # validates rc.delay
+    # a stochastic delay's ring holds its cap: tau_max + 1 slots
+    ring_tau = tau_max if variable_delay else tau
     n_mb = rc.ambdg.n_microbatches
     compression = rc.ambdg.pod_compression
     if compression not in ("none", "int8"):
@@ -101,8 +109,9 @@ def build_step_fns(model: Model, rc: RunConfig):
         params = model.init(generator)
         return TrainState(
             params=params, opt_state=opt.init(), buffer=None,
-            arena=arena_mod.init_arena(layout, tau, n_pods, compression,
-                                       device=device),
+            arena=arena_mod.init_arena(layout, ring_tau, n_pods,
+                                       compression, device=device,
+                                       variable=variable_delay),
             step=torch.zeros((), dtype=torch.int32, device=device))
 
     def pod_chunk_grads(params, batch):
@@ -120,13 +129,47 @@ def build_step_fns(model: Model, rc: RunConfig):
         losses = torch.stack([m["loss_sum"] for _, _, m in out])
         return grads, counts, losses
 
+    ring_cap = torch.full((), float(ring_tau), dtype=torch.float32,
+                          device=device)
+
+    def variable_master_update(state, pod_grads, pod_counts, delay):
+        """The delay-tolerant master step: the v3 rotation, then dual
+        averaging with the observed staleness (or, without
+        ``adaptive_alpha``, the ring's cap). Returns (params, opt_state,
+        arena_state, grad_sum_flat, count, tau_obs)."""
+        grad_sum, count, tau_obs, arena_state = arena_mod.push_pop_variable(
+            layout, state.arena, pod_grads, pod_counts, delay, compression)
+        # zero-arrival contract: a step with nothing applied reports the
+        # ring's cap, never 0, which would tell the adaptive alpha the
+        # stalled step was perfectly fresh
+        tau_obs = torch.where(count > 0.0, tau_obs, ring_cap)
+        params, opt_state = opt.update(
+            state.opt_state, state.params, grad_sum, count,
+            tau_obs=(tau_obs if rc.delay.adaptive_alpha
+                     else float(ring_tau)))
+        return params, opt_state, arena_state, grad_sum, count, tau_obs
+
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        tau_obs = None
+        if variable_delay:
+            if "delay" not in batch:
+                raise ValueError(
+                    f"rc.delay.process={rc.delay.process!r} needs a "
+                    "per-step batch['delay'] scalar (the host loop "
+                    "draws it from core.delay_process)")
+            delay = batch["delay"]
+            batch = {k: v for k, v in batch.items() if k != "delay"}
         pod_grads, pod_counts, pod_loss = pod_chunk_grads(state.params, batch)
         with torch.no_grad():
-            params, opt_state, arena_state, grad_sum, count = \
-                arena_master_update(layout, opt, state.params,
-                                    state.opt_state, state.arena, pod_grads,
-                                    pod_counts, compression)
+            if variable_delay:
+                (params, opt_state, arena_state, grad_sum, count,
+                 tau_obs) = variable_master_update(state, pod_grads,
+                                                   pod_counts, delay)
+            else:
+                params, opt_state, arena_state, grad_sum, count = \
+                    arena_master_update(layout, opt, state.params,
+                                        state.opt_state, state.arena,
+                                        pod_grads, pod_counts, compression)
             # scalar divide after the reduce: the value of norm(g / c)
             g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
                       / torch.clamp(count, min=1e-12))
@@ -138,6 +181,10 @@ def build_step_fns(model: Model, rc: RunConfig):
                 "grad_norm": g_norm,
                 "step": state.step + 1,
             }
+            if tau_obs is not None:
+                # the staleness the step size used: the ring's cap on
+                # a step with no arrival (applied_count == 0 flags it)
+                metrics["tau_applied"] = tau_obs
         return TrainState(params=params, opt_state=opt_state, buffer=None,
                           arena=arena_state, step=state.step + 1), metrics
 

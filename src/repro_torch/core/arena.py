@@ -14,15 +14,22 @@ leaf, so per-tensor scales become per-row vectors through a static
 row -> leaf map, bitwise equal to the per-tensor reference (a max is a
 max whatever the order).
 
-The port carries ring layout v2 only (the JAX default for a fixed
-tau): ``tau + 1`` per-slot buffers, selected by a phase counter kept as
-a Python int, so each step pops slot ``(phase + 1) % (tau + 1)`` and
-overwrites slot ``phase``, two different buffers. Where the JAX package
-donates buffers to ``jit`` (``input_output_aliases`` in the kernels,
-``donate_argnums`` in the loop), the port writes in place: the push
-slot, its scales, the staging buffer and the residual are updated where
-they lie, and an arena passed to ``push_pop`` must not be used again
-(use the one it returns).
+The delay ring has three layouts (see ``GradArena``): v2, the default
+for a fixed tau, keeps ``tau + 1`` per-slot buffers selected by a phase
+counter kept as a Python int, so each step pops slot ``(phase + 1) %
+(tau + 1)`` and overwrites slot ``phase``, two different buffers; v1
+is one stacked ``(tau, ...)`` buffer whose slot is the device scalar
+``head``, kept for migration (``convert_ring``) and as a layout oracle;
+v3 is the delay-tolerant ring of a stochastic delay process, stacked
+like v1 and pushed at v2's phase schedule, with per-slot ``due`` and
+``stale`` tags driving a masked pop (``push_pop_variable``).
+
+Where the JAX package donates buffers to ``jit``
+(``input_output_aliases`` in the kernels, ``donate_argnums`` in the
+loop), the port writes in place: the push slot, its scales, the staging
+buffer, the residual and the ring's tags are updated where they lie,
+and an arena passed to ``push_pop`` or ``push_pop_variable`` must not
+be used again (use the one it returns).
 """
 from __future__ import annotations
 
@@ -171,57 +178,175 @@ def unflatten_tree(layout: ArenaLayout, mat, cast: bool = True, scale=None):
 
 
 # ---------------------------------------------------------------------------
-# Delay state in arena form (ring layout v2)
+# Delay state in arena form
 # ---------------------------------------------------------------------------
+_ARENA_FIELDS = ("ring", "scales", "residual", "staging", "counts", "head",
+                 "due", "stale")
+
+
 class GradArena:
     """The delay ring + int8 error feedback, all contiguous, on one
-    device. ``ring`` is a tuple of ``tau + 1`` per-slot (n_pods, rows,
-    128) buffers, f32 (compression "none") or int8; ``scales`` (a tuple
-    of (n_pods, rows) f32), ``residual`` and ``staging`` ((n_pods, rows,
-    128) f32) exist only under int8. ``counts`` is (tau + 1, n_pods)
-    f32; ``head`` a 0-dim int32 tensor mirroring ``phase`` (the slot to
-    overwrite next), as the JAX arena records it for checkpoints."""
+    device. ``ring`` is f32 (compression "none") or int8; ``scales``
+    (per-row f32), ``residual`` and ``staging`` ((n_pods, rows, 128) f32)
+    exist only under int8. Three ring layouts:
 
-    __slots__ = ("ring", "scales", "residual", "staging", "counts", "head",
-                 "phase")
+      v2  ``ring`` a tuple of ``tau + 1`` per-slot (n_pods, rows, 128)
+          buffers, ``scales`` a tuple of (n_pods, rows); ``counts``
+          (tau + 1, n_pods) f32; ``head`` a 0-dim int32 mirroring
+          ``phase``, the slot to overwrite next.
+      v1  ``ring`` one stacked (tau, n_pods, rows, 128) buffer,
+          ``scales`` (tau, n_pods, rows); ``head`` the device-side slot
+          to pop and overwrite; ``phase`` stays 0.
+      v3  the delay-tolerant ring: stacked (n_slots, ...) like v1, with
+          n_slots = tau_max + 1, pushed at the v2 phase schedule;
+          ``due`` and ``stale`` ((n_slots,) int32) tag each slot with
+          the step it is applied at and the delay it was pushed with;
+          ``head`` is the absolute step counter and ``phase`` mirrors
+          ``head % n_slots``.
+
+    ``due`` and ``stale`` are None on fixed-tau rings."""
+
+    __slots__ = _ARENA_FIELDS + ("phase",)
 
     def __init__(self, ring, scales, residual, staging, counts, head,
-                 phase: int = 0):
+                 due=None, stale=None, phase: int = 0):
         self.ring = ring
         self.scales = scales
         self.residual = residual
         self.staging = staging
         self.counts = counts
         self.head = head
+        self.due = due
+        self.stale = stale
         self.phase = int(phase)
+
+    def _replace(self, **kw) -> "GradArena":
+        vals = {f: getattr(self, f) for f in self.__slots__}
+        vals.update(kw)
+        return GradArena(**vals)
 
 
 def init_arena(layout: ArenaLayout, tau: int, n_pods: int,
-               compression: str = "none", device="cuda"
+               compression: str = "none", device="cuda",
+               ring_version: int = 2, variable: bool = False
                ) -> Optional[GradArena]:
-    """Allocate the v2 delay state on ``device`` (None for tau = 0)."""
+    """Allocate the delay state on ``device`` (None for tau = 0). With
+    ``variable=True``, ``tau`` is the cap ``tau_max`` of a stochastic
+    delay process and the ring is the delay-tolerant v3 layout:
+    ``tau + 1`` stacked slots with ``due``/``stale`` tags.
+    ``ring_version=1`` gives the stacked fixed ring of ``tau`` slots."""
     if tau == 0:
         return None
+    if ring_version not in (1, 2):
+        raise ValueError(f"unknown ring_version {ring_version!r}")
+    if variable and ring_version != 2:
+        raise ValueError("the delay-tolerant (variable-delay) ring "
+                         "extends the default v2 schedule (stored "
+                         "stacked as layout v3); ring_version=1 has no "
+                         "delay-tolerant form")
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
     device = resolve_device(device)
     shape = (n_pods, layout.rows, LANES)
     f32 = dict(dtype=torch.float32, device=device)
-    n_slots = tau + 1
+    v2 = ring_version == 2
+    n_slots = tau + 1 if v2 else tau
+    stacked = variable or not v2      # v1 and v3 share the stacked shape
+    residual = staging = scales = None
     if compression == "int8":
-        ring = tuple(torch.zeros(shape, dtype=torch.int8, device=device)
-                     for _ in range(n_slots))
-        scales = tuple(torch.ones(shape[:2], **f32) for _ in range(n_slots))
+        if stacked:
+            ring = torch.zeros((n_slots,) + shape, dtype=torch.int8,
+                               device=device)
+            scales = torch.ones((n_slots,) + shape[:2], **f32)
+        else:
+            ring = tuple(torch.zeros(shape, dtype=torch.int8, device=device)
+                         for _ in range(n_slots))
+            scales = tuple(torch.ones(shape[:2], **f32)
+                           for _ in range(n_slots))
         residual = torch.zeros(shape, **f32)
         staging = torch.zeros(shape, **f32)
+    elif stacked:
+        ring = torch.zeros((n_slots,) + shape, **f32)
     else:
         ring = tuple(torch.zeros(shape, **f32) for _ in range(n_slots))
-        scales = residual = staging = None
+    due = stale = None
+    if variable:
+        # due = -1: never applied (the step counter starts at 0); stale
+        # = 0 until a push tags the slot
+        due = torch.full((n_slots,), -1, dtype=torch.int32, device=device)
+        stale = torch.zeros((n_slots,), dtype=torch.int32, device=device)
     return GradArena(ring=ring, scales=scales, residual=residual,
                      staging=staging,
                      counts=torch.zeros((n_slots, n_pods), **f32),
                      head=torch.zeros((), dtype=torch.int32, device=device),
-                     phase=0)
+                     due=due, stale=stale, phase=0)
+
+
+def ring_version(arena: GradArena) -> int:
+    """2 for the per-slot tuple layout (fixed rings, the default), 3 for
+    the stacked delay-tolerant ring, 1 for the stacked fixed ring."""
+    if isinstance(arena.ring, tuple):
+        return 2
+    return 3 if is_variable(arena) else 1
+
+
+def is_variable(arena: GradArena) -> bool:
+    """True for delay-tolerant rings (per-slot due/stale tags)."""
+    return arena.due is not None
+
+
+def arena_tau(arena: GradArena) -> int:
+    """The staleness depth tau this arena implements (v2 and v3 carry
+    one spare slot beyond tau)."""
+    v = ring_version(arena)
+    if v == 2:
+        return len(arena.ring) - 1
+    if v == 3:
+        return int(arena.ring.shape[0]) - 1
+    return int(arena.ring.shape[0])
+
+
+def convert_ring(arena: GradArena, version: int) -> GradArena:
+    """Convert a fixed ring between layouts v1 and v2. v1 slot
+    ``(head + i) % tau`` (the i-th oldest entry) becomes v2 slot
+    ``1 + i`` with phase and head reset to 0 (v2 pops slot phase + 1
+    first, so slot 1 holds the oldest entry; slot 0, the first push
+    target, is dead and zeroed); v2 to v1 is the inverse. Reads
+    ``head`` on the host: a migration, not a step."""
+    if ring_version(arena) == version:
+        return arena
+    if is_variable(arena):
+        raise ValueError("variable-delay rings have no v1 layout and "
+                         "no per-slot v2 form (they are always the "
+                         "stacked v3 layout, which carries the "
+                         "due/stale metadata)")
+    head = torch.zeros_like(arena.head)
+    if version == 2:
+        tau = int(arena.ring.shape[0])
+        h = int(arena.head)
+        perm = [(h + i) % tau for i in range(tau)]
+        ring = ((torch.zeros_like(arena.ring[0]),)
+                + tuple(arena.ring[k].clone() for k in perm))
+        scales = None
+        if arena.scales is not None:
+            scales = ((torch.ones_like(arena.scales[0]),)
+                      + tuple(arena.scales[k].clone() for k in perm))
+        counts = torch.cat([torch.zeros_like(arena.counts[:1]),
+                            arena.counts[perm]])
+        return arena._replace(ring=ring, scales=scales, counts=counts,
+                              head=head, phase=0)
+    if version == 1:
+        tau = len(arena.ring) - 1
+        p = arena.phase
+        perm = [(p + 1 + i) % (tau + 1) for i in range(tau)]
+        ring = torch.stack([arena.ring[k] for k in perm])
+        scales = None
+        if arena.scales is not None:
+            scales = torch.stack([arena.scales[k] for k in perm])
+        counts = torch.stack([arena.counts[k] for k in perm])
+        return arena._replace(ring=ring, scales=scales, counts=counts,
+                              head=head, phase=0)
+    raise ValueError(f"unknown ring_version {version!r}")
 
 
 def row_scales(layout: ArenaLayout, fed) -> torch.Tensor:
@@ -243,13 +368,60 @@ def row_scales(layout: ArenaLayout, fed) -> torch.Tensor:
     return torch.index_select(scales, 1, r2l)
 
 
+def _slot_pod_sum(slot, scales_slot=None):
+    """Left fold over the pods of one slot, dequantized under int8
+    (``q.f32 * s``, its own op, as the JAX package pins it): bitwise
+    the JAX off-mesh ``_slot_pod_sum``. With one f32 pod it returns the
+    view ``slot[0]``."""
+    acc = None
+    for p in range(slot.shape[0]):
+        x = slot[p]
+        if scales_slot is not None:
+            x = x.to(torch.float32) * scales_slot[p][:, None]
+        acc = x if acc is None else acc + x
+    return acc
+
+
+def _int8_quantize(layout: ArenaLayout, arena: GradArena, pod_grads):
+    """The int8 push arithmetic of the stacked rings (v1 on the CPU, v3):
+    fed = g + residual scattered into ``staging``, per-row scales,
+    q = clip(round(fed / s), -127, 127), and the error-feedback residual
+    fed - q * s written over the old residual's buffer (its contents
+    are spent once fed is formed). Returns (q f32, scale_new)."""
+    fed = scatter_fed(layout, pod_grads, arena.residual, out=arena.staging)
+    scale_new = row_scales(layout, fed)
+    s = scale_new[..., None]
+    q = torch.clamp(torch.round(fed / s), -127, 127)
+    torch.sub(fed, q * s, out=arena.residual)
+    return q, scale_new
+
+
 def push_pop(layout: ArenaLayout, arena: GradArena, pod_grads, pod_counts,
              compression: str = "none"
              ) -> Tuple[torch.Tensor, torch.Tensor, GradArena]:
-    """One v2 rotation (the port of ``repro.core.arena.push_pop`` on a
-    v2 ring): insert this step's pod-stacked gradient tree into slot
-    ``phase``, return the tau-old entry of slot ``(phase + 1) %
-    (tau + 1)`` summed over pods, its count, and the updated arena.
+    """One fixed-tau rotation (the port of ``repro.core.arena.push_pop``):
+    insert this step's pod-stacked gradient tree, return the tau-old
+    entry summed over pods, its count, and the updated arena.
+
+    pod_grads: dict of (n_pods, *shape) tensors; pod_counts: (n_pods,)
+    f32. Returns (grad_sum (rows, 128) f32, count () f32, new_arena).
+    On a v2 ring the returned grad_sum may be a view of the popped
+    slot: read it before the next rotation."""
+    if is_variable(arena):
+        raise ValueError("delay-tolerant arenas rotate via "
+                         "push_pop_variable (per-step tau_t), not the "
+                         "fixed-tau push_pop")
+    if compression not in ("none", "int8"):
+        raise ValueError(f"unknown pod_compression {compression!r}")
+    if ring_version(arena) == 2:
+        return _push_pop_v2(layout, arena, pod_grads, pod_counts,
+                            compression)
+    return _push_pop_v1(layout, arena, pod_grads, pod_counts, compression)
+
+
+def _push_pop_v2(layout, arena, pod_grads, pod_counts, compression):
+    """One v2 rotation: push slot ``phase``, pop slot ``(phase + 1) %
+    (tau + 1)``.
 
     int8: fed = g + residual is written into the staging buffer, the
     per-row scales come from fed, and the slot rotate
@@ -257,12 +429,7 @@ def push_pop(layout: ArenaLayout, arena: GradArena, pod_grads, pod_counts,
     version on the CPU) dequantizes the pop, quantizes fed into the
     push slot and writes the residual over fed; staging and residual
     then swap buffers. "none" needs no kernel: the pop is a read of one
-    slot and the push a copy into the other.
-
-    pod_grads: dict of (n_pods, *shape) tensors; pod_counts: (n_pods,)
-    f32. Returns (grad_sum (rows, 128) f32, count () f32, new_arena).
-    The returned grad_sum may be a view of the popped slot: read it
-    before the next rotation."""
+    slot and the push a copy into the other."""
     from repro_torch.kernels.delay_ring.ops import ring_slot_rotate_int8
     n_slots = len(arena.ring)
     push_i = arena.phase
@@ -279,17 +446,181 @@ def push_pop(layout: ArenaLayout, arena: GradArena, pod_grads, pod_counts,
         grad_sum = pod_sum(popped)
         # buffer swap: the old residual is next step's scratch
         staging = arena.residual
-    elif compression == "none":
+    else:
         grad_sum = pod_sum(arena.ring[pop_i])
         flatten_tree(layout, pod_grads, leading=1, out=arena.ring[push_i])
         residual, staging = None, None
-    else:
-        raise ValueError(f"unknown pod_compression {compression!r}")
 
     arena.counts[push_i].copy_(pod_counts)
     next_phase = (push_i + 1) % n_slots
     arena.head.fill_(next_phase)
-    return grad_sum, count, GradArena(
-        ring=arena.ring, scales=arena.scales, residual=residual,
-        staging=staging, counts=arena.counts, head=arena.head,
-        phase=next_phase)
+    return grad_sum, count, arena._replace(residual=residual,
+                                           staging=staging, phase=next_phase)
+
+
+def _pop_sum(ring, head, scales=None):
+    """v1, CPU tensors: the pod sum of ring[head], dequantized (the JAX
+    off-mesh ``_pop_sum``). Reads ``head`` on the host; the result
+    never aliases the ring."""
+    h = int(head)
+    acc = _slot_pod_sum(ring[h], None if scales is None else scales[h])
+    # one f32 pod: a view of the slot the push is about to overwrite
+    return acc.clone() if scales is None and ring.shape[1] == 1 else acc
+
+
+def _scatter_slot(layout: ArenaLayout, ring, tree, head):
+    """v1, CPU tensors: scatter the pod-stacked tree straight into
+    ring[head] (reads ``head`` on the host)."""
+    flatten_tree(layout, tree, leading=1, out=ring[int(head)])
+    return ring
+
+
+def _update_slot_int8(ring, scales, q, scale_new, head):
+    """v1, CPU tensors: write the quantized slot and its per-row scales
+    into slot ``head`` (read on the host)."""
+    h = int(head)
+    ring[h].copy_(q)
+    scales[h].copy_(scale_new)
+    return ring, scales
+
+
+def _push_pop_v1(layout, arena, pod_grads, pod_counts, compression):
+    """One v1 rotation: pop and push the stacked ring's slot ``head``.
+    On the card the ring rotate kernel (``ring_push_pop``) does both in
+    one pass with the head read on the device; on the CPU the pod-sum
+    pop, then the scatter (the JAX package's XLA path)."""
+    from repro_torch.kernels import resolve_impl
+    from repro_torch.kernels.delay_ring.ops import ring_push_pop
+    head = arena.head
+    idx = head.reshape(1).to(torch.int64)
+    count = torch.sum(torch.index_select(arena.counts, 0, idx))
+    int8 = compression == "int8"
+    ring, scales = arena.ring, arena.scales
+    residual, staging = arena.residual, arena.staging
+    if resolve_impl("auto", ring) == "kernel":
+        if int8:
+            fed = scatter_fed(layout, pod_grads, arena.residual,
+                              out=arena.staging)
+            popped, _, _, residual = ring_push_pop(
+                ring, fed, head, scales=scales,
+                scale_new=row_scales(layout, fed))
+            # buffer swap: the old residual is next step's scratch
+            staging = arena.residual
+        else:
+            popped, _, _, _ = ring_push_pop(
+                ring, flatten_tree(layout, pod_grads, leading=1), head)
+        grad_sum = pod_sum(popped)
+    elif int8:
+        q, scale_new = _int8_quantize(layout, arena, pod_grads)
+        grad_sum = _pop_sum(ring, head, scales)
+        _update_slot_int8(ring, scales, q.to(torch.int8), scale_new, head)
+    else:
+        grad_sum = _pop_sum(ring, head)
+        _scatter_slot(layout, ring, pod_grads, head)
+    arena.counts.index_copy_(0, idx, pod_counts[None])
+    next_head = torch.remainder(head + 1, arena.counts.shape[0])
+    return grad_sum, count, arena._replace(residual=residual,
+                                           staging=staging, head=next_head)
+
+
+def _scatter_slot_stacked(layout: ArenaLayout, ring, tree, k: int):
+    """Scatter the pod-stacked tree straight into stacked slot
+    ``ring[k]`` (k chosen on the host), in place."""
+    flatten_tree(layout, tree, leading=1, out=ring[k])
+    return ring
+
+
+def _variable_pop_ref(ring, scales, mask):
+    """The CPU path's pop of the stacked delay-tolerant ring: gather the
+    due slots (the JAX package's off-mesh ``_variable_pop_ref``). Each
+    due slot's pods are folded first (``_slot_pod_sum``), then the due
+    slots in ascending j: no arrival pops an exact zero, one arrival
+    is that slot's pod sum exactly (the static path's single pop), more
+    fold from a zero accumulator. Reads the due slots' indices on the
+    host: CPU tensors only. A slot that is not due is never read."""
+    due = torch.nonzero(mask).flatten().tolist()
+    pop = [_slot_pod_sum(ring[j], None if scales is None else scales[j])
+           for j in due]
+    if len(pop) == 1:
+        return pop[0]
+    acc = torch.zeros(ring.shape[2:], dtype=torch.float32,
+                      device=ring.device)
+    for x in pop:
+        acc = acc + x
+    return acc
+
+
+def push_pop_variable(layout: ArenaLayout, arena: GradArena, pod_grads,
+                      pod_counts, delay, compression: str = "none"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 GradArena]:
+    """Delay-tolerant rotation for a stochastic per-step delay (the port
+    of ``repro.core.arena.push_pop_variable``): this step's gradient is
+    pushed with delay ``tau_t = delay`` (clipped to the ring's cap) and
+    applied ``tau_t`` steps later; the pop folds every slot due exactly
+    now.
+
+    * ``head`` is the absolute step counter t; the push slot is
+      ``phase = t % n_slots``, whose previous entry was pushed at
+      t - n_slots and so was due by t - 1 at the latest: no unread slot
+      is overwritten;
+    * the push tags its slot ``due[k] = t + tau_t``, ``stale[k] = tau_t``
+      and records its counts; under int8 it quantizes with error
+      feedback exactly as the fixed path does;
+    * the pop folds the slots with ``due == t`` (the post-push ring, so
+      tau_t = 0 delivers at once): on CUDA tensors one launch of the
+      variable-pop kernel, then the pod fold (``pod_sum``); on CPU
+      tensors the gather of ``_variable_pop_ref``. Steps with no
+      arrival pop an exact zero with count 0.
+
+    ``tau_obs`` is the count-weighted mean staleness of what was
+    applied, 0 on a step with no arrival (the caller falls back to the
+    ring's cap there). Nothing is read to the host on the card: t,
+    ``delay`` and every scalar stay device tensors.
+
+    pod_grads: dict of (n_pods, *shape) tensors; pod_counts: (n_pods,)
+    f32; delay: 0-dim int tensor on the arena's device (or a Python
+    int). Returns (grad_sum (rows, 128) f32, count () f32, tau_obs ()
+    f32, new_arena)."""
+    from repro_torch.kernels import resolve_impl
+    from repro_torch.kernels.delay_ring.ops import ring_variable_pop
+    if not is_variable(arena):
+        raise ValueError("push_pop_variable needs a delay-tolerant "
+                         "arena (init_arena(..., variable=True)); "
+                         "fixed-tau rings rotate via push_pop")
+    if compression not in ("none", "int8"):
+        raise ValueError(f"unknown pod_compression {compression!r}")
+    ring, scales = arena.ring, arena.scales
+    n_slots = int(ring.shape[0])
+    k = arena.phase
+    t = arena.head
+    if not torch.is_tensor(delay):
+        delay = torch.full((), int(delay), dtype=torch.int32,
+                           device=t.device)
+    delay = torch.clamp(delay.to(torch.int32), 0, n_slots - 1)
+    arena.due[k] = t + delay
+    arena.stale[k] = delay
+    arena.counts[k].copy_(pod_counts)
+
+    if compression == "int8":
+        q, scale_new = _int8_quantize(layout, arena, pod_grads)
+        ring[k].copy_(q.to(torch.int8))
+        scales[k].copy_(scale_new)
+    else:
+        _scatter_slot_stacked(layout, ring, pod_grads, k)
+
+    mask = arena.due == t
+    cs = torch.stack([torch.sum(arena.counts, dim=1),
+                      arena.stale.to(torch.float32)])
+    if resolve_impl("auto", ring) == "kernel":
+        partial, meta = ring_variable_pop(ring, mask, scales=scales,
+                                          counts_stale=cs)
+        grad_sum = pod_sum(partial)
+    else:
+        from repro_torch.kernels.delay_ring.ref import ring_variable_meta_ref
+        grad_sum = _variable_pop_ref(ring, scales, mask)
+        meta = ring_variable_meta_ref(mask, cs)
+    count, stale_sum = meta[0], meta[1]
+    tau_obs = torch.div(stale_sum, torch.clamp(count, min=1.0))
+    return grad_sum, count, tau_obs, arena._replace(
+        head=t + 1, phase=(k + 1) % n_slots)

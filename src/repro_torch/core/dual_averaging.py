@@ -30,7 +30,11 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
 
 def alpha(t, cfg: AmbdgConfig, tau=None, b=None):
     """Step size alpha(t) = 1 / (L + sqrt((t + tau) / b)); t a 0-dim f32
-    tensor. ``tau``/``b`` default to the config's static values."""
+    tensor. ``tau``/``b`` default to the config's static values. The
+    variable-delay path passes the observed staleness of the applied
+    gradients as ``tau`` (a 0-dim device tensor, never read on the
+    host): the delay-adaptive step size of Agarwal and Duchi. With a
+    constant tau equal to the config's it is the same arithmetic."""
     tau = cfg.tau if tau is None else tau
     b = cfg.b_bar if b is None else b
     return torch.div(_const(1.0, t), cfg.smoothness_L +
@@ -49,12 +53,13 @@ def init_arena(layout, device) -> ArenaDualAveragingState:
 
 
 def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
-                 cfg: AmbdgConfig
+                 cfg: AmbdgConfig, tau_obs=None
                  ) -> Tuple[Any, ArenaDualAveragingState]:
     """Arena dual-averaging update with the count normalization fused in:
     takes the *un-normalized* popped gradient sum and its count, runs
     the fused update (the CUDA kernel on the card; z updated in place)
-    and returns (params tree with f32 leaves, new state).
+    and returns (params tree with f32 leaves, new state). ``tau_obs``
+    (the variable-delay path) replaces the static tau in ``alpha``.
 
     ``proximal="l2"`` matches the JAX package bit for bit. Under
     ``"l2_ball"`` the ball norm is one flat reduction whose summation
@@ -66,7 +71,7 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     if cfg.proximal not in ("l2", "l2_ball"):
         raise ValueError(f"unknown proximal {cfg.proximal!r}")
     t_next = state.t + 1
-    a = alpha(t_next.to(torch.float32) + 1.0, cfg)
+    a = alpha(t_next.to(torch.float32) + 1.0, cfg, tau=tau_obs)
     z_next, w = dual_update_arena(state.z, g_sum, count, a)
     if cfg.proximal == "l2_ball":
         norm = torch.sqrt(torch.sum(torch.square(w)))   # arena pads are zero

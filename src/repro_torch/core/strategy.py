@@ -36,6 +36,15 @@ class Strategy:
         self.model = model
         self.rc = rc
 
+    def delay_process(self):
+        """The seeded ``core.delay_process`` instance this strategy's
+        ``rc.delay`` configures, or None under the fixed process. The
+        host loop draws each step's ``batch["delay"]`` from it."""
+        if self.rc.delay.process == "fixed":
+            return None
+        from repro_torch.core.delay_process import make_delay_process
+        return make_delay_process(self.rc.delay, self.rc.ambdg.tau)
+
 
 _REGISTRY: Dict[str, Type[Strategy]] = {}
 # registered in the JAX package, ported in a later slice
@@ -64,7 +73,8 @@ def get_strategy(name: str) -> Type[Strategy]:
 @register
 class AmbdgStrategy(Strategy):
     """Anytime minibatch with delayed gradients: anytime accumulation
-    -> tau-deep delay ring -> dual averaging, on the arena master."""
+    -> tau-deep delay ring -> dual averaging, on the arena master. A
+    stochastic ``rc.delay`` runs the delay-tolerant ring."""
 
     name = "ambdg"
 

@@ -8,9 +8,12 @@ PyTorch version (the twin of the JAX ``ref.py``), and ``ops.py`` is the
 public wrapper that dispatches between the two.
 
   dual_update/  fused dual-averaging update z += g_sum/denom; w = -alpha z
-  delay_ring/   the v2 int8 slot rotate: dequantize the popped slot,
-                quantize the error-fed gradient into the push slot, write
-                the new residual
+  delay_ring/   the ring rotates and pops: the v2 int8 slot rotate
+                (dequantize the popped slot, quantize the error-fed
+                gradient into the push slot, write the new residual), the
+                v1 stacked-ring rotate (f32 and int8, head read on the
+                card), and the v3 variable pop (fold the slots due this
+                step, f32 or int8, with the (count, stale_sum) epilogue)
 
 Dispatch (``resolve_impl``) follows the tensors, never the host: a CUDA
 tensor goes to the kernel, a CPU tensor to the plain version. There is

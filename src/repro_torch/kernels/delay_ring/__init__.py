@@ -1,1 +1,3 @@
-"""int8 delay-ring slot rotate: CUDA kernel, plain version, wrapper."""
+"""Delay-ring kernels: the v2 int8 slot rotate, the v1 stacked-ring
+rotate and the v3 variable pop (CUDA kernels, plain versions,
+wrappers)."""

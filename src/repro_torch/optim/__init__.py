@@ -16,16 +16,21 @@ from repro_torch.core import dual_averaging as da
 class ArenaOptimizer(NamedTuple):
     init: Callable[[], Any]
     update: Callable[..., Tuple[Any, Any]]
-    # update(opt_state, params, grad_sum_flat, count) -> (params, state)
+    # update(opt_state, params, grad_sum_flat, count, tau_obs=None)
+    #   -> (params, state); tau_obs, the observed staleness of the
+    #   applied gradients (variable-delay path), switches dual averaging
+    #   to the delay-adaptive alpha
 
 
 def arena_dual_averaging_optimizer(rc: RunConfig, layout,
                                    device) -> ArenaOptimizer:
     cfg = rc.ambdg
 
-    def update(opt_state: da.ArenaDualAveragingState, params, g_sum, count):
+    def update(opt_state: da.ArenaDualAveragingState, params, g_sum, count,
+               tau_obs=None):
         # params leaves come back f32, as in the JAX package
-        return da.update_arena(layout, opt_state, g_sum, count, cfg)
+        return da.update_arena(layout, opt_state, g_sum, count, cfg,
+                               tau_obs=tau_obs)
 
     return ArenaOptimizer(init=lambda: da.init_arena(layout, device),
                           update=update)

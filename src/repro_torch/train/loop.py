@@ -4,15 +4,17 @@
   1. the data pipeline draws per-worker anytime counts b_i(t) (the
      shifted-exponential model) and emits the masked global batch
      (seeded numpy: the JAX loop sees the same batches);
-  2. the batch moves to the device and the strategy's step runs
+  2. under a stochastic ``rc.delay`` the host draws this step's delay
+     from the seeded process (``Strategy.delay_process``) into
+     ``batch["delay"]``;
+  3. the batch moves to the device and the strategy's step runs
      (AMB-DG: anytime accumulate -> delayed pod exchange -> dual-
      averaging update).
 
 The JAX loop's host-side ``WorkerHealth`` masking is left out: as the
 reference stands, its wall-clock heartbeat masks every worker once a
 run passes 30 s (ROADMAP C.2). Checkpoints, the weight-publication
-channel and the elastic and delay processes are not ported yet and
-raise.
+channel and the elastic process are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import dataclasses
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import RunConfig
@@ -64,6 +67,10 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
         timing=ShiftedExponential() if loop.use_timing_model else None,
         t_p=rc.ambdg.t_p)
 
+    # the host owns the seeded delay process and ships one draw per step
+    # (ambdg has the master delay ring; amb refuses a stochastic one)
+    delay_proc = strategy.delay_process() if rc.strategy == "ambdg" else None
+
     generator = torch.Generator(device=device).manual_seed(rc.seed)
     state = strategy.init_state(generator)
     history = []
@@ -71,6 +78,8 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     for step in range(loop.n_steps):
         t0 = time.monotonic()
         host = pipeline.next_global_batch()
+        if delay_proc is not None:
+            host["delay"] = np.asarray(delay_proc.next(), np.int32)
         t1 = time.monotonic()
         # a copy from pageable host memory returns once it has landed
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, held bitwise against their plain
-PyTorch versions (on the card and on the CPU), and the slice's main
-path on the card against the CPU.
+PyTorch versions (on the card and on the CPU), and the main paths (a
+fixed and a stochastic delay) on the card against the CPU.
 
 Every test here needs an NVIDIA GPU (a CUDA kernel has no CPU mode):
 they carry the ``cuda`` marker and skip without a card. The module
@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.delay_ring.ops import ring_slot_rotate_int8
+from repro_torch.kernels.delay_ring.ops import (ring_push_pop,
+                                                ring_slot_rotate_int8,
+                                                ring_variable_pop)
 from repro_torch.kernels.dual_update.ops import dual_update_arena
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +89,136 @@ def test_slot_rotate_kernel_matches_plain_bitwise(cuda, n_pods, rows):
     for want in (_rotate(args, cuda, impl="ref"), _rotate(args, "cpu")):
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+def _variable_inputs(int8, n_pods, rows, seed):
+    rng = np.random.default_rng(seed)
+    shape = (7, n_pods, rows, 128)
+    if int8:
+        ring = rng.integers(-127, 128, size=shape).astype(np.int8)
+        scales = rng.uniform(1e-3, 1.0, size=shape[:3]).astype(np.float32)
+        scales[5, :, :3] = np.inf           # slot 5 is never due below
+    else:
+        ring = rng.standard_normal(shape).astype(np.float32)
+        ring[5, :, :3] = np.inf
+        scales = None
+    cs = np.stack([rng.integers(0, 300, 7),
+                   rng.integers(0, 8, 7)]).astype(np.float32)
+    return ring, scales, cs
+
+
+@pytest.mark.parametrize("due", [(), (2,), (0, 6), (1, 3, 4)])
+@pytest.mark.parametrize("n_pods,rows", [(1, 256), (2, 256 + 40)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_variable_pop_kernel_matches_plain_bitwise(cuda, int8, n_pods, rows,
+                                                   due):
+    """The masked pop and its (count, stale_sum) epilogue, kernel vs
+    plain version on the card and on the CPU: bitwise, with an inf in a
+    slot that is not due (it must not reach the result)."""
+    from repro_torch.kernels.delay_ring import kernel
+    ring, scales, cs = _variable_inputs(int8, n_pods, rows, len(due))
+    mask = np.zeros(7, bool)
+    mask[list(due)] = True
+
+    def run(device, impl="auto"):
+        popped, meta = ring_variable_pop(
+            _t(ring, device), _t(mask, device),
+            scales=None if scales is None else _t(scales, device),
+            counts_stale=_t(cs, device), impl=impl)
+        return popped.cpu().numpy(), meta.cpu().numpy()
+
+    before = kernel.VARIABLE_POP_KERNEL.launches
+    got = run(cuda)
+    assert kernel.VARIABLE_POP_KERNEL.launches == before + 1
+    assert np.isfinite(got[0]).all()
+    for want in (run(cuda, impl="ref"), run("cpu")):
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("head", [0, 3])
+@pytest.mark.parametrize("n_pods,rows", [(1, 256), (2, 256 + 40)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_ring_rotate_kernel_matches_plain_bitwise(cuda, int8, n_pods, rows,
+                                                  head):
+    """The v1 rotate, kernel vs plain version on the card and the CPU:
+    popped, ring, scales and residual bitwise (fed / s on ties and past
+    the clip under int8)."""
+    from repro_torch.kernels.delay_ring import kernel
+    rng = np.random.default_rng(head + n_pods)
+    tau = 4
+    args = _rotate_inputs(n_pods, rows, seed=head)
+    fed, scale_new = args[4], args[5]
+    if int8:
+        ring = rng.integers(-127, 128, size=(tau, n_pods, rows, 128)
+                            ).astype(np.int8)
+        scales = rng.uniform(1e-3, 1.0, (tau, n_pods, rows)
+                             ).astype(np.float32)
+    else:
+        ring = rng.standard_normal((tau, n_pods, rows, 128)
+                                   ).astype(np.float32)
+        scales = scale_new = None
+
+    def run(device, impl="auto"):
+        r = _t(ring, device)
+        s = None if scales is None else _t(scales, device)
+        g = _t(fed, device)
+        out = ring_push_pop(r, g, _t(np.int32(head), device), scales=s,
+                            scale_new=None if scale_new is None
+                            else _t(scale_new, device), impl=impl)
+        assert out[1] is r and out[2] is s
+        return [x.cpu().numpy() for x in out if x is not None]
+
+    before = kernel.RING_KERNEL.launches
+    got = run(cuda)
+    assert kernel.RING_KERNEL.launches == before + 1
+    for want in (run(cuda, impl="ref"), run("cpu")):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_stochastic_delay_on_cuda_matches_cpu(cuda, compression):
+    """12 steps of AMB-DG under a heavy-tailed delay (tau_max = 8) on the
+    SMOKE linear regression, card vs CPU: applied counts and tau_applied
+    exact, one variable-pop launch per step and no ring rotate; w to
+    float32 summation-order tolerance (plus one quantization step under
+    int8)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (AmbdgConfig, DelayConfig,
+                                          MeshConfig, RunConfig, TRAIN_4K)
+    from repro_torch.kernels.delay_ring import kernel as ring_kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("amb-linreg")
+    rc = RunConfig(model=cfg, shape=TRAIN_4K, mesh=MeshConfig(1, 1, 1),
+                   ambdg=AmbdgConfig(tau=4, b_bar=800.0, proximal="l2_ball",
+                                     radius_C=1.05 * 128 ** 0.5,
+                                     pod_compression=compression),
+                   delay=DelayConfig(process="heavy_tail", tau_max=8,
+                                     seed=7))
+    loop = LoopConfig(n_steps=12, n_workers=8, samples_per_worker=16,
+                      log_every=1)
+    counters = (ring_kernel.VARIABLE_POP_KERNEL, ring_kernel.KERNEL)
+    n0 = [k.launches for k in counters]
+    gpu = train(build_model(cfg, device=cuda), rc, loop, device=cuda)
+    n1 = [k.launches for k in counters]
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (12, 0)
+    cpu = train(build_model(cfg, device="cpu"), rc, loop, device="cpu")
+    for a, b in zip(gpu["history"], cpu["history"]):
+        assert a["applied_count"] == b["applied_count"]
+        assert a["tau_applied"] == b["tau_applied"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-5)
+    wg = gpu["state"].params["w"].cpu().numpy()
+    wc = cpu["state"].params["w"].numpy()
+    tol = 1e-5 * np.abs(wc).max()
+    if compression == "int8":
+        tol += float(cpu["state"].arena.scales.max()) / min(
+            h["applied_count"] for h in cpu["history"]
+            if h["applied_count"])
+    np.testing.assert_allclose(wg, wc, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("compression", ["none", "int8"])

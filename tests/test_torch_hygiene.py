@@ -17,13 +17,15 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.train.loop", "repro_torch.core.ambdg",
          "repro_torch.core.strategy", "repro_torch.core.arena",
          "repro_torch.core.dual_averaging", "repro_torch.core.anytime",
-         "repro_torch.core.delayed", "repro_torch.optim",
+         "repro_torch.core.delayed", "repro_torch.core.delay_process",
+         "repro_torch.core.staleness", "repro_torch.optim",
          "repro_torch.models.api", "repro_torch.models.linear",
          "repro_torch.data.pipeline", "repro_torch.configs",
          "repro_torch.kernels.build",
          "repro_torch.kernels.dual_update.ops",
          "repro_torch.kernels.dual_update.kernel",
          "repro_torch.kernels.delay_ring.ops",
+         "repro_torch.kernels.delay_ring.ref",
          "repro_torch.kernels.delay_ring.kernel"]
 
 
@@ -107,7 +109,7 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
     ("optimizer", "adam", "A.4"),
     ("strategy", "kbatch", "A.8"),
     ("strategy", "decentralized", "A.10"),
-    ("delay", "jitter", "A.7"),
+    ("ambdg", "while_dynamic", "A.2"),
     ("batch_schedule", "linear", "A.9"),
     ("elastic", "churn", "A.9"),
 ])
@@ -115,7 +117,7 @@ def test_unported_knobs_raise(knob, value, item):
     import dataclasses
     from repro_torch import api
     rc = _rc()
-    field = {"delay": "process", "batch_schedule": "schedule",
+    field = {"ambdg": "anytime_impl", "batch_schedule": "schedule",
              "elastic": "process"}.get(knob)
     if field:
         rc = rc.replace(**{knob: dataclasses.replace(getattr(rc, knob),
@@ -138,22 +140,33 @@ def test_unported_loop_options_raise(tmp_path):
         train(_cpu_model(), rc, LoopConfig(n_steps=1), device="cpu")
 
 
-@pytest.mark.parametrize("op", ["dual_update", "delay_ring"])
+@pytest.mark.parametrize("op", ["dual_update", "delay_ring",
+                                "variable_pop", "ring_rotate"])
 def test_kernel_impl_on_cpu_raises_and_launches_nothing(op):
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
-    from repro_torch.kernels.delay_ring.ops import ring_slot_rotate_int8
+    from repro_torch.kernels.delay_ring.ops import (ring_push_pop,
+                                                    ring_slot_rotate_int8,
+                                                    ring_variable_pop)
     from repro_torch.kernels.dual_update import kernel as update_kernel
     from repro_torch.kernels.dual_update.ops import dual_update_arena
-    before = (update_kernel.KERNEL.launches, ring_kernel.KERNEL.launches)
+    counters = (update_kernel.KERNEL, ring_kernel.KERNEL,
+                ring_kernel.RING_KERNEL, ring_kernel.VARIABLE_POP_KERNEL)
+    before = [k.launches for k in counters]
     f32 = torch.zeros((1, 256, 128))
     with pytest.raises(ValueError, match="CUDA tensors"):
         if op == "dual_update":
             dual_update_arena(f32[0], f32[0].clone(), torch.tensor(1.0),
                               torch.tensor(0.5), impl="kernel")
-        else:
+        elif op == "delay_ring":
             i8 = torch.zeros((1, 256, 128), dtype=torch.int8)
             s = torch.ones((1, 256))
             ring_slot_rotate_int8(i8, s, i8.clone(), s.clone(), f32, s,
                                   impl="kernel")
-    assert (update_kernel.KERNEL.launches,
-            ring_kernel.KERNEL.launches) == before
+        elif op == "variable_pop":
+            ring_variable_pop(torch.zeros((3, 1, 256, 128)),
+                              torch.tensor([True, False, False]),
+                              impl="kernel")
+        else:
+            ring_push_pop(torch.zeros((2, 1, 256, 128)), f32,
+                          torch.zeros((), dtype=torch.int32), impl="kernel")
+    assert [k.launches for k in counters] == before
