@@ -41,7 +41,41 @@ Phases (any failure raises and the script exits non-zero):
   5. the v1 ring: ``core.arena.push_pop`` on a stacked (layout v1) ring
      beside a v2 ring for tau + 3 steps at the main path's arena, f32
      and int8: the same pops bit for bit, one v1 rotate launch a step,
-     and ``convert_ring`` gives back the v2 ring's live slots.
+     and ``convert_ring`` gives back the v2 ring's live slots;
+  6. the LM slice at full width: qwen1.5-0.5b FULL (all 24 layers,
+     d_model 1024, vocab 151,936 padded to 152,064) at the ``train_4k``
+     length (4096 tokens). At the init weights, on one microbatch of 2
+     sequences: the worker's gradient, leaf by leaf, and a no-grad eval
+     (the forward without lse, once per layer), flash against xla in
+     f32 and in bf16 compute (limits below). Then AMB-DG training,
+     8 sequences a step (4
+     workers x 2), 4 microbatches, tau = 2, int8 pod compression,
+     ``block_remat="full"``, 5 steps through ``train`` with
+     ``attn_impl="flash"`` (the flash kernels), then the same 5 steps
+     with ``attn_impl="xla"`` (plain attention). Applied counts equal,
+     per-step losses agree (bf16 tolerance below), w finite and in the
+     l2 ball; the dq kernel launched once per layer, microbatch and
+     step; the step split, the peak memory and the profiler's kernel
+     time split (attention kernels, cuBLAS, the rest). A ``no_grad``
+     evaluation at the final weights launches the forward without lse
+     once per layer and agrees with the plain attention;
+  7. the LM slice at full width with 2 layers: seq 256, 4 sequences,
+     3 steps, f32 compute, on the card (the flash kernels) against the
+     CPU (the plain version), with phase 3's checks, and the worker's
+     gradient at the init weights leaf by leaf.
+
+Phase 2 also holds the flash-attention kernels (the forward with and
+without lse, dq, dk/dv) against their plain versions on the card, in
+bf16 at the main path's shape (B = 2, 16 heads, S = 4096, D = 64,
+causal), at qwen3-1.7b's and yi-6b's GQA shapes (16/8 and 32/4 heads,
+D = 128, S = 4096), with a 1024-token window and with right-aligned
+queries (Sq = 256, Skv = 512); and in f32 at the main path's and the
+GQA shapes, on rows with no valid key and with a window at D = 128.
+Each element is held on its own: within one ulp of its dtype (2^-7 of
+the element in bf16) plus 1e-5 of the tensor's largest element. Two
+launches of each give the same bits. Their yardstick is
+``torch.nn.functional.scaled_dot_product_attention`` (forward; its
+backward for dq and dk/dv), timed here and used nowhere in the port.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, ...}``. Without
@@ -61,7 +95,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-QWEN_0P5B_PARAMS = 463_987_712  # repro.configs qwen1.5-0.5b n_params()
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
 N_TIMED = 25
 MAIN_STEPS = 12
 
@@ -89,23 +123,32 @@ def cuda_ms(fn, n=N_TIMED, warmup=3):
 
 
 PROFILER_TRIES = 5
+# spin kernels launched at the start of each profiling session, before
+# the work timed: a CUPTI session can lose the records of the first
+# kernels it sees; they are left out of the record
+SENTINELS, SENTINEL_CYCLES = 8, 200_000
 
 
 def profiled(fn):
     """Run ``fn()`` under ``torch.profiler`` (CUPTI); returns (its
     result, the device kernels recorded: a list of (name, microseconds),
     empty when the profiler saw no device time). On some hosts a CUPTI
-    session now and then records nothing, or loses some of its records;
-    callers run ``fn`` again, up to PROFILER_TRIES times, and raise if no
-    try gave a complete record."""
+    session now and then records nothing, or loses some of its records
+    (the first kernels of a session: SENTINELS spin kernels run first
+    and are dropped); callers run ``fn`` again, up to PROFILER_TRIES
+    times, and raise if no try gave a complete record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" not in e.name]
     if not sum(us for _, us in kernels):
         log("note: torch.profiler recorded no device time in one session")
         kernels = []
@@ -158,22 +201,22 @@ def device_ms(fn, n=N_TIMED, warmup=3, match=None):
     return statistics.median(us) / 1e3, names
 
 
-def timed(kernel_fn, plain_fn, symbol):
+def timed(kernel_fn, plain_fn, symbol, n=N_TIMED):
     """Times of a kernel (``symbol``: its name in ``csrc``) and its plain
     version. ``ms``: the median device time of the kernel's launches;
     ``plain_ms``: the device time of all the plain version's kernels per
     call (both from the profiler); ``wrapper_ms``/``plain_wrapper_ms``:
     median CUDA-event time around each call, host launch work included."""
-    ms, names = device_ms(kernel_fn, match=symbol)
-    plain, plain_names = device_ms(plain_fn)
+    ms, names = device_ms(kernel_fn, n=n, match=symbol)
+    plain, plain_names = device_ms(plain_fn, n=n)
     return dict(ms=ms, plain_ms=plain, kernels=names,
-                plain_kernels=plain_names, wrapper_ms=cuda_ms(kernel_fn),
-                plain_wrapper_ms=cuda_ms(plain_fn))
+                plain_kernels=plain_names, wrapper_ms=cuda_ms(kernel_fn, n=n),
+                plain_wrapper_ms=cuda_ms(plain_fn, n=n))
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, n_flops, flops_per_s=F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_flops = n_flops / F32_FLOPS_PER_S
+    t_flops = n_flops / flops_per_s
     return 1e3 * max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
                                          else "operations")
 
@@ -485,10 +528,11 @@ def step_split(out, kernels):
                   if k.startswith(("Memcpy", "Memset"))) / 1e3
     kernel_ms = sum(us for _, us in kernels) / 1e3 - copy_ms
     wall_ms = out["history"][-1]["wall_s"] * 1e3
+    n_steps = len(out["history"])
     return dict(host_batch_ms=med["batch_s"], h2d_ms=med["h2d_s"],
                 device_step_ms=med["step_s"], step_ms=sum(med.values()),
-                device_kernel_ms=kernel_ms / MAIN_STEPS,
-                device_copy_ms=copy_ms / MAIN_STEPS,
+                device_kernel_ms=kernel_ms / n_steps,
+                device_copy_ms=copy_ms / n_steps,
                 device_idle_share=1.0 - kernel_ms / wall_ms,
                 steps=len(hist))
 
@@ -586,6 +630,322 @@ def v1_phase(compression, device, cfg=None, tau=4):
     return tau + 3
 
 
+# -- flash attention (phase 2) -------------------------------------------------
+N_FLASH_TIMED = 10
+# (label, B, Hq, Hkv, Sq, Skv, D, window); causal, bf16. The first is the
+# main path's (qwen1.5-0.5b at train_4k, one microbatch of 2 sequences)
+FLASH_SHAPES = [
+    ("qwen1.5-0.5b", 2, 16, 16, 4096, 4096, 64, None),
+    ("qwen3-1.7b", 1, 16, 8, 4096, 4096, 128, None),
+    ("yi-6b", 1, 32, 4, 4096, 4096, 128, None),
+    ("window-1024", 1, 16, 16, 4096, 4096, 64, 1024),
+    ("right-aligned", 2, 16, 16, 256, 512, 64, None),
+]
+# correctness only, f32: the main path's shape and the GQA shapes, rows
+# with no valid key (Sq > Skv), a window at D = 128
+FLASH_F32 = [
+    ("qwen1.5-0.5b", 2, 16, 16, 4096, 4096, 64, None),
+    ("qwen3-1.7b", 1, 16, 8, 4096, 4096, 128, None),
+    ("yi-6b", 1, 32, 4, 4096, 4096, 128, None),
+    ("no-valid-key", 1, 2, 2, 256, 128, 64, None),
+    ("gqa-d128", 1, 8, 2, 512, 512, 128, 200),
+]
+# kernel vs plain version, element by element. Both compute in f32 and
+# round each output once to its dtype, so an element may differ by the
+# two f32 results' difference (summation order; at most FLASH_F32_TOL of
+# the tensor's largest element: the f32 rows above read up to 1.2e-6)
+# plus one ulp of the output's dtype (2^-7 of the element in bf16, none
+# in f32). limit(x) = FLASH_ULP * |want(x)| + FLASH_F32_TOL * max |want|
+FLASH_ULP = {"bfloat16": 2.0 ** -7, "float32": 0.0}
+FLASH_F32_TOL = 1e-5
+FLASH_SYMBOLS = {"fwd": "flash_fwd_kernel", "fwd_lse": "flash_fwd_kernel",
+                 "dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"}
+
+
+def flash_err(got, want, ulp):
+    """(the largest |got - want| over its element's limit (see FLASH_ULP;
+    at most 1 passes), max |got - want|, that over max |want|)."""
+    ratio = err = rel = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        top = float(w.abs().max()) or 1.0
+        diff = (g - w).abs()
+        ratio = max(ratio, float((diff / (ulp * w.abs()
+                                          + FLASH_F32_TOL * top)).max()))
+        err = max(err, float(diff.max()))
+        rel = max(rel, float(diff.max()) / top)
+    return ratio, err, rel
+
+
+def flash_bound(kind, B, Hq, Hkv, Sq, Skv, D, n_pairs, elt):
+    """The least time for one call: every input read once, every output
+    written once, at 3.35 TB/s; the products it must do over the
+    attended (query, key) pairs at 989 TFLOP/s bf16 (forward 2 of them,
+    4 n D flops; dq 3, as S = q k^T, dP = do v^T and dq = dS k; dk/dv 2,
+    dv = P^T do and dk = dS^T q: the backward is 2.5x the forward)."""
+    q_b, kv_b, row_b = B * Hq * Sq * D * elt, B * Hkv * Skv * D * elt, \
+        B * Hq * Sq * 4
+    n_bytes, n_mm = {
+        "fwd": (2 * q_b + 2 * kv_b, 2),
+        "fwd_lse": (2 * q_b + 2 * kv_b + row_b, 2),
+        "dq": (3 * q_b + 2 * kv_b + 2 * row_b, 3),
+        "dkv": (2 * q_b + 4 * kv_b + 2 * row_b, 2),
+    }[kind]
+    return bound_ms(n_bytes, 2 * n_mm * B * Hq * n_pairs * D,
+                    BF16_FLOPS_PER_S)
+
+
+def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
+                timed_run=True):
+    """The four flash kernels against their plain versions at one shape
+    (causal): errors, bitwise repeat, and (``timed_run``) the kernel, plain
+    and SDPA times with the bound. Returns one dict per kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref
+    dev = torch.device("cuda")
+    q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
+    kw = dict(causal=True, window=window, scale=D ** -0.5)
+    runs = {
+        "fwd": (lambda: (fa.flash_attention_fwd(q, k, v, **kw),),
+                lambda: (ref.attention_ref(q, k, v, causal=True,
+                                           window=window),)),
+        "fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, **kw),
+                    lambda: ref.flash_fwd_lse_ref(q, k, v, **kw)),
+    }
+    o, lse = fa.flash_fwd_lse(q, k, v, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    bargs = (q, k, v, lse, delta, do)
+    runs["dq"] = (lambda: (fa.flash_bwd_dq(*bargs, **kw),),
+                  lambda: (ref.flash_bwd_dq_ref(*bargs, **kw),))
+    runs["dkv"] = (lambda: fa.flash_bwd_dkv(*bargs, **kw),
+                   lambda: ref.flash_bwd_dkv_ref(*bargs, **kw))
+    mask = ref.attention_mask(Sq, Skv, True, window, dev)
+    n_pairs = int(mask.sum())
+    ulp = FLASH_ULP[str(dtype).split(".")[-1]]
+    sdpa_kw = dict(enable_gqa=Hq != Hkv)
+    if Sq == Skv and window is None:
+        sdpa_kw["is_causal"] = True
+    else:   # SDPA's is_causal is top-left aligned: pass the mask itself
+        sdpa_kw["attn_mask"] = mask
+    lib = {}
+    if timed_run:
+        lib["fwd"] = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, **sdpa_kw), n=N_FLASH_TIMED)[0]
+        qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o_s = F.scaled_dot_product_attention(qr, kr, vr, **sdpa_kw)
+        lib["bwd"] = device_ms(lambda: torch.autograd.grad(
+            o_s, (qr, kr, vr), do, retain_graph=True), n=N_FLASH_TIMED)[0]
+        lib["fwd_bwd"] = device_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qr, kr, vr, **sdpa_kw),
+            (qr, kr, vr), do), n=N_FLASH_TIMED)[0]
+        del o_s, qr, kr, vr
+    out = []
+    for kind, (kern, plain) in runs.items():
+        got = kern()
+        again = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        ratio, err, rel = flash_err(got, want, ulp)
+        if kind == "fwd_lse":   # lse is f32 in both: its own check
+            ratio, err, rel = flash_err(got[:1], want[:1], ulp)
+            lse_err = float((got[1] - want[1]).abs().max())
+            assert lse_err <= 1e-4 * max(1.0, float(want[1][want[1] > -1e29]
+                                                    .abs().max())), lse_err
+        del got, again, want
+        r = dict(kernel=kind, label=label, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq,
+                 Skv=Skv, D=D, window=window, dtype=str(dtype).split(".")[-1],
+                 bitwise=bitwise, max_abs_err=err, rel_err=rel,
+                 err_over_limit=ratio)
+        if timed_run:
+            r.update(timed(kern, plain, FLASH_SYMBOLS[kind], n=N_FLASH_TIMED))
+            b_ms, by = flash_bound(kind, B, Hq, Hkv, Sq, Skv, D, n_pairs,
+                                   q.element_size())
+            r.update(bound_ms=b_ms, bound_by=by, n_pairs=n_pairs,
+                     library_ms=lib["fwd"] if kind.startswith("fwd")
+                     else lib["bwd"], library_fwd_bwd_ms=lib["fwd_bwd"])
+        torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+# -- the LM slice (phases 6 and 7) ---------------------------------------------
+LM_STEPS = 5
+LM_RADIUS = 100.0     # the l2 ball of the dual-averaging prox
+# Flash (the kernels) against xla (gqa_attend) on the card. After the
+# first, empty pop dual averaging sets w = -alpha z = 0, so only step 0
+# of a run sees the init weights: the worker's gradient and a no-grad
+# eval are held at those weights, leaf by leaf. Each limit is about ten
+# times the reading it was set from (NVIDIA H100 80GB HBM3, 700 W):
+# f32 compute: both compute attention in f32 and differ in summation
+# order only; gradient leaves to LM_F32_GRAD_TOL of the leaf's largest
+# element (read: at most 8.6e-7), losses to LM_F32_RTOL (read: equal in
+# phase 6, 2.9e-7 card vs CPU in phase 7).
+LM_F32_GRAD_TOL = 1e-5
+LM_F32_RTOL = 3e-6
+# bf16 compute: gqa_attend rounds its scores and weights to bf16 where
+# the kernels keep f32. Each gradient leaf's distance to the f32 xla
+# gradient (over that leaf's largest element, read: 1.9e-3 to 2.2e-2
+# for both) is at most LM_BF16_GRAD_RATIO times the bf16 xla gradient's
+# (read: at most 1.34, ln_final); the per-step training loss and the
+# eval losses agree to LM_BF16_RTOL (read: at most 2.2e-5, step 0).
+LM_BF16_GRAD_RATIO = 2.0
+LM_BF16_RTOL = 1e-4
+# phase 7, f32, the card's flash kernels against the CPU's plain
+# version: gradient leaves at the init weights (read: at most 1.07e-5)
+LM_DEVICE_GRAD_TOL = 1e-4
+
+
+def lm_config(attn_impl, **kw):
+    """qwen1.5-0.5b FULL with ``attn_impl`` (and any overrides)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen1.5-0.5b"),
+                               attn_impl=attn_impl, block_remat="full", **kw)
+
+
+def lm_run_config(cfg, seq_len, n_seqs, n_mb):
+    from repro_torch.configs.base import (AmbdgConfig, MeshConfig, RunConfig,
+                                          ShapeConfig)
+    return RunConfig(
+        model=cfg, shape=ShapeConfig("train", seq_len, n_seqs, "train"),
+        mesh=MeshConfig(n_pods=1, data=1, model=1),
+        ambdg=AmbdgConfig(tau=2, n_microbatches=n_mb, b_bar=float(n_seqs),
+                          proximal="l2_ball", radius_C=LM_RADIUS,
+                          pod_compression="int8"))
+
+
+def run_lm(cfg, rc, n_steps, n_workers, device):
+    """One ``train`` run of the LM slice; returns (result, seconds)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    loop = LoopConfig(n_steps=n_steps, n_workers=n_workers,
+                      samples_per_worker=2, log_every=1)
+    t0 = time.perf_counter()
+    out = train(build_model(cfg, device=device), rc, loop, device=device)
+    return out, time.perf_counter() - t0
+
+
+def leaf_names(tree, prefix=""):
+    """The paths of a nested dict's leaves, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix.rstrip("/")]
+
+
+def lm_grads(cfg, params, batch):
+    """The worker's gradient sum of ``cfg``'s model at ``params`` on one
+    microbatch (``accumulate_scan``, as a train step's worker computes
+    it): (its f32 leaves in the arena's order, the loss per token)."""
+    from repro_torch.core.anytime import accumulate_scan
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.models.api import build_model
+    model = build_model(cfg, device=batch["tokens"].device)
+    g, count, m = accumulate_scan(model.loss, params, batch, 1)
+    return tree_flatten(g)[0], float(m["loss_sum"]) / float(count)
+
+
+# the key bias adds q . bk to every score of a row, which the softmax
+# cancels: its exact gradient is 0 and what is computed is rounding
+# noise, held against the query bias's largest element instead
+SCALE_LEAF = {"layers/attn/bk": "layers/attn/bq"}
+
+
+def leaf_gaps(got, want, names):
+    """Per leaf: max |got - want| over the leaf's largest |want| (for
+    the leaves of SCALE_LEAF, that of the leaf named there)."""
+    top = {n: float(w.abs().max()) or 1.0 for n, w in zip(names, want)}
+    return [float((g.float() - w.float().to(g.device)).abs().max())
+            / top[SCALE_LEAF.get(n, n)] for n, g, w in zip(names, got, want)]
+
+
+def lm_norm(params):
+    import torch
+    from repro_torch.core.arena import tree_flatten
+    return math.sqrt(sum(float(torch.sum(torch.square(x.double())))
+                         for x in tree_flatten(params)[0]))
+
+
+def lm_weights_ok(params):
+    """w finite and inside the l2 ball of LM_RADIUS."""
+    import torch
+    from repro_torch.core.arena import tree_flatten
+    assert all(bool(torch.isfinite(x).all())
+               for x in tree_flatten(params)[0])
+    norm = lm_norm(params)
+    assert norm <= LM_RADIUS * (1 + 1e-5), norm
+    return norm
+
+
+def kernel_split(kernels, n_steps):
+    """The profiler's device time per step, split into the flash
+    kernels, cuBLAS/CUTLASS products and the rest (copies apart)."""
+    groups = collections.Counter()
+    for name, us in kernels:
+        if name.startswith(("Memcpy", "Memset")):
+            g = "copy"
+        elif "flash_" in name:
+            g = "attention"
+        elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet",
+                                             "xmma", "cublas")):
+            g = "cublas"
+        else:
+            g = "rest"
+        groups[g] += us / 1e3 / n_steps
+    total = sum(v for k, v in groups.items() if k != "copy")
+    return dict({f"{k}_ms": groups.get(k, 0.0)
+                 for k in ("attention", "cublas", "rest", "copy")},
+                attention_share=groups.get("attention", 0.0) / total
+                if total else 0.0)
+
+
+def lm_eval(cfg, params, batch):
+    """The no-grad loss per token of ``cfg``'s model at ``params``."""
+    import torch
+    from repro_torch.models.api import build_model
+    model = build_model(cfg, device=batch["tokens"].device)
+    with torch.no_grad():
+        loss_sum, aux = model.loss(params, batch)
+    return float(loss_sum) / float(aux["count"])
+
+
+def compare_lm_devices(gpu, cpu):
+    """Phase 7: the card's run (flash kernels) against the CPU's (plain
+    attention), f32 compute, with phase 3's checks: applied counts
+    exact, loss and grad norm to rtol 1e-4, every weight to 1e-4 of its
+    leaf's largest element plus one int8 quantization step, w in the
+    ball. Returns (largest difference, its tolerance)."""
+    import numpy as np
+    from repro_torch.core.arena import tree_flatten
+    hg, hc = gpu["history"], cpu["history"]
+    assert len(hg) == len(hc)
+    for t, (a, b) in enumerate(zip(hg, hc)):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert (a["applied_count"] == 0.0) == (t < 2), (t, a)
+        for key in ("loss", "grad_norm"):
+            assert math.isfinite(a[key]), (t, key, a)
+            assert math.isclose(a[key], b[key], rel_tol=1e-4,
+                                abs_tol=1e-30), (t, key, a[key], b[key])
+    step = max(float(s.max()) for s in cpu["state"].arena.scales) / min(
+        h["applied_count"] for h in hc if h["applied_count"])
+    worst = (0.0, 0.0)
+    for wg, wc in zip(tree_flatten(gpu["state"].params)[0],
+                      tree_flatten(cpu["state"].params)[0]):
+        wg, wc = wg.cpu().numpy(), wc.numpy()
+        diff = float(np.abs(wg - wc).max())
+        tol = 1e-4 * float(np.abs(wc).max()) + step
+        assert diff <= tol, (diff, tol)
+        worst = max(worst, (diff, tol))
+    lm_weights_ok(gpu["state"].params)
+    return worst
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -595,11 +955,18 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
     from repro_torch.kernels.dual_update import kernel as update_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
+    t_script = time.perf_counter()
+    phase_s = {}
+
+    def phase_done(name, t0):
+        phase_s[name] = time.perf_counter() - t0
+        log(f"{name}: {phase_s[name]:.1f} s")
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -607,12 +974,17 @@ def main():
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function prop" in \
+                    line:
                 log(f"  {name}: {line.strip()}")
+    phase_done("phase 1", t0)
 
     # -- 2. kernels against their plain versions ---------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    big_rows = -(-(-(-QWEN_0P5B_PARAMS // 128)) // 256) * 256
+    from repro_torch.configs import get_config
+    n_params = get_config("qwen1.5-0.5b").n_params()   # 463,987,712
+    big_rows = -(-(-(-n_params // 128)) // 256) * 256
     results = {"dual_update": [], "slot_rotate": [], "variable_pop": [],
                "ring_rotate": []}
     for rows in (256, big_rows):
@@ -652,10 +1024,40 @@ def main():
                 f"version {sum(r['plain_kernels'].values())} "
                 f"kernels, over {N_TIMED} calls)")
             assert r["bitwise"] and r["max_abs_err"] == 0.0, (name, r)
+    flash = collections.defaultdict(list)   # kind -> results, lead first
+    for shape in FLASH_SHAPES:
+        for r in check_flash(*shape, torch.bfloat16, gen):
+            flash[r["kernel"]].append(r)
+    for shape in FLASH_F32:
+        for r in check_flash(*shape, torch.float32, gen, timed_run=False):
+            flash[r["kernel"]].append(r)
+    for kind, rs in flash.items():
+        for r in rs:
+            times = ("" if "ms" not in r else
+                     f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                     f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+                     f"library_ms={r['library_ms']:.4f} library_fwd_bwd_ms="
+                     f"{r['library_fwd_bwd_ms']:.4f} wrapper_ms="
+                     f"{r['wrapper_ms']:.4f}")
+            log(f"phase 2: flash {kind} {r['label']} {r['dtype']} "
+                f"B={r['B']} H={r['Hq']}/{r['Hkv']} S={r['Sq']}/{r['Skv']} "
+                f"D={r['D']} window={r['window']}: bitwise-repeat="
+                f"{r['bitwise']} max_abs_err={r['max_abs_err']:.3e} rel_err="
+                f"{r['rel_err']:.3e} err/limit={r['err_over_limit']:.3f} "
+                f"<= 1{times}")
+    for kind, rs in flash.items():       # every reading logged first
+        for r in rs:
+            assert r["bitwise"] and r["err_over_limit"] <= 1.0, (kind, r)
+    phase_done("phase 2", t0)
+
     counters = {"dual_update": update_kernel.KERNEL,
                 "slot_rotate": ring_kernel.KERNEL,
                 "variable_pop": ring_kernel.VARIABLE_POP_KERNEL,
-                "ring_rotate": ring_kernel.RING_KERNEL}
+                "ring_rotate": ring_kernel.RING_KERNEL,
+                "flash_fwd": flash_kernel.FWD,
+                "flash_fwd_lse": flash_kernel.FWD_LSE,
+                "flash_bwd_dq": flash_kernel.DQ,
+                "flash_bwd_dkv": flash_kernel.DKV}
     launches = dict.fromkeys(counters, 0)
 
     def drive(fn):
@@ -670,15 +1072,20 @@ def main():
             launches[name] += n[name]
         return out, n
 
+    def expect(**nonzero):
+        """The counts of a run: those named, 0 for every other kernel."""
+        return dict(dict.fromkeys(counters, 0), **nonzero)
+
     # -- 3. the main path: fixed tau ----------------------------------------
+    t0 = time.perf_counter()
     tau = 4
     radius = main_path_config()[1]("none").ambdg.radius_C
     main = {}
     for compression in ("int8", "none"):
         ((gpu, secs), kernels), n = drive(lambda: profiled(
             lambda: run_main_path(compression, "cuda")))
-        want = dict(dual_update=MAIN_STEPS, variable_pop=0, ring_rotate=0,
-                    slot_rotate=MAIN_STEPS if compression == "int8" else 0)
+        want = expect(dual_update=MAIN_STEPS,
+                      slot_rotate=MAIN_STEPS if compression == "int8" else 0)
         assert n == want, (compression, n, want)
         if not kernels:
             gpu, secs, kernels = split_run(compression)
@@ -699,8 +1106,10 @@ def main():
             f"= {diff:.3e} <= {tol:.3e}")
         log(f"phase 3: {compression}: step split "
             f"{json.dumps(main[compression]['split'])}")
+    phase_done("phase 3", t0)
 
     # -- 4. the stochastic-delay path ---------------------------------------
+    t0 = time.perf_counter()
     delays, arrived = arrivals(STOCHASTIC_DELAY, tau)
     assert {0, 1, 2} <= set(arrived), (delays, arrived)
     log(f"phase 4: delays {delays}, arrivals per step {arrived}")
@@ -709,8 +1118,7 @@ def main():
         ((gpu, secs), kernels), n = drive(lambda: profiled(
             lambda: run_main_path(compression, "cuda",
                                   delay=STOCHASTIC_DELAY)))
-        want = dict(dual_update=MAIN_STEPS, variable_pop=MAIN_STEPS,
-                    slot_rotate=0, ring_rotate=0)
+        want = expect(dual_update=MAIN_STEPS, variable_pop=MAIN_STEPS)
         assert n == want, (compression, n, want)
         if not kernels:
             gpu, secs, kernels = split_run(compression, STOCHASTIC_DELAY)
@@ -736,28 +1144,220 @@ def main():
             f"host sync: {no_sync}")
         log(f"phase 4: {compression}: step split "
             f"{json.dumps(stochastic[compression]['split'])}")
+    phase_done("phase 4", t0)
 
     # -- 5. the v1 ring -----------------------------------------------------
+    t0 = time.perf_counter()
     v1 = {}
     for compression in ("int8", "none"):
         steps, n = drive(lambda: v1_phase(compression, "cuda"))
-        want = dict(dual_update=0, variable_pop=0, ring_rotate=steps,
-                    slot_rotate=steps if compression == "int8" else 0)
+        want = expect(ring_rotate=steps,
+                      slot_rotate=steps if compression == "int8" else 0)
         assert n == want, (compression, n, want)
         v1[compression] = dict(steps=steps, launches=n)
         log(f"phase 5: v1 {compression}: {steps} steps, pops equal to v2 "
             f"bit for bit; launches {n}")
-    log(json.dumps({"main_path": main, "stochastic_path": stochastic,
-                    "v1": v1}))
+    phase_done("phase 5", t0)
 
-    def entry(name, source, replaces, rs):
+    # -- 6. the LM slice at full width: qwen1.5-0.5b, 24 layers, 4096 -------
+    t0 = time.perf_counter()
+    lm = {}
+    n_mb, n_workers, seq = 4, 4, 4096
+    n_layers = lm_config("flash").n_layers
+    # at the init weights (the training runs' own, from the run's seed):
+    # the worker's gradient on one microbatch and a no-grad eval, flash
+    # against xla, in f32 and in bf16 compute, on a fresh batch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.api import build_model
+    rc0 = lm_run_config(lm_config("flash"), seq, 2 * n_workers, n_mb)
+    params0 = build_model(lm_config("flash"), device="cuda").init(
+        torch.Generator().manual_seed(rc0.seed))
+    host = TokenStream(lm_config("flash"), seed=1).next_batch(2, seq)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+    names = leaf_names(params0)
+    grads = {}
+    for impl in ("xla", "flash"):
+        for dt in ("float32", "bfloat16"):
+            grads[impl, dt] = lm_grads(lm_config(impl, compute_dtype=dt),
+                                       params0, batch)
+            torch.cuda.empty_cache()
+    ref32 = grads["xla", "float32"][0]
+    f32_gap = leaf_gaps(grads["flash", "float32"][0], ref32, names)
+    bf16_flash = leaf_gaps(grads["flash", "bfloat16"][0], ref32, names)
+    bf16_xla = leaf_gaps(grads["xla", "bfloat16"][0], ref32, names)
+    bf16_gap = leaf_gaps(grads["flash", "bfloat16"][0],
+                         grads["xla", "bfloat16"][0], names)
+    losses0 = {f"{i}_{d}": grads[i, d][1] for i, d in grads}
+    del grads, ref32
+    torch.cuda.empty_cache()
+    ev0 = {}
+    ev0["flash_bfloat16"], n_ev0 = drive(lambda: lm_eval(
+        lm_config("flash"), params0, batch))
+    for impl in ("xla", "flash"):
+        for dt in ("float32", "bfloat16"):
+            if (impl, dt) != ("flash", "bfloat16"):
+                ev0[f"{impl}_{dt}"] = lm_eval(
+                    lm_config(impl, compute_dtype=dt), params0, batch)
+    del params0
+    torch.cuda.empty_cache()
+    lm["init_weights"] = dict(
+        leaves=names, grad_f32_flash_vs_xla=f32_gap,
+        grad_bf16_flash_vs_f32=bf16_flash, grad_bf16_xla_vs_f32=bf16_xla,
+        grad_bf16_flash_vs_xla=bf16_gap, loss=losses0, eval=ev0,
+        eval_launches=n_ev0)
+    for i, name in enumerate(names):
+        log(f"phase 6: init weights, gradient {name}: f32 flash vs xla "
+            f"{f32_gap[i]:.3e}; bf16 vs the f32 xla gradient: flash "
+            f"{bf16_flash[i]:.3e}, xla {bf16_xla[i]:.3e}; bf16 flash vs "
+            f"xla {bf16_gap[i]:.3e} (of the leaf's largest element)")
+    log(f"phase 6: init weights, loss per token of the gradient batch "
+        f"{json.dumps(losses0)}; no-grad eval {json.dumps(ev0)}; eval "
+        f"launches {n_ev0}")
+    assert n_ev0 == expect(flash_fwd=n_layers), n_ev0
+    for i, name in enumerate(names):
+        assert f32_gap[i] <= LM_F32_GRAD_TOL, (name, f32_gap[i])
+        assert bf16_flash[i] <= LM_BF16_GRAD_RATIO * bf16_xla[i], (
+            name, bf16_flash[i], bf16_xla[i])
+    for a, b, rtol in (("flash_float32", "xla_float32", LM_F32_RTOL),
+                       ("flash_bfloat16", "xla_bfloat16", LM_BF16_RTOL)):
+        assert math.isclose(ev0[a], ev0[b], rel_tol=rtol), (a, b, ev0)
+        assert math.isclose(losses0[a], losses0[b], rel_tol=rtol), (
+            a, b, losses0)
+    runs = {}
+    for impl in ("flash", "xla"):
+        cfg = lm_config(impl)
+        rc = lm_run_config(cfg, seq, 2 * n_workers, n_mb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ((out, secs), kernels), n = drive(lambda: profiled(
+            lambda: run_lm(cfg, rc, LM_STEPS, n_workers, "cuda")))
+        if impl == "flash":
+            per_step = n_layers * n_mb
+            assert n["flash_bwd_dq"] == per_step * LM_STEPS, n
+            assert n["flash_bwd_dkv"] == per_step * LM_STEPS, n
+            # the forward and its recomputation under block_remat="full"
+            assert n["flash_fwd_lse"] == 2 * per_step * LM_STEPS, n
+            assert n == expect(dual_update=LM_STEPS, slot_rotate=LM_STEPS,
+                               flash_fwd_lse=n["flash_fwd_lse"],
+                               flash_bwd_dq=n["flash_bwd_dq"],
+                               flash_bwd_dkv=n["flash_bwd_dkv"]), n
+            for _ in range(PROFILER_TRIES - 1):
+                if kernels:
+                    break
+                log("note: the LM step split comes from another run of the "
+                    "same seed")
+                (out, secs), kernels = profiled(
+                    lambda: run_lm(cfg, rc, LM_STEPS, n_workers, "cuda"))
+            assert kernels, "torch.profiler recorded no device time"
+        else:
+            assert n == expect(dual_update=LM_STEPS,
+                               slot_rotate=LM_STEPS), n
+            if not kernels:
+                log("note: no step split for the xla run (the profiler "
+                    "recorded nothing)")
+        peak = torch.cuda.max_memory_allocated()
+        norm = lm_weights_ok(out["state"].params)
+        hist = out["history"]
+        runs[impl] = dict(params=out["state"].params, history=hist)
+        lm[impl] = dict(
+            seconds=secs, launches=n, peak_gib=peak / 2 ** 30,
+            w_norm=norm, loss=[h["loss"] for h in hist],
+            applied_count=[h["applied_count"] for h in hist],
+            split=step_split(out, kernels) if kernels else None,
+            kernel_split=kernel_split(kernels, LM_STEPS) if kernels
+            else None)
+        del out
+        log(f"phase 6: qwen1.5-0.5b attn_impl={impl}: {LM_STEPS} steps in "
+            f"{secs:.2f} s; loss {lm[impl]['loss']}; applied_count "
+            f"{lm[impl]['applied_count']}; |w| = {norm:.4f}; peak "
+            f"{lm[impl]['peak_gib']:.2f} GiB; launches {n}")
+        if kernels:
+            log(f"phase 6: {impl}: step split "
+                f"{json.dumps(lm[impl]['split'])}")
+            log(f"phase 6: {impl}: kernel time per step "
+                f"{json.dumps(lm[impl]['kernel_split'])}")
+    hf, hx = runs["flash"]["history"], runs["xla"]["history"]
+    for t, (a, b) in enumerate(zip(hf, hx)):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert (a["applied_count"] == 0.0) == (t < 2), (t, a)
+        assert a["local_count"] == 2 * n_workers * (seq - 1), (t, a)
+        assert math.isfinite(a["loss"]), (t, a)
+        assert math.isclose(a["loss"], b["loss"], rel_tol=LM_BF16_RTOL), (
+            t, a["loss"], b["loss"])
+    # a no-grad evaluation at the flash run's final weights, on the
+    # batch the init-weight checks used
+    ev_flash, n = drive(lambda: lm_eval(lm_config("flash"),
+                                        runs["flash"]["params"], batch))
+    assert n == expect(flash_fwd=n_layers), n
+    ev_xla = lm_eval(lm_config("xla"), runs["flash"]["params"], batch)
+    ev_xla_own = lm_eval(lm_config("xla"), runs["xla"]["params"], batch)
+    assert math.isclose(ev_flash, ev_xla, rel_tol=LM_BF16_RTOL), (
+        ev_flash, ev_xla)
+    assert math.isclose(ev_flash, ev_xla_own, rel_tol=LM_BF16_RTOL), (
+        ev_flash, ev_xla_own)
+    lm["eval"] = dict(flash=ev_flash, xla_same_weights=ev_xla,
+                      xla_own_weights=ev_xla_own, launches=n)
+    log(f"phase 6: no-grad eval loss/token {ev_flash:.6f} (flash), "
+        f"{ev_xla:.6f} (xla, same weights), {ev_xla_own:.6f} (xla run's "
+        f"weights); launches {n}")
+    del runs, batch
+    torch.cuda.empty_cache()
+    phase_done("phase 6", t0)
+
+    # -- 7. full width, 2 layers: the card against the CPU -------------------
+    t0 = time.perf_counter()
+    cfg7 = lm_config("flash", n_layers=2, compute_dtype="float32")
+    rc7 = lm_run_config(cfg7, 256, 4, 2)
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    # the worker's gradient at the init weights, the card's flash kernels
+    # against the CPU's plain version, leaf by leaf
+    params7 = build_model(cfg7, device="cpu").init(
+        torch.Generator().manual_seed(rc7.seed))
+    host7 = TokenStream(cfg7, seed=1).next_batch(2, 256)
+    batch7 = {k: torch.from_numpy(v) for k, v in host7.items()}
+    g7_cpu, loss7_cpu = lm_grads(cfg7, params7, batch7)
+    leaves7, def7 = tree_flatten(params7)
+    g7_gpu, loss7_gpu = lm_grads(
+        cfg7, tree_unflatten(def7, [x.cuda() for x in leaves7]),
+        {k: v.cuda() for k, v in batch7.items()})
+    names7 = leaf_names(params7)
+    gap7 = leaf_gaps(g7_gpu, g7_cpu, names7)
+    log(f"phase 7: init weights, gradient card (flash) vs cpu (plain), "
+        f"of each leaf's largest element: "
+        f"{json.dumps(dict(zip(names7, gap7)))}; loss per "
+        f"token {loss7_gpu} (card), {loss7_cpu} (cpu)")
+    assert all(g <= LM_DEVICE_GRAD_TOL for g in gap7), gap7
+    assert math.isclose(loss7_gpu, loss7_cpu, rel_tol=LM_F32_RTOL), (
+        loss7_gpu, loss7_cpu)
+    del g7_cpu, g7_gpu, params7, leaves7
+    (gpu7, secs7), n = drive(lambda: run_lm(cfg7, rc7, 3, 2, "cuda"))
+    assert n == expect(dual_update=3, slot_rotate=3,
+                       flash_fwd_lse=2 * 2 * 2 * 3, flash_bwd_dq=2 * 2 * 3,
+                       flash_bwd_dkv=2 * 2 * 3), n
+    cpu7, cpu_secs7 = run_lm(cfg7, rc7, 3, 2, "cpu")
+    diff7, tol7 = compare_lm_devices(gpu7, cpu7)
+    lm["two_layers"] = dict(gpu_s=secs7, cpu_s=cpu_secs7, launches=n,
+                            init_grad_gap=gap7,
+                            loss=[h["loss"] for h in gpu7["history"]],
+                            w_max_diff=diff7, w_tol=tol7)
+    log(f"phase 7: qwen1.5-0.5b 2 layers f32, 3 steps on cuda in "
+        f"{secs7:.2f} s, on cpu in {cpu_secs7:.2f} s; loss "
+        f"{lm['two_layers']['loss']}; max |w_gpu - w_cpu| = {diff7:.3e} "
+        f"<= {tol7:.3e}; launches {n}")
+    del gpu7, cpu7
+    phase_done("phase 7", t0)
+    log(json.dumps({"main_path": main, "stochastic_path": stochastic,
+                    "v1": v1, "lm": lm, "phase_s": phase_s,
+                    "total_s": time.perf_counter() - t_script}))
+
+    def entry(name, source, replaces, rs, n_launch):
         lead = rs[0]
         keys = ("int8", "due", "slots", "tau", "pods", "rows", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "wrapper_ms", "plain_wrapper_ms", "max_abs_err")
         return {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_launch,
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
@@ -769,17 +1369,57 @@ def main():
                              for r in rs[1:]],
         }
 
+    def flash_entry(name, replaces, rs, n_launch, library):
+        lead = rs[0]
+        keys = ("kernel", "label", "dtype", "B", "Hq", "Hkv", "Sq", "Skv",
+                "D", "window", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_fwd_bwd_ms", "wrapper_ms",
+                "max_abs_err", "rel_err", "err_over_limit")
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": n_launch,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+            "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "library_ms": lead["library_ms"], "library": library,
+            "library_fwd_bwd_ms": lead["library_fwd_bwd_ms"],
+            "wrapper_ms": lead["wrapper_ms"],
+            "plain_wrapper_ms": lead["plain_wrapper_ms"],
+            "shape": {k: lead[k] for k in keys[:10]},
+            "other_shapes": [{k: r[k] for k in keys if k in r}
+                             for r in rs[1:]],
+        }
+
     ring_py = "src/repro/kernels/delay_ring/kernel.py"
+    fa_py = "src/repro/kernels/flash_attention"
+    sdpa = "torch.nn.functional.scaled_dot_product_attention"
     log(json.dumps({"kernels": [
         entry("dual_update", "src/repro_torch/kernels/csrc/dual_update.cu",
               "src/repro/kernels/dual_update/kernel.py:38",
-              results["dual_update"]),
+              results["dual_update"], launches["dual_update"]),
         entry("slot_rotate", "src/repro_torch/kernels/csrc/delay_ring.cu",
-              f"{ring_py}:77", results["slot_rotate"]),
+              f"{ring_py}:77", results["slot_rotate"],
+              launches["slot_rotate"]),
         entry("variable_pop", "src/repro_torch/kernels/csrc/variable_pop.cu",
-              f"{ring_py}:159", results["variable_pop"]),
+              f"{ring_py}:159", results["variable_pop"],
+              launches["variable_pop"]),
         entry("ring_rotate", "src/repro_torch/kernels/csrc/delay_ring.cu",
-              f"{ring_py}:231", results["ring_rotate"]),
+              f"{ring_py}:231", results["ring_rotate"],
+              launches["ring_rotate"]),
+        # the training forward (with lse) leads; the forward without lse
+        # is the same templated kernel
+        flash_entry("flash_fwd", f"{fa_py}/kernel.py:79 and "
+                    f"{fa_py}/bwd.py:82",
+                    flash["fwd_lse"][:1] + flash["fwd"] + flash["fwd_lse"][1:],
+                    launches["flash_fwd"] + launches["flash_fwd_lse"],
+                    f"{sdpa} forward"),
+        flash_entry("flash_bwd_dq", f"{fa_py}/bwd.py:199 (_dq_kernel)",
+                    flash["dq"], launches["flash_bwd_dq"],
+                    f"{sdpa} backward (dq, dk and dv in one call)"),
+        flash_entry("flash_bwd_dkv", f"{fa_py}/bwd.py:199 (_dkv_kernel)",
+                    flash["dkv"], launches["flash_bwd_dkv"],
+                    f"{sdpa} backward (dq, dk and dv in one call)"),
     ]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,11 +1,15 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
-The port registers the architectures it can train; the rest of the JAX
-package's zoo follows in later slices (ROADMAP A).
+The port registers the architectures it can train: the paper's linear
+regression and the four DENSE transformers of the JAX package's zoo.
+The rest of the zoo follows in later slices (ROADMAP A.13). Each module
+exposes ``FULL`` (the published config) and ``SMOKE`` (a reduced
+same-family config for the CPU tests).
 """
 from __future__ import annotations
 
-from repro_torch.configs import amb_linreg
+from repro_torch.configs import (amb_linreg, chatglm3_6b, qwen1_5_0_5b,
+                                 qwen3_1_7b, yi_6b)
 from repro_torch.configs.base import (  # noqa: F401
     CNN, DENSE, ENCDEC, HYBRID, LINREG, LM_FAMILIES, MOE, SSM, VLM,
     AmbdgConfig, BatchScheduleConfig, ConsensusConfig, DelayConfig,
@@ -13,6 +17,10 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig, TRAIN_4K)
 
 _MODULES = {
+    "qwen1.5-0.5b": qwen1_5_0_5b,
+    "yi-6b": yi_6b,
+    "chatglm3-6b": chatglm3_6b,
+    "qwen3-1.7b": qwen3_1_7b,
     "amb-linreg": amb_linreg,
 }
 

@@ -98,6 +98,8 @@ class ModelConfig:
     n_classes: int = 0
     # --- implementation knobs (perf levers, not architecture) ---
     moe_impl: str = "einsum"
+    # "xla" (plain PyTorch attention, the JAX model's gqa_attend) |
+    # "flash" (the port's CUDA flash-attention kernels on the card)
     attn_impl: str = "xla"
     scan_unroll: bool = False
     seq_parallel: bool = False
@@ -106,10 +108,34 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
+    @property
+    def padded_vocab_size(self) -> int:
+        """Vocab rounded up to a multiple of 256, as in the JAX package:
+        the embedding and the logits cover the padded range; real token
+        ids never index the pad."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return (self.head_dim if self.head_dim is not None
+                else self.d_model // self.n_heads)
+
     def n_params(self) -> int:
-        """Parameter count of the families the port carries."""
+        """Analytic parameter count of the families the port carries,
+        as the JAX package counts it (the unpadded vocab; qk-norm
+        scales not counted)."""
         if self.family == LINREG:
             return self.linreg_dim
+        if self.family == DENSE:
+            d, hd = self.d_model, self.resolved_head_dim
+            nq, nkv = self.n_heads, self.n_kv_heads
+            attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+            if self.qkv_bias:
+                attn += (nq + 2 * nkv) * hd
+            per_layer = attn + 3 * d * self.d_ff + 2 * d
+            emb = self.vocab_size * d
+            head = 0 if self.tie_embeddings else self.vocab_size * d
+            return emb + head + d + self.n_layers * per_layer
         raise NotImplementedError(
             f"n_params for family {self.family!r} comes with its model "
             "(ROADMAP A.8, A.13)")

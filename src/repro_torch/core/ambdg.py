@@ -78,7 +78,9 @@ def arena_master_update(layout, opt, params, opt_state, arena_state,
         grad_sum, count, arena_state = arena_mod.push_pop(
             layout, arena_state, pod_grads, pod_counts, compression)
     else:  # tau = 0: synchronous exchange, then one flat scatter
-        summed = {k: pod_sum(g) for k, g in pod_grads.items()}
+        leaves, treedef = arena_mod.tree_flatten(pod_grads)
+        summed = arena_mod.tree_unflatten(treedef,
+                                          [pod_sum(g) for g in leaves])
         grad_sum = arena_mod.flatten_tree(layout, summed)
         count = torch.sum(pod_counts)
     params, opt_state = opt.update(opt_state, params, grad_sum, count)
@@ -102,7 +104,9 @@ def build_step_fns(model: Model, rc: RunConfig):
     compression = rc.ambdg.pod_compression
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
-    layout = arena_mod.make_layout(model.init(None))
+    # shapes only (the meta device), as JAX builds it from eval_shape: no
+    # second parameter set is allocated or drawn
+    layout = arena_mod.make_layout(model.param_shapes())
     opt = make_arena_optimizer(rc, layout, device)
 
     def init_state(generator: Optional[torch.Generator] = None) -> TrainState:
@@ -123,8 +127,10 @@ def build_step_fns(model: Model, rc: RunConfig):
             for p in range(n_pods)]
         out = [anytime.accumulate_scan(model.loss, params, c, n_mb)
                for c in chunks]
-        grads = {k: torch.stack([g[k] for g, _, _ in out])
-                 for k in out[0][0]}
+        per_pod = [arena_mod.tree_flatten(g)[0] for g, _, _ in out]
+        treedef = arena_mod.tree_flatten(out[0][0])[1]
+        grads = arena_mod.tree_unflatten(
+            treedef, [torch.stack(leaves) for leaves in zip(*per_pod)])
         counts = torch.stack([c for _, c, _ in out])
         losses = torch.stack([m["loss_sum"] for _, _, m in out])
         return grads, counts, losses

@@ -20,6 +20,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.arena import tree_flatten, tree_unflatten
+
 LossFn = Callable[[Dict, Dict], Tuple[torch.Tensor, Dict]]
 
 
@@ -39,21 +41,25 @@ def accumulate_scan(loss_fn: LossFn, params: Dict, batch: Dict, n_mb: int):
     """Masked accumulation over every microbatch.
 
     Returns (grad_sum, count, metrics): grad_sum the *sum* of per-sample
-    gradients (weighted), a dict like ``params``; count the weighted
+    gradients (weighted), a tree like ``params`` (nested dicts, flattened
+    in the arena's sorted-key order) with f32 leaves; count the weighted
     sample count — the worker message m_i(t) = (g_i(t), b_i(t))."""
-    names = list(params)
-    leaves = [params[k].detach().requires_grad_(True) for k in names]
-    at = dict(zip(names, leaves))
+    flat, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    at = tree_unflatten(treedef, leaves)
 
     def grads_of(mb):
         loss_sum, aux = loss_fn(at, mb)
-        g = torch.autograd.grad(loss_sum, leaves)
+        g = torch.autograd.grad(loss_sum, leaves, allow_unused=True)
+        # a leaf the loss does not reach has gradient 0, as in JAX
+        g = [torch.zeros_like(p) if x is None else x
+             for x, p in zip(g, leaves)]
         return ([x.to(torch.float32) for x in g], aux["count"].detach(),
                 aux["loss_sum"].detach())
 
     if n_mb == 1:
         g, count, loss_sum = grads_of(batch)
-        return dict(zip(names, g)), count, {"loss_sum": loss_sum}
+        return tree_unflatten(treedef, g), count, {"loss_sum": loss_sum}
 
     dev = leaves[0].device
     gsum = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
@@ -62,8 +68,10 @@ def accumulate_scan(loss_fn: LossFn, params: Dict, batch: Dict, n_mb: int):
     lsum = torch.zeros((), dtype=torch.float32, device=dev)
     for mb in _split_batch(batch, n_mb):
         g, count, loss_sum = grads_of(mb)
-        gsum = [a + b for a, b in zip(gsum, g)]
+        for a, b in zip(gsum, g):
+            a.add_(b)          # in place: one f32 sum per leaf for good
+        del g
         csum = csum + count
         lsum = lsum + loss_sum
-    return dict(zip(names, gsum)), csum, {"loss_sum": lsum}
+    return tree_unflatten(treedef, gsum), csum, {"loss_sum": lsum}
 

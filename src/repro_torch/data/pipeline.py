@@ -23,6 +23,7 @@ class AnytimePipeline:
     cfg: ModelConfig
     n_workers: int
     samples_per_worker: int          # max samples a worker may contribute
+    seq_len: int = 0                 # LM families: tokens per sample
     seed: int = 0
     timing: Optional[ShiftedExponential] = None
     t_p: float = 2.5
@@ -44,7 +45,11 @@ class AnytimePipeline:
         """Fixed-shape (n_workers * samples_per_worker, ...) batch with
         anytime weights. Worker i's samples occupy the contiguous slice
         [i*spw, (i+1)*spw); the first b_i(t) carry weight 1."""
-        batch = self.stream.next_batch(self.n_workers * self.samples_per_worker)
+        total = self.n_workers * self.samples_per_worker
+        if self.seq_len:
+            batch = self.stream.next_batch(total, self.seq_len)
+        else:
+            batch = self.stream.next_batch(total)
         b = self._draw_b()
         self.b_history.append(b.copy())
         w = np.zeros((self.n_workers, self.samples_per_worker), np.float32)

@@ -1,4 +1,5 @@
-"""Synthetic data streams, seeded numpy: the same bytes as the JAX
+"""Synthetic data streams (the paper's linear regression and the LM
+token stream), seeded numpy: the same bytes as the JAX
 package's ``repro/data/synthetic.py`` for the same seed and cursor, so
 both frameworks train on identical batches.
 
@@ -11,7 +12,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import LINREG, ModelConfig
+from repro_torch.configs.base import CNN, ENCDEC, LINREG, VLM, ModelConfig
 
 
 @dataclass
@@ -41,10 +42,37 @@ class LinRegStream:
                 "weights": np.ones((n,), np.float32)}
 
 
+@dataclass
+class TokenStream:
+    """Synthetic LM token stream: Zipf(1.3) token ids clipped to the
+    vocab, so the loss has structure (the text stream of the JAX
+    ``TokenStream``; its VLM/encdec extras come with those families,
+    ROADMAP A.13)."""
+    cfg: ModelConfig
+    seed: int = 0
+    sample_seed: Optional[int] = None
+
+    def __post_init__(self):
+        if self.sample_seed is None:
+            self.sample_seed = self.seed
+        self._cursor = 0
+
+    def next_batch(self, batch: int, seq: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.sample_seed + 1, self._cursor))
+        self._cursor += 1
+        z = rng.zipf(1.3, size=(batch, seq))
+        tokens = np.minimum(z, self.cfg.vocab_size - 1).astype(np.int32)
+        return {"tokens": tokens, "weights": np.ones((batch,), np.float32)}
+
+
 def make_stream(cfg: ModelConfig, seed: int = 0,
                 sample_seed: Optional[int] = None):
     if cfg.family == LINREG:
         return LinRegStream(cfg.linreg_dim, seed, sample_seed)
-    raise NotImplementedError(
-        f"no data stream for family {cfg.family!r} in the port yet "
-        "(ROADMAP A.8 for images, A.13 for tokens)")
+    if cfg.family == CNN:
+        raise NotImplementedError("no image stream in the port yet "
+                                  "(ROADMAP A.8)")
+    if cfg.family in (VLM, ENCDEC):
+        raise NotImplementedError(f"no {cfg.family} stream in the port yet "
+                                  "(ROADMAP A.13)")
+    return TokenStream(cfg, seed, sample_seed)

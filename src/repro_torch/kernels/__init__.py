@@ -14,6 +14,10 @@ public wrapper that dispatches between the two.
                 v1 stacked-ring rotate (f32 and int8, head read on the
                 card), and the v3 variable pop (fold the slots due this
                 step, f32 or int8, with the (count, stale_sum) epilogue)
+  flash_attention/  blocked causal/window attention: the forward with and
+                without lse, and the recomputing backward (dq, and
+                dk/dv summed over each GQA group), wired by an
+                autograd.Function
 
 Dispatch (``resolve_impl``) follows the tensors, never the host: a CUDA
 tensor goes to the kernel, a CPU tensor to the plain version. There is

@@ -1,2 +1,3 @@
-"""Models of the port (the linear regression of the paper so far)."""
+"""Models of the port: the paper's linear regression and the DENSE
+transformers of the LLM zoo."""
 from repro_torch.models.api import Model, build_model  # noqa: F401

@@ -6,10 +6,15 @@ case architectures:
 
     params         = model.init(generator)
     loss_sum, aux  = model.loss(params, batch)       # SUM + counts
+    shapes         = model.param_shapes()             # on "meta"
+    batch          = model.dummy_batch(batch_size, seq_len, generator)
 
-``params`` is a dict of tensors on ``model.device``; ``model.loss``
-evaluates the ``nn.Module`` at those tensors (``functional_call``), so
-autograd differentiates with respect to them.
+``params`` is a nested dict of tensors on ``model.device``. Families:
+the paper's linear regression (an ``nn.Module`` evaluated at the given
+tensors through ``functional_call``) and the DENSE transformers
+(``models.transformer``, functions over the tree). The decode path
+(``init_decode_state``, ``decode_step``) comes with serving (ROADMAP
+A.12) and raises.
 """
 from __future__ import annotations
 
@@ -17,22 +22,60 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
-from torch import nn
 
-from repro_torch.configs.base import LINREG, ModelConfig
+from repro_torch.configs.base import CNN, DENSE, LINREG, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import linear as linear_mod
+from repro_torch.models import transformer as tf_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    module: nn.Module
     device: torch.device
-    init: Callable[[Optional[torch.Generator]], Dict]
+    # (device, CPU generator or None) -> params on that device
+    init_fn: Callable[[torch.device, Optional[torch.Generator]], Dict]
+    loss_fn: Callable[[Dict, Dict], tuple]
+
+    def init(self, generator: Optional[torch.Generator] = None) -> Dict:
+        return self.init_fn(self.device, generator)
+
+    def param_shapes(self) -> Dict:
+        """The parameter tree on the ``meta`` device: shapes and dtypes,
+        no memory and no draws (JAX's ``eval_shape`` of ``init``)."""
+        return self.init_fn(torch.device("meta"), None)
 
     def loss(self, params: Dict, batch: Dict):
-        return torch.func.functional_call(self.module, params, (batch,))
+        return self.loss_fn(params, batch)
+
+    def dummy_batch(self, batch: int, seq: int,
+                    generator: Optional[torch.Generator] = None) -> Dict:
+        """Random tokens (LM families) on the model's device."""
+        if self.cfg.family == LINREG:
+            raise NotImplementedError("dummy_batch is for the LM families; "
+                                      "the linear regression draws from "
+                                      "data.synthetic.LinRegStream")
+        tokens = torch.randint(0, self.cfg.vocab_size, (batch, seq),
+                               generator=generator, dtype=torch.int32)
+        return {"tokens": tokens.to(self.device),
+                "weights": torch.ones((batch,), dtype=torch.float32,
+                                      device=self.device)}
+
+    def init_decode_state(self, *args, **kwargs):
+        raise NotImplementedError("the decode path is not ported yet "
+                                  "(ROADMAP A.12)")
+
+    def decode_step(self, *args, **kwargs):
+        raise NotImplementedError("the decode path is not ported yet "
+                                  "(ROADMAP A.12)")
+
+
+def _lm_init(cfg: ModelConfig):
+    def init_fn(device, generator):
+        if generator is None and device.type != "meta":
+            generator = torch.Generator().manual_seed(0)
+        return tf_mod.init(cfg, generator, device)
+    return init_fn
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -40,9 +83,19 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     asks for the CPU; raises when CUDA is asked for and absent)."""
     device = resolve_device(device)
     if cfg.family == LINREG:
+        module = linear_mod.LinearRegression(cfg, device)
         # w(1) = 0 in the paper: the generator draws nothing
-        return Model(cfg, linear_mod.LinearRegression(cfg, device), device,
-                     init=lambda generator=None: linear_mod.init(cfg, device))
+        return Model(cfg, device,
+                     init_fn=lambda dev, generator=None:
+                         linear_mod.init(cfg, dev),
+                     loss_fn=lambda p, b: torch.func.functional_call(
+                         module, p, (b,)))
+    if cfg.family == DENSE:
+        tf_mod.check_supported(cfg)
+        return Model(cfg, device, init_fn=_lm_init(cfg),
+                     loss_fn=lambda p, b: tf_mod.lm_loss(p, cfg, b))
+    if cfg.family == CNN:
+        raise NotImplementedError("the CNN is not ported yet (ROADMAP A.8)")
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP A.8 for "
-        "the CNN, A.13 for the LLM zoo)")
+        f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
+        "the port carries the DENSE family of the LLM zoo)")

@@ -1,0 +1,78 @@
+"""Parameter trees of the port's models (``repro/models/common.py``).
+
+Models are functions over nested dicts of tensors. Every leaf is made
+through a ``ParamFactory`` with the JAX package's init distributions
+(``normal`` scaled by 1/sqrt(fan_in), ``zeros``, ``ones``); the logical
+sharding axes the JAX factory records come with the multi-GPU slice
+(ROADMAP A.11). Stacked layers lie along a leading ``n_layers``
+dimension, as JAX's ``vmapped_children`` lays them out, so the arena's
+sorted-key flatten gives the JAX arena row for row.
+
+Draws come from a CPU ``torch.Generator`` and are then moved to the
+device, so a run on the card and one on the CPU from the same seed start
+from the same weights. On the ``meta`` device nothing is drawn: the
+tree carries shapes and dtypes only (the arena layout is built from it,
+as JAX builds it from ``eval_shape``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+Params = Dict[str, object]
+
+
+class ParamFactory:
+    """Creates parameters in a fixed order from one generator. ``lead``
+    is the shape of the stacking dims every leaf gets in front."""
+
+    def __init__(self, generator: Optional[torch.Generator], dtype,
+                 device, lead: Tuple[int, ...] = ()):
+        device = torch.device(device)
+        if device.type != "meta" and (generator is None or
+                                      generator.device.type != "cpu"):
+            raise ValueError("ParamFactory draws from a CPU torch.Generator "
+                             "(the weights are the same on every device)")
+        self.generator = generator
+        self.dtype = dtype
+        self.device = device
+        self.lead = tuple(lead)
+        self.params: Params = {}
+
+    def param(self, name: str, shape: Tuple[int, ...], init: str = "normal",
+              scale: Optional[float] = None) -> torch.Tensor:
+        full = self.lead + tuple(shape)
+        if self.device.type == "meta":
+            value = torch.empty(full, dtype=self.dtype, device="meta")
+        elif init == "zeros":
+            value = torch.zeros(full, dtype=self.dtype, device=self.device)
+        elif init == "ones":
+            value = torch.ones(full, dtype=self.dtype, device=self.device)
+        elif init == "normal":
+            if scale is None:
+                # fan_in of the per-layer shape, never of the stacked one
+                fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
+                scale = 1.0 / math.sqrt(max(fan_in, 1))
+            draw = torch.randn(full, generator=self.generator,
+                               dtype=torch.float32)
+            value = (scale * draw).to(dtype=self.dtype, device=self.device)
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        self.params[name] = value
+        return value
+
+    def child(self, name: str) -> "ParamFactory":
+        sub = ParamFactory(self.generator, self.dtype, self.device, self.lead)
+        self.params[name] = sub.params
+        return sub
+
+    def stacked_children(self, name: str, n: int,
+                         build: Callable[["ParamFactory"], None]) -> None:
+        """``n`` identically-structured children stacked along a leading
+        "layers" dim (JAX's ``vmapped_children``)."""
+        sub = ParamFactory(self.generator, self.dtype, self.device,
+                           self.lead + (n,))
+        build(sub)
+        self.params[name] = sub.params

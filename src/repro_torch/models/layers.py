@@ -1,0 +1,224 @@
+"""Transformer layers of the port (``repro/models/layers.py``), the
+training path: norms, RoPE (partial for chatglm), GQA attention with a
+causal mask, the gated MLP, the embedding and the tied or untied head.
+
+Activations are (B, S, ...) as in JAX; attention holds q, k, v as
+(B, S, H, D). The rounding points follow the JAX code, which the
+comments name where a straightforward port would round elsewhere.
+``attention_apply`` honours ``cfg.attn_impl``: "xla" is ``gqa_attend``
+(the JAX model's attention, whatever its knob says), "flash" the port's
+flash-attention kernels (``kernels.flash_attention``) on CUDA tensors,
+their plain version on CPU tensors. JAX's ``constrain`` calls are
+sharding hints and are left out; ``chunked_gqa_attend`` is exact, so
+the plain path computes ``gqa_attend`` at every length.
+"""
+from __future__ import annotations
+
+import math
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamFactory
+
+NEG_INF = -1e30
+
+
+def scalar(value: float, dtype) -> torch.Tensor:
+    """A 0-dim tensor of ``dtype``: multiplying by it rounds the constant
+    to ``dtype`` first, as JAX does with a weakly typed Python scalar."""
+    return torch.tensor(value, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_init(f: ParamFactory, name: str, dim: int):
+    f.param(name, (dim,), init="ones")
+
+
+def rmsnorm(x, scale, eps: float):
+    # the square is taken in x's dtype and only then cast to f32, as in
+    # JAX (cast-then-square is another number in bf16)
+    var = torch.mean(torch.square(x).to(torch.float32), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+def head_rmsnorm(x, scale, eps: float):
+    """Per-head qk-norm (qwen3): x (..., n_heads, head_dim), in f32."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.to(torch.float32)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, partial: float, theta: float, device):
+    rot = int(head_dim * partial)
+    rot -= rot % 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    inv = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device)
+                 ** exps)
+    return inv, rot
+
+
+def apply_rope(x, positions, theta: float, partial: float = 1.0):
+    """x: (B, S, H, D); positions: (B, S). Rotates the first
+    ``partial * D`` dims in f32 (rotate-half); chatglm's "2d RoPE" is
+    partial = 0.5."""
+    inv, rot = rope_frequencies(x.shape[-1], partial, theta, x.device)
+    if rot == 0:
+        return x
+    ang = positions[..., None].to(torch.float32) * inv      # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = torch.chunk(x_rot.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+def causal_mask(q_len: int, kv_len: int, device=None):
+    """(q_len, kv_len) bool, True = attend (the model-level window is not
+    ported: ``sliding_window`` raises, ROADMAP A.13)."""
+    q_pos = torch.arange(q_len, device=device)
+    kv_pos = torch.arange(kv_len, device=device)
+    return q_pos[:, None] >= kv_pos[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+def attention_init(f: ParamFactory, cfg: ModelConfig, name: str = "attn"):
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    a = f.child(name)
+    a.param("wq", (d, cfg.n_heads * hd))
+    a.param("wk", (d, cfg.n_kv_heads * hd))
+    a.param("wv", (d, cfg.n_kv_heads * hd))
+    a.param("wo", (cfg.n_heads * hd, d))
+    if cfg.qkv_bias:
+        a.param("bq", (cfg.n_heads * hd,), init="zeros")
+        a.param("bk", (cfg.n_kv_heads * hd,), init="zeros")
+        a.param("bv", (cfg.n_kv_heads * hd,), init="zeros")
+    if cfg.qk_norm:
+        a.param("q_norm", (hd,), init="ones")
+        a.param("k_norm", (hd,), init="ones")
+
+
+def _project_qkv(p, cfg: ModelConfig, x, positions):
+    hd = cfg.resolved_head_dim
+    B, S, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_partial)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_partial)
+    return q, k, v
+
+
+def gqa_attend(q, k, v, mask):
+    """Grouped-query attention core, the JAX model's: q (B, Sq, Hq, D),
+    k and v (B, Skv, Hkv, D), mask (Sq, Skv) or broadcastable to
+    (B, Hkv, G, Sq, Skv). The scores come from an einsum in q's dtype
+    and are then cast to f32; the softmax weights are cast back to q's
+    dtype before the second einsum."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).to(torch.float32)
+    scores = scores / math.sqrt(D)
+    if mask.dim() == 2:
+        mask = mask[None, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(B, Sq, Hq, D)
+
+
+def flash_attend(q, k, v):
+    """Causal attention through the flash kernels: (B, S, H, D) in and
+    out, (B, H, S, D) at the kernel API. With autograd recording (a
+    training forward, or its recomputation under checkpointing) it is
+    the training entry (the forward with lse, the dq and dk/dv kernels
+    in backward); otherwise the inference forward without lse."""
+    from repro_torch.kernels.flash_attention.ops import attend, attend_train
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qh, kh, vh))
+    out = (attend_train if train else attend)(qh, kh, vh, causal=True)
+    return out.transpose(1, 2)
+
+
+def attention_apply(p, cfg: ModelConfig, x, positions, mask):
+    """Full-sequence (training) attention, ``cfg.attn_impl`` choosing
+    the core."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    B, S = x.shape[:2]
+    if cfg.attn_impl == "flash":
+        out = flash_attend(q, k, v)
+    else:
+        out = gqa_attend(q, k, v, mask)
+    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+def mlp_init(f: ParamFactory, cfg: ModelConfig, name: str = "mlp"):
+    d, dff = cfg.d_model, cfg.d_ff
+    m = f.child(name)
+    m.param("w_gate", (d, dff))
+    m.param("w_up", (d, dff))
+    m.param("w_down", (dff, d))
+
+
+def _act(name: str):
+    if name == "silu":
+        return torch.nn.functional.silu
+    if name == "gelu":     # jax.nn.gelu's default is the tanh form
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def mlp_apply(p, cfg: ModelConfig, x):
+    act = _act(cfg.act)
+    h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embedding_init(f: ParamFactory, cfg: ModelConfig):
+    f.param("tok_emb", (cfg.padded_vocab_size, cfg.d_model),
+            scale=1.0 / math.sqrt(cfg.d_model))
+    if not cfg.tie_embeddings:
+        f.param("out_head", (cfg.d_model, cfg.padded_vocab_size))
+
+
+def embed_tokens(params, tokens, dtype):
+    return params["tok_emb"][tokens.to(torch.int64)].to(dtype)
+
+
+def output_logits(params, cfg: ModelConfig, h):
+    """Logits over the padded vocab (the softmax includes the pad
+    columns, as in JAX)."""
+    if cfg.tie_embeddings:
+        return h @ params["tok_emb"].to(h.dtype).T
+    return h @ params["out_head"].to(h.dtype)

@@ -1,0 +1,156 @@
+"""Decoder-only LM of the port (``repro/models/transformer.py``), the
+DENSE family: [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
+optional QKV bias and qk-norm, tied or untied head.
+
+The parameter tree is the JAX one: a dict with the stacked ``layers``
+leaves along a leading ``n_layers`` dim, so ``core.arena``'s sorted-key
+flatten gives the JAX arena layout row for row and
+``convert.params_from_jax`` carries the weights unchanged. The forward
+loops over the layers on ``torch.unbind`` slices of the stack: its
+backward stacks the layer gradients once, where indexing ``stacked[i]``
+would write a zero gradient of the whole stack per layer.
+``block_remat="full"`` (JAX's ``jax.checkpoint`` per scanned block) is
+``torch.utils.checkpoint`` per layer; ``"none"`` saves everything.
+
+Knobs the slice does not carry raise ``NotImplementedError`` naming
+their ROADMAP item (``check_supported``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.core.arena import tree_flatten, tree_unflatten
+from repro_torch.models.common import ParamFactory
+from repro_torch.models.layers import (attention_apply, attention_init,
+                                       causal_mask, embed_tokens,
+                                       embedding_init, mlp_apply, mlp_init,
+                                       output_logits, rmsnorm, rmsnorm_init,
+                                       scalar)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}")
+    return _DTYPES[name]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for every knob of ``cfg`` the port's transformer does not
+    carry yet (never ignore one silently)."""
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
+            "the port's transformer is the DENSE family)")
+    for knob, item in (("prefix_lm", "A.13"), ("logit_softcap", "A.13"),
+                       ("sliding_window", "A.13")):
+        if getattr(cfg, knob):
+            raise NotImplementedError(
+                f"{knob}={getattr(cfg, knob)!r} is not ported yet at the "
+                f"model level (ROADMAP {item})")
+    if cfg.seq_parallel:
+        raise NotImplementedError("seq_parallel=True is a sharding layout of "
+                                  "the multi-GPU slice (ROADMAP A.11)")
+    if cfg.block_remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"block_remat={cfg.block_remat!r} is not ported yet (ROADMAP "
+            "A.13); the port runs 'full' and 'none'")
+    if cfg.attn_impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    _dtype(cfg.param_dtype)
+    _dtype(cfg.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _layer_init(f: ParamFactory, cfg: ModelConfig):
+    rmsnorm_init(f, "ln1", cfg.d_model)
+    attention_init(f, cfg)
+    rmsnorm_init(f, "ln2", cfg.d_model)
+    mlp_init(f, cfg)
+
+
+def init(cfg: ModelConfig, generator: Optional[torch.Generator],
+         device) -> Dict:
+    """The parameter tree on ``device``, drawn from the CPU
+    ``generator`` (on ``meta``: shapes only, nothing drawn)."""
+    check_supported(cfg)
+    f = ParamFactory(generator, _dtype(cfg.param_dtype), device)
+    embedding_init(f, cfg)
+    rmsnorm_init(f, "ln_final", cfg.d_model)
+    f.stacked_children("layers", cfg.n_layers, lambda g: _layer_init(g, cfg))
+    return f.params
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask):
+    h = h + attention_apply(layer_p["attn"], cfg,
+                            rmsnorm(h, layer_p["ln1"], cfg.norm_eps),
+                            positions, mask)
+    return h + mlp_apply(layer_p["mlp"], cfg,
+                         rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+
+
+def unbind_layers(stacked) -> list:
+    """The stacked layer tree as a list of per-layer trees (views)."""
+    leaves, treedef = tree_flatten(stacked)
+    per_leaf = [torch.unbind(leaf, 0) for leaf in leaves]
+    n = len(per_leaf[0])
+    return [tree_unflatten(treedef, [p[i] for p in per_leaf])
+            for i in range(n)]
+
+
+def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, padded vocab) in the compute
+    dtype."""
+    dtype = _dtype(cfg.compute_dtype)
+    h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
+                                                     dtype)
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :]
+    mask = (None if cfg.attn_impl == "flash" else
+            causal_mask(S, S, device=h.device))
+    remat = cfg.block_remat == "full" and torch.is_grad_enabled()
+    for layer_p in unbind_layers(params["layers"]):
+        if remat:
+            h = checkpoint(_block_apply, layer_p, cfg, h, positions, mask,
+                           use_reentrant=False)
+        else:
+            h = _block_apply(layer_p, cfg, h, positions, mask)
+    h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
+    return output_logits(params, cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+    """Per-sample-weighted next-token cross entropy.
+
+    batch: {"tokens": (B, S) int, "weights": (B,) f32}. Returns
+    (sum of the weighted loss, {"count": weighted token count,
+    "loss_sum"}), so AMB-DG normalizes by the global count (paper eq.
+    (5)). The forward runs at the full length and the logits are sliced,
+    as in JAX."""
+    tokens = batch["tokens"]
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones((tokens.shape[0],), dtype=torch.float32,
+                             device=tokens.device)
+    logits = forward(params, cfg, tokens)[:, :-1]
+    targets = tokens[:, 1:].to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    per_sample = -torch.sum(ll, dim=-1)                       # (B,)
+    loss_sum = torch.sum(per_sample * weights)
+    count = torch.sum(weights) * targets.shape[1]
+    return loss_sum, {"count": count, "loss_sum": loss_sum}

@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import LM_FAMILIES, RunConfig
 from repro_torch.data.pipeline import AnytimePipeline
 from repro_torch.data.timing import ShiftedExponential
 from repro_torch.device import resolve_device
@@ -63,7 +63,9 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     strategy = api.build(model, rc, device=device)
     pipeline = AnytimePipeline(
         cfg=rc.model, n_workers=loop.n_workers,
-        samples_per_worker=loop.samples_per_worker, seed=rc.seed,
+        samples_per_worker=loop.samples_per_worker,
+        seq_len=rc.shape.seq_len if rc.model.family in LM_FAMILIES else 0,
+        seed=rc.seed,
         timing=ShiftedExponential() if loop.use_timing_model else None,
         t_p=rc.ambdg.t_p)
 
@@ -71,7 +73,9 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     # (ambdg has the master delay ring; amb refuses a stochastic one)
     delay_proc = strategy.delay_process() if rc.strategy == "ambdg" else None
 
-    generator = torch.Generator(device=device).manual_seed(rc.seed)
+    # a CPU generator: the model's weights are drawn on the host, so the
+    # card and the CPU start from the same ones
+    generator = torch.Generator().manual_seed(rc.seed)
     state = strategy.init_state(generator)
     history = []
     t_start = time.monotonic()

@@ -258,3 +258,142 @@ def test_slice_on_cuda_matches_cpu(cuda, compression):
         tol += max(float(s.max()) for s in cpu["state"].arena.scales) / min(
             h["applied_count"] for h in cpu["history"][2:])
     np.testing.assert_allclose(wg, wc, rtol=0, atol=tol)
+
+
+# -- flash attention --------------------------------------------------------
+FLASH_CASES = [   # B, Hq, Hkv, Sq, Skv, D, causal, window
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 192, 192, 128, True, None),     # GQA, a ragged last tile
+    (2, 4, 1, 256, 512, 64, True, None),      # MQA, right-aligned q
+    (1, 4, 2, 320, 320, 64, True, 96),        # sliding window
+    (1, 2, 2, 128, 256, 128, False, None),    # bidirectional
+    (1, 2, 2, 256, 128, 64, True, None),      # rows with no valid key
+]
+
+
+def _flash_inputs(case, dtype, device, seed=0):
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    rng = np.random.default_rng(seed)
+    shapes = [(B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D),
+              (B, Hq, Sq, D)]
+    return [_t(rng.standard_normal(s).astype(np.float32), device).to(dtype)
+            for s in shapes]
+
+
+def _close(got, want, ulp):
+    """Each element on its own: |got - want| <= ulp * |want| + 1e-5 *
+    max|want| (f32 compare)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    limit = ulp * want.abs() + 1e-5 * (float(want.abs().max()) or 1.0)
+    excess = float(((got - want).abs() / limit).max())
+    assert excess <= 1.0, excess
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    """The forward (with and without lse), dq and dk/dv kernels against
+    their plain versions on the card and on the CPU. Both compute in
+    f32 and round the outputs once, so each element agrees to 1e-5 of
+    the tensor's largest element (summation order) plus, in bf16, one
+    ulp of the element (2^-7 of it: one rounding can land on either
+    side). Two launches give the same bits."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+    td = getattr(torch, dtype)
+    causal, window = case[6], case[7]
+    kw = dict(causal=causal, window=window, scale=case[5] ** -0.5)
+    ulp = 0.0 if dtype == "float32" else 2.0 ** -7
+    q, k, v, do = _flash_inputs(case, td, cuda)
+    n0 = [c.launches for c in (kernel.FWD, kernel.FWD_LSE, kernel.DQ,
+                               kernel.DKV)]
+    o = kernel.flash_attention_fwd(q, k, v, **kw)
+    o2, lse = kernel.flash_fwd_lse(q, k, v, **kw)
+    assert torch.equal(o, o2)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq = kernel.flash_bwd_dq(q, k, v, lse, delta, do, **kw)
+    dk, dv = kernel.flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches for c in (kernel.FWD, kernel.FWD_LSE, kernel.DQ,
+                                 kernel.DKV)] == [n + 1 for n in n0]
+    for dev in (cuda, "cpu"):
+        args = [x.to(dev) for x in (q, k, v)]
+        o_ref, lse_ref = ref.flash_fwd_lse_ref(*args, **kw)
+        _close(o, o_ref, ulp)
+        _close(o, ref.attention_ref(*args, causal=causal, window=window),
+               ulp)
+        # lse: f32 in both; rows with no valid key hold -1e30 exactly
+        assert torch.allclose(lse.cpu(), lse_ref.cpu(), rtol=1e-5,
+                              atol=1e-4)
+        bargs = args + [lse.to(dev), delta.to(dev), do.to(dev)]
+        _close(dq, ref.flash_bwd_dq_ref(*bargs, **kw), ulp)
+        for a, b in zip((dk, dv), ref.flash_bwd_dkv_ref(*bargs, **kw)):
+            _close(a, b, ulp)
+    # bitwise repeatable: no atomics
+    assert torch.equal(kernel.flash_attention_fwd(q, k, v, **kw), o)
+    assert torch.equal(kernel.flash_bwd_dq(q, k, v, lse, delta, do, **kw),
+                       dq)
+    dk2, dv2 = kernel.flash_bwd_dkv(q, k, v, lse, delta, do, **kw)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def test_flash_train_autograd_on_cuda_matches_cpu(cuda):
+    """``flash_attention_train`` on CUDA tensors (the kernels through
+    ``FlashAttentionTrain``) against autograd of the plain version on
+    the CPU, f32, with JAX's cotangent sum(o cos o)."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention_train
+    case = (1, 4, 2, 256, 256, 64, True, None)
+    q, k, v, _ = _flash_inputs(case, torch.float32, "cpu", seed=3)
+
+    def grads(device):
+        ts = [x.to(device).requires_grad_(True) for x in (q, k, v)]
+        o = flash_attention_train(*ts, True, None, 64, 64)
+        torch.sum(o * torch.cos(o)).backward()
+        return [t.grad.cpu() for t in ts]
+
+    n0 = kernel.DQ.launches
+    got = grads(cuda)
+    assert kernel.DQ.launches == n0 + 1
+    for a, b in zip(got, grads("cpu")):
+        assert torch.allclose(a, b, atol=2e-4, rtol=2e-3)
+
+
+def test_lm_on_cuda_matches_cpu(cuda):
+    """Three AMB-DG steps (tau 2, int8) of a small qwen1.5-style model
+    with head dim 64 (the kernels' width), f32 compute, attn_impl
+    "flash": the card (the kernels) against the CPU (the plain
+    version); counts exact, loss to 1e-4, w to 1e-4 of its largest
+    element plus one quantization step; one dq launch per layer and
+    microbatch."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (AmbdgConfig, MeshConfig,
+                                          RunConfig, TRAIN_4K)
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), d_model=128,
+                              n_heads=2, n_kv_heads=2, head_dim=64,
+                              compute_dtype="float32", attn_impl="flash")
+    rc = RunConfig(model=cfg, shape=dataclasses.replace(TRAIN_4K, seq_len=128),
+                   mesh=MeshConfig(1, 1, 1),
+                   ambdg=AmbdgConfig(tau=2, n_microbatches=2, b_bar=8.0,
+                                     pod_compression="int8"))
+    loop = LoopConfig(n_steps=3, n_workers=2, samples_per_worker=2,
+                      log_every=1)
+    n0 = kernel.DQ.launches
+    gpu = train(build_model(cfg, device=cuda), rc, loop, device=cuda)
+    assert kernel.DQ.launches - n0 == cfg.n_layers * 2 * 3
+    cpu = train(build_model(cfg, device="cpu"), rc, loop, device="cpu")
+    for a, b in zip(gpu["history"], cpu["history"]):
+        assert a["applied_count"] == b["applied_count"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+    step = max(float(s.max()) for s in cpu["state"].arena.scales) / \
+        cpu["history"][-1]["applied_count"]
+    for wg, wc in zip(tree_flatten(gpu["state"].params)[0],
+                      tree_flatten(cpu["state"].params)[0]):
+        wg, wc = wg.cpu().numpy(), wc.numpy()
+        np.testing.assert_allclose(wg, wc, rtol=0,
+                                   atol=1e-4 * np.abs(wc).max() + step)

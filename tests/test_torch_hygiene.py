@@ -26,7 +26,15 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.kernels.dual_update.kernel",
          "repro_torch.kernels.delay_ring.ops",
          "repro_torch.kernels.delay_ring.ref",
-         "repro_torch.kernels.delay_ring.kernel"]
+         "repro_torch.kernels.delay_ring.kernel",
+         # the LM slice
+         "repro_torch.models.common", "repro_torch.models.layers",
+         "repro_torch.models.transformer", "repro_torch.data.synthetic",
+         "repro_torch.configs.qwen1_5_0_5b", "repro_torch.configs.qwen3_1_7b",
+         "repro_torch.configs.yi_6b", "repro_torch.configs.chatglm3_6b",
+         "repro_torch.kernels.flash_attention.ops",
+         "repro_torch.kernels.flash_attention.ref",
+         "repro_torch.kernels.flash_attention.kernel"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -170,3 +178,48 @@ def test_kernel_impl_on_cpu_raises_and_launches_nothing(op):
             ring_push_pop(torch.zeros((2, 1, 256, 128)), f32,
                           torch.zeros((), dtype=torch.int32), impl="kernel")
     assert [k.launches for k in counters] == before
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_model(get_smoke_config(arch))
+        assert build_model(get_smoke_config(arch),
+                           device="cpu").device.type == "cpu"
+
+
+def _dense(**kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), **kw)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(family="moe"), "A.13"),
+    (dict(family="ssm"), "A.13"),
+    (dict(family="hybrid"), "A.13"),
+    (dict(family="vlm"), "A.13"),
+    (dict(family="encdec"), "A.13"),
+    (dict(family="cnn"), "A.8"),
+    (dict(prefix_lm=True), "A.13"),
+    (dict(logit_softcap=30.0), "A.13"),
+    (dict(sliding_window=16), "A.13"),
+    (dict(seq_parallel=True), "A.11"),
+    (dict(block_remat="dots"), "A.13"),
+])
+def test_unported_model_knobs_raise(kw, item):
+    from repro_torch.models.api import build_model
+    with pytest.raises(NotImplementedError, match=item):
+        build_model(_dense(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
+def test_decode_path_raises(entry):
+    from repro_torch.models.api import build_model
+    model = build_model(_dense(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        getattr(model, entry)(None, None)
