@@ -42,8 +42,9 @@ Phases (any failure raises and the script exits non-zero):
      beside a v2 ring for tau + 3 steps at the main path's arena, f32
      and int8: the same pops bit for bit, one v1 rotate launch a step,
      and ``convert_ring`` gives back the v2 ring's live slots;
-  6. the LM slice at full width: qwen1.5-0.5b FULL (all 24 layers,
-     d_model 1024, vocab 151,936 padded to 152,064) at the ``train_4k``
+  6. the LM slice at full width: qwen1.5-0.5b FULL cut to 8 of its 24
+     layers (d_model 1024, vocab 151,936 padded to 152,064; the cut keeps
+     the script within half its time limit) at the ``train_4k``
      length (4096 tokens). At the init weights, on one microbatch of 2
      sequences: the worker's gradient, leaf by leaf, and a no-grad eval
      (the forward without lse, once per layer), flash against xla in
@@ -62,7 +63,25 @@ Phases (any failure raises and the script exits non-zero):
   7. the LM slice at full width with 2 layers: seq 256, 4 sequences,
      3 steps, f32 compute, on the card (the flash kernels) against the
      CPU (the plain version), with phase 3's checks, and the worker's
-     gradient at the init weights leaf by leaf.
+     gradient at the init weights leaf by leaf;
+  8. the hybrid slice at full width: zamba2-2.7b (d_model 2560, 80
+     Mamba2 heads of 64, d_state 64, chunk 256, a shared attention block
+     of 32 heads of 80 and d_ff 10240 after every 6 layers, vocab 32,000)
+     cut to 36 layers (6 groups; 1.70B parameters: all 54 would not fit
+     the AMB-DG state on one card), seq 4096. At the init weights, on one
+     microbatch of 2 sequences: the worker's gradient leaf by leaf and a
+     no-grad eval, ``scan_impl="kernel"`` (the scan kernel) against
+     ``"xla"`` (the plain chunked scan) in f32 and bf16 compute. Then
+     AMB-DG as in phase 6 (8 sequences, 4 microbatches, tau 2, int8,
+     ``block_remat="full"``, l2 ball), 5 steps with each route: counts and
+     losses agree, w in the ball; the scan kernel launched 2 x 36 x 4
+     times a step forward and 3 x 36 x 4 in its backward forms, and no
+     plain scan (``ssd_chunked`` or the recurrence) called in that run;
+     the step split, peak memory and the kernel time split;
+  9. zamba2 at full width with one group of 6 layers: seq 512, 4
+     sequences, 3 steps, f32, the card (the scan kernel) against the CPU
+     (the plain recurrence), with phase 3's checks and the init-weight
+     gradient.
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -76,6 +95,15 @@ the element in bf16) plus 1e-5 of the tensor's largest element. Two
 launches of each give the same bits. Their yardstick is
 ``torch.nn.functional.scaled_dot_product_attention`` (forward; its
 backward for dq and dk/dv), timed here and used nowhere in the port.
+
+Phase 2 holds the linear-scan kernel against its plain recurrence at
+the four calls of zamba2's main path (the forward with bf16 q, k and an
+f32 v; the backward's dv, dk and dq forms on f32 operands, the latter
+two strict), each timed with its bound, and at JAX's three test shapes
+in f32 and bf16; each element within one ulp of y's dtype plus
+SCAN_F32_TOL of the largest, bitwise repeatable. No single PyTorch call
+computes the scan. The unnormalized dual update (the pytree wrapper's
+kernel) is held bitwise at 256 and 3,624,960 rows.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name
 and power limit from ``nvidia-smi``, and ``{"ok": true, ...}``. Without
@@ -96,6 +124,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM dense TF32 (f32 operands) on them
 N_TIMED = 25
 MAIN_STEPS = 12
 
@@ -631,7 +660,7 @@ def v1_phase(compression, device, cfg=None, tau=4):
 
 
 # -- flash attention (phase 2) -------------------------------------------------
-N_FLASH_TIMED = 10
+N_FLASH_TIMED = 5
 # (label, B, Hq, Hkv, Sq, Skv, D, window); causal, bf16. The first is the
 # main path's (qwen1.5-0.5b at train_4k, one microbatch of 2 sequences)
 FLASH_SHAPES = [
@@ -774,8 +803,165 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
     return out
 
 
+# -- the linear scan and the pytree dual update (phase 2) ---------------------
+N_SCAN_TIMED, N_SCAN_PLAIN = 5, 2
+SCAN_SYMBOL = "linear_scan_kernel"
+# the main path's scan (zamba2 at train_4k, one microbatch of 2 sequences:
+# 2 x 80 heads of 64, one B/C group of d_state 64, chunk 256; ssd_mamba2
+# feeds bf16 q, k and an f32 v = x dt): (label, BH, BHG, S, ds, hd, chunk,
+# q/k dtype, v dtype)
+SCAN_MAIN = ("zamba2", 160, 2, 4096, 64, 64, 256, "bfloat16", "float32")
+# JAX's test shapes (tests/test_kernels.py:41-45), f32 and bf16, untimed
+SCAN_JAX = [("jax-a", 4, 4, 256, 32, 64, 128), ("jax-b", 6, 2, 256, 16, 32, 64),
+            ("jax-c", 2, 2, 512, 64, 64, 128)]
+# kernel vs plain recurrence, element by element. Both keep an f32 state
+# and round y once to its dtype; the chunked form sums in another order.
+# limit(x) = SCAN_ULP * |want(x)| + SCAN_F32_TOL * max |want| (SCAN_F32_TOL
+# about ten times the reading over the main path's four calls, 3.3e-7 of
+# the largest element, NVIDIA H100 80GB HBM3, 700 W)
+SCAN_ULP = {"bfloat16": 2.0 ** -7, "float32": 0.0}
+SCAN_F32_TOL = 3e-6
+
+
+def scan_err(got, want, ulp):
+    """(max |got - want| over its element's limit, max |got - want|, that
+    over max |want|)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max()) or 1.0
+    diff = (g - w).abs()
+    return (float((diff / (ulp * w.abs() + SCAN_F32_TOL * top)).max()),
+            float(diff.max()), float(diff.max()) / top)
+
+
+def scan_bound(BH, BHG, S, ds, hd, chunk, strict, with_inter, q_elt, v_elt):
+    """The least time for one call: g, q, k and v read once and y (and
+    the f32 inter-chunk part) written once at 3.35 TB/s; the chunked form's products (per head and chunk of
+    L: the L(L+1)/2 scores, L(L-1)/2 when strict, of ds each and their
+    product with v, hd each; the inter-chunk term and the state update,
+    L ds hd each) at the tensor-core rate of the operands: bf16 when all
+    are bf16, else TF32."""
+    n_bytes = (4 * BH * S + 2 * BHG * S * ds * q_elt + 2 * BH * S * hd * v_elt
+               + (4 * BH * S * hd if with_inter else 0))
+    pairs = chunk * (chunk - 1 if strict else chunk + 1) // 2
+    flops = 2 * BH * (S // chunk) * (pairs * (ds + hd) + 2 * chunk * ds * hd)
+    rate = BF16_FLOPS_PER_S if q_elt == v_elt == 2 else TF32_FLOPS_PER_S
+    return bound_ms(n_bytes, flops, rate)
+
+
+def scan_main_forms(gen):
+    """The main path's four scan calls at SCAN_MAIN: the forward, and the
+    backward's dv, dk and dq forms on the operands ``scan_backward``
+    gives them for a random cotangent. Returns [(form, g, q, k, v,
+    strict, with_inter)]."""
+    import torch
+    from repro_torch.kernels.linear_scan.ops import scan_backward
+    _, BH, BHG, S, ds, hd, _, qd, vd = SCAN_MAIN
+    dev = torch.device("cuda")
+    g = -torch.rand((BH, S), generator=gen, device=dev) * 0.2
+    q = torch.randn((BHG, S, ds), generator=gen, device=dev).to(
+        getattr(torch, qd))
+    k = (torch.randn((BHG, S, ds), generator=gen, device=dev) * 0.1).to(
+        getattr(torch, qd))
+    v = torch.randn((BH, S, hd), generator=gen, device=dev).to(
+        getattr(torch, vd))
+    dy = torch.randn((BH, S, hd), generator=gen, device=dev)
+    calls = []
+
+    def record(*a):   # (g, q, k, v, strict, with_inter): v stands for y
+        calls.append(a)
+        return (a[3], a[3]) if a[5] else a[3]
+
+    scan_backward(record, g, q, k, v, dy, SCAN_MAIN[6])
+    return [("fwd", g, q, k, v, False, False)] + [
+        (form, *c) for form, c in zip(("bwd_dv", "bwd_dk", "bwd_dq"), calls)]
+
+
+def check_scan(form, label, g, q, k, v, strict, with_inter, chunk, timed_run):
+    """The scan kernel against its plain recurrence at one call's
+    operands (y, and with ``with_inter`` its inter-chunk part): element
+    errors, a bitwise repeat, and (``timed_run``) the kernel, wrapper and
+    plain times with the bound."""
+    import torch
+    from repro_torch.kernels.linear_scan import kernel as sk
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    counter = sk.FWD if form in ("fwd", "strict") else sk.BWD
+
+    def kern():
+        out = sk.linear_scan_fwd(g, q, k, v, chunk=chunk, strict=strict,
+                                 with_inter=with_inter, counter=counter)
+        return out if with_inter else (out,)
+
+    def plain():
+        out = linear_scan_ref(g, q, k, v, strict,
+                              chunk if with_inter else None)
+        return out if with_inter else (out,)
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    ulp = SCAN_ULP[str(v.dtype)[6:]]
+    errs = [scan_err(a, b, u) for a, b, u in zip(got, want, (ulp, 0.0))]
+    ratio, err, rel = (max(e[i] for e in errs) for i in range(3))
+    BH, S = g.shape
+    BHG, _, ds = q.shape
+    hd = v.shape[-1]
+    r = dict(kernel=form, label=label, BH=BH, BHG=BHG, S=S, ds=ds, hd=hd,
+             chunk=chunk, strict=strict, qk_dtype=str(q.dtype)[6:],
+             v_dtype=str(v.dtype)[6:], with_inter=with_inter,
+             bitwise=all(torch.equal(a, b) for a, b in zip(got, again)),
+             max_abs_err=err, rel_err=rel, err_over_limit=ratio,
+             library_ms=None)
+    del got, again, want
+    if timed_run:
+        ms, names = device_ms(kern, n=N_SCAN_TIMED, match=SCAN_SYMBOL)
+        plain_ms, plain_names = device_ms(plain, n=N_SCAN_PLAIN, warmup=1)
+        b_ms, by = scan_bound(BH, BHG, S, ds, hd, chunk, strict, with_inter,
+                              q.element_size(), v.element_size())
+        r.update(ms=ms, plain_ms=plain_ms, kernels=names,
+                 plain_kernels=len(plain_names),
+                 wrapper_ms=cuda_ms(kern, n=N_SCAN_TIMED),
+                 plain_wrapper_ms=cuda_ms(plain, n=N_SCAN_PLAIN, warmup=1),
+                 bound_ms=b_ms, bound_by=by)
+    torch.cuda.empty_cache()
+    return r
+
+
+def check_dual_update_pytree(rows, gen):
+    """The unnormalized update's kernel against its plain version on a
+    (rows, 128) arena, bitwise, with the times; ``pytree_ms``: the
+    pytree wrapper (flatten, the kernel, unflatten) on a two-leaf tree
+    of as many elements."""
+    import torch
+    from repro_torch.kernels.dual_update.kernel import dual_update_fwd
+    from repro_torch.kernels.dual_update.ops import dual_update
+    from repro_torch.kernels.dual_update.ref import dual_update_ref
+    dev = torch.device("cuda")
+    z = torch.randn((rows, 128), generator=gen, device=dev)
+    g = torch.randn((rows, 128), generator=gen, device=dev) * 300
+    alpha = torch.full((), 1.0 / (1.0 + math.sqrt(11 / 800)), device=dev)
+    zk, wk = dual_update_fwd(z.clone(), g, alpha)
+    zr, wr = dual_update_ref(z, g, alpha)
+    torch.cuda.synchronize()
+    equal = torch.equal(zk, zr) and torch.equal(wk, wr)
+    err = max_abs_err((zk, wk), (zr, wr))
+    del zk, wk, zr, wr
+    times = timed(lambda: dual_update_fwd(z, g, alpha),
+                  lambda: dual_update_ref(z, g, alpha), "dual_update_kernel")
+    flat_z, flat_g = z.view(-1), g.view(-1)
+    tz = {"a": flat_z[:-1000], "b": flat_z[-1000:]}
+    tg = {"a": flat_g[:-1000], "b": flat_g[-1000:]}
+    pytree_ms = cuda_ms(lambda: dual_update(tz, tg, alpha))
+    n = rows * 128
+    b_ms, by = bound_ms(16 * n + 4, 2 * n)
+    del z, g, tz, tg, flat_z, flat_g
+    torch.cuda.empty_cache()
+    return dict(rows=rows, pods=1, bitwise=equal, max_abs_err=err,
+                bound_ms=b_ms, bound_by=by, library_ms=None,
+                pytree_ms=pytree_ms, **times)
+
+
 # -- the LM slice (phases 6 and 7) ---------------------------------------------
 LM_STEPS = 5
+LM_LAYERS = 8         # of the 24: full width, cut in depth for time
 LM_RADIUS = 100.0     # the l2 ball of the dual-averaging prox
 # Flash (the kernels) against xla (gqa_attend) on the card. After the
 # first, empty pop dual averaging sets w = -alpha z = 0, so only step 0
@@ -802,11 +988,13 @@ LM_DEVICE_GRAD_TOL = 1e-4
 
 
 def lm_config(attn_impl, **kw):
-    """qwen1.5-0.5b FULL with ``attn_impl`` (and any overrides)."""
+    """qwen1.5-0.5b FULL at LM_LAYERS layers with ``attn_impl`` (and any
+    overrides)."""
     import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("qwen1.5-0.5b"),
-                               attn_impl=attn_impl, block_remat="full", **kw)
+                               attn_impl=attn_impl, block_remat="full",
+                               **{"n_layers": LM_LAYERS, **kw})
 
 
 def lm_run_config(cfg, seq_len, n_seqs, n_mb):
@@ -885,13 +1073,16 @@ def lm_weights_ok(params):
 
 def kernel_split(kernels, n_steps):
     """The profiler's device time per step, split into the flash
-    kernels, cuBLAS/CUTLASS products and the rest (copies apart)."""
+    kernels, the linear-scan kernel, cuBLAS/CUTLASS products and the
+    rest (copies apart)."""
     groups = collections.Counter()
     for name, us in kernels:
         if name.startswith(("Memcpy", "Memset")):
             g = "copy"
         elif "flash_" in name:
             g = "attention"
+        elif "linear_scan_kernel" in name:
+            g = "scan"
         elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet",
                                              "xmma", "cublas")):
             g = "cublas"
@@ -900,9 +1091,10 @@ def kernel_split(kernels, n_steps):
         groups[g] += us / 1e3 / n_steps
     total = sum(v for k, v in groups.items() if k != "copy")
     return dict({f"{k}_ms": groups.get(k, 0.0)
-                 for k in ("attention", "cublas", "rest", "copy")},
+                 for k in ("attention", "scan", "cublas", "rest", "copy")},
                 attention_share=groups.get("attention", 0.0) / total
-                if total else 0.0)
+                if total else 0.0,
+                scan_share=groups.get("scan", 0.0) / total if total else 0.0)
 
 
 def lm_eval(cfg, params, batch):
@@ -946,6 +1138,237 @@ def compare_lm_devices(gpu, cpu):
     return worst
 
 
+# -- the hybrid slice (phases 8 and 9) ------------------------------------------
+Z_LAYERS = 36       # 6 groups of 6 Mamba2 layers: 1.70B parameters
+Z_STEPS = 5
+# the scan kernel ("kernel") against the plain chunked scan ("xla") on the
+# card at the init weights, and the card against the CPU in phase 9. The
+# backward of 36 random-init layers amplifies rounding: two plain runs that
+# differ only in the scan's chunk (128 against 256, the same function in
+# exact arithmetic) already differ by up to 3.7e-3 of a leaf's largest
+# element in f32, and a bf16 gradient lies as far from the f32 one as the
+# gradient itself. So in f32 each leaf's kernel-vs-plain gap is held to
+# Z_F32_RATIO times that chunk-to-chunk gap plus Z_F32_FLOOR (the two
+# routes' summation orders at a shallow depth), and in bf16 each leaf's
+# distance to the f32 gradient to Z_BF16_GRAD_RATIO times the plain
+# route's; the losses and evals to Z_F32_RTOL / Z_BF16_RTOL. Each limit
+# is about two to ten times its first reading (NVIDIA H100 80GB HBM3,
+# 700 W): kernel over chunk-to-chunk gap at most 1.16 (ln_final, with the
+# floor), bf16 ratio at most 1.60 (w_in), bf16 losses 9.3e-5 apart, f32
+# losses equal.
+Z_F32_RATIO = 3.0
+Z_F32_FLOOR = 1e-5
+Z_F32_RTOL = 1e-5
+Z_BF16_GRAD_RATIO = 3.0
+Z_BF16_RTOL = 1e-3
+Z_DEVICE_GRAD_TOL = 1e-3
+
+
+def z_config(scan_impl, n_layers=Z_LAYERS, **kw):
+    """zamba2-2.7b FULL at ``n_layers`` with ``scan_impl`` (and any
+    overrides)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2-2.7b"), n_layers=n_layers,
+                               scan_impl=scan_impl, block_remat="full", **kw)
+
+
+class counting:
+    """Count the calls of ``module.name`` inside the ``with`` block (the
+    function is wrapped, and put back after)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        fn = self.original = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.calls += 1
+            return fn(*a, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.original)
+
+
+def hybrid_phase(drive, expect, n_mb, n_workers, seq):
+    """Phase 8: zamba2 at full width, Z_LAYERS layers, ``seq`` tokens: the
+    init-weight gradient and eval checks, then AMB-DG through ``train``
+    with the scan kernel and with the plain chunked scan. ``drive`` and
+    ``expect`` are main's launch-count helpers. Returns the record."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.api import build_model
+    zb = {}
+    per_step = Z_LAYERS * n_mb    # Mamba2 layers x microbatches
+    rcz = lm_run_config(z_config("kernel"), seq, 2 * n_workers, n_mb)
+    params0 = build_model(z_config("kernel"), device="cuda").init(
+        torch.Generator().manual_seed(rcz.seed))
+    host = TokenStream(z_config("kernel"), seed=1).next_batch(2, seq)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+    names = leaf_names(params0)
+    # the worker's gradient on one microbatch at the init weights: the
+    # kernel against the plain chunked scan, in f32 and bf16 compute, each
+    # leaf held against the f32 plain gradient; the plain route at chunk
+    # 128 gives the f32 noise floor
+    ref32, loss_ref = lm_grads(z_config("xla", compute_dtype="float32"),
+                               params0, batch)
+    zgap, zloss = {}, {"xla_float32": loss_ref}
+    chunk128 = dataclasses.replace(z_config("xla").ssm, chunk_size=128)
+    for tag, cfg in (
+            ("xla_chunk128_float32", z_config("xla", compute_dtype="float32",
+                                              ssm=chunk128)),
+            ("kernel_float32", z_config("kernel", compute_dtype="float32")),
+            ("kernel_bfloat16", z_config("kernel")),
+            ("xla_bfloat16", z_config("xla"))):
+        g_, zloss[tag] = lm_grads(cfg, params0, batch)
+        zgap[tag] = leaf_gaps(g_, ref32, names)
+        del g_
+        torch.cuda.empty_cache()
+    del ref32
+    torch.cuda.empty_cache()
+    zev = {}
+    zev["kernel_bfloat16"], n_zev = drive(lambda: lm_eval(
+        z_config("kernel"), params0, batch))
+    zev["xla_bfloat16"] = lm_eval(z_config("xla"), params0, batch)
+    del params0
+    torch.cuda.empty_cache()
+    zb["init_weights"] = dict(leaves=names, grad_gap_to_f32_xla=zgap,
+                              loss=zloss, eval=zev, eval_launches=n_zev)
+    for i, name in enumerate(names):
+        log(f"phase 8: init weights, gradient {name} against the f32 xla "
+            f"gradient: f32 kernel {zgap['kernel_float32'][i]:.3e}, xla at "
+            f"chunk 128 {zgap['xla_chunk128_float32'][i]:.3e}; bf16 kernel "
+            f"{zgap['kernel_bfloat16'][i]:.3e}, xla "
+            f"{zgap['xla_bfloat16'][i]:.3e} (of the leaf's largest element)")
+    log(f"phase 8: init weights, loss per token of the gradient batch "
+        f"{json.dumps(zloss)}; no-grad eval {json.dumps(zev)}; eval "
+        f"launches {n_zev}")
+    assert n_zev == expect(linear_scan_fwd=Z_LAYERS), n_zev
+    for i, name in enumerate(names):
+        assert zgap["kernel_float32"][i] <= (
+            Z_F32_RATIO * zgap["xla_chunk128_float32"][i] + Z_F32_FLOOR), (
+            name, zgap["kernel_float32"][i], zgap["xla_chunk128_float32"][i])
+        assert zgap["kernel_bfloat16"][i] <= (
+            Z_BF16_GRAD_RATIO * zgap["xla_bfloat16"][i]), (
+            name, zgap["kernel_bfloat16"][i], zgap["xla_bfloat16"][i])
+    for a, b, rtol in (("kernel_float32", "xla_float32", Z_F32_RTOL),
+                       ("kernel_bfloat16", "xla_bfloat16", Z_BF16_RTOL)):
+        assert math.isclose(zloss[a], zloss[b], rel_tol=rtol), (a, b, zloss)
+    assert math.isclose(zev["kernel_bfloat16"], zev["xla_bfloat16"],
+                        rel_tol=Z_BF16_RTOL), zev
+    zruns = {}
+    for impl in ("kernel", "xla"):
+        cfg = z_config(impl)
+        rc = lm_run_config(cfg, seq, 2 * n_workers, n_mb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with counting(ssm_mod, "ssd_chunked") as n_chunked, \
+                counting(scan_ops, "linear_scan_ref") as n_plain:
+            ((out, secs), kernels), n = drive(lambda: profiled(
+                lambda: run_lm(cfg, rc, Z_STEPS, n_workers, "cuda")))
+        if impl == "kernel":
+            # the forward and its recomputation under block_remat="full";
+            # the backward's dv, dk and dq forms; no plain scan at all
+            assert n == expect(dual_update=Z_STEPS, slot_rotate=Z_STEPS,
+                               linear_scan_fwd=2 * per_step * Z_STEPS,
+                               linear_scan_bwd=3 * per_step * Z_STEPS), n
+            assert n_chunked.calls == n_plain.calls == 0, (
+                n_chunked.calls, n_plain.calls)
+        else:
+            assert n == expect(dual_update=Z_STEPS, slot_rotate=Z_STEPS), n
+            assert n_chunked.calls == 2 * per_step * Z_STEPS, n_chunked.calls
+        peak = torch.cuda.max_memory_allocated()
+        norm = lm_weights_ok(out["state"].params)
+        hist = out["history"]
+        # a no-grad eval at the run's final weights, both routes
+        ev = {i: lm_eval(z_config(i), out["state"].params, batch)
+              for i in ("kernel", "xla")}
+        assert math.isclose(ev["kernel"], ev["xla"], rel_tol=Z_BF16_RTOL), ev
+        zruns[impl] = hist
+        zb[impl] = dict(
+            seconds=secs, launches=n, peak_gib=peak / 2 ** 30, w_norm=norm,
+            loss=[h["loss"] for h in hist],
+            applied_count=[h["applied_count"] for h in hist],
+            final_eval=ev, plain_scan_calls=n_plain.calls,
+            chunked_scan_calls=n_chunked.calls,
+            split=step_split(out, kernels) if kernels else None,
+            kernel_split=kernel_split(kernels, Z_STEPS) if kernels
+            else None)
+        del out
+        log(f"phase 8: zamba2 {Z_LAYERS} layers scan_impl={impl}: "
+            f"{Z_STEPS} steps in {secs:.2f} s; loss {zb[impl]['loss']}; "
+            f"applied_count {zb[impl]['applied_count']}; |w| = {norm:.4f}; "
+            f"peak {zb[impl]['peak_gib']:.2f} GiB; launches {n}; final-weight "
+            f"eval {json.dumps(ev)}")
+        if kernels:
+            log(f"phase 8: {impl}: step split {json.dumps(zb[impl]['split'])}")
+            log(f"phase 8: {impl}: kernel time per step "
+                f"{json.dumps(zb[impl]['kernel_split'])}")
+        else:
+            log(f"note: no step split for the {impl} run (the profiler "
+                "recorded nothing)")
+    for t, (a, b) in enumerate(zip(zruns["kernel"], zruns["xla"])):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert (a["applied_count"] == 0.0) == (t < 2), (t, a)
+        assert a["local_count"] == 2 * n_workers * (seq - 1), (t, a)
+        assert math.isfinite(a["loss"]), (t, a)
+        assert math.isclose(a["loss"], b["loss"], rel_tol=Z_BF16_RTOL), (
+            t, a["loss"], b["loss"])
+    return zb
+
+
+def hybrid_device_phase(drive, expect):
+    """Phase 9: zamba2 at full width with one group of 6 layers, seq 512,
+    4 sequences, 3 steps, f32: the card (the scan kernel) against the CPU
+    (the plain recurrence), with phase 3's checks and the init-weight
+    gradient. Returns the record."""
+    import torch
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models.api import build_model
+    cfg9 = z_config("kernel", n_layers=6, compute_dtype="float32")
+    rc9 = lm_run_config(cfg9, 512, 4, 2)
+    params9 = build_model(cfg9, device="cpu").init(
+        torch.Generator().manual_seed(rc9.seed))
+    host9 = TokenStream(cfg9, seed=1).next_batch(2, 512)
+    batch9 = {k: torch.from_numpy(v) for k, v in host9.items()}
+    g9_cpu, loss9_cpu = lm_grads(cfg9, params9, batch9)
+    leaves9, def9 = tree_flatten(params9)
+    g9_gpu, loss9_gpu = lm_grads(
+        cfg9, tree_unflatten(def9, [x.cuda() for x in leaves9]),
+        {k: v.cuda() for k, v in batch9.items()})
+    names9 = leaf_names(params9)
+    gap9 = leaf_gaps(g9_gpu, g9_cpu, names9)
+    log(f"phase 9: init weights, gradient card (kernel) vs cpu (plain), of "
+        f"each leaf's largest element: {json.dumps(dict(zip(names9, gap9)))}"
+        f"; loss per token {loss9_gpu} (card), {loss9_cpu} (cpu)")
+    assert all(g <= Z_DEVICE_GRAD_TOL for g in gap9), gap9
+    assert math.isclose(loss9_gpu, loss9_cpu, rel_tol=Z_F32_RTOL), (
+        loss9_gpu, loss9_cpu)
+    del g9_cpu, g9_gpu, params9, leaves9
+    (gpu9, secs9), n = drive(lambda: run_lm(cfg9, rc9, 3, 2, "cuda"))
+    assert n == expect(dual_update=3, slot_rotate=3,
+                       linear_scan_fwd=2 * 6 * 2 * 3,
+                       linear_scan_bwd=3 * 6 * 2 * 3), n
+    cpu9, cpu_secs9 = run_lm(cfg9, rc9, 3, 2, "cpu")
+    diff9, tol9 = compare_lm_devices(gpu9, cpu9)
+    out = dict(gpu_s=secs9, cpu_s=cpu_secs9, launches=n, init_grad_gap=gap9,
+               loss=[h["loss"] for h in gpu9["history"]], w_max_diff=diff9,
+               w_tol=tol9)
+    log(f"phase 9: zamba2 6 layers f32, 3 steps on cuda in {secs9:.2f} s, "
+        f"on cpu in {cpu_secs9:.2f} s; loss {out['loss']}"
+        f"; max |w_gpu - w_cpu| = {diff9:.3e} <= {tol9:.3e}; launches {n}")
+    del gpu9, cpu9
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -956,6 +1379,7 @@ def main():
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
     from repro_torch.kernels.dual_update import kernel as update_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.linear_scan import kernel as scan_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1048,6 +1472,47 @@ def main():
     for kind, rs in flash.items():       # every reading logged first
         for r in rs:
             assert r["bitwise"] and r["err_over_limit"] <= 1.0, (kind, r)
+    scan = []   # the main path's forward leads
+    for form, *ops in scan_main_forms(gen):
+        scan.append(check_scan(form, SCAN_MAIN[0], *ops, SCAN_MAIN[6],
+                               timed_run=True))
+        del ops
+        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    for label, BH, BHG, S, ds, hd, chunk in SCAN_JAX:
+        for dt in (torch.float32, torch.bfloat16):
+            g = -torch.rand((BH, S), generator=gen, device="cuda") * 0.2
+            q, k = (torch.randn((BHG, S, ds), generator=gen,
+                                device="cuda").to(dt) for _ in range(2))
+            v = torch.randn((BH, S, hd), generator=gen, device="cuda").to(dt)
+            for strict in (False, True):
+                scan.append(check_scan("fwd" if not strict else "strict",
+                                       label, g, q, k, v, strict, strict,
+                                       chunk, timed_run=False))
+    for r in scan:
+        times = ("" if "ms" not in r else
+                 f" ms={r['ms']:.4f} plain_ms="
+                 f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                 f"({r['bound_by']}) wrapper_ms={r['wrapper_ms']:.4f} "
+                 f"plain_wrapper_ms={r['plain_wrapper_ms']:.4f}")
+        log(f"phase 2: scan {r['kernel']} {r['label']} BH={r['BH']} "
+            f"BHG={r['BHG']} S={r['S']} ds={r['ds']} hd={r['hd']} chunk="
+            f"{r['chunk']} strict={r['strict']} with_inter={r['with_inter']} "
+            f"{r['qk_dtype']}/"
+            f"{r['v_dtype']}: bitwise-repeat={r['bitwise']} max_abs_err="
+            f"{r['max_abs_err']:.3e} rel_err={r['rel_err']:.3e} "
+            f"err/limit={r['err_over_limit']:.3f} <= 1{times}")
+    results["dual_update_pytree"] = [check_dual_update_pytree(rows, gen)
+                                     for rows in (256, big_rows)]
+    for r in results["dual_update_pytree"]:
+        log(f"phase 2: dual_update_pytree rows={r['rows']}: bitwise="
+            f"{r['bitwise']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+            f"bound_ms={r['bound_ms']:.5f} wrapper_ms={r['wrapper_ms']:.5f} "
+            f"pytree_ms={r['pytree_ms']:.5f}")
+    for r in scan:
+        assert r["bitwise"] and r["err_over_limit"] <= 1.0, r
+    for r in results["dual_update_pytree"]:
+        assert r["bitwise"] and r["max_abs_err"] == 0.0, r
     phase_done("phase 2", t0)
 
     counters = {"dual_update": update_kernel.KERNEL,
@@ -1057,7 +1522,10 @@ def main():
                 "flash_fwd": flash_kernel.FWD,
                 "flash_fwd_lse": flash_kernel.FWD_LSE,
                 "flash_bwd_dq": flash_kernel.DQ,
-                "flash_bwd_dkv": flash_kernel.DKV}
+                "flash_bwd_dkv": flash_kernel.DKV,
+                "dual_update_pytree": update_kernel.UPDATE,
+                "linear_scan_fwd": scan_kernel.FWD,
+                "linear_scan_bwd": scan_kernel.BWD}
     launches = dict.fromkeys(counters, 0)
 
     def drive(fn):
@@ -1159,7 +1627,7 @@ def main():
             f"bit for bit; launches {n}")
     phase_done("phase 5", t0)
 
-    # -- 6. the LM slice at full width: qwen1.5-0.5b, 24 layers, 4096 -------
+    # -- 6. the LM slice at full width: qwen1.5-0.5b, 8 layers, 4096 --------
     t0 = time.perf_counter()
     lm = {}
     n_mb, n_workers, seq = 4, 4, 4096
@@ -1346,6 +1814,16 @@ def main():
         f"<= {tol7:.3e}; launches {n}")
     del gpu7, cpu7
     phase_done("phase 7", t0)
+
+    # -- 8. the hybrid slice at full width: zamba2, 36 layers, 4096 ---------
+    t0 = time.perf_counter()
+    lm["zamba2"] = hybrid_phase(drive, expect, n_mb, n_workers, seq)
+    phase_done("phase 8", t0)
+
+    # -- 9. zamba2 at full width, one group of 6 layers: card against CPU ----
+    t0 = time.perf_counter()
+    lm["zamba2_6_layers"] = hybrid_device_phase(drive, expect)
+    phase_done("phase 9", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
@@ -1391,6 +1869,28 @@ def main():
                              for r in rs[1:]],
         }
 
+    def scan_entry(rs, n_fwd, n_bwd):
+        lead = rs[0]
+        keys = ("kernel", "label", "BH", "BHG", "S", "ds", "hd", "chunk",
+                "strict", "with_inter", "qk_dtype", "v_dtype", "ms",
+                "plain_ms", "bound_ms", "bound_by", "wrapper_ms",
+                "max_abs_err", "rel_err", "err_over_limit")
+        return {
+            "name": "linear_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:68",
+            "launches": n_fwd + n_bwd, "launches_fwd": n_fwd,
+            "launches_bwd": n_bwd,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": lead["ms"], "plain_ms": lead["plain_ms"],
+            "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],
+            "library_ms": None, "wrapper_ms": lead["wrapper_ms"],
+            "plain_wrapper_ms": lead["plain_wrapper_ms"],
+            "shape": {k: lead[k] for k in keys[:12]},
+            "other_shapes": [{k: r[k] for k in keys if k in r}
+                             for r in rs[1:]],
+        }
+
     ring_py = "src/repro/kernels/delay_ring/kernel.py"
     fa_py = "src/repro/kernels/flash_attention"
     sdpa = "torch.nn.functional.scaled_dot_product_attention"
@@ -1420,6 +1920,12 @@ def main():
         flash_entry("flash_bwd_dkv", f"{fa_py}/bwd.py:199 (_dkv_kernel)",
                     flash["dkv"], launches["flash_bwd_dkv"],
                     f"{sdpa} backward (dq, dk and dv in one call)"),
+        scan_entry(scan, launches["linear_scan_fwd"],
+                   launches["linear_scan_bwd"]),
+        entry("dual_update_pytree",
+              "src/repro_torch/kernels/csrc/dual_update.cu",
+              "src/repro/kernels/dual_update/kernel.py:73",
+              results["dual_update_pytree"], launches["dual_update_pytree"]),
     ]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -101,6 +101,9 @@ class ModelConfig:
     # "xla" (plain PyTorch attention, the JAX model's gqa_attend) |
     # "flash" (the port's CUDA flash-attention kernels on the card)
     attn_impl: str = "xla"
+    # "xla" (the plain chunked SSD scan, the JAX model's ssd_chunked) |
+    # "kernel" (the port's CUDA linear-scan kernel on the card)
+    scan_impl: str = "xla"
     scan_unroll: bool = False
     seq_parallel: bool = False
     block_remat: str = "full"
@@ -123,22 +126,32 @@ class ModelConfig:
     def n_params(self) -> int:
         """Analytic parameter count of the families the port carries,
         as the JAX package counts it (the unpadded vocab; qk-norm
-        scales not counted)."""
+        scales, the Mamba2 conv bias and dt bias not counted)."""
         if self.family == LINREG:
             return self.linreg_dim
+        if self.family not in (DENSE, HYBRID):
+            raise NotImplementedError(
+                f"n_params for family {self.family!r} comes with its model "
+                "(ROADMAP A.8, A.13)")
+        d, hd = self.d_model, self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+        if self.qkv_bias:
+            attn += (nq + 2 * nkv) * hd
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        total = emb + head + d
         if self.family == DENSE:
-            d, hd = self.d_model, self.resolved_head_dim
-            nq, nkv = self.n_heads, self.n_kv_heads
-            attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
-            if self.qkv_bias:
-                attn += (nq + 2 * nkv) * hd
-            per_layer = attn + 3 * d * self.d_ff + 2 * d
-            emb = self.vocab_size * d
-            head = 0 if self.tie_embeddings else self.vocab_size * d
-            return emb + head + d + self.n_layers * per_layer
-        raise NotImplementedError(
-            f"n_params for family {self.family!r} comes with its model "
-            "(ROADMAP A.8, A.13)")
+            return total + self.n_layers * (attn + 3 * d * self.d_ff + 2 * d)
+        s = self.ssm
+        d_in = s.expand * d
+        nh = d_in // s.head_dim
+        mamba2 = (d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
+                  + s.d_conv * (d_in + 2 * s.n_groups * s.d_state)
+                  + d_in * d + 2 * nh + d_in)
+        # one shared attention + MLP block, counted once
+        return (total + self.n_layers * (mamba2 + 2 * d)
+                + attn + 3 * d * self.d_ff + 2 * d)
 
 
 # ---------------------------------------------------------------------------

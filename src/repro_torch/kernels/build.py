@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("dual_update", "delay_ring", "variable_pop", "flash_attention")
+SOURCES = ("dual_update", "delay_ring", "variable_pop", "flash_attention",
+           "linear_scan")
 # no --use_fast_math: the kernels pin IEEE rounding with __f*_rn
 # intrinsics and must match the plain PyTorch version bit for bit
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,8 +11,8 @@ case architectures:
 
 ``params`` is a nested dict of tensors on ``model.device``. Families:
 the paper's linear regression (an ``nn.Module`` evaluated at the given
-tensors through ``functional_call``) and the DENSE transformers
-(``models.transformer``, functions over the tree). The decode path
+tensors through ``functional_call``), the DENSE transformers and the
+HYBRID zamba2 (``models.transformer``, functions over the tree). The decode path
 (``init_decode_state``, ``decode_step``) comes with serving (ROADMAP
 A.12) and raises.
 """
@@ -23,7 +23,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import CNN, DENSE, LINREG, ModelConfig
+from repro_torch.configs.base import CNN, DENSE, HYBRID, LINREG, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import linear as linear_mod
 from repro_torch.models import transformer as tf_mod
@@ -90,7 +90,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                          linear_mod.init(cfg, dev),
                      loss_fn=lambda p, b: torch.func.functional_call(
                          module, p, (b,)))
-    if cfg.family == DENSE:
+    if cfg.family in (DENSE, HYBRID):
         tf_mod.check_supported(cfg)
         return Model(cfg, device, init_fn=_lm_init(cfg),
                      loss_fn=lambda p, b: tf_mod.lm_loss(p, cfg, b))
@@ -98,4 +98,4 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         raise NotImplementedError("the CNN is not ported yet (ROADMAP A.8)")
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
-        "the port carries the DENSE family of the LLM zoo)")
+        "the port carries the DENSE and HYBRID families of the LLM zoo)")

@@ -1,0 +1,203 @@
+"""Mamba2 (SSD, state-space duality) block of the port
+(``repro/models/ssm.py``), the training path.
+
+Training uses the chunked SSD algorithm: within a chunk the output is a
+masked, decay-weighted attention-like product; across chunks a small
+(nh, hd, d_state) state is carried. ``cfg.scan_impl`` picks how:
+"xla" is ``ssd_chunked``, the JAX model's computation, in plain
+PyTorch; "kernel" is ``kernels.linear_scan.ops.ssd_mamba2``, the port's
+CUDA scan kernel on CUDA tensors (its plain recurrence on CPU tensors),
+which the JAX package keeps beside its model as the TPU target. The
+rounding points follow the JAX code. The decode path (the O(1)
+recurrence) comes with serving (ROADMAP A.12) and raises.
+
+Shapes follow the Mamba2 paper: input (B, S, d_model), inner dim
+d_in = expand * d, nh = d_in / head_dim heads, n_groups shared B/C
+groups.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.linear_scan.ops import ssd_mamba2
+from repro_torch.models.common import ParamFactory
+
+SCAN_IMPLS = ("xla", "kernel")
+
+
+def mamba2_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return d_in, d_in // s.head_dim
+
+
+def mamba2_init(f: ParamFactory, cfg: ModelConfig, name: str = "mamba"):
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, nh = mamba2_dims(cfg)
+    m = f.child(name)
+    # fused input projection -> [z, x, B, C, dt]
+    m.param("w_in", (d, 2 * d_in + 2 * s.n_groups * s.d_state + nh))
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    m.param("w_conv", (s.d_conv, conv_dim))
+    m.param("b_conv", (conv_dim,), init="zeros")
+    m.param("a_log", (nh,), init="ones")
+    m.param("dt_bias", (nh,), init="zeros")
+    m.param("d_skip", (nh,), init="ones")
+    m.param("norm_scale", (d_in,), init="ones")
+    m.param("w_out", (d_in, d))
+
+
+def _silu(x):
+    """jax.nn.silu's form, x * sigmoid(x): in bf16 the sigmoid rounds
+    before the product, as in JAX."""
+    return x * torch.sigmoid(x)
+
+
+def _softplus(x):
+    """jax.nn.softplus's form, logaddexp(x, 0)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def _split_proj(p, cfg: ModelConfig, u):
+    """u (B, S, d) -> z (B, S, d_in), xBC (B, S, conv_dim), dt (B, S, nh)."""
+    s = cfg.ssm
+    d_in, nh = mamba2_dims(cfg)
+    proj = u @ p["w_in"].to(u.dtype)
+    z = proj[..., :d_in]
+    xBC = proj[..., d_in:d_in + d_in + 2 * s.n_groups * s.d_state]
+    dt = proj[..., -nh:]
+    return z, xBC, dt
+
+
+def _causal_conv(p, xBC):
+    """Depthwise causal conv of width d_conv over xBC (B, S, C), then
+    silu; the taps are summed in JAX's order."""
+    w = p["w_conv"].to(xBC.dtype)                  # (W, C)
+    W, S = w.shape[0], xBC.shape[1]
+    xpad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = sum(xpad[:, i:i + S, :] * w[i] for i in range(W))
+    return _silu(out + p["b_conv"].to(xBC.dtype))
+
+
+def _gated_norm(p, y, z, eps):
+    y = y * _silu(z)
+    dtype = y.dtype
+    y32 = y.to(torch.float32)
+    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    y32 = y32 * torch.rsqrt(var + eps)
+    return (y32 * p["norm_scale"].to(torch.float32)).to(dtype)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int):
+    """Chunked SSD scan, the JAX model's (``ssd_chunked``).
+
+    x (Bt, S, nh, hd); dt (Bt, S, nh) post-softplus; A (nh,) negative
+    decay rates; B, C (Bt, S, g, d_state). Returns y (Bt, S, nh, hd) in
+    x's dtype and the final state (Bt, nh, hd, d_state) f32."""
+    Bt, S, nh, hd = x.shape
+    g = B.shape[2]
+    rep = nh // g
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    nc = S // chunk
+
+    xc = x.reshape(Bt, nc, chunk, nh, hd)
+    dtc = dt.reshape(Bt, nc, chunk, nh)
+    Bc = B.reshape(Bt, nc, chunk, g, -1)
+    Cc = C.reshape(Bt, nc, chunk, g, -1)
+
+    dA = dtc * A[None, None, None, :]                      # (Bt,nc,L,nh)
+    cum = torch.cumsum(dA, dim=2)                          # running log-decay
+    seg_total = cum[:, :, -1, :]                           # (Bt,nc,nh)
+
+    # intra-chunk: y_i += C_i . sum_{j <= i} exp(cum_i - cum_j) dt_j B_j x_j
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (Bt,nc,L,L,nh)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    # the mask comes BEFORE the exp: the i < j entries are > 0 and would
+    # overflow, and exp-then-mask puts inf * 0 = NaN into the gradient
+    diff = torch.where(mask[None, None, :, :, None], diff, -torch.inf)
+    L = torch.exp(diff)
+    CB = torch.einsum("bnigs,bnjgs->bnijg", Cc, Bc)        # (Bt,nc,L,L,g)
+    CB = torch.repeat_interleave(CB, rep, dim=-1)          # (Bt,nc,L,L,nh)
+    scores = CB * L * dtc[:, :, None, :, :]                # weight by dt_j
+    y_diag = torch.einsum("bnijh,bnjhd->bnihd", scores.to(x.dtype), xc)
+
+    # chunk states: the decay-weighted sum of B x within each chunk
+    decay_to_end = torch.exp(seg_total[:, :, None, :] - cum)
+    Bfull = torch.repeat_interleave(Bc, rep, dim=3) if g != nh else Bc
+    Bx = torch.einsum("bnlhs,bnlhd->bnhds", Bfull,
+                      (xc * (dtc * decay_to_end)[..., None]).to(Bfull.dtype))
+
+    # inter-chunk recurrence over the chunks (small state), f32
+    h = torch.zeros((Bt, nh, hd, Bc.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    Bx32, seg32 = Bx.to(torch.float32), seg_total.to(torch.float32)
+    h_in = []
+    for n in range(nc):
+        h_in.append(h)                                     # state entering n
+        h = h * torch.exp(seg32[:, n])[:, :, None, None] + Bx32[:, n]
+    h_in = torch.stack(h_in, dim=1)                        # (Bt,nc,nh,hd,s)
+
+    # inter-chunk contribution: y_i += exp(cum_i) C_i . h_in
+    Cfull = torch.repeat_interleave(Cc, rep, dim=3) if g != nh else Cc
+    y_off = torch.einsum("bnlhs,bnhds->bnlhd",
+                         Cfull * torch.exp(cum)[..., None].to(Cfull.dtype),
+                         h_in.to(Cfull.dtype))
+    y = (y_diag + y_off.to(y_diag.dtype)).reshape(Bt, S, nh, hd)
+    return y, h
+
+
+def mamba2_apply(p, cfg: ModelConfig, u):
+    """Full sequence (training). u (B, S, d) -> (B, S, d)."""
+    s = cfg.ssm
+    d_in, nh = mamba2_dims(cfg)
+    z, xBC, dt = _split_proj(p, cfg, u)
+    xBC = _causal_conv(p, xBC)
+    x = xBC[..., :d_in]
+    Bmat = xBC[..., d_in:d_in + s.n_groups * s.d_state]
+    Cmat = xBC[..., d_in + s.n_groups * s.d_state:]
+    Bt, S, _ = u.shape
+    chunk = min(s.chunk_size, S)
+    pad = (-S) % chunk
+    if pad:  # to a chunk multiple; the padded steps follow every real one
+        x = F.pad(x, (0, 0, 0, pad))
+        Bmat = F.pad(Bmat, (0, 0, 0, pad))
+        Cmat = F.pad(Cmat, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad), value=-30.0)
+    Sp = S + pad
+    x = x.reshape(Bt, Sp, nh, s.head_dim)
+    Bmat = Bmat.reshape(Bt, Sp, s.n_groups, s.d_state)
+    Cmat = Cmat.reshape(Bt, Sp, s.n_groups, s.d_state)
+    dt_act = _softplus(dt.to(torch.float32)
+                       + p["dt_bias"].to(torch.float32))
+    A = -torch.exp(p["a_log"].to(torch.float32))
+    if cfg.scan_impl == "kernel":
+        # the kernel returns the dtype of x * dt (f32): back to x's, as
+        # ssd_chunked returns it
+        y = ssd_mamba2(x, dt_act, A, Bmat, Cmat, chunk=chunk).to(x.dtype)
+    elif cfg.scan_impl == "xla":
+        y, _ = ssd_chunked(x, dt_act, A, Bmat, Cmat, chunk)
+    else:
+        raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}; expected "
+                         f"one of {SCAN_IMPLS}")
+    y = y + x * p["d_skip"].to(x.dtype)[None, None, :, None]
+    if pad:
+        y = y[:, :S]
+    y = y.reshape(Bt, S, d_in)
+    y = _gated_norm(p, y, z, cfg.norm_eps)
+    return y @ p["w_out"].to(u.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (the O(1) recurrence): with serving
+# ---------------------------------------------------------------------------
+def _decode_not_ported(*args, **kwargs):
+    raise NotImplementedError("the Mamba2 decode path is not ported yet "
+                              "(ROADMAP A.12)")
+
+
+mamba2_state_init = mamba2_state_axes = mamba2_decode = _decode_not_ported

@@ -1,6 +1,10 @@
-"""Decoder-only LM of the port (``repro/models/transformer.py``), the
-DENSE family: [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
-optional QKV bias and qk-norm, tied or untied head.
+"""Decoder-only LM of the port (``repro/models/transformer.py``), two
+families:
+
+  dense  : [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
+           optional QKV bias and qk-norm, tied or untied head;
+  hybrid : [Mamba2] x L with one *shared* attention + MLP block applied
+           after every ``shared_attn_every`` layers (zamba2).
 
 The parameter tree is the JAX one: a dict with the stacked ``layers``
 leaves along a leading ``n_layers`` dim, so ``core.arena``'s sorted-key
@@ -10,7 +14,9 @@ loops over the layers on ``torch.unbind`` slices of the stack: its
 backward stacks the layer gradients once, where indexing ``stacked[i]``
 would write a zero gradient of the whole stack per layer.
 ``block_remat="full"`` (JAX's ``jax.checkpoint`` per scanned block) is
-``torch.utils.checkpoint`` per layer; ``"none"`` saves everything.
+``torch.utils.checkpoint`` per layer (hybrid: per Mamba2 layer and per
+shared attention block; the shared MLP is not checkpointed, as in
+JAX); ``"none"`` saves everything.
 
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -23,8 +29,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
 from repro_torch.core.arena import tree_flatten, tree_unflatten
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.layers import (attention_apply, attention_init,
                                        causal_mask, embed_tokens,
@@ -44,10 +51,16 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every knob of ``cfg`` the port's transformer does not
     carry yet (never ignore one silently)."""
-    if cfg.family != DENSE:
+    if cfg.family not in (DENSE, HYBRID):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
-            "the port's transformer is the DENSE family)")
+            "the port's transformer carries the DENSE and HYBRID families)")
+    if cfg.family == HYBRID:
+        k = cfg.shared_attn_every
+        if cfg.ssm is None or k <= 0 or cfg.n_layers % k:
+            raise ValueError(
+                f"a hybrid model needs an ssm config and n_layers "
+                f"({cfg.n_layers}) a multiple of shared_attn_every ({k})")
     for knob, item in (("prefix_lm", "A.13"), ("logit_softcap", "A.13"),
                        ("sliding_window", "A.13")):
         if getattr(cfg, knob):
@@ -63,6 +76,9 @@ def check_supported(cfg: ModelConfig) -> None:
             "A.13); the port runs 'full' and 'none'")
     if cfg.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.scan_impl not in ssm_mod.SCAN_IMPLS:
+        raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}; expected "
+                         f"one of {ssm_mod.SCAN_IMPLS}")
     _dtype(cfg.param_dtype)
     _dtype(cfg.compute_dtype)
 
@@ -71,7 +87,12 @@ def check_supported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 def _layer_init(f: ParamFactory, cfg: ModelConfig):
+    """One stacked layer's params (dense: attention + MLP; hybrid: a
+    Mamba2 block)."""
     rmsnorm_init(f, "ln1", cfg.d_model)
+    if cfg.family == HYBRID:
+        ssm_mod.mamba2_init(f, cfg)
+        return
     attention_init(f, cfg)
     rmsnorm_init(f, "ln2", cfg.d_model)
     mlp_init(f, cfg)
@@ -86,6 +107,12 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
     embedding_init(f, cfg)
     rmsnorm_init(f, "ln_final", cfg.d_model)
     f.stacked_children("layers", cfg.n_layers, lambda g: _layer_init(g, cfg))
+    if cfg.family == HYBRID:
+        sh = f.child("shared_attn")
+        rmsnorm_init(sh, "ln1", cfg.d_model)
+        attention_init(sh, cfg)
+        rmsnorm_init(sh, "ln2", cfg.d_model)
+        mlp_init(sh, cfg)
     return f.params
 
 
@@ -98,6 +125,39 @@ def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask):
                             positions, mask)
     return h + mlp_apply(layer_p["mlp"], cfg,
                          rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+
+
+def _mamba_block_apply(layer_p, cfg: ModelConfig, h):
+    return h + ssm_mod.mamba2_apply(layer_p["mamba"], cfg,
+                                    rmsnorm(h, layer_p["ln1"], cfg.norm_eps))
+
+
+def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask):
+    return h + attention_apply(sh["attn"], cfg,
+                               rmsnorm(h, sh["ln1"], cfg.norm_eps),
+                               positions, mask)
+
+
+def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat):
+    """zamba2: groups of ``shared_attn_every`` Mamba2 layers, the one
+    shared attention + MLP block after each group."""
+    k = cfg.shared_attn_every
+    sh = params["shared_attn"]
+    layers = unbind_layers(params["layers"])
+    for g0 in range(0, cfg.n_layers, k):
+        for layer_p in layers[g0:g0 + k]:
+            h = _apply(remat, _mamba_block_apply, layer_p, cfg, h)
+        h = _apply(remat, _shared_attn_apply, sh, cfg, h, positions, mask)
+        h = h + mlp_apply(sh["mlp"], cfg, rmsnorm(h, sh["ln2"],
+                                                  cfg.norm_eps))
+    return h
+
+
+def _apply(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def unbind_layers(stacked) -> list:
@@ -120,12 +180,11 @@ def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
     mask = (None if cfg.attn_impl == "flash" else
             causal_mask(S, S, device=h.device))
     remat = cfg.block_remat == "full" and torch.is_grad_enabled()
-    for layer_p in unbind_layers(params["layers"]):
-        if remat:
-            h = checkpoint(_block_apply, layer_p, cfg, h, positions, mask,
-                           use_reentrant=False)
-        else:
-            h = _block_apply(layer_p, cfg, h, positions, mask)
+    if cfg.family == HYBRID:
+        h = _hybrid_forward(params, cfg, h, positions, mask, remat)
+    else:
+        for layer_p in unbind_layers(params["layers"]):
+            h = _apply(remat, _block_apply, layer_p, cfg, h, positions, mask)
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
     return output_logits(params, cfg, h)
 

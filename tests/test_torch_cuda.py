@@ -397,3 +397,146 @@ def test_lm_on_cuda_matches_cpu(cuda):
         wg, wc = wg.cpu().numpy(), wc.numpy()
         np.testing.assert_allclose(wg, wc, rtol=0,
                                    atol=1e-4 * np.abs(wc).max() + step)
+
+
+# -- the linear scan and the pytree dual update (the hybrid slice) ----------
+SCAN_CASES = [   # BH, BHG, S, ds, hd, chunk, q/k dtype, v dtype, decay
+    (4, 4, 256, 32, 64, 128, "float32", "float32", 0.1),
+    (6, 2, 256, 16, 32, 64, "float32", "float32", 0.1),      # grouped
+    (2, 2, 512, 64, 64, 128, "bfloat16", "bfloat16", 0.1),
+    (8, 2, 512, 64, 64, 256, "bfloat16", "float32", 0.1),    # the mapping's
+    (3, 1, 90, 128, 16, 45, "float32", "float32", 5.0),      # ragged chunk
+    (4, 1, 512, 64, 64, 64, "float32", "float32", 2.0),      # 8 chunks
+]
+
+
+def _scan_inputs(case, device, seed=0):
+    BH, BHG, S, ds, hd, _, qd, vd, decay = case
+    rng = np.random.default_rng(seed)
+    g = -np.abs(rng.standard_normal((BH, S))) * decay
+    q = rng.standard_normal((BHG, S, ds))
+    k = rng.standard_normal((BHG, S, ds)) * 0.1
+    v = rng.standard_normal((BH, S, hd))
+    return (_t(g.astype(np.float32), device),
+            _t(q.astype(np.float32), device).to(getattr(torch, qd)),
+            _t(k.astype(np.float32), device).to(getattr(torch, qd)),
+            _t(v.astype(np.float32), device).to(getattr(torch, vd)))
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_linear_scan_kernel_matches_plain(cuda, case, strict):
+    """The scan kernel (forward, and the strict form of the backward's
+    dq and dk calls), with its inter-chunk part, against the plain
+    recurrence on the card and on the CPU. Both keep an f32 state and
+    round y once: each element agrees to 5e-5 of the tensor's largest
+    element (the chunked form sums in another order) plus, for a bf16 y,
+    one ulp of the element. Two launches give the same bits."""
+    from repro_torch.kernels.linear_scan import kernel
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+    chunk = case[5]
+    g, q, k, v = _scan_inputs(case, cuda)
+    n0 = kernel.FWD.launches
+    y = kernel.linear_scan_fwd(g, q, k, v, chunk=chunk, strict=strict)
+    torch.cuda.synchronize()
+    assert kernel.FWD.launches == n0 + 1
+    assert y.dtype == v.dtype and y.shape == v.shape
+    ulp = 2.0 ** -7 if v.dtype == torch.bfloat16 else 0.0
+    y2, y_inter = kernel.linear_scan_fwd(g, q, k, v, chunk=chunk,
+                                         strict=strict, with_inter=True)
+    assert torch.equal(y2, y) and y_inter.dtype == torch.float32
+    for dev in (cuda, "cpu"):
+        want, want_inter = linear_scan_ref(*(x.to(dev) for x in (g, q, k, v)),
+                                           strict, chunk)
+        for a, b, u in ((y, want, ulp), (y_inter, want_inter, 0.0)):
+            a, b = a.float().cpu(), b.float().cpu()
+            limit = u * b.abs() + 5e-5 * float(b.abs().max() or 1.0)
+            assert bool(((a - b).abs() <= limit).all())
+    assert torch.equal(kernel.linear_scan_fwd(g, q, k, v, chunk=chunk,
+                                              strict=strict), y)
+
+
+def test_linear_scan_train_on_cuda_matches_cpu(cuda):
+    """``linear_scan_train`` on CUDA tensors (the kernel, three backward
+    launches) against the CPU's plain recurrence through the same
+    Function, f32, rep 3, with the cotangent sum(y cos y)."""
+    from repro_torch.kernels.linear_scan import kernel
+    from repro_torch.kernels.linear_scan.ops import linear_scan_train
+    case = (6, 2, 128, 16, 32, 32, "float32", "float32", 0.5)
+    inputs = _scan_inputs(case, "cpu", seed=3)
+
+    def grads(device):
+        ts = [x.to(device).requires_grad_(True) for x in inputs]
+        y = linear_scan_train(*ts, chunk=32)
+        torch.sum(y * torch.cos(y)).backward()
+        return [t.grad.cpu() for t in ts]
+
+    n0 = kernel.BWD.launches
+    got = grads(cuda)
+    assert kernel.BWD.launches == n0 + 3
+    for a, b in zip(got, grads("cpu")):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_dual_update_pytree_kernel_matches_plain_bitwise(cuda):
+    from repro_torch.kernels.dual_update import kernel
+    from repro_torch.kernels.dual_update.ops import dual_update
+    rng = np.random.default_rng(1)
+    shapes = [(10, 100), (77,), (3, 5, 7)]
+    z = {f"p{i}": rng.standard_normal(s).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    g = {f"p{i}": (rng.standard_normal(s) * 300).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    n0 = kernel.UPDATE.launches
+    got = dual_update({k: _t(v, cuda) for k, v in z.items()},
+                      {k: _t(v, cuda) for k, v in g.items()}, 0.37)
+    assert kernel.UPDATE.launches == n0 + 1
+    for dev in (cuda, "cpu"):
+        want = dual_update({k: _t(v, dev) for k, v in z.items()},
+                           {k: _t(v, dev) for k, v in g.items()}, 0.37,
+                           impl="ref")
+        for a, b in zip(got, want):
+            for k in z:
+                assert torch.equal(a[k].cpu(), b[k].cpu())
+
+
+@pytest.mark.parametrize("scan_impl", ["kernel", "xla"])
+def test_hybrid_on_cuda_matches_cpu(cuda, scan_impl):
+    """Three AMB-DG steps (tau 2, int8) of zamba2 SMOKE in f32 compute
+    on a 45-token sequence (padded to 64 inside the Mamba2 layers), the
+    card against the CPU; with scan_impl "kernel" the scan kernel
+    launches twice (forward and its recomputation) and its backward
+    forms three times per layer and microbatch."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (AmbdgConfig, MeshConfig,
+                                          RunConfig, TRAIN_4K)
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.kernels.linear_scan import kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"),
+                              compute_dtype="float32", scan_impl=scan_impl)
+    rc = RunConfig(model=cfg, shape=dataclasses.replace(TRAIN_4K, seq_len=45),
+                   mesh=MeshConfig(1, 1, 1),
+                   ambdg=AmbdgConfig(tau=2, n_microbatches=2, b_bar=8.0,
+                                     pod_compression="int8"))
+    loop = LoopConfig(n_steps=3, n_workers=2, samples_per_worker=2,
+                      log_every=1)
+    n0 = (kernel.FWD.launches, kernel.BWD.launches)
+    gpu = train(build_model(cfg, device=cuda), rc, loop, device=cuda)
+    per = cfg.n_layers * 2 * 3 if scan_impl == "kernel" else 0
+    assert (kernel.FWD.launches - n0[0], kernel.BWD.launches - n0[1]) == (
+        2 * per, 3 * per)
+    cpu = train(build_model(cfg, device="cpu"), rc, loop, device="cpu")
+    for a, b in zip(gpu["history"], cpu["history"]):
+        assert a["applied_count"] == b["applied_count"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+    step = max(float(s.max()) for s in cpu["state"].arena.scales) / \
+        cpu["history"][-1]["applied_count"]
+    for wg, wc in zip(tree_flatten(gpu["state"].params)[0],
+                      tree_flatten(cpu["state"].params)[0]):
+        wg, wc = wg.cpu().numpy(), wc.numpy()
+        np.testing.assert_allclose(wg, wc, rtol=0,
+                                   atol=1e-4 * np.abs(wc).max() + step)

@@ -1,19 +1,22 @@
-"""The port's fused dual-averaging update against the JAX package.
+"""The port's dual-averaging updates against the JAX package.
 
-The plain PyTorch version (what ``dual_update_arena`` runs on CPU
-tensors) is held BITWISE against the JAX reference
-``dual_update_fused_ref`` and the Pallas kernel in interpret mode, on
-the same numpy-seeded inputs. The CUDA kernel is held against the plain
-version on the card by ``tests/test_torch_cuda.py``.
+The plain PyTorch versions (what ``dual_update_arena`` and the pytree
+``dual_update`` run on CPU tensors) are held BITWISE against the JAX
+references ``dual_update_fused_ref`` / ``dual_update_ref`` and the
+Pallas kernels in interpret mode, on the same numpy-seeded inputs. The
+CUDA kernels are held against the plain versions on the card by
+``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.dual_update.ops import dual_update as jax_tree_update
 from repro.kernels.dual_update.ops import dual_update_arena as jax_update
 from repro.kernels.dual_update.ref import dual_update_fused_ref as jax_ref
-from repro_torch.kernels.dual_update.ops import dual_update_arena
+from repro.kernels.dual_update.ref import dual_update_ref as jax_plain_ref
+from repro_torch.kernels.dual_update.ops import dual_update, dual_update_arena
 
 # a step size as the schedule makes it: 1 / (1 + sqrt((t + tau) / b_bar))
 ALPHA_SCHEDULE = float(np.float32(1) / (np.float32(1) + np.sqrt(
@@ -61,3 +64,40 @@ def test_kernel_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA"):
         _port(z, g, 3.0, 0.5, impl="kernel")
 
+
+
+@pytest.mark.parametrize("shapes", [
+    [(7,)], [(128,)], [(10, 100), (77,), (3, 5, 7)],
+])
+@pytest.mark.parametrize("alpha", [0.37, ALPHA_SCHEDULE])
+def test_pytree_update_matches_jax_bitwise(shapes, alpha):
+    """The legacy pytree wrapper (z += g; w = -alpha z, no normalization)
+    on the trees of tests/test_kernels.py: its plain version bitwise
+    against JAX's wrapper over the Pallas kernel (interpret mode) and
+    against ``dual_update_ref`` leaf by leaf; the input trees are left
+    as they are."""
+    rng = np.random.default_rng(len(shapes))
+    z = {f"p{i}": rng.standard_normal(s).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    g = {f"p{i}": (rng.standard_normal(s) * 300).astype(np.float32)
+         for i, s in enumerate(shapes)}
+    tz = {k: torch.from_numpy(v.copy()) for k, v in z.items()}
+    zp, wp = dual_update(tz, {k: torch.from_numpy(v) for k, v in g.items()},
+                         alpha)
+    zk, wk = jax_tree_update({k: jnp.asarray(v) for k, v in z.items()},
+                             {k: jnp.asarray(v) for k, v in g.items()},
+                             alpha, interpret=True)
+    for k in z:
+        np.testing.assert_array_equal(tz[k].numpy(), z[k])
+        zr, wr = jax_plain_ref(jnp.asarray(z[k]), jnp.asarray(g[k]),
+                               jnp.float32(alpha))
+        for got, want in ((zp[k], zk[k]), (wp[k], wk[k]), (zp[k], zr),
+                          (wp[k], wr)):
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pytree_kernel_impl_on_cpu_tensors_raises():
+    with pytest.raises(ValueError, match="CUDA"):
+        dual_update({"w": torch.zeros(7)}, {"w": torch.ones(7)}, 0.5,
+                    impl="kernel")

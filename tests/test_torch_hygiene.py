@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs.base import XLSTMConfig
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
@@ -34,7 +36,12 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.configs.yi_6b", "repro_torch.configs.chatglm3_6b",
          "repro_torch.kernels.flash_attention.ops",
          "repro_torch.kernels.flash_attention.ref",
-         "repro_torch.kernels.flash_attention.kernel"]
+         "repro_torch.kernels.flash_attention.kernel",
+         # the hybrid slice
+         "repro_torch.models.ssm", "repro_torch.configs.zamba2_2_7b",
+         "repro_torch.kernels.linear_scan.ops",
+         "repro_torch.kernels.linear_scan.ref",
+         "repro_torch.kernels.linear_scan.kernel"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -149,16 +156,22 @@ def test_unported_loop_options_raise(tmp_path):
 
 
 @pytest.mark.parametrize("op", ["dual_update", "delay_ring",
-                                "variable_pop", "ring_rotate"])
+                                "variable_pop", "ring_rotate",
+                                "dual_update_pytree", "linear_scan"])
 def test_kernel_impl_on_cpu_raises_and_launches_nothing(op):
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
     from repro_torch.kernels.delay_ring.ops import (ring_push_pop,
                                                     ring_slot_rotate_int8,
                                                     ring_variable_pop)
     from repro_torch.kernels.dual_update import kernel as update_kernel
-    from repro_torch.kernels.dual_update.ops import dual_update_arena
-    counters = (update_kernel.KERNEL, ring_kernel.KERNEL,
-                ring_kernel.RING_KERNEL, ring_kernel.VARIABLE_POP_KERNEL)
+    from repro_torch.kernels.dual_update.ops import (dual_update,
+                                                     dual_update_arena)
+    from repro_torch.kernels.linear_scan import kernel as scan_kernel
+    from repro_torch.kernels.linear_scan.ops import ssd_mamba2
+    counters = (update_kernel.KERNEL, update_kernel.UPDATE,
+                ring_kernel.KERNEL, ring_kernel.RING_KERNEL,
+                ring_kernel.VARIABLE_POP_KERNEL, scan_kernel.FWD,
+                scan_kernel.BWD)
     before = [k.launches for k in counters]
     f32 = torch.zeros((1, 256, 128))
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -174,6 +187,14 @@ def test_kernel_impl_on_cpu_raises_and_launches_nothing(op):
             ring_variable_pop(torch.zeros((3, 1, 256, 128)),
                               torch.tensor([True, False, False]),
                               impl="kernel")
+        elif op == "dual_update_pytree":
+            dual_update({"w": torch.zeros(7)}, {"w": torch.ones(7)}, 0.5,
+                        impl="kernel")
+        elif op == "linear_scan":
+            x = torch.zeros((1, 64, 2, 16))
+            ssd_mamba2(x, torch.ones((1, 64, 2)), -torch.ones(2),
+                       torch.zeros((1, 64, 1, 16)),
+                       torch.zeros((1, 64, 1, 16)), chunk=32, impl="kernel")
         else:
             ring_push_pop(torch.zeros((2, 1, 256, 128)), f32,
                           torch.zeros((), dtype=torch.int32), impl="kernel")
@@ -185,7 +206,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
         pytest.skip("this host has CUDA: the default device is usable")
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.api import build_model
-    for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b"):
+    for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
+                 "zamba2-2.7b"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(get_smoke_config(arch))
         assert build_model(get_smoke_config(arch),
@@ -201,7 +223,7 @@ def _dense(**kw):
 @pytest.mark.parametrize("kw,item", [
     (dict(family="moe"), "A.13"),
     (dict(family="ssm"), "A.13"),
-    (dict(family="hybrid"), "A.13"),
+    (dict(family="ssm", xlstm=XLSTMConfig()), "A.13"),
     (dict(family="vlm"), "A.13"),
     (dict(family="encdec"), "A.13"),
     (dict(family="cnn"), "A.8"),
@@ -221,5 +243,31 @@ def test_unported_model_knobs_raise(kw, item):
 def test_decode_path_raises(entry):
     from repro_torch.models.api import build_model
     model = build_model(_dense(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A.12"):
+        getattr(model, entry)(None, None)
+
+
+def _hybrid(**kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("zamba2-2.7b"), **kw)
+
+
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(prefix_lm=True), NotImplementedError, "A.13"),
+    (dict(scan_impl="pallas"), ValueError, "scan_impl"),
+    (dict(n_layers=3), ValueError, "shared_attn_every"),
+    (dict(ssm=None), ValueError, "ssm config"),
+])
+def test_hybrid_model_knobs_raise(kw, error, match):
+    from repro_torch.models.api import build_model
+    with pytest.raises(error, match=match):
+        build_model(_hybrid(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
+def test_hybrid_decode_path_raises(entry):
+    from repro_torch.models.api import build_model
+    model = build_model(_hybrid(), device="cpu")
     with pytest.raises(NotImplementedError, match="A.12"):
         getattr(model, entry)(None, None)
