@@ -6,7 +6,10 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-     ``nvcc`` per source, all started together) and print the time;
+     ``nvcc`` per source, all started together) and print the time, each
+     kernel's registers and spills, and the count of wgmma instructions
+     (``HGMMA``) in the SASS of each flash kernel (``cuobjdump -sass``):
+     every bf16 kernel must hold some, the f32 ones none;
   2. hold each kernel against its plain PyTorch version on the card,
      bitwise, at the slice's arena (256 rows, one pod) and at an arena
      the size of qwen1.5-0.5b's 463,987,712 parameters (3,624,960 rows;
@@ -88,8 +91,11 @@ without lse, dq, dk/dv) against their plain versions on the card, in
 bf16 at the main path's shape (B = 2, 16 heads, S = 4096, D = 64,
 causal), at qwen3-1.7b's and yi-6b's GQA shapes (16/8 and 32/4 heads,
 D = 128, S = 4096), with a 1024-token window and with right-aligned
-queries (Sq = 256, Skv = 512); and in f32 at the main path's and the
-GQA shapes, on rows with no valid key and with a window at D = 128.
+queries (Sq = 256, Skv = 512), untimed on rows with no valid key, at a
+ragged GQA length and with a window at D = 128; and in f32 at the main
+path's and the GQA shapes, on rows with no valid key and with a window
+at D = 128. bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles),
+f32 the exact CUDA-core kernels.
 Each element is held on its own: within one ulp of its dtype (2^-7 of
 the element in bf16) plus 1e-5 of the tensor's largest element. Two
 launches of each give the same bits. Their yardstick is
@@ -255,6 +261,23 @@ def max_abs_err(got, want):
     return max(0.0 if torch.equal(a, b) else
                float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
                for a, b in zip(got, want))
+
+
+def sass_counts(library, mnemonic):
+    """{kernel name: how many instructions of ``mnemonic`` its SASS holds}
+    for each kernel of a built library (``cuobjdump -sass``)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and mnemonic in line:
+            counts[name] += 1
+    return counts
 
 
 def check_dual_update(rows, gen):
@@ -670,6 +693,14 @@ FLASH_SHAPES = [
     ("window-1024", 1, 16, 16, 4096, 4096, 64, 1024),
     ("right-aligned", 2, 16, 16, 256, 512, 64, None),
 ]
+# correctness only, bf16: the edges of the Hopper kernels' tiles and
+# masks, rows with no valid key (Sq > Skv), a ragged GQA length (192: a
+# part-filled last tile of every kernel), a window at D = 128
+FLASH_BF16_EDGES = [
+    ("no-valid-key", 1, 2, 2, 256, 128, 64, None),
+    ("gqa-ragged", 1, 8, 2, 192, 192, 128, None),
+    ("gqa-d128", 1, 8, 2, 512, 512, 128, 200),
+]
 # correctness only, f32: the main path's shape and the GQA shapes, rows
 # with no valid key (Sq > Skv), a window at D = 128
 FLASH_F32 = [
@@ -687,8 +718,9 @@ FLASH_F32 = [
 # in f32). limit(x) = FLASH_ULP * |want(x)| + FLASH_F32_TOL * max |want|
 FLASH_ULP = {"bfloat16": 2.0 ** -7, "float32": 0.0}
 FLASH_F32_TOL = 1e-5
-FLASH_SYMBOLS = {"fwd": "flash_fwd_kernel", "fwd_lse": "flash_fwd_kernel",
-                 "dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"}
+# the timed rows are bf16: the Hopper kernels' names in csrc
+FLASH_SYMBOLS = {"fwd": "flash_fwd_wgmma", "fwd_lse": "flash_fwd_wgmma",
+                 "dq": "flash_bwd_dq_wgmma", "dkv": "flash_bwd_dkv_wgmma"}
 
 
 def flash_err(got, want, ulp):
@@ -1401,6 +1433,12 @@ def main():
             if "registers" in line or "spill" in line or "Function prop" in \
                     line:
                 log(f"  {name}: {line.strip()}")
+    hgmma = sass_counts(build.library_path("flash_attention"), "HGMMA")
+    for name, n in sorted(hgmma.items()):
+        log(f"  flash_attention SASS: {n} HGMMA in {name}")
+    assert any("_wgmma" in name for name in hgmma), hgmma
+    for name, n in hgmma.items():
+        assert (n > 0) == ("_wgmma" in name), (name, n)
     phase_done("phase 1", t0)
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -1451,6 +1489,9 @@ def main():
     flash = collections.defaultdict(list)   # kind -> results, lead first
     for shape in FLASH_SHAPES:
         for r in check_flash(*shape, torch.bfloat16, gen):
+            flash[r["kernel"]].append(r)
+    for shape in FLASH_BF16_EDGES:
+        for r in check_flash(*shape, torch.bfloat16, gen, timed_run=False):
             flash[r["kernel"]].append(r)
     for shape in FLASH_F32:
         for r in check_flash(*shape, torch.float32, gen, timed_run=False):

@@ -7,8 +7,11 @@ sum).
 
 The wrappers check device, dtype (f32 or bf16, the same for every
 input), shapes (head dim 64 or 128, Hq a multiple of Hkv), contiguity
-and alignment, allocate the outputs, launch on PyTorch's current stream
-and raise on a non-zero ``cudaError_t``.
+and 16-byte alignment (TMA reads the bf16 tiles, and lse and delta in
+dk/dv), allocate the outputs, launch on PyTorch's current stream and
+raise on a non-zero ``cudaError_t``. Each entry takes both types: bf16
+runs the Hopper kernels (wgmma on TMA-loaded tiles), f32 the exact
+CUDA-core kernels.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ FWD = CudaKernel("flash_attention", "flash_fwd", [_P] * 4 + _SHAPE_ARGS)
 FWD_LSE = CudaKernel("flash_attention", "flash_fwd_lse",
                      [_P] * 5 + _SHAPE_ARGS)
 DQ = CudaKernel("flash_attention", "flash_bwd_dq", [_P] * 7 + _SHAPE_ARGS)
-DKV = CudaKernel("flash_attention", "flash_bwd_dkv", [_P] * 8 + _SHAPE_ARGS)
+DKV = CudaKernel("flash_attention", "flash_bwd_dkv", [_P] * 9 + _SHAPE_ARGS)
 
 
 def _check(q, k, v):
@@ -88,8 +91,8 @@ def _check_bwd(q, k, v, lse, delta, do):
     shape = _check(q, k, v)
     B, Hq, _, Sq = shape[:4]
     check_tensor("do", do, tuple(q.shape), q.dtype, q.device, 16)
-    check_tensor("lse", lse, (B, Hq, Sq), torch.float32, q.device, 4)
-    check_tensor("delta", delta, (B, Hq, Sq), torch.float32, q.device, 4)
+    check_tensor("lse", lse, (B, Hq, Sq), torch.float32, q.device, 16)
+    check_tensor("delta", delta, (B, Hq, Sq), torch.float32, q.device, 16)
     return shape
 
 
@@ -107,14 +110,20 @@ def flash_bwd_dq(q, k, v, lse, delta, do, *, causal: bool, window,
 def flash_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool, window,
                   scale: float):
     """(dk, dv) (B, Hkv, Skv, D) in k's dtype (B.7b's ``_dkv_kernel``
-    with the GQA group sum, taken in f32 inside the kernel)."""
+    with the GQA group sum, taken in f32 inside the kernel; the bf16
+    kernel sums the group's heads in an f32 scratch it is given)."""
     shape = _check_bwd(q, k, v, lse, delta, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    scratch = None
+    if q.dtype == torch.bfloat16 and q.shape[1] > k.shape[1]:
+        scratch = torch.empty((2, *k.shape), dtype=torch.float32,
+                              device=q.device)
     DKV.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               dk.data_ptr(), dv.data_ptr(), *shape, int(causal),
-               _window(window), float(scale))
+               dk.data_ptr(), dv.data_ptr(),
+               0 if scratch is None else scratch.data_ptr(), *shape,
+               int(causal), _window(window), float(scale))
     return dk, dv
 
 

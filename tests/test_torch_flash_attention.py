@@ -202,3 +202,85 @@ def test_kernel_impl_on_cpu_raises_and_launches_nothing(entry):
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.flash_fwd_lse(q, q, q, causal=True, window=None, scale=0.125)
     assert [c.launches for c in counters] == before
+
+
+# -- the rounding model of the bf16 Hopper kernels ---------------------------
+# The bf16 kernels (csrc/flash_attention.cu) run s = q k^T and dp = do v^T
+# as bf16 products with f32 accumulation (the products are exact in f32),
+# and each product with an f32-computed operand (p v, ds k, ds^T q,
+# p^T do) as two bf16 products on that operand's split hi = bf16(x),
+# lo = bf16(x - hi). On the card chip_smoke.py holds every element of
+# their outputs to ELEMENT_ULP |want| + ELEMENT_FLOOR max |want| against
+# the plain version (ref.py). Here the same numerics in plain torch meet
+# that limit on the CPU, and one bf16 rounding of the operand misses it.
+ELEMENT_ULP, ELEMENT_FLOOR = 2.0 ** -7, 1e-5
+MODEL_SHAPE = (1, 4, 2, 512)   # B, Hq, Hkv, S; causal
+
+
+def _product(x, y, rounding):
+    """x @ y for an f32-computed x and a bf16-valued y: as two bf16
+    products on x's hi/lo split ("split"), or on bf16(x) ("single")."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    if rounding == "single":
+        return hi @ y
+    return hi @ y + (x - hi).to(torch.bfloat16).to(torch.float32) @ y
+
+
+def _over_limit(got, want):
+    """The largest |got - want| over its element's limit (<= 1 passes)."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    limit = ELEMENT_ULP * w.abs() + ELEMENT_FLOOR * w.abs().max()
+    return float(((g - w).abs() / limit).max())
+
+
+def _modelled(kind, q, k, v, do, lse, delta, rounding):
+    """The kernel ``kind``'s outputs under the model, and the plain
+    version's (``ref``), from the same inputs, lse and delta."""
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    scale = D ** -0.5
+    f32 = torch.float32
+    kg, vg = (x.repeat_interleave(G, dim=1).to(f32) for x in (k, v))
+    qf, dof = q.to(f32), do.to(f32)
+    mask = ref.attention_mask(S, S, True, None, "cpu")
+    s = torch.where(mask, qf @ kg.transpose(-1, -2) * scale, ref.NEG_INF)
+    kw = dict(causal=True, window=None, scale=scale)
+    if kind == "fwd":
+        p = torch.exp(s - s.max(-1, keepdim=True).values)
+        o = _product(p, vg, rounding) / p.sum(-1, keepdim=True)
+        return [o.to(q.dtype)], [ref.attention_ref(q, k, v, causal=True)]
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dof @ vg.transpose(-1, -2) - delta[..., None]) * scale
+    if kind == "dq":
+        return ([_product(ds, kg, rounding).to(q.dtype)],
+                [ref.flash_bwd_dq_ref(q, k, v, lse, delta, do, **kw)])
+    group = (B, k.shape[1], G, S, D)
+    dk = _product(ds.transpose(-1, -2), qf, rounding).reshape(group).sum(2)
+    dv = _product(p.transpose(-1, -2), dof, rounding).reshape(group).sum(2)
+    return ([dk.to(k.dtype), dv.to(v.dtype)],
+            list(ref.flash_bwd_dkv_ref(q, k, v, lse, delta, do, **kw)))
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_split_operand_meets_the_element_limit(kind, D):
+    """The hi/lo split keeps each output within the element limit the
+    card holds the bf16 kernels to; a single bf16 rounding of the
+    f32-computed operand does not (it reads 24-46x the limit here)."""
+    B, Hq, Hkv, S = MODEL_SHAPE
+    rng = np.random.default_rng(D)
+    q, do = (torch.from_numpy(rng.standard_normal((B, Hq, S, D))
+                              .astype(np.float32)).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Hkv, S, D))
+                             .astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = ref.flash_fwd_lse_ref(q, k, v, causal=True, window=None,
+                                   scale=D ** -0.5)
+    delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
+    over = {}
+    for rounding in ("split", "single"):
+        got, want = _modelled(kind, q, k, v, do, lse, delta, rounding)
+        over[rounding] = max(_over_limit(g, w) for g, w in zip(got, want))
+    assert over["split"] <= 1.0, over
+    assert over["single"] > 10.0, over
