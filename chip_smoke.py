@@ -9,7 +9,9 @@ Phases (any failure raises and the script exits non-zero):
      ``nvcc`` per source, all started together) and print the time, each
      kernel's registers and spills, and the count of wgmma instructions
      (``HGMMA``) in the SASS of each flash kernel (``cuobjdump -sass``):
-     every bf16 kernel must hold some, the f32 ones none;
+     every bf16 kernel must hold some, the f32 ones none; and the count
+     of tensor-core instructions (``HMMA``) in each linear-scan kernel:
+     every chunk-state and output kernel must hold some;
   2. hold each kernel against its plain PyTorch version on the card,
      bitwise, at the slice's arena (256 rows, one pod) and at an arena
      the size of qwen1.5-0.5b's 463,987,712 parameters (3,624,960 rows;
@@ -79,8 +81,10 @@ Phases (any failure raises and the script exits non-zero):
      ``block_remat="full"``, l2 ball), 5 steps with each route: counts and
      losses agree, w in the ball; the scan kernel launched 2 x 36 x 4
      times a step forward and 3 x 36 x 4 in its backward forms, and no
-     plain scan (``ssd_chunked`` or the recurrence) called in that run;
-     the step split, peak memory and the kernel time split;
+     plain scan (``ssd_chunked`` or the recurrence) called in that run
+     (a scan call is three device kernels: the counts are calls);
+     the step split, peak memory and the kernel time split, with the
+     15 largest kernels of the rest by name;
   9. zamba2 at full width with one group of 6 layers: seq 512, 4
      sequences, 3 steps, f32, the card (the scan kernel) against the CPU
      (the plain recurrence), with phase 3's checks and the init-weight
@@ -107,7 +111,9 @@ the four calls of zamba2's main path (the forward with bf16 q, k and an
 f32 v; the backward's dv, dk and dq forms on f32 operands, the latter
 two strict), each timed with its bound, and at JAX's three test shapes
 in f32 and bf16; each element within one ulp of y's dtype plus
-SCAN_F32_TOL of the largest, bitwise repeatable. No single PyTorch call
+SCAN_F32_TOL of the largest, bitwise repeatable. A call is three device
+kernels (the chunk states, the state pass, the outputs: all named
+``linear_scan_*``); its time is their sum. No single PyTorch call
 computes the scan. The unnormalized dual update (the pytree wrapper's
 kernel) is held bitwise at 256 and 3,624,960 rows.
 
@@ -181,9 +187,11 @@ def profiled(fn):
         torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "spin_kernel" not in e.name]
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in events]
     if not sum(us for _, us in kernels):
         log("note: torch.profiler recorded no device time in one session")
         kernels = []
@@ -206,10 +214,11 @@ def profiled_kernels(fn, complete):
                        f"the device in {PROFILER_TRIES} sessions")
 
 
-def device_ms(fn, n=N_TIMED, warmup=3, match=None):
+def device_ms(fn, n=N_TIMED, warmup=3, match=None, per_call=1):
     """Device time of ``fn()`` from the profiler over ``n`` calls after
-    ``warmup``: with ``match``, the median duration of the kernels whose
-    name contains it (one per call, so the record must hold n of them);
+    ``warmup``: with ``match``, the median over the calls of the summed
+    duration of a call's kernels whose name contains it (``per_call`` of
+    them, in launch order, so the record must hold n * per_call);
     without, the summed duration of all kernels divided by ``n`` (the
     record must hold a multiple of n: every call launches the same
     kernels). Host time between launches is not counted. Also returns
@@ -226,14 +235,15 @@ def device_ms(fn, n=N_TIMED, warmup=3, match=None):
 
     def complete(kernels):
         m = len(mine(kernels))
-        return m == n if match is not None else m % n == 0
+        return m == n * per_call if match is not None else m % n == 0
 
     kernels = mine(profiled_kernels(calls, complete))
     us = [us for _, us in kernels]
     names = dict(collections.Counter(k for k, _ in kernels))
     if match is None:
         return sum(us) / n / 1e3, names
-    return statistics.median(us) / 1e3, names
+    return statistics.median(sum(us[i:i + per_call])
+                             for i in range(0, len(us), per_call)) / 1e3, names
 
 
 def timed(kernel_fn, plain_fn, symbol, n=N_TIMED):
@@ -837,7 +847,7 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
 
 # -- the linear scan and the pytree dual update (phase 2) ---------------------
 N_SCAN_TIMED, N_SCAN_PLAIN = 5, 2
-SCAN_SYMBOL = "linear_scan_kernel"
+SCAN_SYMBOL = "linear_scan_"   # every kernel of a call
 # the main path's scan (zamba2 at train_4k, one microbatch of 2 sequences:
 # 2 x 80 heads of 64, one B/C group of d_state 64, chunk 256; ssd_mamba2
 # feeds bf16 q, k and an f32 v = x dt): (label, BH, BHG, S, ds, hd, chunk,
@@ -846,6 +856,14 @@ SCAN_MAIN = ("zamba2", 160, 2, 4096, 64, 64, 256, "bfloat16", "float32")
 # JAX's test shapes (tests/test_kernels.py:41-45), f32 and bf16, untimed
 SCAN_JAX = [("jax-a", 4, 4, 256, 32, 64, 128), ("jax-b", 6, 2, 256, 16, 32, 64),
             ("jax-c", 2, 2, 512, 64, 64, 128)]
+# the edges of the chunk-parallel kernels, untimed: a chunk that is not a
+# multiple of 8 at ds 128, hd 128 (two column slices), one chunk (no state
+# pass), chunk 32, the largest tiles (f32 ds = hd = 128)
+SCAN_EDGES = [("ragged", 3, 1, 90, 128, 16, 45, "float32", "float32"),
+              ("hd128", 4, 2, 512, 64, 128, 128, "bfloat16", "float32"),
+              ("one-chunk", 2, 2, 256, 32, 32, 256, "float32", "float32"),
+              ("chunk32", 4, 1, 512, 16, 64, 32, "bfloat16", "bfloat16"),
+              ("ds128", 2, 1, 384, 128, 128, 128, "float32", "float32")]
 # kernel vs plain recurrence, element by element. Both keep an f32 state
 # and round y once to its dtype; the chunked form sums in another order.
 # limit(x) = SCAN_ULP * |want(x)| + SCAN_F32_TOL * max |want| (SCAN_F32_TOL
@@ -944,17 +962,62 @@ def check_scan(form, label, g, q, k, v, strict, with_inter, chunk, timed_run):
              library_ms=None)
     del got, again, want
     if timed_run:
-        ms, names = device_ms(kern, n=N_SCAN_TIMED, match=SCAN_SYMBOL)
+        per_call = sk.kernels_per_call(S, chunk)
+        ms, names = device_ms(kern, n=N_SCAN_TIMED, match=SCAN_SYMBOL,
+                              per_call=per_call)
         plain_ms, plain_names = device_ms(plain, n=N_SCAN_PLAIN, warmup=1)
         b_ms, by = scan_bound(BH, BHG, S, ds, hd, chunk, strict, with_inter,
                               q.element_size(), v.element_size())
         r.update(ms=ms, plain_ms=plain_ms, kernels=names,
+                 kernels_per_call=per_call,
                  plain_kernels=len(plain_names),
                  wrapper_ms=cuda_ms(kern, n=N_SCAN_TIMED),
                  plain_wrapper_ms=cuda_ms(plain, n=N_SCAN_PLAIN, warmup=1),
                  bound_ms=b_ms, bound_by=by)
     torch.cuda.empty_cache()
     return r
+
+
+def check_scan_rows(gen):
+    """Every scan row of phase 2: the main path's four calls (timed), then
+    JAX's shapes and the edge shapes (untimed), forward and strict with
+    the inter-chunk part. Returns the results, the main forward first."""
+    import torch
+    rows = []
+    for form, *ops in scan_main_forms(gen):
+        rows.append(check_scan(form, SCAN_MAIN[0], *ops, SCAN_MAIN[6],
+                               timed_run=True))
+        del ops
+        torch.cuda.empty_cache()
+    shapes = ([(*s, dt, dt) for s in SCAN_JAX
+               for dt in ("float32", "bfloat16")] + SCAN_EDGES)
+    for label, BH, BHG, S, ds, hd, chunk, qd, vd in shapes:
+        g = -torch.rand((BH, S), generator=gen, device="cuda") * 0.2
+        q, k = (torch.randn((BHG, S, ds), generator=gen,
+                            device="cuda").to(getattr(torch, qd))
+                for _ in range(2))
+        v = torch.randn((BH, S, hd), generator=gen, device="cuda").to(
+            getattr(torch, vd))
+        for strict in (False, True):
+            rows.append(check_scan("fwd" if not strict else "strict",
+                                   label, g, q, k, v, strict, strict,
+                                   chunk, timed_run=False))
+    return rows
+
+
+def log_scan_row(phase, r):
+    times = ("" if "ms" not in r else
+             f" ms={r['ms']:.4f} ({r['kernels_per_call']} kernels) "
+             f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+             f"({r['bound_by']}) wrapper_ms={r['wrapper_ms']:.4f} "
+             f"plain_wrapper_ms={r['plain_wrapper_ms']:.4f}")
+    log(f"{phase}: scan {r['kernel']} {r['label']} BH={r['BH']} "
+        f"BHG={r['BHG']} S={r['S']} ds={r['ds']} hd={r['hd']} chunk="
+        f"{r['chunk']} strict={r['strict']} with_inter={r['with_inter']} "
+        f"{r['qk_dtype']}/"
+        f"{r['v_dtype']}: bitwise-repeat={r['bitwise']} max_abs_err="
+        f"{r['max_abs_err']:.3e} rel_err={r['rel_err']:.3e} "
+        f"err/limit={r['err_over_limit']:.3f} <= 1{times}")
 
 
 def check_dual_update_pytree(rows, gen):
@@ -1103,30 +1166,51 @@ def lm_weights_ok(params):
     return norm
 
 
+REST_TOP = 15          # the largest kernels of the rest, by name
+REST_NAME_CHARS = 160  # a kernel's name in that list, cut to this
+
+
 def kernel_split(kernels, n_steps):
     """The profiler's device time per step, split into the flash
-    kernels, the linear-scan kernel, cuBLAS/CUTLASS products and the
-    rest (copies apart)."""
-    groups = collections.Counter()
+    kernels, the linear-scan kernels (all ``linear_scan_*``),
+    cuBLAS/CUTLASS products and the rest (copies apart); and the rest's
+    REST_TOP largest kernels by name, ms per step and launches per
+    step."""
+    groups, rest, rest_n = (collections.Counter() for _ in range(3))
     for name, us in kernels:
         if name.startswith(("Memcpy", "Memset")):
             g = "copy"
         elif "flash_" in name:
             g = "attention"
-        elif "linear_scan_kernel" in name:
+        elif "linear_scan_" in name:
             g = "scan"
         elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet",
                                              "xmma", "cublas")):
             g = "cublas"
         else:
             g = "rest"
+            rest[name[:REST_NAME_CHARS]] += us / 1e3 / n_steps
+            rest_n[name[:REST_NAME_CHARS]] += 1 / n_steps
         groups[g] += us / 1e3 / n_steps
     total = sum(v for k, v in groups.items() if k != "copy")
     return dict({f"{k}_ms": groups.get(k, 0.0)
                  for k in ("attention", "scan", "cublas", "rest", "copy")},
                 attention_share=groups.get("attention", 0.0) / total
                 if total else 0.0,
-                scan_share=groups.get("scan", 0.0) / total if total else 0.0)
+                scan_share=groups.get("scan", 0.0) / total if total else 0.0,
+                rest_top=[dict(name=k, ms=ms, launches=rest_n[k])
+                          for k, ms in rest.most_common(REST_TOP)])
+
+
+def log_kernel_split(phase, impl, split):
+    """One line of the split, then one line for each of the rest's
+    largest kernels."""
+    top = split["rest_top"]
+    log(f"{phase}: {impl}: kernel time per step " + json.dumps(
+        {k: v for k, v in split.items() if k != "rest_top"}))
+    for r in top:
+        log(f"{phase}: {impl}: rest {r['ms']:.3f} ms/step "
+            f"({r['launches']:.0f} launches/step): {r['name']}")
 
 
 def lm_eval(cfg, params, batch):
@@ -1235,6 +1319,7 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     import torch
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels.linear_scan import ops as scan_ops
+    from repro_torch.kernels.linear_scan.kernel import kernels_per_call
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.api import build_model
     zb = {}
@@ -1334,15 +1419,16 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
             kernel_split=kernel_split(kernels, Z_STEPS) if kernels
             else None)
         del out
+        per_call = kernels_per_call(seq, cfg.ssm.chunk_size)
         log(f"phase 8: zamba2 {Z_LAYERS} layers scan_impl={impl}: "
             f"{Z_STEPS} steps in {secs:.2f} s; loss {zb[impl]['loss']}; "
             f"applied_count {zb[impl]['applied_count']}; |w| = {norm:.4f}; "
-            f"peak {zb[impl]['peak_gib']:.2f} GiB; launches {n}; final-weight "
-            f"eval {json.dumps(ev)}")
+            f"peak {zb[impl]['peak_gib']:.2f} GiB; launches {n} (calls; a "
+            f"scan call is {per_call} device kernels); final-weight eval "
+            f"{json.dumps(ev)}")
         if kernels:
             log(f"phase 8: {impl}: step split {json.dumps(zb[impl]['split'])}")
-            log(f"phase 8: {impl}: kernel time per step "
-                f"{json.dumps(zb[impl]['kernel_split'])}")
+            log_kernel_split("phase 8", impl, zb[impl]["kernel_split"])
         else:
             log(f"note: no step split for the {impl} run (the profiler "
                 "recorded nothing)")
@@ -1439,6 +1525,12 @@ def main():
     assert any("_wgmma" in name for name in hgmma), hgmma
     for name, n in hgmma.items():
         assert (n > 0) == ("_wgmma" in name), (name, n)
+    hmma = sass_counts(build.library_path("linear_scan"), "HMMA")
+    for name, n in sorted(hmma.items()):
+        log(f"  linear_scan SASS: {n} HMMA in {name}")
+    assert any("linear_scan_out" in name for name in hmma), hmma
+    for name, n in hmma.items():
+        assert (n > 0) == ("linear_scan_pass" not in name), (name, n)
     phase_done("phase 1", t0)
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -1513,36 +1605,9 @@ def main():
     for kind, rs in flash.items():       # every reading logged first
         for r in rs:
             assert r["bitwise"] and r["err_over_limit"] <= 1.0, (kind, r)
-    scan = []   # the main path's forward leads
-    for form, *ops in scan_main_forms(gen):
-        scan.append(check_scan(form, SCAN_MAIN[0], *ops, SCAN_MAIN[6],
-                               timed_run=True))
-        del ops
-        torch.cuda.empty_cache()
-    torch.cuda.empty_cache()
-    for label, BH, BHG, S, ds, hd, chunk in SCAN_JAX:
-        for dt in (torch.float32, torch.bfloat16):
-            g = -torch.rand((BH, S), generator=gen, device="cuda") * 0.2
-            q, k = (torch.randn((BHG, S, ds), generator=gen,
-                                device="cuda").to(dt) for _ in range(2))
-            v = torch.randn((BH, S, hd), generator=gen, device="cuda").to(dt)
-            for strict in (False, True):
-                scan.append(check_scan("fwd" if not strict else "strict",
-                                       label, g, q, k, v, strict, strict,
-                                       chunk, timed_run=False))
+    scan = check_scan_rows(gen)   # the main path's forward leads
     for r in scan:
-        times = ("" if "ms" not in r else
-                 f" ms={r['ms']:.4f} plain_ms="
-                 f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-                 f"({r['bound_by']}) wrapper_ms={r['wrapper_ms']:.4f} "
-                 f"plain_wrapper_ms={r['plain_wrapper_ms']:.4f}")
-        log(f"phase 2: scan {r['kernel']} {r['label']} BH={r['BH']} "
-            f"BHG={r['BHG']} S={r['S']} ds={r['ds']} hd={r['hd']} chunk="
-            f"{r['chunk']} strict={r['strict']} with_inter={r['with_inter']} "
-            f"{r['qk_dtype']}/"
-            f"{r['v_dtype']}: bitwise-repeat={r['bitwise']} max_abs_err="
-            f"{r['max_abs_err']:.3e} rel_err={r['rel_err']:.3e} "
-            f"err/limit={r['err_over_limit']:.3f} <= 1{times}")
+        log_scan_row("phase 2", r)
     results["dual_update_pytree"] = [check_dual_update_pytree(rows, gen)
                                      for rows in (256, big_rows)]
     for r in results["dual_update_pytree"]:
@@ -1783,8 +1848,7 @@ def main():
         if kernels:
             log(f"phase 6: {impl}: step split "
                 f"{json.dumps(lm[impl]['split'])}")
-            log(f"phase 6: {impl}: kernel time per step "
-                f"{json.dumps(lm[impl]['kernel_split'])}")
+            log_kernel_split("phase 6", impl, lm[impl]["kernel_split"])
     hf, hx = runs["flash"]["history"], runs["xla"]["history"]
     for t, (a, b) in enumerate(zip(hf, hx)):
         assert a["applied_count"] == b["applied_count"], (t, a, b)
@@ -1922,6 +1986,7 @@ def main():
             "replaces": "src/repro/kernels/linear_scan/kernel.py:68",
             "launches": n_fwd + n_bwd, "launches_fwd": n_fwd,
             "launches_bwd": n_bwd,
+            "kernels_per_call": lead["kernels_per_call"],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": lead["ms"], "plain_ms": lead["plain_ms"],
             "bound_ms": lead["bound_ms"], "bound_by": lead["bound_by"],

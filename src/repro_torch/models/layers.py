@@ -9,8 +9,10 @@ comments name where a straightforward port would round elsewhere.
 (the JAX model's attention, whatever its knob says), "flash" the port's
 flash-attention kernels (``kernels.flash_attention``) on CUDA tensors,
 their plain version on CPU tensors. JAX's ``constrain`` calls are
-sharding hints and are left out; ``chunked_gqa_attend`` is exact, so
-the plain path computes ``gqa_attend`` at every length.
+sharding hints and are left out. Past ``_CHUNK_THRESHOLD`` tokens the
+plain path runs ``gqa_attend`` in exact q-blocks
+(``chunked_gqa_attend``), as JAX does, so it never forms the whole
+(S, S) score tensor there.
 """
 from __future__ import annotations
 
@@ -84,10 +86,11 @@ def apply_rope(x, positions, theta: float, partial: float = 1.0):
 # ---------------------------------------------------------------------------
 # Masks
 # ---------------------------------------------------------------------------
-def causal_mask(q_len: int, kv_len: int, device=None):
-    """(q_len, kv_len) bool, True = attend (the model-level window is not
-    ported: ``sliding_window`` raises, ROADMAP A.13)."""
-    q_pos = torch.arange(q_len, device=device)
+def causal_mask(q_len: int, kv_len: int, device=None, q_offset: int = 0):
+    """(q_len, kv_len) bool, True = attend; ``q_offset`` shifts the query
+    positions (a q-block of chunked attention). The model-level window is
+    not ported: ``sliding_window`` raises, ROADMAP A.13."""
+    q_pos = torch.arange(q_len, device=device) + q_offset
     kv_pos = torch.arange(kv_len, device=device)
     return q_pos[:, None] >= kv_pos[None, :]
 
@@ -151,6 +154,27 @@ def gqa_attend(q, k, v, mask):
     return out.reshape(B, Sq, Hq, D)
 
 
+_Q_CHUNK = 2048          # q-block size for long-sequence attention
+_CHUNK_THRESHOLD = 8192  # chunk when S exceeds this
+
+
+def chunks_queries(S: int) -> bool:
+    """Whether plain attention over S tokens runs in q-blocks (JAX's
+    rule in ``attention_apply``)."""
+    return S > _CHUNK_THRESHOLD and S % _Q_CHUNK == 0
+
+
+def chunked_gqa_attend(q, k, v, mask_fn):
+    """Exact attention in q-blocks of ``_Q_CHUNK`` queries, each softmax
+    over its full row: peak score memory O(_Q_CHUNK * S) instead of
+    O(S^2). ``mask_fn(q_offset, q_len)`` gives the block's (q_len, Skv)
+    bool mask. JAX pins the batch sharding of q, k and v here; on one
+    device there is nothing to pin (ROADMAP A.11)."""
+    c = _Q_CHUNK
+    return torch.cat([gqa_attend(q[:, i:i + c], k, v, mask_fn(i, c))
+                      for i in range(0, q.shape[1], c)], dim=1)
+
+
 def flash_attend(q, k, v):
     """Causal attention through the flash kernels: (B, S, H, D) in and
     out, (B, H, S, D) at the kernel API. With autograd recording (a
@@ -165,13 +189,17 @@ def flash_attend(q, k, v):
     return out.transpose(1, 2)
 
 
-def attention_apply(p, cfg: ModelConfig, x, positions, mask):
+def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None):
     """Full-sequence (training) attention, ``cfg.attn_impl`` choosing
-    the core."""
+    the core. For S beyond the chunk threshold, pass ``mask_fn`` to run
+    the plain core in exact q-blocks (``chunked_gqa_attend``); ``mask``
+    may then be None."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     B, S = x.shape[:2]
     if cfg.attn_impl == "flash":
         out = flash_attend(q, k, v)
+    elif mask_fn is not None and chunks_queries(S):
+        out = chunked_gqa_attend(q, k, v, mask_fn)
     else:
         out = gqa_attend(q, k, v, mask)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)

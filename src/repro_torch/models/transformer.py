@@ -34,10 +34,10 @@ from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.layers import (attention_apply, attention_init,
-                                       causal_mask, embed_tokens,
-                                       embedding_init, mlp_apply, mlp_init,
-                                       output_logits, rmsnorm, rmsnorm_init,
-                                       scalar)
+                                       causal_mask, chunks_queries,
+                                       embed_tokens, embedding_init,
+                                       mlp_apply, mlp_init, output_logits,
+                                       rmsnorm, rmsnorm_init, scalar)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -119,10 +119,11 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask):
+def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask,
+                 mask_fn=None):
     h = h + attention_apply(layer_p["attn"], cfg,
                             rmsnorm(h, layer_p["ln1"], cfg.norm_eps),
-                            positions, mask)
+                            positions, mask, mask_fn)
     return h + mlp_apply(layer_p["mlp"], cfg,
                          rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
 
@@ -132,13 +133,15 @@ def _mamba_block_apply(layer_p, cfg: ModelConfig, h):
                                     rmsnorm(h, layer_p["ln1"], cfg.norm_eps))
 
 
-def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask):
+def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask,
+                       mask_fn=None):
     return h + attention_apply(sh["attn"], cfg,
                                rmsnorm(h, sh["ln1"], cfg.norm_eps),
-                               positions, mask)
+                               positions, mask, mask_fn)
 
 
-def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat):
+def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat,
+                    mask_fn=None):
     """zamba2: groups of ``shared_attn_every`` Mamba2 layers, the one
     shared attention + MLP block after each group."""
     k = cfg.shared_attn_every
@@ -147,7 +150,8 @@ def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat):
     for g0 in range(0, cfg.n_layers, k):
         for layer_p in layers[g0:g0 + k]:
             h = _apply(remat, _mamba_block_apply, layer_p, cfg, h)
-        h = _apply(remat, _shared_attn_apply, sh, cfg, h, positions, mask)
+        h = _apply(remat, _shared_attn_apply, sh, cfg, h, positions, mask,
+                   mask_fn)
         h = h + mlp_apply(sh["mlp"], cfg, rmsnorm(h, sh["ln2"],
                                                   cfg.norm_eps))
     return h
@@ -177,14 +181,18 @@ def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
                                                      dtype)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :]
-    mask = (None if cfg.attn_impl == "flash" else
-            causal_mask(S, S, device=h.device))
+    mask_fn = lambda off, qn: causal_mask(qn, S, device=h.device,
+                                          q_offset=off)
+    # the whole (S, S) mask only where the plain core takes it unchunked
+    mask = (None if cfg.attn_impl == "flash" or chunks_queries(S) else
+            mask_fn(0, S))
     remat = cfg.block_remat == "full" and torch.is_grad_enabled()
     if cfg.family == HYBRID:
-        h = _hybrid_forward(params, cfg, h, positions, mask, remat)
+        h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn)
     else:
         for layer_p in unbind_layers(params["layers"]):
-            h = _apply(remat, _block_apply, layer_p, cfg, h, positions, mask)
+            h = _apply(remat, _block_apply, layer_p, cfg, h, positions, mask,
+                       mask_fn)
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
     return output_logits(params, cfg, h)
 

@@ -456,6 +456,32 @@ def test_linear_scan_kernel_matches_plain(cuda, case, strict):
                                               strict=strict), y)
 
 
+def test_linear_scan_takes_unaligned_views(cuda):
+    """Contiguous views that do not start on 16 bytes (the kernels load
+    by 16-byte ``cp.async``) give the same bits as aligned copies."""
+    from repro_torch.kernels.linear_scan import kernel
+    g, q, k, v = _scan_inputs((2, 1, 128, 16, 32, 32, "float32", "float32",
+                               0.5), cuda)
+    shifted = [torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(
+        x.shape) for x in (q, k, v)]
+    assert all(x.data_ptr() % 16 for x in shifted)
+    assert torch.equal(kernel.linear_scan_fwd(g, *shifted, chunk=32),
+                       kernel.linear_scan_fwd(g, q, k, v, chunk=32))
+
+
+def test_linear_scan_carries_a_nan(cuda):
+    """A NaN in v (the bits the card's own arithmetic gives, 0x7fffffff)
+    reaches every later output of its column, as in the recurrence."""
+    from repro_torch.kernels.linear_scan import kernel
+    g, q, k, v = _scan_inputs((2, 1, 128, 16, 32, 32, "float32", "float32",
+                               0.1), cuda)
+    v[0, 5, 0] = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(
+        torch.float32)
+    y = kernel.linear_scan_fwd(g, q, k, v, chunk=32)
+    assert bool(torch.isnan(y[0, 5:, 0]).all())
+    assert bool(torch.isfinite(y[1]).all())
+
+
 def test_linear_scan_train_on_cuda_matches_cpu(cuda):
     """``linear_scan_train`` on CUDA tensors (the kernel, three backward
     launches) against the CPU's plain recurrence through the same

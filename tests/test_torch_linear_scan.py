@@ -35,7 +35,7 @@ from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.linear_scan import kernel
 from repro_torch.kernels.linear_scan.ops import (linear_scan,
                                                  linear_scan_train,
-                                                 ssd_mamba2)
+                                                 scan_backward, ssd_mamba2)
 from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 from repro_torch.models.ssm import ssd_chunked
 
@@ -232,3 +232,136 @@ def test_backward_keeps_the_decay_gradient(rate, S):
     torch.sum(y64 * torch.cos(y64)).backward()
     for name, a, b in zip(("x", "dt", "A", "B", "C"), ts, t64):
         assert _rel(a.grad.numpy(), b.grad.numpy()) <= 1e-4, name
+
+
+# -- the arithmetic of the chunk-parallel CUDA kernels -----------------------
+# csrc/linear_scan.cu forms, per chunk of L steps, the chunk's own state
+# S_c = sum_j (k_j exp(seg - cum_j)) v_j^T, passes h_in[c] = exp(seg_{c-1})
+# h_in[c-1] + S_{c-1} along the chunks in f32, and writes
+# y_i = exp(cum_i) q_i . h_in + sum_{j <= i} exp(cum_i - cum_j) (q_i . k_j) v_j
+# (cum and every exponent in f64 before the f32 exp). Its products run on
+# TF32 tensor cores; an f32 operand x is split hi = tf32(x), lo = x - hi
+# (of which the tensor cores read the leading 11 bits) and each product is
+# lo*hi + hi*lo + hi*hi (3xTF32; a bf16 operand is exact in TF32). On the card chip_smoke.py holds every
+# element of y and y_inter to SCAN_ULP |want| + SCAN_F32_TOL max |want|
+# against the plain recurrence. Here the same arithmetic in plain torch
+# (f32 sums) meets that limit on the CPU, and a single TF32 rounding of
+# each operand misses it by far.
+SCAN_ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+SCAN_F32_TOL = 3e-6
+MODEL_SHAPE = (4, 2, 1024, 64, 64, 256)   # BH, BHG, S, ds, hd, chunk
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 fraction bits, to nearest, ties away from
+    zero: cvt.rna.tf32.f32) on its f32 bits."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _read(x):
+    """The leading 11 bits of x, as a TF32 product reads an f32 operand
+    (the low 13 bits of its fraction dropped)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _product(x, y, split):
+    """x @ y as the tensor cores form it: on the operands' 3xTF32 split
+    ("3xtf32"), or on one TF32 rounding of each ("tf32")."""
+    xh, yh = _tf32(x), _tf32(y)
+    if split == "tf32":
+        return xh @ yh
+    return _read(x - xh) @ yh + xh @ _read(y - yh) + xh @ yh
+
+
+def _chunk_parallel(g, q, k, v, strict, chunk, split):
+    """(y, y_inter) of the scan by the kernels' chunk-parallel form."""
+    BH, S = g.shape
+    rep = BH // q.shape[0]
+    qf, kf = (torch.repeat_interleave(x, rep, 0).float() for x in (q, k))
+    vf = v.float()
+    steps = torch.arange(chunk)
+    mask = steps[None, :] + int(strict) <= steps[:, None]
+    h = torch.zeros((BH, qf.shape[-1], vf.shape[-1]))
+    ys, inters = [], []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        cum = torch.cumsum(g[:, sl].double(), dim=1)
+        inter = (_product(qf[:, sl], h, split)
+                 * torch.exp(cum.float())[..., None])
+        diff = torch.where(mask, cum[:, :, None] - cum[:, None, :], 0.0)
+        p = torch.where(mask, _product(qf[:, sl], kf[:, sl].transpose(1, 2),
+                                       split) * torch.exp(diff.float()), 0.0)
+        ys.append(inter + _product(p, vf[:, sl], split))
+        inters.append(inter)
+        seg = cum[:, -1:]
+        k_dec = kf[:, sl] * torch.exp((seg - cum).float())[..., None]
+        h = (torch.exp(seg.float())[..., None] * h
+             + _product(k_dec.transpose(1, 2), vf[:, sl], split))
+    return torch.cat(ys, dim=1).to(v.dtype), torch.cat(inters, dim=1)
+
+
+_FORMS = {}
+
+
+def _main_forms(rate):
+    """The main path's four scan calls at MODEL_SHAPE, as chip_smoke.py's
+    ``scan_main_forms`` makes them: the forward (bf16 q and k, f32 v) and
+    the backward's dv, dk and dq forms on the operands ``scan_backward``
+    gives them for a random cotangent. Decays -rate x U(0, 1) a step
+    (0.2: the card's rows) or -rate x U(0.5, 1.5) (40: strong decay)."""
+    if rate not in _FORMS:
+        BH, BHG, S, ds, hd, chunk = MODEL_SHAPE
+        rng = np.random.default_rng(0)
+        u = rng.random((BH, S))
+        g = -rate * (u if rate < 1 else u + 0.5)
+        t = lambda x: torch.from_numpy(x.astype(np.float32))
+        q = t(rng.standard_normal((BHG, S, ds))).bfloat16()
+        k = (t(rng.standard_normal((BHG, S, ds))) * 0.1).bfloat16()
+        v = t(rng.standard_normal((BH, S, hd)))
+        dy = t(rng.standard_normal((BH, S, hd)))
+        calls = []
+
+        def record(*a):   # (g, q, k, v, strict, with_inter): v stands for y
+            calls.append(a)
+            return (a[3], a[3]) if a[5] else a[3]
+
+        scan_backward(record, t(g), q, k, v, dy, chunk)
+        _FORMS[rate] = dict(zip(("fwd", "bwd_dv", "bwd_dk", "bwd_dq"),
+                                [(t(g), q, k, v, False, False)] + calls))
+    return _FORMS[rate]
+
+
+def _over_limit(g, q, k, v, strict, split):
+    """The largest |model - recurrence| over its element's limit, y and
+    y_inter (<= 1 passes)."""
+    chunk = MODEL_SHAPE[-1]
+    got = _chunk_parallel(g, q, k, v, strict, chunk, split)
+    want = linear_scan_ref(g, q, k, v, strict, chunk)
+    over = 0.0
+    for a, b, ulp in zip(got, want, (SCAN_ULP[v.dtype], 0.0)):
+        a, b = a.float(), b.float()
+        limit = ulp * b.abs() + SCAN_F32_TOL * b.abs().max()
+        over = max(over, float(((a - b).abs() / limit).max()))
+    return over
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd_dv", "bwd_dk", "bwd_dq"])
+def test_split_meets_the_element_limit(form):
+    """3xTF32 keeps each main-path form within the limit the card holds
+    the kernels to (it reads 0.08-0.14 of it here); one TF32 rounding of
+    each operand reads over 100x it."""
+    g, q, k, v, strict, _ = _main_forms(0.2)[form]
+    assert _over_limit(g, q, k, v, strict, "3xtf32") <= 1.0
+    assert _over_limit(g, q, k, v, strict, "tf32") > 10.0
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd_dv", "bwd_dk", "bwd_dq"])
+def test_chunk_parallel_form_at_strong_decay(form):
+    """At about -40 a step (``test_backward_keeps_the_decay_gradient``'s
+    strong decay) every exp(cum_i - cum_j) but the nearest underflows and
+    exp(seg) is 0: the chunk states, the pass and the f64 exponents still
+    keep the model within the limit."""
+    g, q, k, v, strict, _ = _main_forms(40.0)[form]
+    assert _over_limit(g, q, k, v, strict, "3xtf32") <= 1.0

@@ -165,3 +165,68 @@ def test_dummy_batch_feeds_the_loss():
         loss, aux = model.loss(model.init(torch.Generator().manual_seed(0)),
                                batch)
     assert aux["count"].item() == 3 * 15 and torch.isfinite(loss)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b"])
+def test_long_sequence_attention_runs_in_q_blocks_as_in_jax(arch,
+                                                            monkeypatch):
+    """Past the chunk threshold the plain attention core runs in exact
+    q-blocks in both packages (dense blocks, and zamba2's shared block):
+    logits, loss and every gradient leaf agree with JAX in f32 (1e-5;
+    zamba2's decay leaves 5e-5, as in ``test_torch_hybrid_slice.py``),
+    and the port never forms a score over the whole (S, S). Both
+    packages' thresholds are lowered here (S = 64 over a threshold of
+    32, q-blocks of 16) so that the SMOKE configs take the chunked
+    path."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+    S, chunk = 64, 16
+    decay_leaves = ("['layers']['mamba']['a_log']",
+                    "['layers']['mamba']['dt_bias']")
+    for mod in (jlayers, layers):
+        monkeypatch.setattr(mod, "_CHUNK_THRESHOLD", 32)
+        monkeypatch.setattr(mod, "_Q_CHUNK", chunk)
+    jchunked, jcalls = jlayers.chunked_gqa_attend, []
+
+    def jax_chunked(q, k, v, mask_fn, softcap=None):
+        jcalls.append(q.shape[1])
+        return jchunked(q, k, v, mask_fn, softcap, chunk=chunk)
+
+    attend, scores = layers.gqa_attend, []
+
+    def port_attend(q, k, v, mask):
+        scores.append((q.shape[1], k.shape[1], tuple(mask.shape)))
+        return attend(q, k, v, mask)
+
+    monkeypatch.setattr(jlayers, "chunked_gqa_attend", jax_chunked)
+    monkeypatch.setattr(layers, "gqa_attend", port_attend)
+    jcfg = dataclasses.replace(jax_smoke_config(arch),
+                               compute_dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              attn_impl="xla")
+    jparams, _ = jtf.init(jax.random.PRNGKey(0), jcfg)
+    params = convert.params_from_jax(jax.device_get(jparams), device="cpu")
+    batch = TokenStream(cfg, seed=3).next_batch(2, S)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tol = TOL["float32"]
+
+    jlogits, _ = jtf.forward(jparams, jcfg, jbatch["tokens"])
+    with torch.no_grad():
+        logits = tf.forward(params, cfg, tbatch["tokens"])
+    assert _rel_err(logits, jlogits) <= tol["logits"]
+    (jloss, _), jgrads = jax.value_and_grad(
+        lambda p: jtf.lm_loss(p, jcfg, jbatch), has_aux=True)(jparams)
+    leaves, treedef = tree_flatten(params)
+    leaves = [x.requires_grad_(True) for x in leaves]
+    loss, _ = tf.lm_loss(arena.tree_unflatten(treedef, leaves), cfg, tbatch)
+    assert _rel_err(loss, jloss) <= tol["loss"]
+    grads = torch.autograd.grad(loss, leaves)
+    jleaves = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(grads) == len(jleaves)
+    for g, (path, jg) in zip(grads, jleaves):
+        name = jax.tree_util.keystr(path)
+        limit = 5e-5 if name in decay_leaves else tol["grads"]
+        assert _rel_err(g, jg) <= limit, (name, _rel_err(g, jg))
+    assert jcalls and set(jcalls) == {S}
+    assert scores and set(scores) == {(chunk, S, (chunk, S))}
