@@ -88,7 +88,29 @@ Phases (any failure raises and the script exits non-zero):
   9. zamba2 at full width with one group of 6 layers: seq 512, 4
      sequences, 3 steps, f32, the card (the scan kernel) against the CPU
      (the plain recurrence), with phase 3's checks and the init-weight
-     gradient.
+     gradient;
+ 10. the cluster simulator (``repro_torch.sim``) with its gradients on
+     the card, TF32 off: the golden traces of ``tests/golden/``
+     (``sim_trace.json``, both halves of ``stochastic_trace.json``;
+     bookkeeping columns exact, errors to rtol 1e-4, atol 1e-7), then
+     the paper's Sec. VI-A comparison at d = 10^4 through
+     ``api.simulate``: AMB-DG, AMB and K-batch over 250 simulated
+     seconds (more than 3x AMB's updates for AMB-DG, finite errors, no
+     clamped batch), with each scheme's host / device time split; the
+     simulator's pytree master launches no kernel;
+ 11. ``master_impl="pytree"`` against ``"arena"``: amb-linreg FULL,
+     12 steps, none and int8, through ``train`` with ``proximal="l2"``
+     (at smoothness 20, where the loss falls), bit for bit; then the
+     configuration's ``l2_ball`` with the two masters in lockstep on
+     the same gradients, z bit for bit and the params at JAX's
+     tolerance, the ball active; qwen1.5-0.5b at phase 7's size in
+     lockstep, bit for bit after every step. The arena master launches
+     the dual update (and under int8 the slot rotate) once a step, the
+     pytree master no kernel;
+ 12. ``strategy="kbatch"`` through ``train`` on amb-linreg FULL, 5
+     steps: ``ref_epoch`` ends at 6, the staleness is 0, the dual update
+     launches once a step, and the params equal the "amb" run's bit for
+     bit.
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -1487,6 +1509,352 @@ def hybrid_device_phase(drive, expect):
     return out
 
 
+# -- the simulator, the pytree master, the K-batch step (phases 10-12) --------
+SIM_TOTAL_S = 250.0    # simulated seconds of the Sec. VI-A comparison
+SIM_B_MAX = 160        # above the largest anytime draw b T_p / xi = 150
+SIM_TARGETS = (0.5, 0.35, 0.1)
+MASTER_STEPS = 12      # phase 11's linreg run; 3 for qwen1.5-0.5b
+L2_SMOOTHNESS = 20.0   # phase 11's l2 runs of linreg (see master_phase)
+KBATCH_STEPS = 5
+
+
+def linreg_config(dim):
+    from repro_torch.configs.base import LINREG, ModelConfig
+    return ModelConfig(name="linreg", family=LINREG, n_layers=0, d_model=0,
+                       n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=0,
+                       linreg_dim=dim)
+
+
+def sim_golden_phase():
+    """Phase 10a: ``tests/test_sim_golden.py``'s configurations on the card
+    (d = 64, 3 workers, seed 7, b_max 128, T_p 2.5, T_c 10, 60 s,
+    rng_seed 11): AMB-DG and AMB (``sim_trace.json``), and the
+    heavy-tailed delay (tau_max 6, seed 13) on both engines
+    (``stochastic_trace.json``). Times, epochs, minibatches, delays and
+    staleness equal the committed JSON; the errors agree to rtol 1e-4,
+    atol 1e-7. Returns {trace: (updates, largest relative error gap)}."""
+    import numpy as np
+    from repro_torch.configs.base import AmbdgConfig, DelayConfig
+    from repro_torch.core.delay_process import make_delay_process
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem, simulate_anytime, simulate_kbatch
+    root = Path(__file__).resolve().parent / "tests" / "golden"
+    golden = {name: json.loads((root / f"{name}.json").read_text())
+              for name in ("sim_trace", "stochastic_trace")}
+    opt = AmbdgConfig(t_p=2.5, t_c=10.0, tau=4, smoothness_L=1.0,
+                      b_bar=180.0, proximal="l2_ball",
+                      radius_C=float(1.05 * np.sqrt(64)))
+    common = dict(t_c=10.0, total_time=60.0, opt_cfg=opt, rng_seed=11,
+                  timing=ShiftedExponential(lam=2 / 3, xi=1.0, b=60))
+
+    def problem():
+        return SimProblem(linreg_config(64), n_workers=3, seed=7, b_max=128,
+                          device="cuda")
+
+    def delay():
+        return make_delay_process(DelayConfig(process="heavy_tail",
+                                              tau_max=6, seed=13),
+                                  opt.staleness)
+
+    runs = {
+        "sim_trace/ambdg": lambda: simulate_anytime(
+            problem(), t_p=2.5, scheme="ambdg", **common),
+        "sim_trace/amb": lambda: simulate_anytime(
+            problem(), t_p=2.5, scheme="amb", **common),
+        "stochastic_trace/ambdg": lambda: simulate_anytime(
+            problem(), t_p=2.5, scheme="ambdg", delay_process=delay(),
+            **common),
+        "stochastic_trace/kbatch": lambda: simulate_kbatch(
+            problem(), b_per_msg=32, K=3, t_p=2.5, delay_process=delay(),
+            **common)}
+    out = {}
+    for label, run in runs.items():
+        name, scheme = label.split("/")
+        want = golden[name][scheme]
+        tr = run()
+        got = {"times": [round(t, 9) for t in tr.times],
+               "epochs": list(tr.epochs),
+               "minibatches": [float(b) for b in tr.minibatches],
+               "staleness": [int(x) for x in tr.staleness],
+               "delays": [int(d) for d in tr.delays]}
+        for key in want:
+            if key != "errors":
+                assert got[key] == want[key], (label, key)
+        err, ref = np.asarray(tr.errors), np.asarray(want["errors"])
+        np.testing.assert_allclose(err, ref, rtol=1e-4, atol=1e-7,
+                                   err_msg=label)
+        out[label] = (len(tr.times),
+                      float(np.max(np.abs(err - ref) / np.abs(ref))))
+    g = golden["sim_trace"]
+    assert len(g["ambdg"]["times"]) > 3 * len(g["amb"]["times"])
+    return out
+
+
+def time_to(trace, target):
+    """Simulated seconds until the error first reaches ``target`` (None
+    if it never does)."""
+    return next((t for t, e in zip(trace.times, trace.errors)
+                 if e <= target), None)
+
+
+def sim_paper_phase():
+    """Phase 10b: the paper's Sec. VI-A comparison (Fig. 2 and 3) through
+    ``repro_torch.api.simulate`` at the full width d = 10^4 (amb-linreg
+    FULL): n = 10 workers (seed 0, rng_seed 0, as
+    ``examples/linreg_paper.py``), T_p 2.5, T_c 10, tau 4, b_bar 800,
+    the l2 ball of radius 1.05 sqrt(d), 250 simulated seconds; AMB-DG,
+    AMB and K-batch (b_per_msg 60, K 10). The batches are padded to
+    b_max = 160 rows, where the example pads to 1024: the largest
+    anytime draw is b T_p / xi = 150 and a K-batch job 60, so 160 clamps
+    nothing (``trace.clamps`` reads 0) and the 864 extra rows of zero
+    weight would only add host draws and device work. Checks the Fig. 2
+    contract (AMB-DG's updates more than 3x AMB's) and finite errors.
+    The split of each run: the host's numpy batch draws and its per
+    update error (the read of w to the host, which waits for the card),
+    against the card's kernel and copy time (profiler) and the wall
+    time. Returns {scheme: record}."""
+    import torch
+    from repro_torch import api
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem
+    cfg, rc = main_path_config()
+    opt = rc("none").ambdg
+    kw = dict(t_c=10.0, total_time=SIM_TOTAL_S, timing=ShiftedExponential(),
+              opt_cfg=opt)
+    out = {}
+    for name, extra in (("ambdg", dict(t_p=2.5)), ("amb", dict(t_p=2.5)),
+                        ("kbatch", dict(b_per_msg=60, K=10))):
+        problem = SimProblem(cfg, n_workers=10, b_max=SIM_B_MAX,
+                             device="cuda")
+        host = dict(batch_s=0.0, error_s=0.0, batches=0)
+
+        def timed_call(fn, key):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                res = fn(*a, **k)
+                host[key] += time.perf_counter() - t0
+                host["batches"] += key == "batch_s"
+                return res
+            return call
+
+        for stream in problem.streams:
+            stream.next_batch = timed_call(stream.next_batch, "batch_s")
+        problem.error = timed_call(problem.error, "error_s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr, kernels = profiled(lambda: api.simulate(name, problem, **kw,
+                                                    **extra))
+        wall = time.perf_counter() - t0
+        assert all(math.isfinite(e) for e in tr.errors), name
+        assert sum(tr.clamps) == 0, (name, tr.clamps)
+        copy_us = sum(us for k, us in kernels
+                      if k.startswith(("Memcpy", "Memset")))
+        out[name] = dict(
+            updates=len(tr.times), final_error=tr.errors[-1],
+            time_to={str(e): time_to(tr, e) for e in SIM_TARGETS},
+            worker_grads=host["batches"], wall_s=wall,
+            host_batch_s=host["batch_s"], host_error_s=host["error_s"],
+            device_kernel_s=(sum(us for _, us in kernels) - copy_us) / 1e6
+            if kernels else None,
+            device_copy_s=copy_us / 1e6 if kernels else None)
+        if name == "kbatch":
+            out[name]["staleness_histogram"] = dict(sorted(
+                collections.Counter(tr.staleness).items()))
+    assert out["ambdg"]["updates"] > 3 * out["amb"]["updates"], out
+    return out
+
+
+def compare_masters(arena, pytree, layout):
+    """Phase 11: the arena master's ``train`` run against the pytree
+    master's: every step's applied count and loss equal (the loss at
+    step t is taken at the weights of step t - 1, so equal losses mean
+    equal weights at every step), the final params and z bit for bit.
+    Returns the steps compared."""
+    import torch
+    from repro_torch.core.arena import tree_flatten, unflatten_tree
+    ha, hp = arena["history"], pytree["history"]
+    assert len(ha) == len(hp) > 0
+    for t, (a, b) in enumerate(zip(ha, hp)):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert a["loss"] == b["loss"], (t, a["loss"], b["loss"])
+        assert math.isfinite(a["loss"]), (t, a)
+    sa, sp = arena["state"], pytree["state"]
+    assert sp.arena is None and sa.buffer is None
+    for x, y in zip(tree_flatten(sa.params)[0], tree_flatten(sp.params)[0]):
+        assert torch.equal(x, y)
+    z_arena = unflatten_tree(layout, sa.opt_state.z, cast=False)
+    for x, y in zip(tree_flatten(z_arena)[0],
+                    tree_flatten(sp.opt_state.z)[0]):
+        assert torch.equal(x, y)
+    assert int(sa.opt_state.t) == int(sp.opt_state.t) == len(ha)
+    return len(ha)
+
+
+def masters_lockstep(cfg, rc, n_steps, n_workers, per_worker, seq_len=0,
+                     close=None):
+    """The arena and the pytree master side by side on the same pod
+    gradients (taken at the arena master's weights), ``n_steps`` steps of
+    the anytime pipeline (one pod). z is compared bit for bit after
+    every step, and so are the params, unless ``close`` = (rtol, atol)
+    holds them to that tolerance (the ``l2_ball`` rule, whose ball norm
+    the two masters sum in different orders). Returns the per-step
+    applied counts, the steps at which the ball projected w, and the
+    largest gap of the params."""
+    import torch
+    from repro_torch.core import ambdg, anytime, delayed
+    from repro_torch.core import arena as arena_mod
+    from repro_torch.core.arena import tree_flatten, tree_map, unflatten_tree
+    from repro_torch.data.pipeline import AnytimePipeline
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import make_arena_optimizer, make_optimizer
+    dev = torch.device("cuda")
+    model = build_model(cfg, device=dev)
+    layout = arena_mod.make_layout(model.param_shapes())
+    comp, tau = rc.ambdg.pod_compression, rc.ambdg.tau
+    opt_a, opt_p = make_arena_optimizer(rc, layout, dev), make_optimizer(rc)
+    pa = pp = model.init(torch.Generator().manual_seed(rc.seed))
+    oa, op = opt_a.init(), opt_p.init(pp)
+    ring = arena_mod.init_arena(layout, tau, 1, comp, device=dev)
+    buf = delayed.init_buffer(pp, tau, 1, comp)
+    pipe = AnytimePipeline(cfg, n_workers, per_worker, seq_len=seq_len,
+                           seed=rc.seed, timing=ShiftedExponential(),
+                           t_p=rc.ambdg.t_p)
+    counts, projected, gap = [], [], 0.0
+    for t in range(n_steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in pipe.next_global_batch().items()}
+        g, c, _ = anytime.accumulate_scan(model.loss, pa, batch,
+                                          rc.ambdg.n_microbatches)
+        pod_g, pod_c = tree_map(lambda x: x[None], g), c[None]
+        with torch.no_grad():
+            pa, oa, ring, _, ca = ambdg.arena_master_update(
+                layout, opt_a, pa, oa, ring, pod_g, pod_c, comp)
+            pp, op, buf, _, cp = ambdg.pytree_master_update(
+                opt_p, pp, op, buf, pod_g, pod_c, comp)
+        assert ca.item() == cp.item(), (t, ca, cp)
+        za = unflatten_tree(layout, oa.z, cast=False)
+        for x, y in zip(tree_flatten(za)[0], tree_flatten(op.z)[0]):
+            assert bool(torch.isfinite(x).all()) and torch.equal(x, y), t
+        for x, y in zip(tree_flatten(pa)[0], tree_flatten(pp)[0]):
+            assert bool(torch.isfinite(x).all()), t
+            if close is None:
+                assert torch.equal(x, y), t
+            else:
+                torch.testing.assert_close(x, y, rtol=close[0],
+                                           atol=close[1])
+            gap = max(gap, float((x - y).abs().max()))
+        if rc.ambdg.proximal == "l2_ball":
+            norm = math.sqrt(sum(float(torch.sum(torch.square(x)))
+                                 for x in tree_flatten(pp)[0]))
+            if abs(norm - rc.ambdg.radius_C) < 1e-5 * rc.ambdg.radius_C:
+                projected.append(t)
+        counts.append(ca.item())
+    assert counts[-1] > 0, counts
+    return dict(applied_count=counts, projected=projected, max_abs_gap=gap)
+
+
+def master_phase(drive, expect):
+    """Phase 11: ``master_impl="pytree"`` against ``"arena"`` on the card.
+    amb-linreg FULL through ``train`` with ``proximal="l2"`` (the bitwise
+    contract): tau 4, 12 steps, compression none and int8, one pod, at
+    smoothness L = 20: at the configuration's L = 1 the 4-deep delayed
+    steps overshoot and, with no ball to hold w, the loss grows without
+    bound; at 20 it falls, which the phase checks. Then the
+    configuration's own ``l2_ball`` rule (L = 1, the ball projecting w)
+    with the two masters in lockstep on the same gradients: z bit for
+    bit, the params at JAX's tolerance between its two masters (rtol
+    2e-6, atol 1e-8, ``tests/test_arena.py``), since the masters sum the
+    ball norm in different orders. Then qwen1.5-0.5b at phase 7's size
+    (2 layers, seq 256, 4 sequences, f32, tau 2, int8, 3 steps), a nested
+    tree, ``l2``, in lockstep: the model's own gradient need not repeat
+    bit for bit from run to run (its embedding gradient is a
+    scatter-add; on the CPU two runs differ by 6e-5), so two separate
+    runs would compare the model, not the master. The arena master
+    launches the dual update once a step (and the int8 slot rotate once
+    a step); the pytree master launches no kernel. Returns {run:
+    record}."""
+    import dataclasses
+    from repro_torch.core import arena as arena_mod
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    cfg, rc_of = main_path_config()
+    loop = LoopConfig(n_steps=MASTER_STEPS, n_workers=10,
+                      samples_per_worker=150, log_every=1)
+    out = {}
+
+    def l2(rc, master="arena", **ambdg):
+        return rc.replace(master_impl=master, ambdg=dataclasses.replace(
+            rc.ambdg, proximal="l2", **ambdg))
+
+    for compression in ("none", "int8"):
+        runs = {}
+        for master in ("arena", "pytree"):
+            rc = l2(rc_of(compression), master, smoothness_L=L2_SMOOTHNESS)
+            runs[master], n = drive(lambda: train(
+                build_model(cfg, device="cuda"), rc, loop, device="cuda"))
+            steps = MASTER_STEPS if master == "arena" else 0
+            assert n == expect(dual_update=steps, slot_rotate=steps if
+                               compression == "int8" else 0), (master, n)
+            out[f"linreg/{compression}/{master}"] = dict(launches=n)
+        layout = arena_mod.make_layout(
+            build_model(cfg, device="cuda").param_shapes())
+        loss = [h["loss"] for h in runs["arena"]["history"]]
+        assert loss[-1] < loss[0], loss
+        out[f"linreg/{compression}"] = dict(
+            steps=compare_masters(runs["arena"], runs["pytree"], layout),
+            loss=loss)
+        rec, n = drive(lambda: masters_lockstep(
+            cfg, rc_of(compression), MASTER_STEPS, 10, 150,
+            close=(2e-6, 1e-8)))
+        assert n == expect(dual_update=MASTER_STEPS, slot_rotate=MASTER_STEPS
+                           if compression == "int8" else 0), n
+        assert rec["projected"], rec    # the ball was active
+        out[f"linreg-l2_ball/{compression}"] = dict(rec, launches=n)
+    cfg7 = lm_config("flash", n_layers=2, compute_dtype="float32")
+    rc7 = l2(lm_run_config(cfg7, 256, 4, 2))
+    rec, n = drive(lambda: masters_lockstep(cfg7, rc7, 3, 2, 2, seq_len=256))
+    assert n == expect(dual_update=3, slot_rotate=3,
+                       flash_fwd_lse=2 * 2 * 2 * 3, flash_bwd_dq=2 * 2 * 3,
+                       flash_bwd_dkv=2 * 2 * 3), n
+    out["qwen"] = dict(steps=3, applied_count=rec["applied_count"],
+                       launches=n)
+    return out
+
+
+def kbatch_phase(drive, expect):
+    """Phase 12: ``strategy="kbatch"`` through ``train`` (``api.build``)
+    on amb-linreg FULL, 5 steps, no compression: ``ref_epoch`` ends at 6,
+    every step's staleness is 0, the dual update launches once a step,
+    and the params equal the "amb" strategy's run bit for bit (the
+    K-batch device step is the tau = 0 degenerate). Returns the
+    record."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    cfg, rc_of = main_path_config()
+    loop = LoopConfig(n_steps=KBATCH_STEPS, n_workers=10,
+                      samples_per_worker=150, log_every=1)
+    runs, launches = {}, {}
+    for strategy in ("kbatch", "amb"):
+        rc = rc_of("none").replace(strategy=strategy)
+        runs[strategy], n = drive(lambda: train(
+            build_model(cfg, device="cuda"), rc, loop, device="cuda"))
+        assert n == expect(dual_update=KBATCH_STEPS), (strategy, n)
+        launches[strategy] = n
+    kb, amb = runs["kbatch"], runs["amb"]
+    assert int(kb["state"].ref_epoch) == KBATCH_STEPS + 1
+    assert all(h["staleness"] == 0.0 for h in kb["history"]), kb["history"]
+    assert torch.equal(kb["state"].base.params["w"],
+                       amb["state"].params["w"])
+    for a, b in zip(kb["history"], amb["history"]):
+        assert a["loss"] == b["loss"] and a["applied_count"] == b[
+            "applied_count"] > 0, (a, b)
+    return dict(launches=launches, ref_epoch=int(kb["state"].ref_epoch),
+                staleness=[h["staleness"] for h in kb["history"]],
+                loss=[h["loss"] for h in kb["history"]])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1929,8 +2297,40 @@ def main():
     t0 = time.perf_counter()
     lm["zamba2_6_layers"] = hybrid_device_phase(drive, expect)
     phase_done("phase 9", t0)
+
+    # -- 10. the cluster simulator on the card ------------------------------
+    t0 = time.perf_counter()
+    # the simulator's errors are held at rtol 1e-4 to the golden traces:
+    # its f32 products run without TF32, whatever an earlier phase set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    simulator = {}
+    simulator["golden"], n = drive(sim_golden_phase)
+    assert n == expect(), n       # the pytree master launches no kernel
+    for label, (updates, rel) in simulator["golden"].items():
+        log(f"phase 10: golden {label}: {updates} updates, exact columns "
+            f"equal, errors within rtol {rel:.3e} <= 1e-4")
+    simulator["paper"], n = drive(sim_paper_phase)
+    assert n == expect(), n
+    for name, r in simulator["paper"].items():
+        log(f"phase 10: Sec. VI-A d=10^4 {name}: {json.dumps(r)}")
+    phase_done("phase 10", t0)
+
+    # -- 11. the pytree master against the arena master ---------------------
+    t0 = time.perf_counter()
+    masters = master_phase(drive, expect)
+    for label, r in masters.items():
+        log(f"phase 11: {label}: {json.dumps(r)}")
+    phase_done("phase 11", t0)
+
+    # -- 12. the K-batch strategy's device step -----------------------------
+    t0 = time.perf_counter()
+    kbatch = kbatch_phase(drive, expect)
+    log(f"phase 12: kbatch: {json.dumps(kbatch)}")
+    phase_done("phase 12", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
-                    "v1": v1, "lm": lm, "phase_s": phase_s,
+                    "v1": v1, "lm": lm, "simulator": simulator,
+                    "masters": masters, "kbatch": kbatch, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -8,15 +8,29 @@
     state    = strategy.init_state()
     state, metrics = strategy.train_step(state, batch)
 
-Registered strategies: "ambdg" (the paper) and "amb" (the synchronous
-baseline). ``device`` defaults to "cuda" and raises when CUDA is absent;
-only a caller that asks for the CPU runs there.
+Registered strategies (``api.available_strategies()``):
+
+    "ambdg"   the paper: anytime minibatch + delayed gradients
+    "amb"     synchronous baseline (tau = 0, idle round trips)
+    "kbatch"  fixed-minibatch K-batch baseline (Dutta et al.)
+
+``api.simulate(name_or_strategy, problem, ...)`` runs the cluster
+simulator (``repro_torch.sim``) through the same registry:
+
+    problem = SimProblem(cfg, n_workers=10, seed=0, device="cuda")
+    trace   = api.simulate("ambdg", problem, t_p=2.5, t_c=10.0,
+                           total_time=250.0, timing=ShiftedExponential(),
+                           opt_cfg=rc.ambdg)
+
+``device`` defaults to "cuda" and raises when CUDA is absent; only a
+caller that asks for the CPU runs there.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.strategy import (  # noqa: F401  (re-exports)
-    Strategy, get_strategy, register)
+    StalenessSchedule, Strategy, TimelineModel, available_strategies,
+    get_strategy, register)
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
 
@@ -31,4 +45,43 @@ def build(model: Model, rc: RunConfig, device="cuda") -> Strategy:
     return get_strategy(rc.strategy)(model, rc)
 
 
-__all__ = ["Strategy", "build", "get_strategy", "register"]
+def simulate(strategy, problem, **kw):
+    """Run the cluster simulator for one registered strategy; keyword
+    arguments go to the engine the strategy class declares
+    (``Strategy.sim_engine``): ``simulate_anytime`` for the epoch
+    timeline, ``simulate_kbatch`` for the event-driven arrival heap.
+    Returns the engine's ``Trace``; the gradients run on
+    ``problem.device``.
+
+    ``strategy`` is a registered name or a built ``Strategy``: a built
+    one brings its ``rc.delay`` process into the engine (and, for
+    k-batch, ``t_p`` to convert its delays into uplink seconds), and its
+    worker process and batch schedule where it has them (never yet:
+    ROADMAP A.9). An explicit keyword argument wins."""
+    from repro_torch.sim import simulate_anytime, simulate_kbatch
+    if isinstance(strategy, Strategy):
+        cls, name = type(strategy), type(strategy).name
+        dp = strategy.delay_process()
+        if dp is not None and "delay_process" not in kw:
+            kw["delay_process"] = dp
+            if cls.sim_engine == "kbatch":
+                kw.setdefault("t_p", strategy.rc.ambdg.t_p)
+        wp = strategy.worker_process(problem.n_workers)
+        if wp is not None and "worker_process" not in kw:
+            kw["worker_process"] = wp
+        bs = strategy.batch_schedule()
+        if bs is not None and "batch_schedule" not in kw:
+            kw["batch_schedule"] = bs
+    else:
+        cls, name = get_strategy(strategy), strategy
+    if cls.sim_engine == "kbatch":
+        return simulate_kbatch(problem, **kw)
+    if cls.sim_engine == "anytime":
+        return simulate_anytime(problem, scheme=name, **kw)
+    raise NotImplementedError(f"strategy {name!r} declares no simulator "
+                              "engine (Strategy.sim_engine)")
+
+
+__all__ = ["Strategy", "StalenessSchedule", "TimelineModel",
+           "available_strategies", "build", "get_strategy", "register",
+           "simulate"]

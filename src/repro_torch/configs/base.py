@@ -12,6 +12,7 @@ raises ``NotImplementedError`` where it would be consumed (see
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -191,7 +192,13 @@ class AmbdgConfig:
     radius_C: float = 0.0
     # Cross-pod gradient compression: "none" | "int8"
     pod_compression: str = "none"
+    # K-batch baseline: the master updates on every K-th arriving message
     kbatch_K: int = 10
+
+    @property
+    def staleness(self) -> int:
+        """tau = ceil(T_c / T_p), the paper's deterministic delay."""
+        return max(int(math.ceil(self.t_c / self.t_p)), 0)
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,8 @@
 
 The functions take the JAX package's objects after ``jax.device_get``
 (numpy leaves in the JAX containers: ``ArenaDualAveragingState``,
-``GradArena``, ``TrainState``) and return the port's, so that both
+``DualAveragingState``, ``GradArena``, ``DelayBuffer``, ``TrainState``)
+and return the port's, so that both
 frameworks can continue from one state. They read the containers by
 attribute name and import nothing of the JAX package. Values are copied
 exactly (same dtype, same bits).
@@ -14,7 +15,9 @@ import torch
 
 from repro_torch.core.ambdg import TrainState
 from repro_torch.core.arena import GradArena, tree_flatten, tree_unflatten
-from repro_torch.core.dual_averaging import ArenaDualAveragingState
+from repro_torch.core.delayed import DelayBuffer
+from repro_torch.core.dual_averaging import (ArenaDualAveragingState,
+                                             DualAveragingState)
 from repro_torch.device import resolve_device
 
 
@@ -30,10 +33,30 @@ def params_from_jax(params, device="cuda"):
     return tree_unflatten(treedef, [to_tensor(l, device) for l in leaves])
 
 
-def opt_state_from_jax(opt_state, device="cuda") -> ArenaDualAveragingState:
-    """``ArenaDualAveragingState(z, t)``."""
+def opt_state_from_jax(opt_state, device="cuda"):
+    """``ArenaDualAveragingState(z, t)`` (z one array), or the pytree
+    master's ``DualAveragingState(z, t)`` (z a tree of arrays)."""
+    if isinstance(opt_state.z, dict):
+        return DualAveragingState(z=params_from_jax(opt_state.z, device),
+                                  t=to_tensor(opt_state.t, device))
     return ArenaDualAveragingState(z=to_tensor(opt_state.z, device),
                                    t=to_tensor(opt_state.t, device))
+
+
+def buffer_from_jax(buffer, device="cuda"):
+    """The pytree master's ``DelayBuffer``: grads, scales and residual
+    trees (scales and residual None unless int8), counts and head. None
+    stays None."""
+    if buffer is None:
+        return None
+
+    def tree(x):
+        return None if x is None else params_from_jax(x, device)
+
+    return DelayBuffer(grads=tree(buffer.grads), scales=tree(buffer.scales),
+                       residual=tree(buffer.residual),
+                       counts=to_tensor(buffer.counts, device),
+                       head=to_tensor(buffer.head, device))
 
 
 def arena_from_jax(arena, device="cuda"):
@@ -62,11 +85,9 @@ def arena_from_jax(arena, device="cuda"):
 
 
 def train_state_from_jax(state, device="cuda") -> TrainState:
-    """A JAX ``TrainState`` of the arena master path."""
-    if state.buffer is not None:
-        raise ValueError("the pytree master path (state.buffer) is not "
-                         "ported; carry an arena-path state")
+    """A JAX ``TrainState`` of either master path (arena or pytree)."""
     return TrainState(params=params_from_jax(state.params, device),
                       opt_state=opt_state_from_jax(state.opt_state, device),
-                      buffer=None, arena=arena_from_jax(state.arena, device),
+                      buffer=buffer_from_jax(state.buffer, device),
+                      arena=arena_from_jax(state.arena, device),
                       step=to_tensor(state.step, device))

@@ -1,6 +1,5 @@
 """AMB-DG composed train step: anytime accumulation -> delayed pod
-exchange on the arena -> dual-averaging update (ported from
-``repro/core/ambdg.py``).
+exchange -> dual-averaging update (ported from ``repro/core/ambdg.py``).
 
 ``build_step_fns(model, rc, device)`` returns ``(init_state,
 train_step)``:
@@ -23,9 +22,16 @@ on a per-step ``batch["delay"]`` the host loop draws from
 ``core.delay_process``, with the delay-adaptive step size
 (``rc.delay.adaptive_alpha``); its metrics add ``tau_applied``.
 
-The port carries the arena master pipeline with a fixed batch schedule;
-every other knob raises ``NotImplementedError`` naming its ROADMAP
-item.
+``rc.master_impl`` selects the master pipeline: "arena" (the default)
+keeps the delay ring and z in the flat (rows, 128) arena and runs the
+CUDA kernels on the card; "pytree" is the per-leaf reference
+(``core.delayed`` + ``optim.make_optimizer``), which launches no kernel
+and equals the arena master bit for bit (``proximal="l2"``; ``l2_ball``
+to the ball norm's summation order). The stochastic delay runs on the
+arena only, as in the JAX package.
+
+The port carries a fixed batch schedule; every other knob raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import anytime
+from repro_torch.core import anytime, delayed
 from repro_torch.core import arena as arena_mod
 from repro_torch.core.delayed import pod_sum
 from repro_torch.models.api import Model
@@ -43,18 +49,22 @@ from repro_torch.models.api import Model
 class TrainState(NamedTuple):
     params: Any
     opt_state: Any
-    buffer: None                             # pytree master path: not ported
-    arena: Optional[arena_mod.GradArena]
+    buffer: Optional[delayed.DelayBuffer]    # pytree master path
+    arena: Optional[arena_mod.GradArena]     # arena master path
     step: torch.Tensor                       # () int32
 
 
 def check_supported(rc: RunConfig) -> None:
     """Raise ``NotImplementedError`` for every knob of ``rc`` the port's
     step does not carry yet (never ignore one silently)."""
-    if rc.master_impl != "arena":
-        raise NotImplementedError(
-            f"master_impl={rc.master_impl!r}: the pytree master path is not "
-            "ported (ROADMAP A.4); the port runs master_impl='arena'")
+    if rc.master_impl not in ("arena", "pytree"):
+        raise ValueError(f"unknown master_impl {rc.master_impl!r}; "
+                         "expected 'arena' or 'pytree'")
+    if rc.master_impl == "pytree" and rc.delay.process != "fixed":
+        raise ValueError(
+            "stochastic delay processes run on the arena master pipeline "
+            "only (rc.master_impl='arena'); the pytree reference path keeps "
+            "the paper's fixed tau")
     if rc.batch_schedule.schedule != "fixed":
         raise NotImplementedError(
             f"rc.batch_schedule.schedule={rc.batch_schedule.schedule!r}: "
@@ -87,11 +97,37 @@ def arena_master_update(layout, opt, params, opt_state, arena_state,
     return params, opt_state, arena_state, grad_sum, count
 
 
+def pytree_master_update(opt, params, opt_state, buffer, pod_grads,
+                         pod_counts, compression: str = "none"):
+    """The per-leaf reference master (the JAX step's ``master_impl=
+    "pytree"`` branch): rotate the delay buffer (or, for tau = 0, sum the
+    pods), normalize by the popped count and apply the pytree optimizer.
+    Launches no kernel. Returns (params, opt_state, buffer, g, count), g
+    the normalized gradient tree."""
+    if buffer is not None:
+        grad_sum, count, buffer = delayed.push_pop(buffer, pod_grads,
+                                                   pod_counts, compression)
+    else:
+        grad_sum = arena_mod.tree_map(pod_sum, pod_grads)
+        count = torch.sum(pod_counts)
+    g = anytime.normalize(grad_sum, count)
+    params, opt_state = opt.update(opt_state, params, g)
+    return params, opt_state, buffer, g, count
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (in order) of each leaf's f32 sum of
+    squares (JAX's ``optax_global_norm``)."""
+    leaves, _ = arena_mod.tree_flatten(tree)
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                          for x in leaves))
+
+
 def build_step_fns(model: Model, rc: RunConfig):
     """The AMB-DG step factory, internal to the strategies (user code
     goes through ``repro_torch.api.build``)."""
     from repro_torch.core.delay_process import resolve_bounds
-    from repro_torch.optim import make_arena_optimizer
+    from repro_torch.optim import make_arena_optimizer, make_optimizer
     check_supported(rc)
     device = model.device
     n_pods = rc.mesh.n_pods
@@ -104,13 +140,23 @@ def build_step_fns(model: Model, rc: RunConfig):
     compression = rc.ambdg.pod_compression
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
-    # shapes only (the meta device), as JAX builds it from eval_shape: no
-    # second parameter set is allocated or drawn
-    layout = arena_mod.make_layout(model.param_shapes())
-    opt = make_arena_optimizer(rc, layout, device)
+    use_arena = rc.master_impl == "arena"
+    if use_arena:
+        # shapes only (the meta device), as JAX builds it from eval_shape:
+        # no second parameter set is allocated or drawn
+        layout = arena_mod.make_layout(model.param_shapes())
+        opt = make_arena_optimizer(rc, layout, device)
+    else:
+        opt = make_optimizer(rc)
 
     def init_state(generator: Optional[torch.Generator] = None) -> TrainState:
         params = model.init(generator)
+        if not use_arena:
+            return TrainState(
+                params=params, opt_state=opt.init(params),
+                buffer=delayed.init_buffer(params, tau, n_pods, compression),
+                arena=None,
+                step=torch.zeros((), dtype=torch.int32, device=device))
         return TrainState(
             params=params, opt_state=opt.init(), buffer=None,
             arena=arena_mod.init_arena(layout, ring_tau, n_pods,
@@ -166,19 +212,27 @@ def build_step_fns(model: Model, rc: RunConfig):
             delay = batch["delay"]
             batch = {k: v for k, v in batch.items() if k != "delay"}
         pod_grads, pod_counts, pod_loss = pod_chunk_grads(state.params, batch)
+        buffer = arena_state = None      # the master not in use keeps None
         with torch.no_grad():
-            if variable_delay:
-                (params, opt_state, arena_state, grad_sum, count,
-                 tau_obs) = variable_master_update(state, pod_grads,
-                                                   pod_counts, delay)
+            if not use_arena:
+                params, opt_state, buffer, g, count = pytree_master_update(
+                    opt, state.params, state.opt_state, state.buffer,
+                    pod_grads, pod_counts, compression)
+                g_norm = global_norm(g)
             else:
-                params, opt_state, arena_state, grad_sum, count = \
-                    arena_master_update(layout, opt, state.params,
-                                        state.opt_state, state.arena,
-                                        pod_grads, pod_counts, compression)
-            # scalar divide after the reduce: the value of norm(g / c)
-            g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
-                      / torch.clamp(count, min=1e-12))
+                if variable_delay:
+                    (params, opt_state, arena_state, grad_sum, count,
+                     tau_obs) = variable_master_update(state, pod_grads,
+                                                       pod_counts, delay)
+                else:
+                    params, opt_state, arena_state, grad_sum, count = \
+                        arena_master_update(layout, opt, state.params,
+                                            state.opt_state, state.arena,
+                                            pod_grads, pod_counts,
+                                            compression)
+                # scalar divide after the reduce: the value of norm(g / c)
+                g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
+                          / torch.clamp(count, min=1e-12))
             local = torch.sum(pod_counts)
             metrics = {
                 "loss": torch.sum(pod_loss) / torch.clamp(local, min=1e-12),
@@ -191,7 +245,7 @@ def build_step_fns(model: Model, rc: RunConfig):
                 # the staleness the step size used: the ring's cap on
                 # a step with no arrival (applied_count == 0 flags it)
                 metrics["tau_applied"] = tau_obs
-        return TrainState(params=params, opt_state=opt_state, buffer=None,
+        return TrainState(params=params, opt_state=opt_state, buffer=buffer,
                           arena=arena_state, step=state.step + 1), metrics
 
     return init_state, train_step

@@ -10,9 +10,8 @@ normalizes by the global count (eq. (5)).
 ``accumulate_scan`` is the JAX ``lax.scan`` as a Python loop over every
 microbatch (masked samples still cost their flops). The dynamic-trip
 ``accumulate_while`` is not ported yet. The normalization by the global
-count (the JAX ``normalize``) is fused into the arena dual update
-(``kernels/dual_update``), as on the JAX arena path, so it has no
-function of its own here.
+count is ``normalize`` on the pytree master; the arena master fuses it
+into its dual update (``kernels/dual_update``), as on the JAX arena path.
 """
 from __future__ import annotations
 
@@ -75,3 +74,13 @@ def accumulate_scan(loss_fn: LossFn, params: Dict, batch: Dict, n_mb: int):
         lsum = lsum + loss_sum
     return tree_unflatten(treedef, gsum), csum, {"loss_sum": lsum}
 
+
+def normalize(grad_sum, count):
+    """g(t) = grad_sum / max(count, 1e-12) leaf by leaf: a step with no
+    samples applies a zero gradient, not NaNs. ``count`` is a 0-dim f32
+    tensor on the leaves' device, so the quotient is the correctly
+    rounded f32 division (a Python scalar divisor on CUDA would be a
+    multiplication by its reciprocal)."""
+    denom = torch.clamp(count, min=1e-12)
+    leaves, treedef = tree_flatten(grad_sum)
+    return tree_unflatten(treedef, [g / denom for g in leaves])

@@ -72,6 +72,22 @@ def tree_unflatten(treedef, leaves):
     return out
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of each tree in ``rest``
+    (same structure), as ``jax.tree.map``."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_sum(trees):
+    """The leafwise sum of a list of trees, a left fold in list order."""
+    out = trees[0]
+    for t in trees[1:]:
+        out = tree_map(lambda a, b: a + b, out, t)
+    return out
+
+
 class ArenaLayout:
     """Static flatten metadata (plain Python and numpy)."""
 

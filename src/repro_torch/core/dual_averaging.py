@@ -1,5 +1,6 @@
-"""Dual averaging (Nesterov'09 / Xiao'09), the paper's workhorse, on the
-flat arena (ported from ``repro/core/dual_averaging.py``):
+"""Dual averaging (Nesterov'09 / Xiao'09), the paper's workhorse, over a
+parameter tree and on the flat arena (ported from
+``repro/core/dual_averaging.py``):
 
     z(t+1) = z(t) + g(t)
     w(t+1) = argmin_w <z(t+1), w> + psi(w) / alpha(t+1)
@@ -9,8 +10,10 @@ of radius C it is that point projected onto the ball.
 
 Step sizes (Theorem IV.1): alpha(t)^{-1} = L + sqrt((t + tau) / b_bar).
 
-Every scalar stays a 0-dim tensor on the arena's device, so a step
-never waits on the host. Divisions take their constants as device
+The pytree form (``init``, ``prox_step``, ``update``) is the reference
+master the arena form is held against bit for bit, and the simulator's
+master. Every scalar stays a 0-dim tensor on the state's device, so a
+step never waits on the host. Divisions take their constants as device
 tensors: PyTorch turns a division by a Python scalar on CUDA into a
 multiplication by its reciprocal, which is not the division the JAX
 package computes.
@@ -22,6 +25,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import AmbdgConfig
+from repro_torch.core.arena import tree_flatten, tree_map
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -39,6 +43,49 @@ def alpha(t, cfg: AmbdgConfig, tau=None, b=None):
     b = cfg.b_bar if b is None else b
     return torch.div(_const(1.0, t), cfg.smoothness_L +
                      torch.sqrt(torch.div(t + tau, _const(b, t))))
+
+
+class DualAveragingState(NamedTuple):
+    z: Any             # dual variable: a tree like params, f32 leaves
+    t: torch.Tensor    # () int32: updates applied
+
+
+def init(params) -> DualAveragingState:
+    """z = 0 beside each leaf of ``params`` (on its device), t = 0."""
+    z = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                       device=p.device), params)
+    device = tree_flatten(params)[0][0].device
+    return DualAveragingState(z=z, t=torch.zeros((), dtype=torch.int32,
+                                                 device=device))
+
+
+def prox_step(z, a, cfg: AmbdgConfig):
+    """w = argmin <z, w> + psi(w) / a for the configured proximal psi;
+    ``a`` a 0-dim f32 tensor. The ball norm sums each leaf, then the
+    leaves in order, as the JAX package does."""
+    w = tree_map(lambda zi: -a * zi, z)
+    if cfg.proximal == "l2_ball":
+        sq = sum(torch.sum(torch.square(x)) for x in tree_flatten(w)[0])
+        norm = torch.sqrt(sq)
+        scale = torch.clamp(torch.div(_const(cfg.radius_C, norm),
+                                      torch.clamp(norm, min=1e-12)), max=1.0)
+        w = tree_map(lambda wi: wi * scale, w)
+    elif cfg.proximal != "l2":
+        raise ValueError(f"unknown proximal {cfg.proximal!r}")
+    return w
+
+
+def update(state: DualAveragingState, g, cfg: AmbdgConfig, tau=None,
+           b=None) -> Tuple[Any, DualAveragingState]:
+    """One update with the (already averaged) gradient tree ``g``:
+    z += g, w = prox(z, alpha(t + 2)). Returns (w, new state); the
+    state's z is not written in place. ``tau``/``b`` reach ``alpha``
+    (observed staleness, scheduled batch)."""
+    t_next = state.t + 1
+    z_next = tree_map(lambda zi, gi: zi + gi.to(torch.float32), state.z, g)
+    w = prox_step(z_next, alpha(t_next.to(torch.float32) + 1.0, cfg,
+                                tau=tau, b=b), cfg)
+    return w, DualAveragingState(z=z_next, t=t_next)
 
 
 class ArenaDualAveragingState(NamedTuple):

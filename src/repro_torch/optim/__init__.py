@@ -1,9 +1,10 @@
-"""Arena-form optimizers of the port (``repro/optim/__init__.py``).
+"""Optimizers of the port (``repro/optim/__init__.py``).
 
-An ``ArenaOptimizer`` keeps its state as (rows, 128) buffers and
-consumes the popped, un-normalized gradient sum and its count directly.
-The port carries the paper's dual averaging; the beyond-paper sgd and
-adam arena optimizers come later (ROADMAP A.4).
+An ``Optimizer`` (the pytree master) updates a parameter tree from an
+averaged gradient tree. An ``ArenaOptimizer`` keeps its state as
+(rows, 128) buffers and consumes the popped, un-normalized gradient sum
+and its count directly. The port carries the paper's dual averaging in
+both forms; the beyond-paper sgd and adam come later (ROADMAP A.14).
 """
 from __future__ import annotations
 
@@ -11,6 +12,35 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import dual_averaging as da
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any], Tuple[Any, Any]]
+    # update(opt_state, params, grad) -> (new_params, new_opt_state)
+
+
+def dual_averaging_optimizer(rc: RunConfig) -> Optimizer:
+    cfg = rc.ambdg
+
+    def update(opt_state: da.DualAveragingState, params, g):
+        return da.update(opt_state, g, cfg)
+
+    return Optimizer(init=da.init, update=update)
+
+
+def _unported(name: str):
+    if name in ("sgd", "adam"):
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet (ROADMAP A.14: the sgd "
+            "and adam optimizers); the port runs 'dual_averaging'")
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def make_optimizer(rc: RunConfig) -> Optimizer:
+    if rc.optimizer == "dual_averaging":
+        return dual_averaging_optimizer(rc)
+    _unported(rc.optimizer)
 
 
 class ArenaOptimizer(NamedTuple):
@@ -39,6 +69,4 @@ def arena_dual_averaging_optimizer(rc: RunConfig, layout,
 def make_arena_optimizer(rc: RunConfig, layout, device) -> ArenaOptimizer:
     if rc.optimizer == "dual_averaging":
         return arena_dual_averaging_optimizer(rc, layout, device)
-    raise NotImplementedError(
-        f"optimizer {rc.optimizer!r} is not ported yet (ROADMAP A.4: the "
-        "arena sgd and adam optimizers); the port runs 'dual_averaging'")
+    _unported(rc.optimizer)

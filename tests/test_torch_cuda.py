@@ -566,3 +566,140 @@ def test_hybrid_on_cuda_matches_cpu(cuda, scan_impl):
         wg, wc = wg.cpu().numpy(), wc.numpy()
         np.testing.assert_allclose(wg, wc, rtol=0,
                                    atol=1e-4 * np.abs(wc).max() + step)
+
+
+def _linreg64():
+    from repro_torch.configs.base import LINREG, ModelConfig
+    return ModelConfig(name="linreg", family=LINREG, n_layers=0, d_model=0,
+                       n_heads=0, n_kv_heads=0, d_ff=0, vocab_size=0,
+                       linreg_dim=64)
+
+
+@pytest.mark.parametrize("golden,scheme", [
+    ("sim_trace", "ambdg"), ("sim_trace", "amb"),
+    ("stochastic_trace", "ambdg"), ("stochastic_trace", "kbatch")])
+def test_sim_golden_traces_on_cuda(cuda, golden, scheme):
+    """The simulator's golden traces with the gradients on the card: the
+    bookkeeping columns exactly, the errors at rtol 1e-4, atol 1e-7
+    (``tests/test_torch_sim.py`` runs the same on the CPU)."""
+    import json
+    import os
+    from repro_torch.configs.base import AmbdgConfig, DelayConfig
+    from repro_torch.core.delay_process import make_delay_process
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem, simulate_anytime, simulate_kbatch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", golden + ".json")
+    with open(path) as f:
+        want = json.load(f)[scheme]
+    opt = AmbdgConfig(t_p=2.5, t_c=10.0, tau=4, smoothness_L=1.0,
+                      b_bar=180.0, proximal="l2_ball",
+                      radius_C=float(1.05 * np.sqrt(64)))
+    kw = dict(t_c=10.0, total_time=60.0, opt_cfg=opt, rng_seed=11,
+              timing=ShiftedExponential(lam=2 / 3, xi=1.0, b=60))
+    if golden == "stochastic_trace":
+        kw["delay_process"] = make_delay_process(
+            DelayConfig(process="heavy_tail", tau_max=6, seed=13),
+            opt.staleness)
+    problem = SimProblem(_linreg64(), n_workers=3, seed=7, b_max=128,
+                         device=cuda)
+    if scheme == "kbatch":
+        tr = simulate_kbatch(problem, b_per_msg=32, K=3, t_p=2.5, **kw)
+    else:
+        tr = simulate_anytime(problem, t_p=2.5, scheme=scheme, **kw)
+    assert tr.final_params["w"].device.type == "cuda"
+    got = {"times": [round(t, 9) for t in tr.times],
+           "epochs": list(tr.epochs), "delays": list(tr.delays),
+           "minibatches": list(tr.minibatches),
+           "staleness": list(tr.staleness)}
+    for k in want:
+        if k != "errors":
+            assert got[k] == want[k], k
+    np.testing.assert_allclose(tr.errors, want["errors"], rtol=1e-4,
+                               atol=1e-7)
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+@pytest.mark.parametrize("n_pods", [1, 4])
+@pytest.mark.parametrize("tau", [0, 1, 4])
+def test_pytree_master_equals_arena_master_on_cuda(cuda, tau, n_pods,
+                                                   compression):
+    """The pytree master against the arena master (the CUDA kernels) on
+    the card, ten steps of odd leaf shapes: params and z bit for bit;
+    the arena launches the dual update once a step and, for tau > 0
+    under int8, the slot rotate once a step; the pytree master launches
+    nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import AmbdgConfig, MeshConfig, RunConfig
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.core import ambdg, arena, delayed
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.kernels.delay_ring import kernel as ring_kernel
+    from repro_torch.kernels.dual_update import kernel as update_kernel
+    from repro_torch.optim import make_arena_optimizer, make_optimizer
+    rc = RunConfig(model=get_smoke_config("amb-linreg"), shape=TRAIN_4K,
+                   mesh=MeshConfig(1, 1, 1),
+                   ambdg=AmbdgConfig(tau=tau, b_bar=8.0, smoothness_L=2.0,
+                                     pod_compression=compression))
+    shapes = {"a": (7,), "b": {"c": (3, 5), "d": (130,)}, "e": (257,)}
+    rng = np.random.default_rng(tau + 10 * n_pods)
+
+    def tree(lead=()):
+        def leaf(s):
+            return _t(rng.standard_normal(lead + s).astype(np.float32), cuda)
+        return {"a": leaf(shapes["a"]), "e": leaf(shapes["e"]),
+                "b": {k: leaf(s) for k, s in shapes["b"].items()}}
+
+    params = tree()
+    layout = arena.make_layout(params)
+    opt_p, opt_a = make_optimizer(rc), make_arena_optimizer(rc, layout, cuda)
+    p_ref, o_ref = params, opt_p.init(params)
+    buf = delayed.init_buffer(params, tau, n_pods, compression)
+    p_ar, o_ar = params, opt_a.init()
+    ar = arena.init_arena(layout, tau, n_pods, compression, device=cuda)
+    counters = (update_kernel.KERNEL, ring_kernel.KERNEL)
+    for t in range(10):
+        grads, counts = tree((n_pods,)), torch.full((n_pods,), 3.0 + t,
+                                                   device=cuda)
+        n0 = [k.launches for k in counters]
+        p_ref, o_ref, buf, _, _ = ambdg.pytree_master_update(
+            opt_p, p_ref, o_ref, buf, grads, counts, compression)
+        assert [k.launches for k in counters] == n0
+        p_ar, o_ar, ar, _, _ = ambdg.arena_master_update(
+            layout, opt_a, p_ar, o_ar, ar, grads, counts, compression)
+        rotates = int(compression == "int8" and tau > 0)
+        assert [k.launches - n for k, n in zip(counters, n0)] == [1, rotates]
+        z_ar = arena.unflatten_tree(layout, o_ar.z, cast=False)
+        for a, b in zip(tree_flatten(p_ref)[0] + tree_flatten(o_ref.z)[0],
+                        tree_flatten(p_ar)[0] + tree_flatten(z_ar)[0]):
+            assert torch.equal(a, b), t
+
+
+def test_kbatch_step_is_the_amb_step_on_cuda(cuda):
+    """The K-batch strategy's device step on the card: ref_epoch counts
+    the steps, the staleness is 0, the dual update launches once a step,
+    and the params equal the 'amb' strategy's bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import AmbdgConfig, MeshConfig, RunConfig
+    from repro_torch.configs.base import TRAIN_4K
+    from repro_torch.kernels.dual_update import kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = get_smoke_config("amb-linreg")
+    loop = LoopConfig(n_steps=4, n_workers=4, samples_per_worker=8,
+                      log_every=1)
+    out = {}
+    for strategy in ("kbatch", "amb"):
+        rc = RunConfig(model=cfg, shape=TRAIN_4K, mesh=MeshConfig(1, 1, 1),
+                       ambdg=AmbdgConfig(tau=2, b_bar=32.0),
+                       strategy=strategy)
+        n0 = kernel.KERNEL.launches
+        out[strategy] = train(build_model(cfg, device=cuda), rc, loop,
+                              device=cuda)
+        assert kernel.KERNEL.launches == n0 + 4
+    kb = out["kbatch"]
+    assert int(kb["state"].ref_epoch) == 5
+    assert [h["staleness"] for h in kb["history"]] == [0.0] * 4
+    assert torch.equal(kb["state"].base.params["w"],
+                       out["amb"]["state"].params["w"])

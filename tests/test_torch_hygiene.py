@@ -41,7 +41,10 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.models.ssm", "repro_torch.configs.zamba2_2_7b",
          "repro_torch.kernels.linear_scan.ops",
          "repro_torch.kernels.linear_scan.ref",
-         "repro_torch.kernels.linear_scan.kernel"]
+         "repro_torch.kernels.linear_scan.kernel",
+         # the simulator slice
+         "repro_torch.sim", "repro_torch.sim.cluster",
+         "repro_torch.core.kbatch", "repro_torch.data.timing"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -120,9 +123,9 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("master_impl", "pytree", "A.4"),
-    ("optimizer", "adam", "A.4"),
-    ("strategy", "kbatch", "A.8"),
+    ("optimizer", "sgd", "A.14"),
+    ("optimizer", "adam", "A.14"),
+    ("kbatch", "linear", "A.9"),     # K-batch with a non-fixed schedule
     ("strategy", "decentralized", "A.10"),
     ("ambdg", "while_dynamic", "A.2"),
     ("batch_schedule", "linear", "A.9"),
@@ -132,6 +135,8 @@ def test_unported_knobs_raise(knob, value, item):
     import dataclasses
     from repro_torch import api
     rc = _rc()
+    if knob == "kbatch":
+        knob, rc = "batch_schedule", rc.replace(strategy="kbatch")
     field = {"ambdg": "anytime_impl", "batch_schedule": "schedule",
              "elastic": "process"}.get(knob)
     if field:
@@ -141,6 +146,29 @@ def test_unported_knobs_raise(knob, value, item):
         rc = rc.replace(**{knob: value})
     with pytest.raises(NotImplementedError, match=item):
         api.build(_cpu_model(), rc, device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [("master_impl", "pytree"),
+                                        ("strategy", "kbatch")])
+def test_ported_knobs_build_and_step(knob, value):
+    """The two knobs that raised before the simulator was ported build
+    and step on the CPU: the pytree master and the K-batch strategy."""
+    from repro_torch import api
+    from repro_torch.data.pipeline import AnytimePipeline
+    rc = _rc().replace(**{knob: value})
+    strategy = api.build(_cpu_model(), rc, device="cpu")
+    state = strategy.init_state()
+    pipe = AnytimePipeline(rc.model, 4, 8)
+    for _ in range(3):
+        batch = {k: torch.from_numpy(v)
+                 for k, v in pipe.next_global_batch().items()}
+        state, metrics = strategy.train_step(state, batch)
+    assert metrics["applied_count"].item() == 32.0
+    if value == "pytree":
+        assert state.arena is None and state.buffer is not None
+    else:
+        assert state.ref_epoch.item() == 4
+        assert metrics["staleness"].item() == 0
 
 
 def test_unported_loop_options_raise(tmp_path):
