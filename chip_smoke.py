@@ -110,7 +110,35 @@ Phases (any failure raises and the script exits non-zero):
  12. ``strategy="kbatch"`` through ``train`` on amb-linreg FULL, 5
      steps: ``ref_epoch`` ends at 6, the staleness is 0, the dual update
      launches once a step, and the params equal the "amb" run's bit for
-     bit.
+     bit;
+ 13. the paper's CNN at full width (amb-cnn FULL, 32x32x3, 6,805,642
+     parameters; Sec. VI-B), TF32 off: the worker's gradient at the init
+     weights on 128 images, card and CPU each against an f64 gradient on
+     the card and against each other (limits below); AMB-DG through
+     ``train`` (fig5_nn.py's 4 workers x 128, T_p = T_c = 10, tau 1, L 4,
+     b_bar 240), 12 steps, int8 and none, card then CPU: counts exact,
+     losses, acc_sum and weights within the limits below, the dual
+     update once a step and the int8 slot rotate once a step, the step
+     split, the kernel split (cuDNN, cuBLAS, B.1/B.2, the rest) and the
+     peak memory; then Fig. 5 through ``api.simulate``: AMB-DG against
+     K-batch (60 a message, K 4) over 2000 simulated s, the update counts
+     against the timeline, no clamp, finite held-out losses and
+     fig5_nn.py's ``ambdg_beats_kbatch`` as a finding;
+ 14. the scenarios on amb-linreg: both halves of
+     ``tests/golden/batch_schedule_trace.json`` through ``api.simulate``
+     on the card (bookkeeping exact, errors to rtol 1e-4); ``train``
+     under the adadamp and delay_aware batch schedules (the latter with
+     phase 4's heavy-tailed delay) on the card and the CPU with phase 3's
+     checks, the same drawn targets, the variable pop once a step under
+     the delay; ``train`` under the churn and crash/restart worker
+     processes with a checkpoint directory: evictions, readmissions and
+     the checkpoint each eviction saves, and a run stopped at step 6 and
+     restarted from its checkpoint equal to the uninterrupted 12-step run
+     bit for bit (every state leaf and the host states).
+
+``python3 chip_smoke.py --only=13,14`` runs the build and then only the
+phases named (a short call while working on them; no kernels or ok
+line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -1144,14 +1172,15 @@ def leaf_names(tree, prefix=""):
     return [prefix.rstrip("/")]
 
 
-def lm_grads(cfg, params, batch):
+def model_grads(cfg, params, batch):
     """The worker's gradient sum of ``cfg``'s model at ``params`` on one
     microbatch (``accumulate_scan``, as a train step's worker computes
-    it): (its f32 leaves in the arena's order, the loss per token)."""
+    it): (its f32 leaves in the arena's order, the loss per token or
+    image)."""
     from repro_torch.core.anytime import accumulate_scan
     from repro_torch.core.arena import tree_flatten
     from repro_torch.models.api import build_model
-    model = build_model(cfg, device=batch["tokens"].device)
+    model = build_model(cfg, device=batch["weights"].device)
     g, count, m = accumulate_scan(model.loss, params, batch, 1)
     return tree_flatten(g)[0], float(m["loss_sum"]) / float(count)
 
@@ -1356,7 +1385,7 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     # kernel against the plain chunked scan, in f32 and bf16 compute, each
     # leaf held against the f32 plain gradient; the plain route at chunk
     # 128 gives the f32 noise floor
-    ref32, loss_ref = lm_grads(z_config("xla", compute_dtype="float32"),
+    ref32, loss_ref = model_grads(z_config("xla", compute_dtype="float32"),
                                params0, batch)
     zgap, zloss = {}, {"xla_float32": loss_ref}
     chunk128 = dataclasses.replace(z_config("xla").ssm, chunk_size=128)
@@ -1366,7 +1395,7 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
             ("kernel_float32", z_config("kernel", compute_dtype="float32")),
             ("kernel_bfloat16", z_config("kernel")),
             ("xla_bfloat16", z_config("xla"))):
-        g_, zloss[tag] = lm_grads(cfg, params0, batch)
+        g_, zloss[tag] = model_grads(cfg, params0, batch)
         zgap[tag] = leaf_gaps(g_, ref32, names)
         del g_
         torch.cuda.empty_cache()
@@ -1479,9 +1508,9 @@ def hybrid_device_phase(drive, expect):
         torch.Generator().manual_seed(rc9.seed))
     host9 = TokenStream(cfg9, seed=1).next_batch(2, 512)
     batch9 = {k: torch.from_numpy(v) for k, v in host9.items()}
-    g9_cpu, loss9_cpu = lm_grads(cfg9, params9, batch9)
+    g9_cpu, loss9_cpu = model_grads(cfg9, params9, batch9)
     leaves9, def9 = tree_flatten(params9)
-    g9_gpu, loss9_gpu = lm_grads(
+    g9_gpu, loss9_gpu = model_grads(
         cfg9, tree_unflatten(def9, [x.cuda() for x in leaves9]),
         {k: v.cuda() for k, v in batch9.items()})
     names9 = leaf_names(params9)
@@ -1613,8 +1642,6 @@ def sim_paper_phase():
     update error (the read of w to the host, which waits for the card),
     against the card's kernel and copy time (profiler) and the wall
     time. Returns {scheme: record}."""
-    import torch
-    from repro_torch import api
     from repro_torch.data.timing import ShiftedExponential
     from repro_torch.sim import SimProblem
     cfg, rc = main_path_config()
@@ -1626,42 +1653,58 @@ def sim_paper_phase():
                         ("kbatch", dict(b_per_msg=60, K=10))):
         problem = SimProblem(cfg, n_workers=10, b_max=SIM_B_MAX,
                              device="cuda")
-        host = dict(batch_s=0.0, error_s=0.0, batches=0)
-
-        def timed_call(fn, key):
-            def call(*a, **k):
-                t0 = time.perf_counter()
-                res = fn(*a, **k)
-                host[key] += time.perf_counter() - t0
-                host["batches"] += key == "batch_s"
-                return res
-            return call
-
-        for stream in problem.streams:
-            stream.next_batch = timed_call(stream.next_batch, "batch_s")
-        problem.error = timed_call(problem.error, "error_s")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr, kernels = profiled(lambda: api.simulate(name, problem, **kw,
-                                                    **extra))
-        wall = time.perf_counter() - t0
+        tr, rec = simulate_split(name, problem, **kw, **extra)
         assert all(math.isfinite(e) for e in tr.errors), name
         assert sum(tr.clamps) == 0, (name, tr.clamps)
-        copy_us = sum(us for k, us in kernels
-                      if k.startswith(("Memcpy", "Memset")))
         out[name] = dict(
-            updates=len(tr.times), final_error=tr.errors[-1],
-            time_to={str(e): time_to(tr, e) for e in SIM_TARGETS},
-            worker_grads=host["batches"], wall_s=wall,
-            host_batch_s=host["batch_s"], host_error_s=host["error_s"],
-            device_kernel_s=(sum(us for _, us in kernels) - copy_us) / 1e6
-            if kernels else None,
-            device_copy_s=copy_us / 1e6 if kernels else None)
+            rec, final_error=tr.errors[-1],
+            time_to={str(e): time_to(tr, e) for e in SIM_TARGETS})
         if name == "kbatch":
             out[name]["staleness_histogram"] = dict(sorted(
                 collections.Counter(tr.staleness).items()))
     assert out["ambdg"]["updates"] > 3 * out["amb"]["updates"], out
     return out
+
+
+def simulate_split(name, problem, profile=True, **kw):
+    """``api.simulate(name, problem, **kw)`` on the card, under the
+    profiler unless ``profile`` is False: (the trace, its split). The
+    split: the host's numpy batch draws and its per-update error (the
+    read of w to the host, which waits for the card), against the card's
+    kernel and copy time (None without the profiler) and the wall
+    time."""
+    import torch
+    from repro_torch import api
+    host = dict(batch_s=0.0, error_s=0.0, batches=0)
+
+    def timed_call(fn, key):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            host[key] += time.perf_counter() - t0
+            host["batches"] += key == "batch_s"
+            return res
+        return call
+
+    for stream in problem.streams:
+        stream.next_batch = timed_call(stream.next_batch, "batch_s")
+    problem.error = timed_call(problem.error, "error_s")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if profile:
+        tr, kernels = profiled(lambda: api.simulate(name, problem, **kw))
+    else:
+        tr, kernels = api.simulate(name, problem, **kw), []
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    copy_us = sum(us for k, us in kernels
+                  if k.startswith(("Memcpy", "Memset")))
+    return tr, dict(
+        updates=len(tr.times), worker_grads=host["batches"], wall_s=wall,
+        host_batch_s=host["batch_s"], host_error_s=host["error_s"],
+        device_kernel_s=(sum(us for _, us in kernels) - copy_us) / 1e6
+        if kernels else None,
+        device_copy_s=copy_us / 1e6 if kernels else None)
 
 
 def compare_masters(arena, pytree, layout):
@@ -1855,6 +1898,513 @@ def kbatch_phase(drive, expect):
                 loss=[h["loss"] for h in kb["history"]])
 
 
+# -- the CNN and the training scenarios (phases 13 and 14) ---------------------
+CNN_STEPS = 12
+CNN_WORKERS, CNN_PER_WORKER = 4, 128   # fig5_nn.py: n = 4, 4 x 128 a step
+# The card (cuDNN, cuBLAS; TF32 off) against the CPU, f32. The f32 gradient
+# of the first convolutions is far from exact on both devices: at the init
+# weights, on 128 images, the CPU's reads up to 1.4e-3 and the card's
+# (cuDNN's Winograd and FFT weight-gradient kernels) up to 1.7e-3 of a
+# leaf's largest element from the f64 gradient, the deeper layers and the
+# fc ones 1e-7 to 1e-4 (NVIDIA H100 80GB HBM3, 700 W; cuDNN's
+# deterministic and benchmark modes read the same:
+# tools/cnn_grad_check.py). So each gradient leaf
+# is held to CNN_GRAD_TOL of its largest element against the f64 gradient
+# and against the CPU's. The 12-step runs sum 11 such gradients into z:
+# their first convolutions' weights read up to 4.4e-3 of the leaf's
+# largest element apart (conv0_w, no compression; under int8 every leaf
+# lies within one quantization step), held to CNN_W_TOL plus one int8
+# step; the per-step losses to phase 3's rtol 1e-4 (read: 2.1e-7); the
+# per-step acc_sum of the 512 training images to CNN_ACC_TOL samples
+# (read: equal; an argmax may flip where two logits lie within the two
+# devices' rounding)
+CNN_GRAD_TOL = 5e-3
+CNN_W_TOL = 1e-2
+CNN_LOSS_RTOL = 1e-4
+CNN_ACC_TOL = 2.0
+FIG5_TOTAL_S = 2000.0  # fig5_nn.py at FULL
+# fig5_nn.py pads to 128 rows, below AMB-DG's largest anytime draw
+# b T_p / xi = 60 * 10 / 4 = 150, so its AMB-DG run clamps some requests
+# (this phase on the CPU at 128 rows: clamps in 7 of the first 9
+# updates); 150 pads every draw and clamps nothing
+FIG5_B_MAX = 150
+FIG5_SAMPLE = 20       # worker gradients profiled after each Fig. 5 run
+SCENARIO_STEPS = 12
+# elastic processes that evict and readmit workers within 12 steps of a
+# 10-worker fleet (eviction after 3 dead epochs)
+ELASTIC = {"churn": dict(process="churn", p_fail=0.3, p_recover=0.3,
+                         seed=1),
+           "crash_restart": dict(process="crash_restart", mttf=4.0,
+                                 mttr=4.0, seed=2)}
+
+
+def cnn_run_config(compression):
+    """amb-cnn FULL with ``fig5_nn.py``'s ``AmbdgConfig`` (T_p = T_c = 10,
+    tau 1, L 4, b_bar 240), 4 microbatches of 128 images, one pod."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (AmbdgConfig, MeshConfig,
+                                          RunConfig, TRAIN_4K)
+    cfg = get_config("amb-cnn")
+    return cfg, RunConfig(
+        model=cfg, shape=TRAIN_4K, mesh=MeshConfig(n_pods=1, data=1, model=1),
+        ambdg=AmbdgConfig(t_p=10.0, t_c=10.0, tau=1, smoothness_L=4.0,
+                          b_bar=240.0, pod_compression=compression))
+
+
+def run_cnn(compression, device):
+    """One ``train`` run of the CNN (CNN_STEPS steps, 4 workers x 128):
+    (result with the per-step ``acc_sum`` of the training images added,
+    seconds). The model's loss keeps each microbatch's ``acc_sum`` (a
+    device tensor: nothing is read back during the run)."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    cfg, rc = cnn_run_config(compression)
+    model, acc = build_model(cfg, device=device), []
+
+    def loss(params, batch):
+        total, aux = model.loss_fn(params, batch)
+        acc.append(aux["acc_sum"].detach())
+        return total, aux
+
+    loop = LoopConfig(n_steps=CNN_STEPS, n_workers=CNN_WORKERS,
+                      samples_per_worker=CNN_PER_WORKER, log_every=1)
+    t0 = time.perf_counter()
+    out = train(dataclasses.replace(model, loss_fn=loss), rc, loop,
+                device=device)
+    secs = time.perf_counter() - t0
+    n_mb = rc.ambdg.n_microbatches
+    out["acc_sum"] = [float(sum(acc[i:i + n_mb]))
+                      for i in range(0, len(acc), n_mb)]
+    return out, secs
+
+
+def compare_cnn_devices(gpu, cpu):
+    """The CNN's card run against its CPU run: applied and local counts
+    exact, losses to CNN_LOSS_RTOL, acc_sum to CNN_ACC_TOL, every weight
+    to CNN_W_TOL of its leaf's largest element plus one int8 step, all
+    finite. Returns the readings (logged by the caller before it
+    asserts them)."""
+    import numpy as np
+    hg, hc = gpu["history"], cpu["history"]
+    assert len(hg) == len(hc) == CNN_STEPS
+    for t, (a, b) in enumerate(zip(hg, hc)):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert a["local_count"] == b["local_count"], (t, a, b)
+        assert (a["applied_count"] == 0.0) == (t == 0), (t, a)
+        assert math.isfinite(a["loss"]), (t, a)
+    step = 0.0
+    if cpu["state"].arena.scales is not None:
+        step = max(float(s.max()) for s in cpu["state"].arena.scales) / min(
+            h["applied_count"] for h in hc if h["applied_count"])
+    w_gap = {}
+    for k, wc in cpu["state"].params.items():
+        wg = gpu["state"].params[k].cpu().numpy()
+        wc = wc.numpy()
+        assert np.all(np.isfinite(wg)), k
+        top = float(np.abs(wc).max()) or 1.0
+        w_gap[k] = (float(np.abs(wg - wc).max()) - step) / top
+    return dict(
+        loss_rel_gap=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                         for a, b in zip(hg, hc)),
+        acc_sum_gap=max(abs(a - b) for a, b in zip(gpu["acc_sum"],
+                                                   cpu["acc_sum"])),
+        w_gap_beyond_int8_step=w_gap, int8_step=step)
+
+
+def cnn_kernel_split(kernels, n_steps):
+    """The profiler's device time per CNN step: cuDNN's convolutions,
+    cuBLAS products, the dual update (B.1) and the int8 slot rotate
+    (B.2), the rest, copies apart; and the rest's 5 largest kernels."""
+    groups, rest = collections.Counter(), collections.Counter()
+    for name, us in kernels:
+        low = name.lower()
+        if name.startswith(("Memcpy", "Memset")):
+            g = "copy"
+        elif "dual_update" in name:
+            g = "dual_update"
+        elif "slot_rotate" in name:
+            g = "slot_rotate"
+        elif any(t in low for t in ("conv", "fprop", "dgrad", "wgrad",
+                                    "cudnn", "implicit")):
+            g = "cudnn_conv"
+        elif any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma",
+                                    "cublas")):
+            g = "cublas"
+        else:
+            g = "rest"
+            rest[name[:REST_NAME_CHARS]] += us / 1e3 / n_steps
+        groups[g] += us / 1e3 / n_steps
+    total = sum(v for k, v in groups.items() if k != "copy")
+    return dict({f"{k}_ms": groups.get(k, 0.0) for k in (
+        "cudnn_conv", "cublas", "dual_update", "slot_rotate", "rest",
+        "copy")}, conv_share=groups.get("cudnn_conv", 0.0) / total
+        if total else 0.0,
+        rest_top=[dict(name=k, ms=ms) for k, ms in rest.most_common(5)])
+
+
+def cnn_phase(drive, expect):
+    """Phase 13: the paper's CNN at full width (amb-cnn FULL: 32x32x3,
+    9 convs and 5 fc, 6,805,642 parameters; Sec. VI-B), TF32 off.
+    (a) at the init weights, on one batch of 128 images, the worker's
+    gradient leaf by leaf on the card against the CPU; (b) AMB-DG
+    through ``train``, 12 steps of 4 workers x 128 images, int8 and
+    none, on the card and then the CPU from the same seed, with the
+    launch counts (B.1 once a step, B.2 once a step under int8), the
+    step split, the kernel split and the peak memory; (c) Fig. 5
+    through ``api.simulate``. Returns the record."""
+    import torch
+    from repro_torch.data.synthetic import ImageClassStream
+    from repro_torch.models.api import build_model
+    out = {}
+    cfg, rc = cnn_run_config("none")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(rc.seed))
+    host = ImageClassStream(32, 10, seed=1).next_batch(CNN_PER_WORKER)
+
+    def on(device, dtype):
+        return ({k: v.to(device, dtype) for k, v in params.items()},
+                {k: torch.from_numpy(v).to(device, dtype if v.dtype.kind ==
+                                          "f" else None)
+                 for k, v in host.items()})
+
+    # the reference: f64 on the card (the log-softmax in f32, as the
+    # model computes it; the CPU's f64 agrees to 1e-7)
+    g64, _ = model_grads(cfg, *on("cuda", torch.float64))
+    g_gpu, loss_gpu = model_grads(cfg, *on("cuda", torch.float32))
+    g_cpu, loss_cpu = model_grads(cfg, *on("cpu", torch.float32))
+    names = leaf_names(params)
+    gaps = {"card_vs_f64": leaf_gaps(g_gpu, g64, names),
+            "cpu_vs_f64": leaf_gaps(g_cpu, g64, names),
+            "card_vs_cpu": leaf_gaps(g_gpu, g_cpu, names)}
+    for label, gap in gaps.items():
+        log(f"phase 13: init weights, f32 gradient {label}, of each leaf's "
+            f"largest element: {json.dumps(dict(zip(names, gap)))}")
+    log(f"phase 13: loss per image {loss_gpu} (card), {loss_cpu} (cpu)")
+    for label in ("card_vs_f64", "card_vs_cpu"):
+        assert max(gaps[label]) <= CNN_GRAD_TOL, (label, gaps[label])
+    assert math.isclose(loss_gpu, loss_cpu, rel_tol=1e-5), (loss_gpu,
+                                                            loss_cpu)
+    out["init_grad_gap"] = {k: dict(zip(names, v)) for k, v in gaps.items()}
+    del g64, g_cpu, g_gpu
+    for compression in ("int8", "none"):
+        torch.cuda.reset_peak_memory_stats()
+        ((gpu, secs), kernels), n = drive(lambda: profiled(
+            lambda: run_cnn(compression, "cuda")))
+        peak = torch.cuda.max_memory_allocated()
+        want = expect(dual_update=CNN_STEPS, slot_rotate=CNN_STEPS
+                      if compression == "int8" else 0)
+        assert n == want, (compression, n, want)
+        cpu, cpu_secs = run_cnn(compression, "cpu")
+        gaps = compare_cnn_devices(gpu, cpu)
+        rec = dict(gpu_s=secs, cpu_s=cpu_secs, launches=n,
+                   loss=[h["loss"] for h in gpu["history"]],
+                   acc_sum=gpu["acc_sum"], cpu_acc_sum=cpu["acc_sum"],
+                   device_gaps=gaps, peak_mem_gb=peak / 1e9,
+                   split=step_split(gpu, kernels) if kernels else None,
+                   kernel_split=cnn_kernel_split(kernels, CNN_STEPS)
+                   if kernels else None)
+        out[compression] = rec
+        log(f"phase 13: cnn {compression}: {CNN_STEPS} steps on cuda in "
+            f"{secs:.2f} s, on cpu in {cpu_secs:.2f} s; launches {n}; loss "
+            f"{[round(x, 4) for x in rec['loss']]}; acc_sum "
+            f"{rec['acc_sum']} (cpu {rec['cpu_acc_sum']}); card vs cpu "
+            f"{json.dumps(gaps)}; peak {rec['peak_mem_gb']:.2f} GB")
+        log(f"phase 13: cnn {compression}: step split "
+            f"{json.dumps(rec['split'])}; kernel time per step "
+            f"{json.dumps(rec['kernel_split'])}")
+        assert gaps["loss_rel_gap"] <= CNN_LOSS_RTOL, gaps
+        assert gaps["acc_sum_gap"] <= CNN_ACC_TOL, gaps
+        assert max(gaps["w_gap_beyond_int8_step"].values()) <= CNN_W_TOL, \
+            gaps
+        del gpu, cpu
+    out["fig5"], n = drive(fig5_phase)
+    assert n == expect(), n      # the simulator's pytree master
+    return out
+
+
+def fig5_phase():
+    """Phase 13c: Fig. 5 (``benchmarks/fig5_nn.py`` at FULL) through
+    ``api.simulate`` with the gradients on the card: AMB-DG against
+    K-batch (b_per_msg 60, K 4) on amb-cnn FULL, n = 4, T_p = T_c = 10,
+    the shifted exponential (lambda 2/3, xi 4, b 60), 2000 simulated s,
+    b_max 150 (see FIG5_B_MAX). Hard checks: AMB-DG's updates equal its
+    timeline model's, K-batch applies K messages an update, no clamp,
+    finite held-out losses and weights. Findings: each scheme's final
+    loss on a held-out batch of 128 (worker 0's stream, as fig5_nn.py)
+    and fig5_nn.py's ``ambdg_beats_kbatch`` (AMB-DG's loss within 1.05x
+    K-batch's). The runs go without the profiler, whose record of
+    their ~300,000 kernels takes longer to read than the runs take; the
+    card's share comes from FIG5_SAMPLE worker gradients profiled after
+    each run (``device_kernel_s`` estimates the run's gradient kernels
+    as that sample's time a gradient times the run's gradients)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import AmbdgConfig
+    from repro_torch.core.strategy import get_strategy
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem
+    cfg = get_config("amb-cnn")
+    kw = dict(t_c=10.0, total_time=FIG5_TOTAL_S,
+              timing=ShiftedExponential(lam=2 / 3, xi=4.0, b=60),
+              opt_cfg=AmbdgConfig(t_p=10.0, t_c=10.0, tau=1, smoothness_L=4.0,
+                                  b_bar=240.0))
+    out = {}
+    for name, extra in (("ambdg", dict(t_p=10.0)),
+                        ("kbatch", dict(b_per_msg=60, K=4))):
+        problem = SimProblem(cfg, 4, b_max=FIG5_B_MAX, device="cuda")
+        tr, rec = simulate_split(name, problem, profile=False, **kw,
+                                 **extra)
+        assert sum(tr.clamps) == 0, (name, tr.clamps)
+        if name == "ambdg":
+            tm = get_strategy("ambdg").timeline_model()
+            assert rec["updates"] == tm.n_updates(FIG5_TOTAL_S, 10.0, 10.0)
+        else:
+            assert len(tr.staleness) == 4 * rec["updates"] > 0
+            rec["staleness_histogram"] = dict(sorted(
+                collections.Counter(tr.staleness).items()))
+        assert all(bool(torch.isfinite(v).all())
+                   for v in tr.final_params.values()), name
+        host = problem.streams[0].next_batch(128)
+        with torch.no_grad():
+            total, aux = problem.model.loss(tr.final_params, {
+                k: torch.from_numpy(v).cuda() for k, v in host.items()})
+        rec["final_loss"] = float(total) / float(aux["count"])
+        rec["final_acc"] = float(aux["acc_sum"]) / float(aux["count"])
+        _, kernels = profiled(lambda: [
+            problem.worker_grad(i % 4, tr.final_params, FIG5_B_MAX)
+            for i in range(FIG5_SAMPLE)])
+        copy_us = sum(us for k, us in kernels
+                      if k.startswith(("Memcpy", "Memset")))
+        rec["grad_kernel_ms"] = (sum(us for _, us in kernels) - copy_us) \
+            / 1e3 / FIG5_SAMPLE if kernels else None
+        if kernels:
+            rec["device_kernel_s"] = (rec["grad_kernel_ms"]
+                                      * rec["worker_grads"] / 1e3)
+        assert math.isfinite(rec["final_loss"]), (name, rec)
+        out[name] = rec
+        log(f"phase 13: fig5 {name}: {json.dumps(rec)}")
+    out["ambdg_beats_kbatch"] = int(out["ambdg"]["final_loss"]
+                                    <= out["kbatch"]["final_loss"] * 1.05)
+    return out
+
+
+def schedule_golden_phase():
+    """Phase 14a: both halves of ``tests/golden/batch_schedule_trace.json``
+    through ``api.simulate`` with the gradients on the card: AMB-DG under
+    adadamp with the heavy-tailed delay, K-batch under the linear ramp
+    (``tests/test_sim_golden.py``'s configurations). Targets, times,
+    staleness, clamps, minibatches and delays equal the JSON; errors to
+    rtol 1e-4, atol 1e-7. Returns {scheme: (updates, largest relative
+    error gap)}."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.configs.base import (AmbdgConfig, BatchScheduleConfig,
+                                          DelayConfig)
+    from repro_torch.core.batch_schedule import make_batch_schedule
+    from repro_torch.core.delay_process import make_delay_process
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem
+    path = Path(__file__).resolve().parent / "tests" / "golden" / \
+        "batch_schedule_trace.json"
+    golden = json.loads(path.read_text())
+    opt = AmbdgConfig(t_p=2.5, t_c=10.0, tau=4, smoothness_L=1.0,
+                      b_bar=180.0, proximal="l2_ball",
+                      radius_C=float(1.05 * np.sqrt(64)))
+    kw = dict(t_c=10.0, total_time=60.0, opt_cfg=opt, rng_seed=11, t_p=2.5,
+              timing=ShiftedExponential(lam=2 / 3, xi=1.0, b=60))
+    ada = BatchScheduleConfig(schedule="adadamp", b0=12, b_cap=96,
+                              growth_factor=2.0, ema=0.3, seed=5)
+    lin = BatchScheduleConfig(schedule="linear", b0=16, b_cap=128,
+                              growth_rate=2.0, seed=5)
+    runs = {"ambdg": dict(delay_process=make_delay_process(
+                DelayConfig(process="heavy_tail", tau_max=6, seed=13),
+                opt.staleness),
+                batch_schedule=make_batch_schedule(ada, opt.b_bar,
+                                                   opt.staleness)),
+            "kbatch": dict(b_per_msg=32, K=3,
+                           batch_schedule=make_batch_schedule(
+                               lin, opt.b_bar, opt.staleness))}
+    out = {}
+    for scheme, extra in runs.items():
+        problem = SimProblem(linreg_config(64), n_workers=3, seed=7,
+                             b_max=128, device="cuda")
+        tr = api.simulate(scheme, problem, **kw, **extra)
+        want = golden[scheme]
+        got = {"times": [round(t, 9) for t in tr.times],
+               "targets": list(tr.targets), "staleness": list(tr.staleness),
+               "clamps": list(tr.clamps), "minibatches": list(tr.minibatches),
+               "delays": list(tr.delays)}
+        for key in want:
+            if key != "errors":
+                assert got[key] == want[key], (scheme, key)
+        err, ref = np.asarray(tr.errors), np.asarray(want["errors"])
+        np.testing.assert_allclose(err, ref, rtol=1e-4, atol=1e-7,
+                                   err_msg=scheme)
+        out[scheme] = (len(tr.times),
+                       float(np.max(np.abs(err - ref) / np.abs(ref))))
+    return out
+
+
+def schedule_train_phase(drive, expect):
+    """Phase 14b: ``train`` of amb-linreg FULL (the main path's config, no
+    compression) under ``batch_schedule`` adadamp (fixed tau 4, at phase
+    11's smoothness L = 20, where the loss falls within 12 steps, so
+    adadamp's target grows) and under delay_aware with phase 4's
+    heavy-tailed delay (L = 1), 12 steps on the card and the CPU: the
+    same drawn targets, the same applied counts (phase 3's checks and
+    tolerances: ``compare_devices``); the dual update once a step, the
+    variable pop (B.3) once a step under the delay. Without compression:
+    under int8 a last-bit difference of the two devices' gradients
+    flipped an int8 rounding in both runs, and the loss moved 1.8e-4
+    (L = 20) and 2.1e-4 (L = 1) relative, above phase 3's loss limit,
+    which is set for f32 summation order (phases 13 and 14c run int8).
+    Returns {schedule: record}."""
+    import dataclasses
+    from repro_torch.configs.base import BatchScheduleConfig
+    cfg, rc_of = main_path_config()
+    radius = rc_of("none").ambdg.radius_C
+    out = {}
+    compression = "none"
+    for sched, delay, smooth in (("adadamp", None, L2_SMOOTHNESS),
+                                 ("delay_aware", STOCHASTIC_DELAY, 1.0)):
+        rc = rc_of(compression, delay)
+        rc = rc.replace(
+            ambdg=dataclasses.replace(rc.ambdg, smoothness_L=smooth),
+            batch_schedule=BatchScheduleConfig(schedule=sched))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            (runs[dev], secs), n = drive(lambda: run_scenario(rc, dev))
+            if dev == "cuda":
+                assert n == expect(dual_update=MAIN_STEPS,
+                                   variable_pop=MAIN_STEPS if delay else 0
+                                   ), (sched, n)
+                launches = n
+        targets = [h["b_target"] for h in runs["cuda"]["history"]]
+        assert targets == [h["b_target"] for h in runs["cpu"]["history"]]
+        assert len(set(targets)) > 1, targets
+        if delay:
+            arrived = arrivals(delay)[1]
+        else:
+            arrived = [t >= 4 for t in range(MAIN_STEPS)]
+        diff, tol = compare_devices(compression, runs["cuda"], runs["cpu"],
+                                    arrived, radius,
+                                    tau_max=delay["tau_max"] if delay
+                                    else None)
+        out[sched] = dict(targets=targets, launches=launches,
+                          applied_count=[h["applied_count"]
+                                         for h in runs["cuda"]["history"]],
+                          w_max_diff=diff, w_tol=tol)
+        log(f"phase 14: train under {sched}: {json.dumps(out[sched])}")
+    return out
+
+
+def run_scenario(rc, device, n_steps=MAIN_STEPS, ckpt_dir=None):
+    """``train`` of the main path's fleet (10 workers x 150) under ``rc``:
+    (result, seconds)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    loop = LoopConfig(n_steps=n_steps, n_workers=10, samples_per_worker=150,
+                      log_every=1, ckpt_dir=ckpt_dir, ckpt_every=6)
+    t0 = time.perf_counter()
+    out = train(build_model(rc.model, device=device), rc, loop, device=device)
+    return out, time.perf_counter() - t0
+
+
+def elastic_restart_phase(drive, expect):
+    """Phase 14c: ``train`` of amb-linreg FULL on the card under the churn
+    (int8) and crash/restart (no compression) worker processes with a
+    checkpoint directory (every 6 steps): evictions and readmissions
+    appear in ``remesh_events``, each eviction saves a checkpoint after
+    its step with the re-mesh plan; a run stopped at step 6 and restarted
+    from its checkpoint ends where the uninterrupted 12-step run ends,
+    bit for bit (every state leaf: params, z, ring, scales, residual,
+    counts, head, step), and the step-12 checkpoints' host states
+    (pipeline, worker process, health) are equal. Returns {process:
+    record}."""
+    import tempfile
+    import torch
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.train import checkpoint
+    cfg, rc_of = main_path_config()
+    out = {}
+    saves = []
+    save = checkpoint.save
+
+    def spy(ckpt_dir, step, state, extra=None, keep=3):
+        saves.append((Path(ckpt_dir).name, step,
+                      (extra or {}).get("remesh_plan")))
+        return save(ckpt_dir, step, state, extra=extra, keep=keep)
+
+    checkpoint.save = spy
+    try:
+        for process, compression in (("churn", "int8"),
+                                     ("crash_restart", "none")):
+            rc = rc_of(compression).replace(
+                elastic=ElasticConfig(**ELASTIC[process]))
+            saves.clear()
+            with tempfile.TemporaryDirectory() as d:
+                def runs():
+                    whole = run_scenario(rc, "cuda", ckpt_dir=f"{d}/whole")[0]
+                    run_scenario(rc, "cuda", n_steps=6, ckpt_dir=f"{d}/split")
+                    rest = run_scenario(rc, "cuda", ckpt_dir=f"{d}/split")[0]
+                    manifests = [json.loads(Path(
+                        f"{d}/{k}/step_{MAIN_STEPS:09d}/manifest.json"
+                    ).read_text()) for k in ("whole", "split")]
+                    return whole, rest, manifests
+
+                (whole, rest, manifests), n = drive(runs)
+            steps = 2 * MAIN_STEPS
+            assert n == expect(dual_update=steps, slot_rotate=steps
+                               if compression == "int8" else 0), n
+            la = checkpoint._flatten_with_paths(whole["state"])
+            lb = checkpoint._flatten_with_paths(rest["state"])
+            assert [k for k, _ in la] == [k for k, _ in lb]
+            for (k, x), (_, y) in zip(la, lb):
+                assert torch.equal(x, y), k
+            assert manifests[0] == manifests[1]
+            assert {"pipeline", "elastic_process", "health"} <= set(
+                manifests[0]["extra"])
+            events = whole["remesh_events"]
+            evicts = [e for e in events if e["event"] == "evict"]
+            assert evicts and any(e["event"] == "readmit" for e in events), \
+                events
+            for e in evicts:
+                assert ("whole", e["step"] + 1, e["plan"]) in saves, (e, saves)
+            assert [e for e in rest["remesh_events"]] == [
+                e for e in events if e["step"] >= 6]
+            out[process] = dict(
+                launches=n, leaves=len(la), remesh_events=events,
+                active_workers=[h["active_workers"]
+                                for h in whole["history"]],
+                applied_count=[h["applied_count"]
+                               for h in whole["history"]],
+                checkpoints=sorted({s for k, s, _ in saves if k == "whole"}))
+            log(f"phase 14: {process} {compression}: restart at 6 equals "
+                f"the 12-step run bit for bit ({len(la)} leaves); "
+                f"{json.dumps(out[process])}")
+    finally:
+        checkpoint.save = save
+    return out
+
+
+def scenario_phase(drive, expect):
+    """Phase 14 on amb-linreg: 14a the schedule golden trace, 14b
+    ``train`` under the schedules, 14c elastic workers and restarts."""
+    import torch
+    # the golden errors are held at rtol 1e-4: f32 products without TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    out["golden"], n = drive(schedule_golden_phase)
+    assert n == expect(), n       # the simulator's pytree master
+    for scheme, (updates, rel) in out["golden"].items():
+        log(f"phase 14: batch_schedule_trace {scheme}: {updates} updates, "
+            f"exact columns equal, errors within rtol {rel:.3e} <= 1e-4")
+    out["train"] = schedule_train_phase(drive, expect)
+    out["elastic"] = elastic_restart_phase(drive, expect)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1900,6 +2450,54 @@ def main():
     for name, n in hmma.items():
         assert (n > 0) == ("linear_scan_pass" not in name), (name, n)
     phase_done("phase 1", t0)
+
+    counters = {"dual_update": update_kernel.KERNEL,
+                "slot_rotate": ring_kernel.KERNEL,
+                "variable_pop": ring_kernel.VARIABLE_POP_KERNEL,
+                "ring_rotate": ring_kernel.RING_KERNEL,
+                "flash_fwd": flash_kernel.FWD,
+                "flash_fwd_lse": flash_kernel.FWD_LSE,
+                "flash_bwd_dq": flash_kernel.DQ,
+                "flash_bwd_dkv": flash_kernel.DKV,
+                "dual_update_pytree": update_kernel.UPDATE,
+                "linear_scan_fwd": scan_kernel.FWD,
+                "linear_scan_bwd": scan_kernel.BWD}
+    launches = dict.fromkeys(counters, 0)
+
+    def drive(fn):
+        """Run ``fn()`` with every launch count set to 0 just before;
+        returns (its result, the counts just after), the counts also
+        added to the kernels line's ``launches``."""
+        for k in counters.values():
+            k.launches = 0
+        out = fn()
+        n = {name: k.launches for name, k in counters.items()}
+        for name in n:
+            launches[name] += n[name]
+        return out, n
+
+    def expect(**nonzero):
+        """The counts of a run: those named, 0 for every other kernel."""
+        return dict(dict.fromkeys(counters, 0), **nonzero)
+
+    # ``--only=13,14``: after the build, run only those of phases 13-14 (a
+    # short call while working on them); prints no kernels or ok line
+    only = [a.split("=", 1)[1] for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    if only:
+        picked = set(only[0].split(","))
+        record = {}
+        if "13" in picked:
+            t0 = time.perf_counter()
+            record["cnn"] = cnn_phase(drive, expect)
+            phase_done("phase 13", t0)
+        if "14" in picked:
+            t0 = time.perf_counter()
+            record["scenarios"] = scenario_phase(drive, expect)
+            phase_done("phase 14", t0)
+        log(json.dumps({"partial": record, "launches": launches,
+                        "phase_s": phase_s}))
+        return 0
 
     # -- 2. kernels against their plain versions ---------------------------
     t0 = time.perf_counter()
@@ -1988,35 +2586,6 @@ def main():
     for r in results["dual_update_pytree"]:
         assert r["bitwise"] and r["max_abs_err"] == 0.0, r
     phase_done("phase 2", t0)
-
-    counters = {"dual_update": update_kernel.KERNEL,
-                "slot_rotate": ring_kernel.KERNEL,
-                "variable_pop": ring_kernel.VARIABLE_POP_KERNEL,
-                "ring_rotate": ring_kernel.RING_KERNEL,
-                "flash_fwd": flash_kernel.FWD,
-                "flash_fwd_lse": flash_kernel.FWD_LSE,
-                "flash_bwd_dq": flash_kernel.DQ,
-                "flash_bwd_dkv": flash_kernel.DKV,
-                "dual_update_pytree": update_kernel.UPDATE,
-                "linear_scan_fwd": scan_kernel.FWD,
-                "linear_scan_bwd": scan_kernel.BWD}
-    launches = dict.fromkeys(counters, 0)
-
-    def drive(fn):
-        """Run ``fn()`` with every launch count set to 0 just before;
-        returns (its result, the counts just after), the counts also
-        added to the kernels line's ``launches``."""
-        for k in counters.values():
-            k.launches = 0
-        out = fn()
-        n = {name: k.launches for name, k in counters.items()}
-        for name in n:
-            launches[name] += n[name]
-        return out, n
-
-    def expect(**nonzero):
-        """The counts of a run: those named, 0 for every other kernel."""
-        return dict(dict.fromkeys(counters, 0), **nonzero)
 
     # -- 3. the main path: fixed tau ----------------------------------------
     t0 = time.perf_counter()
@@ -2120,7 +2689,7 @@ def main():
     grads = {}
     for impl in ("xla", "flash"):
         for dt in ("float32", "bfloat16"):
-            grads[impl, dt] = lm_grads(lm_config(impl, compute_dtype=dt),
+            grads[impl, dt] = model_grads(lm_config(impl, compute_dtype=dt),
                                        params0, batch)
             torch.cuda.empty_cache()
     ref32 = grads["xla", "float32"][0]
@@ -2256,9 +2825,9 @@ def main():
         torch.Generator().manual_seed(rc7.seed))
     host7 = TokenStream(cfg7, seed=1).next_batch(2, 256)
     batch7 = {k: torch.from_numpy(v) for k, v in host7.items()}
-    g7_cpu, loss7_cpu = lm_grads(cfg7, params7, batch7)
+    g7_cpu, loss7_cpu = model_grads(cfg7, params7, batch7)
     leaves7, def7 = tree_flatten(params7)
-    g7_gpu, loss7_gpu = lm_grads(
+    g7_gpu, loss7_gpu = model_grads(
         cfg7, tree_unflatten(def7, [x.cuda() for x in leaves7]),
         {k: v.cuda() for k, v in batch7.items()})
     names7 = leaf_names(params7)
@@ -2328,9 +2897,20 @@ def main():
     kbatch = kbatch_phase(drive, expect)
     log(f"phase 12: kbatch: {json.dumps(kbatch)}")
     phase_done("phase 12", t0)
+
+    # -- 13. the CNN at full width, Fig. 5 ----------------------------------
+    t0 = time.perf_counter()
+    cnn = cnn_phase(drive, expect)
+    phase_done("phase 13", t0)
+
+    # -- 14. batch schedules, elastic workers, checkpoint/restart -----------
+    t0 = time.perf_counter()
+    scenarios = scenario_phase(drive, expect)
+    phase_done("phase 14", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
-                    "masters": masters, "kbatch": kbatch, "phase_s": phase_s,
+                    "masters": masters, "kbatch": kbatch, "cnn": cnn,
+                    "scenarios": scenarios, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

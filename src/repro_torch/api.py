@@ -54,10 +54,10 @@ def simulate(strategy, problem, **kw):
     ``problem.device``.
 
     ``strategy`` is a registered name or a built ``Strategy``: a built
-    one brings its ``rc.delay`` process into the engine (and, for
-    k-batch, ``t_p`` to convert its delays into uplink seconds), and its
-    worker process and batch schedule where it has them (never yet:
-    ROADMAP A.9). An explicit keyword argument wins."""
+    one brings its seeded ``rc.delay`` process, ``rc.elastic`` worker
+    process and ``rc.batch_schedule`` controller into the engine where
+    its config has one (and, for k-batch, ``t_p``, the epoch clock both
+    processes need). An explicit keyword argument wins."""
     from repro_torch.sim import simulate_anytime, simulate_kbatch
     if isinstance(strategy, Strategy):
         cls, name = type(strategy), type(strategy).name
@@ -69,6 +69,8 @@ def simulate(strategy, problem, **kw):
         wp = strategy.worker_process(problem.n_workers)
         if wp is not None and "worker_process" not in kw:
             kw["worker_process"] = wp
+            if cls.sim_engine == "kbatch":
+                kw.setdefault("t_p", strategy.rc.ambdg.t_p)
         bs = strategy.batch_schedule()
         if bs is not None and "batch_schedule" not in kw:
             kw["batch_schedule"] = bs

@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
 The port registers the architectures it can train: the paper's linear
-regression, the four DENSE transformers of the JAX package's zoo and
+regression and CNN, the four DENSE transformers of the JAX package's zoo and
 the HYBRID zamba2 (Mamba2 layers with a shared attention block).
 The rest of the zoo follows in later slices (ROADMAP A.13). Each module
 exposes ``FULL`` (the published config) and ``SMOKE`` (a reduced
@@ -9,7 +9,7 @@ same-family config for the CPU tests).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (amb_linreg, chatglm3_6b, qwen1_5_0_5b,
+from repro_torch.configs import (amb_cnn, amb_linreg, chatglm3_6b, qwen1_5_0_5b,
                                  qwen3_1_7b, yi_6b, zamba2_2_7b)
 from repro_torch.configs.base import (  # noqa: F401
     CNN, DENSE, ENCDEC, HYBRID, LINREG, LM_FAMILIES, MOE, SSM, VLM,
@@ -24,6 +24,7 @@ _MODULES = {
     "qwen3-1.7b": qwen3_1_7b,
     "zamba2-2.7b": zamba2_2_7b,
     "amb-linreg": amb_linreg,
+    "amb-cnn": amb_cnn,
 }
 
 

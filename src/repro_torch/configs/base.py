@@ -127,13 +127,16 @@ class ModelConfig:
     def n_params(self) -> int:
         """Analytic parameter count of the families the port carries,
         as the JAX package counts it (the unpadded vocab; qk-norm
-        scales, the Mamba2 conv bias and dt bias not counted)."""
+        scales, the Mamba2 conv bias and dt bias not counted; for the
+        CNN, JAX's count of a smaller net than the one it builds)."""
         if self.family == LINREG:
             return self.linreg_dim
+        if self.family == CNN:
+            return _cnn_param_count(self)
         if self.family not in (DENSE, HYBRID):
             raise NotImplementedError(
                 f"n_params for family {self.family!r} comes with its model "
-                "(ROADMAP A.8, A.13)")
+                "(ROADMAP A.13)")
         d, hd = self.d_model, self.resolved_head_dim
         nq, nkv = self.n_heads, self.n_kv_heads
         attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
@@ -153,6 +156,20 @@ class ModelConfig:
         # one shared attention + MLP block, counted once
         return (total + self.n_layers * (mamba2 + 2 * d)
                 + attn + 3 * d * self.d_ff + 2 * d)
+
+
+def _cnn_param_count(cfg: ModelConfig) -> int:
+    """The JAX package's CNN count, kept as it is: "6 conv layers + 3
+    fc", which is not the network ``models/cnn.py`` builds (9 convs and
+    5 fc: 6,805,642 parameters at FULL; ROADMAP C.10)."""
+    chans = [3, 64, 64, 128, 128, 256, 256]
+    total = 0
+    for cin, cout in zip(chans[:-1], chans[1:]):
+        total += 3 * 3 * cin * cout + cout
+    feat = 256 * (cfg.image_size // 8) * (cfg.image_size // 8)
+    for fin, fout in [(feat, 512), (512, 128), (128, cfg.n_classes)]:
+        total += fin * fout + fout
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +238,8 @@ class DelayConfig:
 
 @dataclass(frozen=True)
 class ElasticConfig:
-    """Elastic-worker process. The port runs ``process="static"`` only
-    (every worker alive at speed 1.0)."""
+    """Elastic-worker process (``core.worker_process``): ``"static"``
+    keeps every worker alive at speed 1.0."""
     process: str = "static"   # static | heterogeneous | churn | crash_restart
     speed_sigma: float = 0.5
     speed_min: float = 0.05
@@ -235,8 +252,8 @@ class ElasticConfig:
 
 @dataclass(frozen=True)
 class BatchScheduleConfig:
-    """Adaptive minibatch schedule b(t). The port runs
-    ``schedule="fixed"`` only (the timing-driven anytime target)."""
+    """Adaptive minibatch schedule b(t) (``core.batch_schedule``):
+    ``"fixed"`` keeps the timing-driven anytime target."""
     schedule: str = "fixed"   # fixed | linear | adadamp | delay_aware
     b0: int = 0
     b_min: int = 1

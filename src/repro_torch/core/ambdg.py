@@ -30,8 +30,15 @@ and equals the arena master bit for bit (``proximal="l2"``; ``l2_ball``
 to the ball norm's summation order). The stochastic delay runs on the
 arena only, as in the JAX package.
 
-The port carries a fixed batch schedule; every other knob raises
-``NotImplementedError`` naming its ROADMAP item.
+``rc.batch_schedule`` selects the minibatch-target schedule: "fixed"
+keeps the static ``b_bar`` in the step size; an adaptive schedule
+(linear, adadamp, delay_aware) reads the per-step target the host loop
+draws from ``core.batch_schedule`` as a 0-dim ``batch["b_sched"]``
+tensor on the device, which replaces ``b_bar`` in alpha. It runs on
+the arena master only, as in the JAX package.
+
+Every knob the port does not carry yet raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -65,10 +72,11 @@ def check_supported(rc: RunConfig) -> None:
             "stochastic delay processes run on the arena master pipeline "
             "only (rc.master_impl='arena'); the pytree reference path keeps "
             "the paper's fixed tau")
-    if rc.batch_schedule.schedule != "fixed":
-        raise NotImplementedError(
-            f"rc.batch_schedule.schedule={rc.batch_schedule.schedule!r}: "
-            "adaptive batch schedules are not ported yet (ROADMAP A.9)")
+    if rc.master_impl == "pytree" and rc.batch_schedule.schedule != "fixed":
+        raise ValueError(
+            "adaptive batch schedules run on the arena master pipeline "
+            "only (rc.master_impl='arena'); the pytree reference path keeps "
+            "the paper's static b_bar")
     if rc.ambdg.anytime_impl != "scan_masked":
         raise NotImplementedError(
             f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while is "
@@ -79,11 +87,13 @@ def check_supported(rc: RunConfig) -> None:
 
 
 def arena_master_update(layout, opt, params, opt_state, arena_state,
-                        pod_grads, pod_counts, compression: str = "none"):
+                        pod_grads, pod_counts, compression: str = "none",
+                        b_sched=None):
     """The master pipeline on the flat arena: rotate the delay ring with
     this step's pod-stacked gradient tree and apply the optimizer to the
-    popped sum. Returns (params, opt_state, arena_state, grad_sum_flat,
-    count)."""
+    popped sum. ``b_sched`` threads an adaptive batch schedule's target
+    into the step size (None: the static ``b_bar``). Returns (params,
+    opt_state, arena_state, grad_sum_flat, count)."""
     if arena_state is not None:
         grad_sum, count, arena_state = arena_mod.push_pop(
             layout, arena_state, pod_grads, pod_counts, compression)
@@ -93,7 +103,8 @@ def arena_master_update(layout, opt, params, opt_state, arena_state,
                                           [pod_sum(g) for g in leaves])
         grad_sum = arena_mod.flatten_tree(layout, summed)
         count = torch.sum(pod_counts)
-    params, opt_state = opt.update(opt_state, params, grad_sum, count)
+    params, opt_state = opt.update(opt_state, params, grad_sum, count,
+                                   b_sched=b_sched)
     return params, opt_state, arena_state, grad_sum, count
 
 
@@ -129,6 +140,8 @@ def build_step_fns(model: Model, rc: RunConfig):
     from repro_torch.core.delay_process import resolve_bounds
     from repro_torch.optim import make_arena_optimizer, make_optimizer
     check_supported(rc)
+    # rc.batch_schedule is validated by the strategy that builds this
+    variable_batch = rc.batch_schedule.schedule != "fixed"
     device = model.device
     n_pods = rc.mesh.n_pods
     tau = rc.ambdg.tau
@@ -184,7 +197,8 @@ def build_step_fns(model: Model, rc: RunConfig):
     ring_cap = torch.full((), float(ring_tau), dtype=torch.float32,
                           device=device)
 
-    def variable_master_update(state, pod_grads, pod_counts, delay):
+    def variable_master_update(state, pod_grads, pod_counts, delay,
+                               b_sched):
         """The delay-tolerant master step: the v3 rotation, then dual
         averaging with the observed staleness (or, without
         ``adaptive_alpha``, the ring's cap). Returns (params, opt_state,
@@ -198,7 +212,7 @@ def build_step_fns(model: Model, rc: RunConfig):
         params, opt_state = opt.update(
             state.opt_state, state.params, grad_sum, count,
             tau_obs=(tau_obs if rc.delay.adaptive_alpha
-                     else float(ring_tau)))
+                     else float(ring_tau)), b_sched=b_sched)
         return params, opt_state, arena_state, grad_sum, count, tau_obs
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -211,6 +225,17 @@ def build_step_fns(model: Model, rc: RunConfig):
                     "draws it from core.delay_process)")
             delay = batch["delay"]
             batch = {k: v for k, v in batch.items() if k != "delay"}
+        b_sched = None
+        if variable_batch:
+            if "b_sched" not in batch:
+                raise ValueError(
+                    f"rc.batch_schedule.schedule="
+                    f"{rc.batch_schedule.schedule!r} needs a per-step "
+                    "batch['b_sched'] scalar (the host loop draws it "
+                    "from core.batch_schedule)")
+            # a 0-dim f32 tensor on the device: alpha reads it there
+            b_sched = batch["b_sched"].to(torch.float32)
+            batch = {k: v for k, v in batch.items() if k != "b_sched"}
         pod_grads, pod_counts, pod_loss = pod_chunk_grads(state.params, batch)
         buffer = arena_state = None      # the master not in use keeps None
         with torch.no_grad():
@@ -223,13 +248,14 @@ def build_step_fns(model: Model, rc: RunConfig):
                 if variable_delay:
                     (params, opt_state, arena_state, grad_sum, count,
                      tau_obs) = variable_master_update(state, pod_grads,
-                                                       pod_counts, delay)
+                                                       pod_counts, delay,
+                                                       b_sched)
                 else:
                     params, opt_state, arena_state, grad_sum, count = \
                         arena_master_update(layout, opt, state.params,
                                             state.opt_state, state.arena,
                                             pod_grads, pod_counts,
-                                            compression)
+                                            compression, b_sched=b_sched)
                 # scalar divide after the reduce: the value of norm(g / c)
                 g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
                           / torch.clamp(count, min=1e-12))

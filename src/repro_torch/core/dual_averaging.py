@@ -38,11 +38,16 @@ def alpha(t, cfg: AmbdgConfig, tau=None, b=None):
     variable-delay path passes the observed staleness of the applied
     gradients as ``tau`` (a 0-dim device tensor, never read on the
     host): the delay-adaptive step size of Agarwal and Duchi. With a
-    constant tau equal to the config's it is the same arithmetic."""
+    constant tau equal to the config's it is the same arithmetic. An
+    adaptive batch schedule passes its target b(t) as ``b``: a 0-dim f32
+    device tensor on the training step (``batch["b_sched"]``), a Python
+    number in the simulator."""
     tau = cfg.tau if tau is None else tau
     b = cfg.b_bar if b is None else b
+    if not isinstance(b, torch.Tensor):
+        b = _const(b, t)
     return torch.div(_const(1.0, t), cfg.smoothness_L +
-                     torch.sqrt(torch.div(t + tau, _const(b, t))))
+                     torch.sqrt(torch.div(t + tau, b)))
 
 
 class DualAveragingState(NamedTuple):
@@ -100,13 +105,15 @@ def init_arena(layout, device) -> ArenaDualAveragingState:
 
 
 def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
-                 cfg: AmbdgConfig, tau_obs=None
+                 cfg: AmbdgConfig, tau_obs=None, b_sched=None
                  ) -> Tuple[Any, ArenaDualAveragingState]:
     """Arena dual-averaging update with the count normalization fused in:
     takes the *un-normalized* popped gradient sum and its count, runs
     the fused update (the CUDA kernel on the card; z updated in place)
     and returns (params tree with f32 leaves, new state). ``tau_obs``
-    (the variable-delay path) replaces the static tau in ``alpha``.
+    (the variable-delay path) replaces the static tau in ``alpha``,
+    ``b_sched`` (an adaptive batch schedule's target) the static
+    ``b_bar``.
 
     ``proximal="l2"`` matches the JAX package bit for bit. Under
     ``"l2_ball"`` the ball norm is one flat reduction whose summation
@@ -118,7 +125,7 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     if cfg.proximal not in ("l2", "l2_ball"):
         raise ValueError(f"unknown proximal {cfg.proximal!r}")
     t_next = state.t + 1
-    a = alpha(t_next.to(torch.float32) + 1.0, cfg, tau=tau_obs)
+    a = alpha(t_next.to(torch.float32) + 1.0, cfg, tau=tau_obs, b=b_sched)
     z_next, w = dual_update_arena(state.z, g_sum, count, a)
     if cfg.proximal == "l2_ball":
         norm = torch.sqrt(torch.sum(torch.square(w)))   # arena pads are zero

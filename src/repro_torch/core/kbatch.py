@@ -37,13 +37,17 @@ class KBatchMaster:
     sum (a left fold) and the staleness log then depend only on which
     messages arrived, never on how the event heap broke ties.
 
-    The JAX master's ``adaptive_b`` (the step size from each batch's
-    total count) serves only the adaptive batch schedules and comes with
-    them (ROADMAP A.9)."""
+    ``adaptive_b`` (adaptive batch schedules): the step size takes each
+    triggering batch's total count in place of the static ``cfg.b_bar``;
+    under a schedule the K message counts are the drawn targets, so
+    alpha tracks the batch the controller asked for (the K-batch twin
+    of ``batch["b_sched"]``)."""
 
-    def __init__(self, params, cfg: AmbdgConfig, K: int):
+    def __init__(self, params, cfg: AmbdgConfig, K: int,
+                 adaptive_b: bool = False):
         self.cfg = cfg
         self.K = K
+        self.adaptive_b = adaptive_b
         self.state = da.init(params)
         self.params = params
         self.pending: List[Message] = []
@@ -64,6 +68,8 @@ class KBatchMaster:
                        device=self.state.t.device))
         for m in batch:
             self.staleness_log.append(self.update_count + 1 - m.ref_epoch)
-        self.params, self.state = da.update(self.state, g, self.cfg)
+        self.params, self.state = da.update(
+            self.state, g, self.cfg,
+            b=float(total) if self.adaptive_b else None)
         self.update_count += 1
         return True

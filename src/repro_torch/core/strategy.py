@@ -59,12 +59,19 @@ class Strategy:
     # the simulator engine that runs this scheme: "anytime" (epoch
     # timeline) or "kbatch" (event-driven arrival heap)
     sim_engine: Optional[str] = None
+    # does the device step read the elastic active mask as
+    # batch["active"]? The master-ful strategies do not (a dead worker's
+    # samples carry weight 0 in the anytime weights and eq. (5) stays
+    # exact); only the decentralized gossip does (ROADMAP A.10)
+    consumes_active_mask: bool = False
 
     def __init__(self, model: Model, rc: RunConfig):
-        if rc.elastic.process != "static":
-            raise NotImplementedError(
-                f"rc.elastic.process={rc.elastic.process!r}: elastic "
-                "workers are not ported yet (ROADMAP A.9)")
+        from repro_torch.core.batch_schedule import resolve_targets
+        from repro_torch.core.worker_process import validate_elastic
+        # every strategy reads rc.elastic and rc.batch_schedule: a bad
+        # config raises at build time, not at the first draw
+        validate_elastic(rc.elastic)
+        resolve_targets(rc.batch_schedule, rc.ambdg.b_bar)
         self.model = model
         self.rc = rc
 
@@ -86,18 +93,28 @@ class Strategy:
         return make_delay_process(self.rc.delay, self.rc.ambdg.tau)
 
     def worker_process(self, n_workers: int):
-        """The elastic worker process of ``rc.elastic``, which
-        ``api.simulate`` feeds to the engine: None, since the port
-        builds a strategy only under the static process (construction
-        raises otherwise; ROADMAP A.9)."""
-        return None
+        """The seeded ``core.worker_process`` instance this strategy's
+        ``rc.elastic`` configures for ``n_workers`` workers, or None
+        under the static process. The host loop folds one draw per step
+        into the anytime weights; ``api.simulate`` feeds it to the
+        engine (per-epoch draws for the anytime schemes, epoch-indexed
+        churn on the K-batch arrival heap)."""
+        if self.rc.elastic.process == "static":
+            return None
+        from repro_torch.core.worker_process import make_worker_process
+        return make_worker_process(self.rc.elastic, n_workers)
 
     def batch_schedule(self):
-        """The adaptive batch controller of ``rc.batch_schedule``, which
-        ``api.simulate`` feeds to the engine: None, since the port
-        builds a strategy only under the fixed schedule (construction
-        raises otherwise; ROADMAP A.9)."""
-        return None
+        """The seeded ``core.batch_schedule`` controller this strategy's
+        ``rc.batch_schedule`` configures, or None under the fixed
+        schedule. The host loop draws one target per step (shipped as
+        ``batch["b_sched"]``); ``api.simulate`` feeds the same sequence
+        to the engine (per-epoch targets, per-job sizes for K-batch)."""
+        if self.rc.batch_schedule.schedule == "fixed":
+            return None
+        from repro_torch.core.batch_schedule import make_batch_schedule
+        return make_batch_schedule(self.rc.batch_schedule,
+                                   self.rc.ambdg.b_bar, self.rc.ambdg.tau)
 
 
 _REGISTRY: Dict[str, Type[Strategy]] = {}
@@ -258,6 +275,16 @@ class KBatchStrategy(Strategy):
             return None
         from repro_torch.core.delay_process import make_delay_process
         return make_delay_process(self.delay_cfg, self._nominal_tau)
+
+    def batch_schedule(self):
+        # the device step runs the tau = 0 degenerate, but the
+        # delay-aware schedule refers to the configured nominal
+        # staleness (the event-driven simulator's regime)
+        if self.rc.batch_schedule.schedule == "fixed":
+            return None
+        from repro_torch.core.batch_schedule import make_batch_schedule
+        return make_batch_schedule(self.rc.batch_schedule,
+                                   self.rc.ambdg.b_bar, self._nominal_tau)
 
     def staleness_schedule(self) -> StalenessSchedule:
         extra = ""

@@ -4,7 +4,9 @@ batches as ``repro/data/pipeline.py`` for the same seed.
 Given per-worker minibatch sizes b_i(t) (the shifted-exponential model,
 or every worker full), it emits a fixed-shape global batch whose
 per-sample ``weights`` zero out the samples slower workers did not
-finish.
+finish. ``state_dict``/``load_state_dict`` carry the stream cursor and
+the timing draw's generator, so a restart is sample-exact;
+``apply_batch_target`` caps the weights at a batch schedule's target.
 """
 from __future__ import annotations
 
@@ -57,3 +59,31 @@ class AnytimePipeline:
             w[i, :bi] = 1.0
         batch["weights"] = w.reshape(-1)
         return batch
+
+    def state_dict(self):
+        return {"stream": self.stream.state_dict(),
+                "rng": self._rng.bit_generator.state}
+
+    def load_state_dict(self, s):
+        self.stream.load_state_dict(s["stream"])
+        self._rng.bit_generator.state = s["rng"]
+
+
+def apply_batch_target(weights: np.ndarray, b_target: int, n_workers: int,
+                       samples_per_worker: int) -> np.ndarray:
+    """Cap the anytime weights at a batch schedule's global target b(t):
+    the target splits evenly across workers (remainder to the lowest
+    ranks) and worker i keeps the first min(b_i, share_i) of its drawn
+    samples. A worker never contributes samples it did not finish; the
+    schedule bounds the total the step aggregates (alpha meanwhile takes
+    the schedule's b(t), shipped separately as ``batch["b_sched"]``)."""
+    w = np.asarray(weights, np.float32).reshape(n_workers, samples_per_worker)
+    share, rem = divmod(int(b_target), n_workers)
+    out = np.zeros_like(w)
+    for i in range(n_workers):
+        cap = min(share + (1 if i < rem else 0), samples_per_worker)
+        drawn = int(round(float(np.count_nonzero(w[i]))))
+        keep = min(drawn, cap)
+        if keep > 0:
+            out[i, :keep] = w[i, :keep]
+    return out.reshape(-1)

@@ -1,9 +1,10 @@
-"""Synthetic data streams (the paper's linear regression and the LM
-token stream), seeded numpy: the same bytes as the JAX
-package's ``repro/data/synthetic.py`` for the same seed and cursor, so
-both frameworks train on identical batches.
+"""Synthetic data streams (the paper's linear regression, its CNN's
+image stand-in for CIFAR-10, and the LM token stream), seeded numpy: the
+same bytes as the JAX package's ``repro/data/synthetic.py`` for the same
+seed and cursor, so both frameworks train on identical batches.
 
-Streams are deterministic functions of (seed, cursor).
+Streams are deterministic functions of (seed, cursor), so a restart
+resumes a stream exactly from its ``state_dict``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,48 @@ class LinRegStream:
         return {"x": x, "y": y,
                 "weights": np.ones((n,), np.float32)}
 
+    def state_dict(self):
+        return {"cursor": self._cursor}
+
+    def load_state_dict(self, s):
+        self._cursor = int(s["cursor"])
+
+
+@dataclass
+class ImageClassStream:
+    """Synthetic stand-in for CIFAR-10 (Sec. VI-B): class-conditional
+    Gaussian blobs, so training learns something measurable. ``seed``
+    fixes the class prototypes; ``sample_seed`` the stream."""
+    image_size: int = 32
+    n_classes: int = 10
+    seed: int = 0
+    sample_seed: Optional[int] = None
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.prototypes = rng.standard_normal(
+            (self.n_classes, self.image_size, self.image_size, 3)
+        ).astype(np.float32)
+        if self.sample_seed is None:
+            self.sample_seed = self.seed
+        self._cursor = 0
+
+    def next_batch(self, n: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.sample_seed + 1, self._cursor))
+        self._cursor += 1
+        labels = rng.integers(0, self.n_classes, size=n)
+        noise = rng.standard_normal(
+            (n, self.image_size, self.image_size, 3)).astype(np.float32)
+        images = 0.5 * self.prototypes[labels] + noise
+        return {"images": images, "labels": labels.astype(np.int32),
+                "weights": np.ones((n,), np.float32)}
+
+    def state_dict(self):
+        return {"cursor": self._cursor}
+
+    def load_state_dict(self, s):
+        self._cursor = int(s["cursor"])
+
 
 @dataclass
 class TokenStream:
@@ -64,14 +107,20 @@ class TokenStream:
         tokens = np.minimum(z, self.cfg.vocab_size - 1).astype(np.int32)
         return {"tokens": tokens, "weights": np.ones((batch,), np.float32)}
 
+    def state_dict(self):
+        return {"cursor": self._cursor}
+
+    def load_state_dict(self, s):
+        self._cursor = int(s["cursor"])
+
 
 def make_stream(cfg: ModelConfig, seed: int = 0,
                 sample_seed: Optional[int] = None):
     if cfg.family == LINREG:
         return LinRegStream(cfg.linreg_dim, seed, sample_seed)
     if cfg.family == CNN:
-        raise NotImplementedError("no image stream in the port yet "
-                                  "(ROADMAP A.8)")
+        return ImageClassStream(cfg.image_size, cfg.n_classes, seed,
+                                sample_seed)
     if cfg.family in (VLM, ENCDEC):
         raise NotImplementedError(f"no {cfg.family} stream in the port yet "
                                   "(ROADMAP A.13)")

@@ -1,3 +1,3 @@
-"""Models of the port: the paper's linear regression and the DENSE
-transformers of the LLM zoo."""
+"""Models of the port: the paper's linear regression and CNN, and the
+DENSE and HYBRID transformers of the LLM zoo."""
 from repro_torch.models.api import Model, build_model  # noqa: F401

@@ -11,8 +11,9 @@ case architectures:
 
 ``params`` is a nested dict of tensors on ``model.device``. Families:
 the paper's linear regression (an ``nn.Module`` evaluated at the given
-tensors through ``functional_call``), the DENSE transformers and the
-HYBRID zamba2 (``models.transformer``, functions over the tree). The decode path
+tensors through ``functional_call``), the paper's CNN (``models.cnn``),
+the DENSE transformers and the HYBRID zamba2 (``models.transformer``,
+functions over the tree). The decode path
 (``init_decode_state``, ``decode_step``) comes with serving (ROADMAP
 A.12) and raises.
 """
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import CNN, DENSE, HYBRID, LINREG, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import linear as linear_mod
 from repro_torch.models import transformer as tf_mod
 
@@ -50,16 +52,24 @@ class Model:
 
     def dummy_batch(self, batch: int, seq: int,
                     generator: Optional[torch.Generator] = None) -> Dict:
-        """Random tokens (LM families) on the model's device."""
+        """Random tokens (LM families) or images and labels (the CNN;
+        ``seq`` unused) on the model's device."""
         if self.cfg.family == LINREG:
-            raise NotImplementedError("dummy_batch is for the LM families; "
-                                      "the linear regression draws from "
-                                      "data.synthetic.LinRegStream")
+            raise NotImplementedError("dummy_batch is for the LM families "
+                                      "and the CNN; the linear regression "
+                                      "draws from data.synthetic."
+                                      "LinRegStream")
+        ones = torch.ones((batch,), dtype=torch.float32, device=self.device)
+        if self.cfg.family == CNN:
+            side = self.cfg.image_size
+            images = torch.randn((batch, side, side, 3), generator=generator)
+            labels = torch.randint(0, self.cfg.n_classes, (batch,),
+                                   generator=generator, dtype=torch.int32)
+            return {"images": images.to(self.device),
+                    "labels": labels.to(self.device), "weights": ones}
         tokens = torch.randint(0, self.cfg.vocab_size, (batch, seq),
                                generator=generator, dtype=torch.int32)
-        return {"tokens": tokens.to(self.device),
-                "weights": torch.ones((batch,), dtype=torch.float32,
-                                      device=self.device)}
+        return {"tokens": tokens.to(self.device), "weights": ones}
 
     def init_decode_state(self, *args, **kwargs):
         raise NotImplementedError("the decode path is not ported yet "
@@ -70,11 +80,13 @@ class Model:
                                   "(ROADMAP A.12)")
 
 
-def _lm_init(cfg: ModelConfig):
+def _seeded_init(init):
+    """``init(device, generator)`` with a CPU generator seeded 0 where
+    the caller gives none (none is drawn from on the meta device)."""
     def init_fn(device, generator):
         if generator is None and device.type != "meta":
             generator = torch.Generator().manual_seed(0)
-        return tf_mod.init(cfg, generator, device)
+        return init(device, generator)
     return init_fn
 
 
@@ -92,10 +104,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                          module, p, (b,)))
     if cfg.family in (DENSE, HYBRID):
         tf_mod.check_supported(cfg)
-        return Model(cfg, device, init_fn=_lm_init(cfg),
+        return Model(cfg, device, init_fn=_seeded_init(
+                         lambda dev, gen: tf_mod.init(cfg, gen, dev)),
                      loss_fn=lambda p, b: tf_mod.lm_loss(p, cfg, b))
     if cfg.family == CNN:
-        raise NotImplementedError("the CNN is not ported yet (ROADMAP A.8)")
+        return Model(cfg, device, init_fn=_seeded_init(
+                         lambda dev, gen: cnn_mod.init(cfg, gen, dev)),
+                     loss_fn=lambda p, b: cnn_mod.loss(p, cfg, b))
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
         "the port carries the DENSE and HYBRID families of the LLM zoo)")

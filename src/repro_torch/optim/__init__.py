@@ -46,10 +46,11 @@ def make_optimizer(rc: RunConfig) -> Optimizer:
 class ArenaOptimizer(NamedTuple):
     init: Callable[[], Any]
     update: Callable[..., Tuple[Any, Any]]
-    # update(opt_state, params, grad_sum_flat, count, tau_obs=None)
-    #   -> (params, state); tau_obs, the observed staleness of the
-    #   applied gradients (variable-delay path), switches dual averaging
-    #   to the delay-adaptive alpha
+    # update(opt_state, params, grad_sum_flat, count, tau_obs=None,
+    #        b_sched=None) -> (params, state); tau_obs, the observed
+    #   staleness of the applied gradients (variable-delay path),
+    #   switches dual averaging to the delay-adaptive alpha; b_sched, a
+    #   batch schedule's target b(t), replaces b_bar in alpha
 
 
 def arena_dual_averaging_optimizer(rc: RunConfig, layout,
@@ -57,10 +58,10 @@ def arena_dual_averaging_optimizer(rc: RunConfig, layout,
     cfg = rc.ambdg
 
     def update(opt_state: da.ArenaDualAveragingState, params, g_sum, count,
-               tau_obs=None):
+               tau_obs=None, b_sched=None):
         # params leaves come back f32, as in the JAX package
         return da.update_arena(layout, opt_state, g_sum, count, cfg,
-                               tau_obs=tau_obs)
+                               tau_obs=tau_obs, b_sched=b_sched)
 
     return ArenaOptimizer(init=lambda: da.init_arena(layout, device),
                           update=update)

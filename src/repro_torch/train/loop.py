@@ -1,20 +1,32 @@
 """Host training loop of the port (``repro/train/loop.py``): fixed-time
-(anytime) epochs for a registered strategy. Each iteration:
+(anytime) epochs for a registered strategy, with checkpoint/restart and
+elastic workers. Each iteration:
 
   1. the data pipeline draws per-worker anytime counts b_i(t) (the
      shifted-exponential model) and emits the masked global batch
      (seeded numpy: the JAX loop sees the same batches);
-  2. under a stochastic ``rc.delay`` the host draws this step's delay
-     from the seeded process (``Strategy.delay_process``) into
-     ``batch["delay"]``;
-  3. the batch moves to the device and the strategy's step runs
-     (AMB-DG: anytime accumulate -> delayed pod exchange -> dual-
-     averaging update).
+  2. under an adaptive ``rc.batch_schedule`` the host draws this step's
+     target b(t) (``Strategy.batch_schedule``), caps the anytime weights
+     with it (``data.pipeline.apply_batch_target``) and ships it as
+     ``batch["b_sched"]``;
+  3. under an elastic ``rc.elastic`` process the host draws this epoch's
+     (active, speeds) pair, heartbeats ``train.fault.WorkerHealth`` on
+     the virtual epoch clock (``at=float(step)``), readmits workers the
+     process brings back, folds the draw into the anytime weights, and
+     on an eviction records a re-mesh plan and checkpoints at once;
+  4. under a stochastic ``rc.delay`` the host draws this step's delay
+     (``Strategy.delay_process``) into ``batch["delay"]``;
+  5. the batch moves to the device and the strategy's step runs (AMB-DG:
+     anytime accumulate -> delayed pod exchange -> dual averaging);
+  6. every ``ckpt_every`` steps the state and every host-side generator
+     (pipeline, delay process, worker process, health, batch schedule)
+     go to ``ckpt_dir``; a run started on a directory that holds a
+     checkpoint resumes from its latest, sample- and draw-exact.
 
-The JAX loop's host-side ``WorkerHealth`` masking is left out: as the
-reference stands, its wall-clock heartbeat masks every worker once a
-run passes 30 s (ROADMAP C.2). Checkpoints, the weight-publication
-channel and the elastic process are not ported yet and raise.
+Without an elastic process the loop builds no ``WorkerHealth``: the JAX
+loop ticks a wall-clock tracker that nothing feeds, which masks every
+worker once a run passes 30 s (ROADMAP C.2). The weight-publication
+channel is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,37 +38,48 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import LM_FAMILIES, RunConfig
-from repro_torch.data.pipeline import AnytimePipeline
+from repro_torch.data.pipeline import AnytimePipeline, apply_batch_target
 from repro_torch.data.timing import ShiftedExponential
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.fault import WorkerHealth, fold_anytime_weights
 
 
 @dataclasses.dataclass
 class LoopConfig:
     n_steps: int = 100
-    ckpt_dir: Optional[str] = None      # not ported yet: raises
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
     log_every: int = 10
     n_workers: int = 8                  # logical anytime workers
     samples_per_worker: int = 8
     use_timing_model: bool = True
+    # elastic mode: consecutive dead epochs before a worker is evicted
+    # (eviction -> re-mesh plan -> immediate checkpoint; the worker is
+    # readmitted when the elastic process brings it back)
+    eviction_misses: int = 3
 
 
 def train(model: Model, rc: RunConfig, loop: LoopConfig,
           log_fn: Callable[[Dict], None] = None, device="cuda") -> Dict:
-    """Run ``loop.n_steps`` steps of ``rc.strategy`` on ``device``.
-    Returns {"state", "history", "b_history"}: ``history`` holds the
-    metrics (as floats) every ``log_every`` steps and at the last step,
-    with host-clock seconds: ``wall_s`` since the loop began, and for
-    that step ``batch_s`` (the host batch), ``h2d_s`` (its copy to the
-    device) and ``step_s`` (the step, up to its metrics read back).
-    The split is exact where every step is logged (``log_every=1``):
-    otherwise a step's device work can finish inside the next one's."""
+    """Run ``rc.strategy`` on ``device`` up to step ``loop.n_steps``
+    (from the latest checkpoint in ``loop.ckpt_dir`` if it holds one).
+    Returns {"state", "history", "b_history", "remesh_events"}:
+    ``history`` holds the metrics (as floats) every ``log_every`` steps
+    and at the last step, with host-clock seconds: ``wall_s`` since the
+    loop began, and for that step ``batch_s`` (the host batch), ``h2d_s``
+    (its copy to the device) and ``step_s`` (the step, up to its metrics
+    read back); ``active_workers`` under an elastic process and
+    ``b_target`` (the drawn target) under a batch schedule. The split
+    is exact where every step is logged (``log_every=1``): otherwise a
+    step's device work can finish inside the next one's.
+
+    Under an adaptive batch schedule the controller observes each step's
+    loss (and ``tau_applied``): one read back to the host a step, the
+    same one the JAX loop makes (``float(metrics["loss"])``)."""
     from repro_torch import api
     device = resolve_device(device)
-    if loop.ckpt_dir:
-        raise NotImplementedError("checkpoint/restore is not ported yet "
-                                  "(ROADMAP A.5: train/checkpoint.py)")
     if rc.serve.publish_period > 0:
         raise NotImplementedError("the weight-publication channel is not "
                                   "ported yet (ROADMAP A.12)")
@@ -69,33 +92,116 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
         timing=ShiftedExponential() if loop.use_timing_model else None,
         t_p=rc.ambdg.t_p)
 
-    # the host owns the seeded delay process and ships one draw per step
-    # (ambdg has the master delay ring; amb refuses a stochastic one)
+    # the host owns the seeded processes: one delay draw per step
+    # (ambdg has the master delay ring; amb refuses a stochastic one,
+    # kbatch strips it), one batch target, one elastic draw
     delay_proc = strategy.delay_process() if rc.strategy == "ambdg" else None
+    batch_sched = strategy.batch_schedule()
+    elastic_proc = strategy.worker_process(loop.n_workers)
+    # liveness on the virtual epoch clock: a missed epoch is a missed
+    # heartbeat (none without an elastic process, ROADMAP C.2)
+    health = (WorkerHealth(loop.n_workers, heartbeat_timeout=0.5,
+                           eviction_misses=loop.eviction_misses, t0=0.0)
+              if elastic_proc is not None else None)
 
     # a CPU generator: the model's weights are drawn on the host, so the
     # card and the CPU start from the same ones
     generator = torch.Generator().manual_seed(rc.seed)
     state = strategy.init_state(generator)
-    history = []
+    start_step = 0
+    if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
+        state, extra = ckpt.restore(loop.ckpt_dir, state)
+        pipeline.load_state_dict(extra["pipeline"])
+        if delay_proc is not None and "delay_process" in extra:
+            delay_proc.load_state_dict(extra["delay_process"])
+        if elastic_proc is not None and "elastic_process" in extra:
+            elastic_proc.load_state_dict(extra["elastic_process"])
+            if "health" in extra:
+                health.load_state_dict(extra["health"])
+        if batch_sched is not None and "batch_schedule" in extra:
+            batch_sched.load_state_dict(extra["batch_schedule"])
+        start_step = extra["step"]
+
+    def save_ckpt(next_step: int, plan=None):
+        extra = {"step": next_step, "pipeline": pipeline.state_dict()}
+        if delay_proc is not None:
+            extra["delay_process"] = delay_proc.state_dict()
+        if elastic_proc is not None:
+            extra["elastic_process"] = elastic_proc.state_dict()
+            extra["health"] = health.state_dict()
+        if batch_sched is not None:
+            extra["batch_schedule"] = batch_sched.state_dict()
+        if plan is not None:
+            extra["remesh_plan"] = plan
+        ckpt.save(loop.ckpt_dir, next_step, state, extra=extra)
+
+    history, remesh_events = [], []
     t_start = time.monotonic()
-    for step in range(loop.n_steps):
+    for step in range(start_step, loop.n_steps):
         t0 = time.monotonic()
         host = pipeline.next_global_batch()
+        b_target = None
+        if batch_sched is not None:
+            b_target = batch_sched.target()
+            host["weights"] = apply_batch_target(
+                host["weights"], b_target, loop.n_workers,
+                loop.samples_per_worker)
+        remesh_plan = None
+        if elastic_proc is not None:
+            active, speeds = elastic_proc.step()
+            at = float(step)
+            for i in np.flatnonzero(active):
+                if int(i) in health.evicted:
+                    # the process brought an evicted worker back
+                    health.readmit(int(i), at=at)
+                    remesh_events.append({"step": step, "event": "readmit",
+                                          "worker": int(i)})
+                health.heartbeat(int(i), at=at)
+            before = set(health.evicted)
+            health.tick(at=at)
+            newly_evicted = sorted(health.evicted - before)
+            host["weights"] = fold_anytime_weights(
+                host["weights"], active, speeds, loop.n_workers,
+                loop.samples_per_worker)
+            if newly_evicted:
+                # persistent failure: a re-mesh plan and a checkpoint as
+                # soon as this step commits
+                remesh_plan = health.rescale_plan()
+                remesh_plan["evicted"] = sorted(health.evicted)
+                remesh_events.append({"step": step, "event": "evict",
+                                      "workers": newly_evicted,
+                                      "plan": remesh_plan})
         if delay_proc is not None:
             host["delay"] = np.asarray(delay_proc.next(), np.int32)
+        if b_target is not None:
+            host["b_sched"] = np.asarray(b_target, np.float32)
         t1 = time.monotonic()
         # a copy from pageable host memory returns once it has landed
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
         t2 = time.monotonic()
         state, metrics = strategy.train_step(state, batch)
+        if batch_sched is not None:
+            # closed loop: the loss damps adadamp, the observed
+            # staleness feeds delay_aware (reads the step back)
+            batch_sched.observe(
+                loss=float(metrics["loss"]),
+                tau_obs=(float(metrics["tau_applied"])
+                         if "tau_applied" in metrics else None))
         if (step + 1) % loop.log_every == 0 or step == loop.n_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}  # waits on the step
             t3 = time.monotonic()
             m.update(wall_s=t3 - t_start, batch_s=t1 - t0, h2d_s=t2 - t1,
                      step_s=t3 - t2)
+            if elastic_proc is not None:
+                m["active_workers"] = float(active.sum())
+            if b_target is not None:
+                m["b_target"] = float(b_target)
             history.append(m)
             if log_fn:
                 log_fn(m)
+        if loop.ckpt_dir and ((step + 1) % loop.ckpt_every == 0
+                              or remesh_plan is not None):
+            save_ckpt(step + 1, plan=remesh_plan)
     return {"state": state, "history": history,
-            "b_history": pipeline.b_history}
+            "b_history": pipeline.b_history,
+            "remesh_events": remesh_events}

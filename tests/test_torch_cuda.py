@@ -703,3 +703,136 @@ def test_kbatch_step_is_the_amb_step_on_cuda(cuda):
     assert [h["staleness"] for h in kb["history"]] == [0.0] * 4
     assert torch.equal(kb["state"].base.params["w"],
                        out["amb"]["state"].params["w"])
+
+
+def _scenario_rc(cfg, compression="none", **kw):
+    from repro_torch.configs.base import AmbdgConfig, MeshConfig, RunConfig
+    from repro_torch.configs.base import TRAIN_4K
+    return RunConfig(model=cfg, shape=TRAIN_4K, mesh=MeshConfig(1, 1, 1),
+                     ambdg=AmbdgConfig(t_p=10.0, t_c=10.0, tau=1,
+                                       smoothness_L=4.0, b_bar=240.0,
+                                       n_microbatches=2,
+                                       pod_compression=compression), **kw)
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_cnn_on_cuda_matches_cpu(cuda, compression):
+    """amb-cnn SMOKE through ``train`` on the card (TF32 off: cuDNN's
+    default would round the f32 convolutions to TF32) against the CPU, 3
+    steps of 2 workers x 8 images, tau 1: applied counts exact, losses
+    to rtol 1e-4, weights to 1e-4 of each leaf's largest element plus
+    one int8 step; the dual update launches once a step, and under int8
+    the slot rotate once a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.delay_ring import kernel as ring_kernel
+    from repro_torch.kernels.dual_update import kernel as update_kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_smoke_config("amb-cnn")
+    rc = _scenario_rc(cfg, compression)
+    loop = LoopConfig(n_steps=3, n_workers=2, samples_per_worker=8,
+                      log_every=1)
+    n0 = (update_kernel.KERNEL.launches, ring_kernel.KERNEL.launches)
+    gpu = train(build_model(cfg, device=cuda), rc, loop, device=cuda)
+    assert (update_kernel.KERNEL.launches - n0[0],
+            ring_kernel.KERNEL.launches - n0[1]) == (
+                3, 3 if compression == "int8" else 0)
+    cpu = train(build_model(cfg, device="cpu"), rc, loop, device="cpu")
+    for a, b in zip(gpu["history"], cpu["history"]):
+        assert a["applied_count"] == b["applied_count"]
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+    step = 0.0
+    if compression == "int8":
+        step = max(float(s.max()) for s in cpu["state"].arena.scales) / 8.0
+    for k, w in cpu["state"].params.items():
+        got = gpu["state"].params[k].cpu().numpy()
+        np.testing.assert_allclose(got, w.numpy(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()) + step)
+
+
+def test_batch_schedule_golden_on_cuda(cuda):
+    """Both halves of ``tests/golden/batch_schedule_trace.json`` with the
+    gradients on the card: bookkeeping exact, errors at rtol 1e-4."""
+    import json
+    import os
+    from repro_torch.configs.base import (AmbdgConfig, BatchScheduleConfig,
+                                          DelayConfig)
+    from repro_torch.core.batch_schedule import make_batch_schedule
+    from repro_torch.core.delay_process import make_delay_process
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem, simulate_anytime, simulate_kbatch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", "batch_schedule_trace.json")
+    with open(path) as f:
+        want = json.load(f)
+    opt = AmbdgConfig(t_p=2.5, t_c=10.0, tau=4, smoothness_L=1.0,
+                      b_bar=180.0, proximal="l2_ball",
+                      radius_C=float(1.05 * np.sqrt(64)))
+    kw = dict(t_c=10.0, total_time=60.0, opt_cfg=opt, rng_seed=11, t_p=2.5,
+              timing=ShiftedExponential(lam=2 / 3, xi=1.0, b=60))
+    ada = BatchScheduleConfig(schedule="adadamp", b0=12, b_cap=96,
+                              growth_factor=2.0, ema=0.3, seed=5)
+    lin = BatchScheduleConfig(schedule="linear", b0=16, b_cap=128,
+                              growth_rate=2.0, seed=5)
+
+    def problem():
+        return SimProblem(_linreg64(), n_workers=3, seed=7, b_max=128,
+                          device=cuda)
+
+    traces = {
+        "ambdg": simulate_anytime(
+            problem(), scheme="ambdg",
+            delay_process=make_delay_process(DelayConfig(
+                process="heavy_tail", tau_max=6, seed=13), opt.staleness),
+            batch_schedule=make_batch_schedule(ada, opt.b_bar, opt.staleness),
+            **kw),
+        "kbatch": simulate_kbatch(
+            problem(), b_per_msg=32, K=3,
+            batch_schedule=make_batch_schedule(lin, opt.b_bar, opt.staleness),
+            **kw)}
+    for scheme, tr in traces.items():
+        w = want[scheme]
+        assert [round(t, 9) for t in tr.times] == w["times"], scheme
+        assert list(tr.targets) == w["targets"], scheme
+        assert list(tr.staleness) == w["staleness"], scheme
+        assert list(tr.clamps) == w["clamps"], scheme
+        if "minibatches" in w:
+            assert list(tr.minibatches) == w["minibatches"]
+            assert list(tr.delays) == w["delays"]
+        np.testing.assert_allclose(tr.errors, w["errors"], rtol=1e-4,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("process", ["churn", "crash_restart"])
+def test_restart_on_cuda_is_bitwise(cuda, process, tmp_path):
+    """amb-linreg SMOKE under an elastic process with int8 on the card:
+    stopped at step 6 and restarted from its checkpoint, it ends where
+    the uninterrupted 12-step run ends, every state leaf bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ElasticConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = get_smoke_config("amb-linreg")
+    elastic = (dict(process="churn", p_fail=0.25, p_recover=0.3, seed=1)
+               if process == "churn" else
+               dict(process="crash_restart", mttf=4.0, mttr=3.0, seed=2))
+    rc = _scenario_rc(cfg, "int8", elastic=ElasticConfig(**elastic))
+
+    def run(n, d):
+        return train(build_model(cfg, device=cuda), rc, LoopConfig(
+            n_steps=n, n_workers=4, samples_per_worker=16, log_every=1,
+            ckpt_dir=str(d), ckpt_every=6, eviction_misses=2), device=cuda)
+
+    whole = run(12, tmp_path / "a")
+    run(6, tmp_path / "b")
+    rest = run(12, tmp_path / "b")
+    la = checkpoint._flatten_with_paths(whole["state"])
+    lb = checkpoint._flatten_with_paths(rest["state"])
+    assert [k for k, _ in la] == [k for k, _ in lb]
+    for (k, x), (_, y) in zip(la, lb):
+        assert x.device.type == "cuda" and torch.equal(x, y), k
+    assert whole["remesh_events"]

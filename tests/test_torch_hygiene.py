@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.configs.base import XLSTMConfig
+from repro_torch.configs.base import MoEConfig, XLSTMConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -44,7 +44,11 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.kernels.linear_scan.kernel",
          # the simulator slice
          "repro_torch.sim", "repro_torch.sim.cluster",
-         "repro_torch.core.kbatch", "repro_torch.data.timing"]
+         "repro_torch.core.kbatch", "repro_torch.data.timing",
+         # the CNN and the scenarios
+         "repro_torch.configs.amb_cnn", "repro_torch.models.cnn",
+         "repro_torch.core.batch_schedule", "repro_torch.core.worker_process",
+         "repro_torch.train.fault", "repro_torch.train.checkpoint"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -125,11 +129,8 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize("knob,value,item", [
     ("optimizer", "sgd", "A.14"),
     ("optimizer", "adam", "A.14"),
-    ("kbatch", "linear", "A.9"),     # K-batch with a non-fixed schedule
     ("strategy", "decentralized", "A.10"),
     ("ambdg", "while_dynamic", "A.2"),
-    ("batch_schedule", "linear", "A.9"),
-    ("elastic", "churn", "A.9"),
 ])
 def test_unported_knobs_raise(knob, value, item):
     import dataclasses
@@ -149,34 +150,71 @@ def test_unported_knobs_raise(knob, value, item):
 
 
 @pytest.mark.parametrize("knob,value", [("master_impl", "pytree"),
-                                        ("strategy", "kbatch")])
+                                        ("strategy", "kbatch"),
+                                        ("kbatch", "linear"),
+                                        ("batch_schedule", "linear"),
+                                        ("elastic", "churn")])
 def test_ported_knobs_build_and_step(knob, value):
-    """The two knobs that raised before the simulator was ported build
-    and step on the CPU: the pytree master and the K-batch strategy."""
+    """Knobs that raised before their slice build and step on the CPU:
+    the pytree master, the K-batch strategy (also under a linear batch
+    schedule), the linear batch schedule (its target rides the batch as
+    ``b_sched``) and the churn worker process (its seeded process comes
+    from the strategy)."""
+    import dataclasses
     from repro_torch import api
     from repro_torch.data.pipeline import AnytimePipeline
-    rc = _rc().replace(**{knob: value})
+    rc = _rc()
+    if knob == "kbatch":
+        knob, rc = "batch_schedule", rc.replace(strategy="kbatch")
+    field = {"batch_schedule": "schedule", "elastic": "process"}.get(knob)
+    if field:
+        rc = rc.replace(**{knob: dataclasses.replace(getattr(rc, knob),
+                                                     **{field: value})})
+    else:
+        rc = rc.replace(**{knob: value})
     strategy = api.build(_cpu_model(), rc, device="cpu")
     state = strategy.init_state()
+    sched = strategy.batch_schedule()
+    assert (sched is None) == (knob != "batch_schedule")
+    assert (strategy.worker_process(4) is None) == (knob != "elastic")
     pipe = AnytimePipeline(rc.model, 4, 8)
     for _ in range(3):
         batch = {k: torch.from_numpy(v)
                  for k, v in pipe.next_global_batch().items()}
+        if sched is not None:
+            batch["b_sched"] = torch.tensor(float(sched.target()))
         state, metrics = strategy.train_step(state, batch)
     assert metrics["applied_count"].item() == 32.0
     if value == "pytree":
         assert state.arena is None and state.buffer is not None
-    else:
+    elif rc.strategy == "kbatch":
         assert state.ref_epoch.item() == 4
         assert metrics["staleness"].item() == 0
 
 
-def test_unported_loop_options_raise(tmp_path):
+def test_loop_restores_from_ckpt_dir(tmp_path):
+    """``ckpt_dir`` (which raised before checkpoints were ported) saves
+    every ``ckpt_every`` steps, and a run started on the directory
+    resumes from its latest checkpoint: 3 + 2 steps end where 5 do."""
+    from repro_torch.train.loop import LoopConfig, train
+    loop = dict(n_workers=4, samples_per_worker=8, log_every=1)
+    whole = train(_cpu_model(), _rc(), LoopConfig(n_steps=5, **loop),
+                  device="cpu")
+    first = train(_cpu_model(), _rc(), LoopConfig(
+        n_steps=3, ckpt_dir=str(tmp_path), ckpt_every=3, **loop),
+        device="cpu")
+    assert len(first["history"]) == 3
+    rest = train(_cpu_model(), _rc(), LoopConfig(
+        n_steps=5, ckpt_dir=str(tmp_path), ckpt_every=3, **loop),
+        device="cpu")
+    assert len(rest["history"]) == 2
+    assert torch.equal(rest["state"].params["w"], whole["state"].params["w"])
+    assert int(rest["state"].step) == 5
+
+
+def test_unported_loop_options_raise():
     import dataclasses
     from repro_torch.train.loop import LoopConfig, train
-    with pytest.raises(NotImplementedError, match="A.5"):
-        train(_cpu_model(), _rc(), LoopConfig(ckpt_dir=str(tmp_path)),
-              device="cpu")
     rc = _rc()
     rc = rc.replace(serve=dataclasses.replace(rc.serve, publish_period=2))
     with pytest.raises(NotImplementedError, match="A.12"):
@@ -254,7 +292,7 @@ def _dense(**kw):
     (dict(family="ssm", xlstm=XLSTMConfig()), "A.13"),
     (dict(family="vlm"), "A.13"),
     (dict(family="encdec"), "A.13"),
-    (dict(family="cnn"), "A.8"),
+    (dict(family="moe", moe=MoEConfig()), "A.13"),
     (dict(prefix_lm=True), "A.13"),
     (dict(logit_softcap=30.0), "A.13"),
     (dict(sliding_window=16), "A.13"),

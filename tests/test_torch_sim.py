@@ -15,8 +15,9 @@ atol 1e-7 (``tests/test_sim_golden.py``'s tolerance):
     seed (a persistent-speed fleet for K-batch);
   * twins of ``tests/test_strategy_api.py``'s timeline, K-batch and
     simulate-wiring tests and ``tests/test_elastic.py``'s
-    ``PersistentWorkerSpeeds`` test; the engines' unported arguments
-    raise naming ROADMAP A.9; the K-batch device step equals AMB's.
+    ``PersistentWorkerSpeeds`` test; both engines under an elastic
+    worker process and a batch schedule against JAX; the K-batch device
+    step equals AMB's.
 """
 import dataclasses
 import json
@@ -28,11 +29,13 @@ import torch
 
 import repro.sim as jsim
 from repro.configs import base as jbase
+from repro.core import batch_schedule as bs_jax
 from repro.core import delay_process as jdelay
+from repro.core import worker_process as wp_jax
 from repro.data import timing as jtiming
 from repro_torch import api
 from repro_torch.configs import base, get_smoke_config
-from repro_torch.core import delay_process
+from repro_torch.core import batch_schedule, delay_process, worker_process
 from repro_torch.data import timing
 from repro_torch import sim
 
@@ -288,16 +291,46 @@ def test_persistent_speeds_time_for_rejects_partial_fleet():
             jtiming.ShiftedExponential().mean_minibatch_rate)
 
 
+def _engine_run(pkg, engine, arg):
+    """One engine run driven by a churn worker process or an adaptive
+    batch schedule (d = 64, 3 workers, 40 simulated s)."""
+    cfgs, simm, tm, _ = pkg
+    if arg == "worker_process":
+        mod = wp_jax if pkg is JAX else worker_process
+        extra = {arg: mod.make_worker_process(cfgs.ElasticConfig(
+            process="churn", p_fail=0.3, p_recover=0.4, seed=4), 3)}
+    else:
+        mod = bs_jax if pkg is JAX else batch_schedule
+        extra = {arg: mod.make_batch_schedule(cfgs.BatchScheduleConfig(
+            schedule="adadamp", b0=10, b_cap=90, seed=2), 180.0, 4)}
+    kw = dict(t_c=10.0, total_time=40.0, opt_cfg=_opt(cfgs), rng_seed=3,
+              timing=tm.ShiftedExponential(lam=2 / 3, xi=1.0, b=60), **extra)
+    if engine == "anytime":
+        tr = simm.simulate_anytime(_problem(pkg), t_p=2.5, **kw)
+        names = ("times", "epochs", "minibatches", "staleness", "clamps")
+    else:
+        tr = simm.simulate_kbatch(_problem(pkg), b_per_msg=24, K=3, t_p=2.5,
+                                  **kw)
+        names = ("times", "epochs", "staleness", "clamps")
+    out = _columns(tr, *names, "errors")
+    out.update(active=list(tr.active), targets=list(tr.targets))
+    return out
+
+
 @pytest.mark.parametrize("engine", ["anytime", "kbatch"])
 @pytest.mark.parametrize("arg", ["worker_process", "batch_schedule"])
-def test_unported_engine_arguments_raise(engine, arg):
-    kw = dict(t_c=10.0, total_time=10.0, timing=timing.ShiftedExponential(),
-              opt_cfg=_opt(base), **{arg: object()})
-    with pytest.raises(NotImplementedError, match="A.9"):
-        if engine == "anytime":
-            sim.simulate_anytime(_problem(PORT), t_p=2.5, **kw)
-        else:
-            sim.simulate_kbatch(_problem(PORT), b_per_msg=8, **kw)
+def test_engine_arguments_run_as_in_jax(engine, arg):
+    """Both engines take an elastic worker process and a batch schedule:
+    the bookkeeping (times, epochs, minibatches, staleness, clamps, alive
+    workers, targets) equals the live JAX simulator's exactly, the
+    errors to rtol 1e-4, atol 1e-7."""
+    got, want = _engine_run(PORT, engine, arg), _engine_run(JAX, engine, arg)
+    assert len(want["times"]) > 0
+    _check(got, want, f"{engine}/{arg}")
+    if arg == "worker_process":
+        assert want["active"] and min(want["active"]) < 3
+    else:
+        assert want["targets"] and len(set(want["targets"])) > 1
 
 
 def test_sim_problem_defaults_to_cuda_and_raises_without_it():
