@@ -136,8 +136,32 @@ Phases (any failure raises and the script exits non-zero):
      restarted from its checkpoint equal to the uninterrupted 12-step run
      bit for bit (every state leaf and the host states).
 
-``python3 chip_smoke.py --only=13,14`` runs the build and then only the
-phases named (a short call while working on them; no kernels or ok
+ 15. the decentralized gossip (the paper's Sec. V, ``strategy=
+     "decentralized"``, the dense fold), TF32 off, no master and so no
+     B.1/B.2 launch: (a) the setting of ``tests/golden/
+     decentralized_trace.json`` (linreg d = 32, 4 workers, ring, r = 3,
+     "none" and "int8", 8 steps) on the card and the CPU: rounds, times
+     and steps equal the JSON, losses and consensus errors agree to rtol
+     1e-5; (b) amb-linreg FULL through ``train``, 10 workers x 150 on a
+     ring with eq. (24)'s 59 rounds, the l2 ball, 12 steps, "none" and
+     "int8", 2 microbatches of 75, card then CPU (counts exact, losses
+     rtol 1e-4, z and every worker's w to 1e-4 of the largest plus an
+     int8 step; under int8 step by step from the CPU's state, the free
+     runs' losses to 1e-2), one more step under
+     ``torch.cuda.set_sync_debug_mode("error")``, the step split and the
+     kernels a step; (c) the same under the churn worker process:
+     ``active_workers`` equals the host's draw, a dead worker's z row and
+     weights stay bit for bit; (d) amb-cnn FULL, 4 x 128 images, ring (11
+     rounds) and a 2 x 2 torus (8), "none" and "int8", 3 steps on the
+     card, the first on the CPU, with phase 13's limits, the kernel
+     split with the gossip's kernels apart (a short spin kernel marks each
+     gossip call), its ms a round against its bytes, the peak memory; (e) qwen1.5-0.5b at full
+     width with 2 layers, seq 256, f32, flash attention, 4 workers x 2
+     sequences, ring, int8, 2 steps on the card: the flash kernels launch
+     workers x layers x microbatches times a step.
+
+``python3 chip_smoke.py --only=13,14,15`` runs the build and then only
+the phases named (a short call while working on them; no kernels or ok
 line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
@@ -173,6 +197,7 @@ CUDA, or without the repository's ``src/repro_torch`` beside it, the
 script fails before printing any result.
 """
 import collections
+import contextlib
 import json
 import math
 import statistics
@@ -220,14 +245,21 @@ PROFILER_TRIES = 5
 SENTINELS, SENTINEL_CYCLES = 8, 200_000
 
 
-def profiled(fn):
+# phase 15 brackets each gossip call with two short spin kernels (MARK
+# in a record), far shorter than a sentinel, to find its kernels
+MARK, MARK_CYCLES, MARK_MAX_US = "gossip_mark", 1000, 20.0
+
+
+def profiled(fn, marks=False):
     """Run ``fn()`` under ``torch.profiler`` (CUPTI); returns (its
     result, the device kernels recorded: a list of (name, microseconds),
     empty when the profiler saw no device time). On some hosts a CUPTI
     session now and then records nothing, or loses some of its records
     (the first kernels of a session: SENTINELS spin kernels run first
     and are dropped); callers run ``fn`` again, up to PROFILER_TRIES
-    times, and raise if no try gave a complete record."""
+    times, and raise if no try gave a complete record. With ``marks``
+    the short spin kernels of ``gossip_marked`` stay in the record as
+    MARK."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -237,11 +269,17 @@ def profiled(fn):
         torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
+
+    def mark(e):
+        return (marks and "spin_kernel" in e.name
+                and e.time_range.elapsed_us() < MARK_MAX_US)
+
     events = sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "spin_kernel" not in e.name),
+                     and ("spin_kernel" not in e.name or mark(e))),
                     key=lambda e: e.time_range.start)
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in events]
+    kernels = [(MARK if mark(e) else e.name, e.time_range.elapsed_us())
+               for e in events]
     if not sum(us for _, us in kernels):
         log("note: torch.profiler recorded no device time in one session")
         kernels = []
@@ -2405,6 +2443,591 @@ def scenario_phase(drive, expect):
     return out
 
 
+# -- the decentralized gossip (phase 15) ---------------------------------------
+DEC_STEPS = 12
+# 3 CNN steps a run: the profiler's record of the ~5,000 kernels of a
+# decentralized CNN step takes seconds to read, and 6 steps a run took
+# phase 15 past 120 s
+DEC_CNN_STEPS = 3
+# the CNN's CPU references run the first of those steps: the CPU's
+# gossip at 4 x 53,248 rows takes 2-6 s a step (the card's 5-20 ms), and
+# phase 15 keeps within 120 s (the CPU's second steps took 20 s)
+DEC_CNN_CPU_STEPS = 1
+DEC_LM_STEPS = 2
+DEC_FNS = ("run_consensus_fold", "run_consensus_fold_int8",
+           "run_consensus_fold_masked")
+# card against CPU, f32, TF32 off. The linreg runs hold phase 3's limits:
+# counts exact, losses to DEC_RTOL; z and every worker's w to DEC_RTOL of
+# their largest element plus, under int8, one quantization step of the
+# row (a last-bit difference of the two devices' messages can flip one
+# rounding of the gossip). A consensus error is the norm of a difference
+# of nearly equal duals, so it is held to DEC_RTOL of itself plus
+# DEC_RTOL of the largest dual's norm. 15a's golden setting (d = 32)
+# holds 1e-5. The CNN holds phase 13's limits (CNN_LOSS_RTOL; z, like
+# w = -alpha z, to CNN_W_TOL: its first convolutions' f32 gradients are
+# 1e-3 of a leaf apart on the two devices, phase 13a).
+# Under int8 those limits hold step by step (``dec_lockstep``: each card
+# step starts from the CPU's state before it). Run freely, the two
+# devices' trajectories part: a last-bit difference of the messages
+# flips a rounding somewhere in 59 rounds x 12 steps, the flip moves w
+# and so every later gradient. The free runs' losses read 1.06e-3 apart
+# (15b; NVIDIA H100 80GB HBM3, 700 W) and are held to DEC_INT8_FREE_RTOL,
+# ten times that; their z and w gaps are reported.
+DEC_RTOL = 1e-4
+DEC_INT8_FREE_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def gossip_marked():
+    """Bracket every gossip call of the decentralized step with a short
+    spin kernel before and after (``profiled(..., marks=True)`` keeps
+    them as MARK), so a profiler record shows which kernels are the
+    gossip's. Two spins of MARK_CYCLES a step; the step is otherwise the
+    one a user runs."""
+    import torch
+    from repro_torch.core import consensus
+    saved = {name: getattr(consensus, name) for name in DEC_FNS}
+
+    def marked(fn):
+        def call(*args, **kw):
+            torch.cuda._sleep(MARK_CYCLES)
+            out = fn(*args, **kw)
+            torch.cuda._sleep(MARK_CYCLES)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(consensus, name, marked(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(consensus, name, fn)
+
+
+def gossip_split(kernels, n_steps):
+    """The profiler's device time per step between the gossip's marks
+    (``gossip``) and outside them: cuDNN's convolutions, cuBLAS
+    products, the flash kernels, the rest; copies apart. Also the
+    kernels launched per step (marks and copies apart)."""
+    groups = collections.Counter()
+    inside, n_marks, n_kernels = False, 0, 0
+    for name, us in kernels:
+        if name == MARK:
+            inside, n_marks = not inside, n_marks + 1
+            continue
+        low = name.lower()
+        if name.startswith(("Memcpy", "Memset")):
+            g = "copy"
+        elif inside:
+            g = "gossip"
+        elif "flash_" in name:
+            g = "attention"
+        elif any(t in low for t in ("conv", "fprop", "dgrad", "wgrad",
+                                    "cudnn", "implicit")):
+            g = "cudnn_conv"
+        elif any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma",
+                                    "cublas")):
+            g = "cublas"
+        else:
+            g = "rest"
+        if g != "copy":
+            n_kernels += 1
+        groups[g] += us / 1e3 / n_steps
+    assert n_marks == 2 * n_steps and not inside, (n_marks, n_steps)
+    total = sum(v for k, v in groups.items() if k != "copy")
+    return dict({f"{k}_ms": groups.get(k, 0.0) for k in (
+        "gossip", "cudnn_conv", "cublas", "attention", "rest", "copy")},
+        gossip_share=groups.get("gossip", 0.0) / total if total else 0.0,
+        kernels_per_step=n_kernels / n_steps)
+
+
+def profiled_kernels_of(run, n_steps):
+    """(``run()``'s result, its kernels with the gossip's marks): the
+    profiler's record of one marked run, run again while a record is
+    empty or lost marks (see ``profiled``)."""
+    for _ in range(PROFILER_TRIES):
+        with gossip_marked():
+            result, kernels = profiled(run, marks=True)
+        if kernels and sum(k == MARK for k, _ in kernels) == 2 * n_steps:
+            return result, kernels
+        log("note: the profiler's record of a phase 15 run was empty or "
+            "incomplete; running it again")
+    raise RuntimeError(f"torch.profiler recorded no complete record in "
+                       f"{PROFILER_TRIES} runs")
+
+
+def dec_config(cfg, rc, n, compression="none", topology="ring",
+               elastic=None, rounds=0):
+    """(cfg, ``rc`` as the decentralized strategy): n workers on
+    ``topology``, the dense fold, eq. (24)'s rounds unless ``rounds``."""
+    from repro_torch.configs.base import ConsensusConfig, ElasticConfig
+    rc = rc.replace(strategy="decentralized", consensus=ConsensusConfig(
+        topology=topology, n_workers=n, rounds=rounds, gossip_impl="dense",
+        compression=compression))
+    if elastic is not None:
+        rc = rc.replace(elastic=ElasticConfig(**elastic))
+    return cfg, rc
+
+
+def dec_train(cfg, rc, device, n_steps, n_workers, spw, spy=None):
+    """One ``train`` run: (result, seconds). ``spy(state, batch, new
+    state, metrics)`` sees every step of the strategy ``train`` builds."""
+    from repro_torch import api
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    build = api.build
+
+    def spied(*args, **kw):
+        s = build(*args, **kw)
+        step = s.train_step
+
+        def call(state, batch):
+            new, m = step(state, batch)
+            spy(state, batch, new, m)
+            return new, m
+
+        s.train_step = call
+        return s
+
+    if spy is not None:
+        api.build = spied
+    loop = LoopConfig(n_steps=n_steps, n_workers=n_workers,
+                      samples_per_worker=spw, log_every=1)
+    t0 = time.perf_counter()
+    try:
+        out = train(build_model(cfg, device=device), rc, loop, device=device)
+    finally:
+        api.build = build
+    return out, time.perf_counter() - t0
+
+
+def state_gaps(sg, sc, compression, w_rtol):
+    """A card DecentralizedState against a CPU one: (z's largest gap over
+    ``w_rtol`` of z's largest element, the weights' largest gap over
+    ``w_rtol`` of the leaf's largest, under int8 each limit plus one
+    quantization step of the row (z: its largest magnitude / 127, the
+    bf16 scale at most 2^-8 above) or of the worker's largest row (w);
+    that step's largest; the largest dual's norm)."""
+    import torch
+    from repro_torch.core.arena import tree_flatten
+    zg, zc = sg.z.cpu(), sc.z
+    n = zc.shape[0]
+    z_norm = float(torch.linalg.vector_norm(zc.reshape(n, -1), dim=1).max())
+    q_row = (zc.abs().amax(dim=-1, keepdim=True) / 127.0 * (1 + 2.0 ** -8)
+             if compression == "int8" else torch.zeros(zc.shape[:-1] + (1,)))
+    z_gap = float(((zg - zc).abs()
+                   / (w_rtol * zc.abs().max() + q_row)).max())
+    q_worker = q_row.reshape(n, -1).amax(dim=1)
+    w_gap = 0.0
+    for k, wg, wc in zip(leaf_names(sc.params), tree_flatten(sg.params)[0],
+                         tree_flatten(sc.params)[0]):
+        wg = wg.cpu()
+        assert bool(torch.isfinite(wg).all()), k
+        lim = (w_rtol * wc.abs().max()
+               + q_worker.reshape((n,) + (1,) * (wc.dim() - 1)))
+        w_gap = max(w_gap, float(((wg - wc).abs() / lim).max()))
+    return z_gap, w_gap, float(q_row.max()), z_norm
+
+
+def compare_dec(gpu, cpu, compression, rtol, w_rtol):
+    """A decentralized run on the card against the CPU: applied and local
+    counts exact; the losses' largest relative gap; consensus errors
+    against ``rtol`` of themselves plus ``rtol`` of the largest dual's
+    norm (plus a quantization step under int8); the final z and weights
+    to ``w_rtol`` (``state_gaps``). Returns the readings, the
+    ``*_over_limit`` ones to be at most 1."""
+    hg, hc = gpu["history"], cpu["history"]
+    assert len(hg) == len(hc), (len(hg), len(hc))
+    for t, (a, b) in enumerate(zip(hg, hc)):
+        assert a["applied_count"] == b["applied_count"], (t, a, b)
+        assert a["local_count"] == b["local_count"], (t, a, b)
+        assert math.isfinite(a["loss"]) and math.isfinite(
+            a["consensus_error"]), (t, a)
+    z_gap, w_gap, q, z_norm = state_gaps(gpu["state"], cpu["state"],
+                                         compression, w_rtol)
+    return dict(
+        loss_rel_gap=max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                         for a, b in zip(hg, hc)),
+        consensus_error_over_limit=max(
+            abs(a["consensus_error"] - b["consensus_error"])
+            / (rtol * abs(b["consensus_error"]) + rtol * z_norm + q)
+            for a, b in zip(hg, hc)),
+        z_over_limit=z_gap, w_over_limit=w_gap, int8_step=q,
+        dual_norm=z_norm)
+
+
+def dec_lockstep(cfg, rc, record, compression, rtol, w_rtol):
+    """Every step of a CPU run (``record``: (state, batch, new state,
+    metrics) a step) run again on the card from the CPU's state before
+    it, on the same batch: applied counts exact, and the largest loss,
+    consensus-error, z and weight gaps of any step against the CPU's
+    (``compare_dec``'s limits). Returns the readings."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core.arena import tree_map
+    from repro_torch.models.api import build_model
+    s = api.build(build_model(cfg, device="cuda"), rc, device="cuda")
+    worst = dict(loss_rel_gap=0.0, consensus_error_over_limit=0.0,
+                 z_over_limit=0.0, w_over_limit=0.0)
+    for state, batch, new, m in record:
+        sg, mg = s.train_step(
+            type(state)(*[tree_map(lambda x: x.cuda(), f) for f in state]),
+            {k: v.cuda() for k, v in batch.items()})
+        assert float(mg["applied_count"]) == float(m["applied_count"])
+        z_gap, w_gap, q, z_norm = state_gaps(sg, new, compression, w_rtol)
+        ce = float(m["consensus_error"])
+        gaps = dict(
+            loss_rel_gap=abs(float(mg["loss"]) - float(m["loss"]))
+            / abs(float(m["loss"])),
+            consensus_error_over_limit=abs(float(mg["consensus_error"]) - ce)
+            / (rtol * abs(ce) + rtol * z_norm + q),
+            z_over_limit=z_gap, w_over_limit=w_gap)
+        worst = {k: max(v, gaps[k]) for k, v in worst.items()}
+    return worst
+
+
+def assert_dec(gaps, rtol, label):
+    assert gaps["loss_rel_gap"] <= rtol, (label, gaps)
+    for k in ("consensus_error_over_limit", "z_over_limit", "w_over_limit"):
+        assert gaps[k] <= 1.0, (label, k, gaps)
+
+
+def gossip_round_ms(split, rounds, z):
+    """The gossip's device time a round against the least bytes a round
+    moves (the (n, rows, 128) f32 messages read once and written once)
+    at HBM_BYTES_PER_S: (ms a round, bound ms a round, the array passes
+    the measured time is worth)."""
+    ms = split["gossip_ms"] / rounds
+    array_ms = 1e3 * z.numel() * 4 / HBM_BYTES_PER_S
+    return ms, 2 * array_ms, ms / array_ms
+
+
+def dec_golden_phase(drive, expect):
+    """Phase 15a: ``tests/golden/decentralized_trace.json``'s setting
+    (linreg d = 32, 4 workers, ring, r = 3, dense, 8 steps) on the card
+    and the CPU, on numpy batches (the golden's own come from JAX's
+    threefry: the CPU tests hold those). rounds, times and steps equal
+    the JSON; losses and consensus errors card vs CPU to rtol 1e-5 (the
+    latter plus 1e-5 of the largest dual's norm). Returns {compression:
+    record}."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import (AmbdgConfig, MeshConfig, RunConfig,
+                                          TRAIN_4K)
+    from repro_torch.models.api import build_model
+    golden = json.loads((Path(__file__).resolve().parent / "tests" /
+                         "golden" / "decentralized_trace.json").read_text())
+    cfg = linreg_config(32)
+    batches = []
+    for t in range(1, 9):
+        rng = np.random.default_rng(1000 + t)
+        w_star = rng.standard_normal(32).astype(np.float32)
+        x = rng.standard_normal((32, 32)).astype(np.float32)
+        y = (x @ w_star + np.sqrt(1e-3) * rng.standard_normal(32)).astype(
+            np.float32)
+        batches.append(dict(x=x, y=y, weights=np.ones(32, np.float32)))
+    out = {}
+    for compression in ("none", "int8"):
+        _, rc = dec_config(cfg, RunConfig(
+            model=cfg, shape=TRAIN_4K,
+            mesh=MeshConfig(n_pods=1, data=1, model=1),
+            ambdg=AmbdgConfig(t_p=2.5, t_c=10.0, tau=1, n_microbatches=2,
+                              b_bar=32.0, smoothness_L=1.0)), 4,
+            compression, rounds=3)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            def run():
+                s = api.build(build_model(cfg, device=dev), rc, device=dev)
+                state, rows = s.init_state(), []
+                for b in batches:
+                    state, m = s.train_step(state, {
+                        k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                    rows.append((float(m["loss"]),
+                                 float(m["consensus_error"]), int(m["step"]),
+                                 float(torch.linalg.vector_norm(
+                                     state.z.reshape(4, -1), dim=1).max())))
+                return s, rows
+            (s, rows), n = drive(run)
+            assert n == expect(), n
+            runs[dev] = rows
+        tm = type(s).timeline_model()
+        want = golden[compression]
+        assert s.rounds == want["rounds"], (s.rounds, want["rounds"])
+        assert [round(tm.update_time(t, 2.5, 10.0), 9)
+                for t in range(1, 9)] == want["times"]
+        assert [r[2] for r in runs["cuda"]] == want["steps"]
+        assert [r[2] for r in runs["cpu"]] == want["steps"]
+        loss_gap = max(abs(a[0] - b[0]) / abs(b[0])
+                       for a, b in zip(runs["cuda"], runs["cpu"]))
+        ce_gap = max(abs(a[1] - b[1]) / (1e-5 * abs(b[1]) + 1e-5 * b[3])
+                     for a, b in zip(runs["cuda"], runs["cpu"]))
+        out[compression] = dict(
+            rounds=s.rounds, loss=[r[0] for r in runs["cuda"]],
+            consensus_error=[r[1] for r in runs["cuda"]],
+            loss_rel_gap=loss_gap, consensus_error_over_limit=ce_gap)
+        log(f"phase 15a: golden setting {compression}: rounds, times and "
+            f"steps equal the golden; card vs cpu: loss rel gap "
+            f"{loss_gap:.3e} <= 1e-5, consensus error {ce_gap:.3f} of its "
+            f"limit; losses {out[compression]['loss']}")
+        assert loss_gap <= 1e-5 and ce_gap <= 1.0, out[compression]
+    return out
+
+
+def dec_linreg_phase(drive, expect):
+    """Phases 15b-c: amb-linreg FULL (d = 10^4) through ``train``, 10
+    workers x 150 samples on a ring with eq. (24)'s 59 rounds, the l2
+    ball: 12 steps with "none" and "int8" (15b), then "none" under the
+    churn worker process (15c, ``ELASTIC["churn"]``), card then CPU
+    (``compare_dec``). 15b runs one more step under
+    ``torch.cuda.set_sync_debug_mode("error")``; under int8 the limits
+    hold step by step (``dec_lockstep``) and the free runs' losses to
+    DEC_INT8_FREE_RTOL. 15c checks every step's
+    ``active_workers`` against the host's draw and that a dead worker's z
+    row and weights equal the previous step's bit for bit. No port
+    kernel launches (there is no master). Returns {label: record}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.worker_process import make_worker_process
+    from repro_torch.data.pipeline import AnytimePipeline
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.models.api import build_model
+    cfg, rc_of = main_path_config()
+    out = {}
+    for label, compression, elastic in (("none", "none", None),
+                                        ("int8", "int8", None),
+                                        ("churn", "none", ELASTIC["churn"])):
+        # 150 samples a worker: 2 microbatches of 75
+        rc0 = rc_of("none")
+        _, rc = dec_config(cfg, rc0.replace(ambdg=dataclasses.replace(
+            rc0.ambdg, n_microbatches=2)), 10, compression, elastic=elastic)
+        seen = []
+
+        def spy(state, batch, new, m):
+            if "active" in batch:
+                seen.append((batch["active"], state, new))
+
+        def run():
+            return dec_train(cfg, rc, "cuda", DEC_STEPS, 10, 150, spy)
+
+        # 15c's step is 15b's with a mask: its run goes unprofiled
+        ((gpu, secs), kernels), n = drive(
+            (lambda: (run(), None)) if elastic else
+            (lambda: profiled_kernels_of(run, DEC_STEPS)))
+        assert n == expect(), (label, n)
+        record = []
+        cpu, cpu_secs = dec_train(
+            cfg, rc, "cpu", DEC_STEPS, 10, 150,
+            (lambda *a: record.append(a)) if compression == "int8" else None)
+        gaps = compare_dec(gpu, cpu, compression, DEC_RTOL, DEC_RTOL)
+        s = api.build(build_model(cfg, device="cuda"), rc, device="cuda")
+        assert s.rounds == 59, s.rounds
+        rec = dict(rounds=s.rounds, gpu_s=secs, cpu_s=cpu_secs, launches=n,
+                   loss=[h["loss"] for h in gpu["history"]],
+                   consensus_error=[h["consensus_error"]
+                                    for h in gpu["history"]],
+                   device_gaps=gaps)
+        if kernels is not None:
+            rec.update(split=step_split(gpu, kernels),
+                       kernel_split=gossip_split(kernels, DEC_STEPS))
+        if compression == "int8":
+            rec["lockstep_gaps"] = dec_lockstep(cfg, rc, record, compression,
+                                                DEC_RTOL, DEC_RTOL)
+        if elastic is None and compression == "none":
+            # one more step from the run's state, reading nothing back
+            pipe = AnytimePipeline(cfg, 10, 150, seed=rc.seed + 1,
+                                   timing=ShiftedExponential(),
+                                   t_p=rc.ambdg.t_p)
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in pipe.next_global_batch().items()}
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, m = s.train_step(gpu["state"], batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert math.isfinite(float(m["loss"]))
+            rec["step_without_sync"] = True
+        if elastic is not None:
+            draws = make_worker_process(rc.elastic, 10)
+            assert len(seen) == DEC_STEPS
+            dead_seen = 0
+            for t, (active, old, new) in enumerate(seen):
+                drawn = draws.step()[0]
+                assert np.array_equal(active.cpu().numpy() > 0, drawn), t
+                assert gpu["history"][t]["active_workers"] == float(
+                    drawn.sum()), t
+                dead = active == 0
+                dead_seen += int(dead.sum())
+                assert torch.equal(new.z[dead], old.z[dead]), t
+                assert torch.equal(new.params["w"][dead],
+                                   old.params["w"][dead]), t
+            assert dead_seen, "the churn draw killed no worker"
+            rec["active_workers"] = [h["active_workers"]
+                                     for h in gpu["history"]]
+        out[label] = rec
+        sub = "c" if elastic else "b"
+        shown = {k: rec[k] for k in ("lockstep_gaps", "loss",
+                                     "consensus_error", "active_workers",
+                                     "step_without_sync") if k in rec}
+        log(f"phase 15{sub}: linreg FULL {label}: {s.rounds} rounds; "
+            f"{DEC_STEPS} steps on cuda in {secs:.2f} s, on cpu in "
+            f"{cpu_secs:.2f} s; launches {n}; card vs cpu "
+            f"{json.dumps(gaps)}; {json.dumps(shown)}")
+        if kernels is not None:
+            log(f"phase 15{sub}: {label}: step split "
+                f"{json.dumps(rec['split'])}; kernel time per step "
+                f"{json.dumps(rec['kernel_split'])}")
+        if compression == "int8":
+            assert gaps["loss_rel_gap"] <= DEC_INT8_FREE_RTOL, (label, gaps)
+            assert_dec(rec["lockstep_gaps"], DEC_RTOL, label)
+        else:
+            assert_dec(gaps, DEC_RTOL, label)
+        del gpu, cpu, seen, record
+    return out
+
+
+def dec_cnn_phase(drive, expect):
+    """Phase 15d: amb-cnn FULL (6,805,642 parameters) decentralized,
+    fig5_nn.py's 4 workers x 128 images (4 microbatches of 32, phase 13's
+    ``AmbdgConfig``), on a ring (eq. (24): 11 rounds) and a 2 x 2 torus (8
+    rounds), "none" and "int8", 3 steps through ``train`` on the card, and
+    the first DEC_CNN_CPU_STEPS of them on the CPU: counts exact, losses
+    to CNN_LOSS_RTOL, z and every worker's weights within CNN_W_TOL of
+    the largest element plus a quantization step
+    (``compare_dec``; under int8 step by step, ``dec_lockstep``, and the
+    free runs' losses to DEC_INT8_FREE_RTOL); the step split, the kernel
+    split with the gossip's kernels apart, the gossip's ms a round against
+    its bytes, and the peak memory. Returns {label: record}."""
+    import torch
+    from repro_torch import api
+    from repro_torch.models.api import build_model
+    out = {}
+    for topology, compression in (("ring", "none"), ("ring", "int8"),
+                                  ("torus", "none"), ("torus", "int8")):
+        cfg, rc = dec_config(*cnn_run_config("none"), CNN_WORKERS,
+                             compression, topology)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        early = []
+
+        def keep(state, batch, new, m):
+            if len(early) < DEC_CNN_CPU_STEPS:
+                early.append(new)
+
+        ((gpu, secs), kernels), n = drive(lambda: profiled_kernels_of(
+            lambda: dec_train(cfg, rc, "cuda", DEC_CNN_STEPS, CNN_WORKERS,
+                              CNN_PER_WORKER, keep), DEC_CNN_STEPS))
+        peak = torch.cuda.max_memory_allocated()
+        assert n == expect(), n
+        record = []
+        cpu, cpu_secs = dec_train(
+            cfg, rc, "cpu", DEC_CNN_CPU_STEPS, CNN_WORKERS, CNN_PER_WORKER,
+            (lambda *a: record.append(a)) if compression == "int8" else None)
+        gaps = compare_dec(
+            {"history": gpu["history"][:DEC_CNN_CPU_STEPS],
+             "state": early[-1]}, cpu, compression, CNN_LOSS_RTOL, CNN_W_TOL)
+        rounds = api.build(build_model(cfg, device="cuda"), rc,
+                           device="cuda").rounds
+        assert rounds == {"ring": 11, "torus": 8}[topology], rounds
+        split = gossip_split(kernels, DEC_CNN_STEPS)
+        ms, bound, passes = gossip_round_ms(split, rounds, gpu["state"].z)
+        label = f"{topology}_{compression}"
+        out[label] = rec = dict(
+            rounds=rounds, gpu_s=secs, cpu_s=cpu_secs, launches=n,
+            loss=[h["loss"] for h in gpu["history"]],
+            consensus_error=[h["consensus_error"] for h in gpu["history"]],
+            device_gaps=gaps, peak_mem_gb=peak / 1e9,
+            split=step_split(gpu, kernels), kernel_split=split,
+            gossip_ms_per_round=ms, gossip_bound_ms_per_round=bound,
+            gossip_array_passes_per_round=passes)
+        if compression == "int8":
+            rec["lockstep_gaps"] = dec_lockstep(cfg, rc, record, compression,
+                                                CNN_LOSS_RTOL, CNN_W_TOL)
+        log(f"phase 15d: cnn {label}: {rounds} rounds; {DEC_CNN_STEPS} steps "
+            f"on cuda in {secs:.2f} s, {DEC_CNN_CPU_STEPS} on cpu in "
+            f"{cpu_secs:.2f} s; launches "
+            f"{n}; loss {[round(x, 4) for x in rec['loss']]}; card vs cpu "
+            f"{json.dumps(gaps)}; lockstep "
+            f"{json.dumps(rec.get('lockstep_gaps'))}; peak "
+            f"{rec['peak_mem_gb']:.2f} GB")
+        log(f"phase 15d: cnn {label}: step split {json.dumps(rec['split'])}; "
+            f"kernel time per step {json.dumps(split)}; gossip {ms:.4f} ms a "
+            f"round against {bound:.4f} ms for one read and one write of the "
+            f"messages ({passes:.1f} array passes)")
+        held = gaps
+        if compression == "int8":
+            assert gaps["loss_rel_gap"] <= DEC_INT8_FREE_RTOL, (label, gaps)
+            held = rec["lockstep_gaps"]
+        assert held["loss_rel_gap"] <= CNN_LOSS_RTOL, (label, held)
+        for k in ("z_over_limit", "w_over_limit"):
+            assert held[k] <= 1.0, (label, k, held)
+        del gpu, cpu, record, early
+    return out
+
+
+def dec_lm_phase(drive, expect):
+    """Phase 15e: qwen1.5-0.5b at full width with 2 layers, seq 256, f32,
+    ``attn_impl="flash"`` (no block remat), decentralized over 4 workers
+    x 2 sequences (2 microbatches of one), ring, int8, eq. (24)'s 11
+    rounds, 2 steps through ``train`` on the card: the flash forward
+    (with lse), dq and dk/dv each launch workers x layers x microbatches
+    times a step; losses and consensus errors finite; the peak memory
+    and the gossip's share of the kernel time. Returns the record."""
+    import dataclasses
+    import torch
+    cfg0 = dataclasses.replace(
+        lm_config("flash", n_layers=2, compute_dtype="float32"),
+        block_remat="none")
+    cfg, rc = dec_config(cfg0, lm_run_config(cfg0, 256, 8, 2), 4, "int8")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ((gpu, secs), kernels), n = drive(lambda: profiled_kernels_of(
+        lambda: dec_train(cfg, rc, "cuda", DEC_LM_STEPS, 4, 2),
+        DEC_LM_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    want = DEC_LM_STEPS * 4 * cfg.n_layers * 2
+    assert n == expect(flash_fwd_lse=want, flash_bwd_dq=want,
+                       flash_bwd_dkv=want), n
+    hist = gpu["history"]
+    for h in hist:
+        assert math.isfinite(h["loss"]) and math.isfinite(
+            h["consensus_error"]), h
+    split = gossip_split(kernels, DEC_LM_STEPS)
+    ms, bound, passes = gossip_round_ms(split, 11, gpu["state"].z)
+    rec = dict(gpu_s=secs, launches=n, peak_gib=peak / 2 ** 30,
+               loss=[h["loss"] for h in hist],
+               consensus_error=[h["consensus_error"] for h in hist],
+               split=step_split(gpu, kernels), kernel_split=split,
+               gossip_ms_per_round=ms, gossip_bound_ms_per_round=bound)
+    shown = {k: v for k, v in rec.items()
+             if k not in ("split", "kernel_split", "launches")}
+    log(f"phase 15e: qwen1.5-0.5b 2 layers decentralized int8: "
+        f"{DEC_LM_STEPS} steps in {secs:.2f} s; launches {n}; "
+        f"{json.dumps(shown)}")
+    log(f"phase 15e: step split {json.dumps(rec['split'])}; kernel time per "
+        f"step {json.dumps(split)}; gossip {ms:.4f} ms a round against "
+        f"{bound:.4f} ({passes:.1f} array passes)")
+    del gpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def decentralized_phase(drive, expect):
+    """Phase 15: the decentralized gossip (15a-e), TF32 off."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"golden": dec_golden_phase(drive, expect)}
+    out["linreg"] = dec_linreg_phase(drive, expect)
+    out["cnn"] = dec_cnn_phase(drive, expect)
+    out["lm"] = dec_lm_phase(drive, expect)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2480,8 +3103,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=13,14``: after the build, run only those of phases 13-14 (a
-    # short call while working on them); prints no kernels or ok line
+    # ``--only=13,14,15``: after the build, run only those of phases 13-15
+    # (a short call while working on them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
             if a.startswith("--only=")]
     if only:
@@ -2495,6 +3118,10 @@ def main():
             t0 = time.perf_counter()
             record["scenarios"] = scenario_phase(drive, expect)
             phase_done("phase 14", t0)
+        if "15" in picked:
+            t0 = time.perf_counter()
+            record["decentralized"] = decentralized_phase(drive, expect)
+            phase_done("phase 15", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         return 0
@@ -2907,10 +3534,16 @@ def main():
     t0 = time.perf_counter()
     scenarios = scenario_phase(drive, expect)
     phase_done("phase 14", t0)
+
+    # -- 15. the decentralized gossip ---------------------------------------
+    t0 = time.perf_counter()
+    decentralized = decentralized_phase(drive, expect)
+    phase_done("phase 15", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
-                    "scenarios": scenarios, "phase_s": phase_s,
+                    "scenarios": scenarios, "decentralized": decentralized,
+                    "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

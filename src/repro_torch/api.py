@@ -13,6 +13,9 @@ Registered strategies (``api.available_strategies()``):
     "ambdg"   the paper: anytime minibatch + delayed gradients
     "amb"     synchronous baseline (tau = 0, idle round trips)
     "kbatch"  fixed-minibatch K-batch baseline (Dutta et al.)
+    "decentralized"  the paper's Sec. V: no master, each worker's dual
+              through r gossip rounds (``rc.consensus``; the dense fold,
+              int8 gossip, the masked fold under an elastic process)
 
 ``api.simulate(name_or_strategy, problem, ...)`` runs the cluster
 simulator (``repro_torch.sim``) through the same registry:
@@ -80,8 +83,10 @@ def simulate(strategy, problem, **kw):
         return simulate_kbatch(problem, **kw)
     if cls.sim_engine == "anytime":
         return simulate_anytime(problem, scheme=name, **kw)
-    raise NotImplementedError(f"strategy {name!r} declares no simulator "
-                              "engine (Strategy.sim_engine)")
+    raise NotImplementedError(
+        f"strategy {name!r} declares no simulator engine "
+        f"(Strategy.sim_engine); run it on the device via "
+        f"repro_torch.api.build and repro_torch.train.loop.train")
 
 
 __all__ = ["Strategy", "StalenessSchedule", "TimelineModel",

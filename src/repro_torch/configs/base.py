@@ -285,14 +285,28 @@ class ServeConfig:
 
 @dataclass(frozen=True)
 class ConsensusConfig:
-    """Decentralized AMB-DG (paper Sec. V) knobs; not ported yet."""
+    """Decentralized AMB-DG (paper Sec. V): gossip-consensus knobs.
+
+    Workers exchange messages through a doubly-stochastic matrix Q for
+    ``rounds`` gossip rounds an epoch; ``rounds=0`` derives the count
+    from eq. (24) with (delta, msg_norm_J) and lambda_2(Q).
+    """
     topology: str = "ring"        # "ring" | "torus" | "complete"
     n_workers: int = 8
-    delta: float = 0.05
-    msg_norm_J: float = 1.0
-    rounds: int = 0
+    delta: float = 0.05           # consensus-error target of eq. (24)
+    msg_norm_J: float = 1.0       # message-norm bound J of eq. (24)
+    rounds: int = 0               # 0 = derive from eq. (24)
+    # "dense" folds the stacked messages on one device; "shard_map" (one
+    # worker per card) is ROADMAP A.11 and raises; "auto" picks it
+    # exactly when the card count equals n_workers, else "dense"
     gossip_impl: str = "auto"
+    # "none" exchanges f32 messages; "int8" quantizes each round's
+    # message per row with bf16 scales and carries the error in
+    # DecentralizedState.residual
     compression: str = "none"
+    # also return the pre-gossip messages ("gossip_m0", "gossip_r0")
+    # in the step's metrics, for an oracle to fold again; keep False in
+    # training loops (their metrics are scalars)
     debug_messages: bool = False
 
 
@@ -309,7 +323,7 @@ class RunConfig:
     shape: ShapeConfig
     mesh: MeshConfig = field(default_factory=MeshConfig)
     ambdg: AmbdgConfig = field(default_factory=AmbdgConfig)
-    # "ambdg" | "amb" in the port ("kbatch", "decentralized" not yet)
+    # "ambdg" | "amb" | "kbatch" | "decentralized"
     strategy: str = "ambdg"
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
     delay: DelayConfig = field(default_factory=DelayConfig)

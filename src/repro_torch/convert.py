@@ -2,7 +2,8 @@
 
 The functions take the JAX package's objects after ``jax.device_get``
 (numpy leaves in the JAX containers: ``ArenaDualAveragingState``,
-``DualAveragingState``, ``GradArena``, ``DelayBuffer``, ``TrainState``)
+``DualAveragingState``, ``GradArena``, ``DelayBuffer``, ``TrainState``,
+``DecentralizedState``)
 and return the port's, so that both
 frameworks can continue from one state. They read the containers by
 attribute name and import nothing of the JAX package. Values are copied
@@ -18,6 +19,7 @@ from repro_torch.core.arena import GradArena, tree_flatten, tree_unflatten
 from repro_torch.core.delayed import DelayBuffer
 from repro_torch.core.dual_averaging import (ArenaDualAveragingState,
                                              DualAveragingState)
+from repro_torch.core.strategy import DecentralizedState
 from repro_torch.device import resolve_device
 
 
@@ -91,3 +93,13 @@ def train_state_from_jax(state, device="cuda") -> TrainState:
                       buffer=buffer_from_jax(state.buffer, device),
                       arena=arena_from_jax(state.arena, device),
                       step=to_tensor(state.step, device))
+
+
+def decentralized_state_from_jax(state, device="cuda") -> DecentralizedState:
+    """A JAX ``DecentralizedState``: the stacked per-worker params, z, the
+    gossip residual, t and step."""
+    return DecentralizedState(params=params_from_jax(state.params, device),
+                              z=to_tensor(state.z, device),
+                              residual=to_tensor(state.residual, device),
+                              t=to_tensor(state.t, device),
+                              step=to_tensor(state.step, device))

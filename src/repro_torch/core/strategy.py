@@ -9,26 +9,29 @@ through ``repro_torch.api.build(model, rc, device)`` from
     strategy.staleness_schedule()   # how stale applied gradients are
     Strategy.timeline_model()       # wall-clock algebra of the simulator
 
-The port registers AMB-DG, its synchronous degenerate AMB and the
-K-batch baseline; the decentralized gossip comes later (ROADMAP A.10).
+The port registers AMB-DG, its synchronous degenerate AMB, the K-batch
+baseline and the decentralized gossip of the paper's Sec. V (its dense
+fold; one worker per card is ROADMAP A.11).
 ``repro_torch.api.simulate`` runs a strategy's cluster simulator engine
 (``Strategy.sim_engine``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Type
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Type
 
 import torch
 
 from repro_torch.configs.base import RunConfig
-from repro_torch.core import ambdg
+from repro_torch.core import ambdg, anytime, consensus
+from repro_torch.core import arena as arena_mod
+from repro_torch.core import dual_averaging as da
 from repro_torch.models.api import Model
 
 
 class StalenessSchedule(NamedTuple):
     """How stale the gradients applied by each master update are."""
-    kind: str          # "delayed" | "sync" | "random"
+    kind: str          # "delayed" | "sync" | "random" | "gossip"
     tau: int           # deterministic delay in epochs (0 = fresh)
     description: str
 
@@ -57,12 +60,15 @@ class Strategy:
 
     name: str = "?"
     # the simulator engine that runs this scheme: "anytime" (epoch
-    # timeline) or "kbatch" (event-driven arrival heap)
+    # timeline), "kbatch" (event-driven arrival heap) or None (on the
+    # device only)
     sim_engine: Optional[str] = None
     # does the device step read the elastic active mask as
     # batch["active"]? The master-ful strategies do not (a dead worker's
     # samples carry weight 0 in the anytime weights and eq. (5) stays
-    # exact); only the decentralized gossip does (ROADMAP A.10)
+    # exact); the decentralized gossip does under an elastic process
+    # (its stencil renormalizes around dead neighbours). The host loop
+    # ships the mask exactly when this is True.
     consumes_active_mask: bool = False
 
     def __init__(self, model: Model, rc: RunConfig):
@@ -118,8 +124,6 @@ class Strategy:
 
 
 _REGISTRY: Dict[str, Type[Strategy]] = {}
-# registered in the JAX package, ported in a later slice
-_LATER = {"decentralized": "ROADMAP A.10"}
 
 
 def register(cls: Type[Strategy]) -> Type[Strategy]:
@@ -131,18 +135,24 @@ def register(cls: Type[Strategy]) -> Type[Strategy]:
 
 
 def get_strategy(name: str) -> Type[Strategy]:
-    if name in _REGISTRY:
+    try:
         return _REGISTRY[name]
-    if name in _LATER:
-        raise NotImplementedError(
-            f"strategy {name!r} is not ported yet ({_LATER[name]}); the "
-            f"port runs {sorted(_REGISTRY)}")
-    raise ValueError(f"unknown strategy {name!r}; registered: "
-                     f"{sorted(_REGISTRY)}")
+    except KeyError:
+        raise ValueError(f"unknown strategy {name!r}; registered: "
+                         f"{sorted(_REGISTRY)}") from None
 
 
 def available_strategies() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def _require_fixed_delay(rc: RunConfig, name: str, why: str):
+    """Strategies without a master delay ring refuse a stochastic
+    ``rc.delay`` (a knob ignored in silence is worse than an error)."""
+    if rc.delay.process != "fixed":
+        raise ValueError(
+            f"strategy {name!r} does not support the stochastic delay "
+            f"process {rc.delay.process!r}: {why}")
 
 
 @register
@@ -198,11 +208,8 @@ class AmbStrategy(Strategy):
     sim_engine = "anytime"
 
     def __init__(self, model: Model, rc: RunConfig):
-        if rc.delay.process != "fixed":
-            raise ValueError(
-                f"strategy 'amb' does not support the stochastic delay "
-                f"process {rc.delay.process!r}: the synchronous baseline "
-                "blocks on every round trip")
+        _require_fixed_delay(rc, self.name, "the synchronous baseline "
+                             "blocks on every round trip")
         rc = rc.replace(ambdg=dataclasses.replace(rc.ambdg, tau=0))
         super().__init__(model, rc)
         self.init_state, self.train_step = ambdg.build_step_fns(model, rc)
@@ -301,3 +308,257 @@ class KBatchStrategy(Strategy):
     @classmethod
     def timeline_model(cls) -> TimelineModel:
         return TimelineModel(scheme=cls.name, event_driven=True)
+
+
+# ---------------------------------------------------------------------------
+# Decentralized AMB-DG (paper Sec. V): gossip consensus, no master
+# ---------------------------------------------------------------------------
+class DecentralizedState(NamedTuple):
+    params: Any              # per-worker stacked tree: leaves (n, *shape) f32
+    z: torch.Tensor          # (n, rows, 128) f32: per-worker duals, arena form
+    # (n, rows, 128) f32: the int8 gossip's per-worker error-feedback
+    # residual (zero under compression="none")
+    residual: torch.Tensor
+    t: torch.Tensor          # () int32: dual-averaging epoch counter
+    step: torch.Tensor       # () int32: steps taken
+
+
+@register
+class DecentralizedStrategy(Strategy):
+    """No master: each of ``rc.consensus.n_workers`` workers holds its own
+    dual z_i in arena form and its own parameters w_i. Each epoch every
+    worker computes an anytime gradient at w_i on its chunk of the batch,
+    forms m_i = n (b_i z_i + g_i) / b(t), and the messages run r rounds
+    of the topology's stencil fold (``core.consensus``); the result is
+    the new z_i, and w_i = prox(z_i) per worker. r comes from eq. (24)
+    with ``rc.consensus`` (or its explicit ``rounds``).
+
+    ``rc.consensus.gossip_impl``: "dense" runs the stencil fold on the
+    stacked (n, rows, 128) messages on one device; "shard_map" (one
+    worker per card) is ROADMAP A.11 and raises, as does an "auto" that
+    resolves to it (the card count equals n_workers).
+    ``rc.consensus.compression="int8"`` quantizes each round's message
+    to int8 with per-row bf16 scales and carries the quantization error
+    in ``DecentralizedState.residual``. Under a non-static ``rc.elastic``
+    the step reads the epoch's (n,) 0/1 mask as ``batch["active"]``: the
+    masked fold reroutes dead neighbours' weight to the self term, and
+    dead workers' z and params carry over bit for bit."""
+
+    name = "decentralized"
+    sim_engine = None          # on the device only
+
+    def __init__(self, model: Model, rc: RunConfig):
+        _require_fixed_delay(rc, self.name,
+                             "gossip consensus exchanges fresh local duals "
+                             "every epoch (no master delay ring to jitter)")
+        super().__init__(model, rc)
+        if rc.ambdg.anytime_impl != "scan_masked":
+            raise NotImplementedError(
+                f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while "
+                "is not ported yet (ROADMAP A.2)")
+        if rc.remat == "whole_loss":
+            raise NotImplementedError("rc.remat='whole_loss' is not ported "
+                                      "(ROADMAP A.13)")
+        if rc.ambdg.proximal not in ("l2", "l2_ball"):
+            raise ValueError(f"unknown proximal {rc.ambdg.proximal!r}")
+        cc = rc.consensus
+        self._elastic = rc.elastic.process != "static"
+        self.consumes_active_mask = self._elastic
+        if self._elastic and cc.compression == "int8":
+            raise ValueError(
+                "decentralized elastic churn does not compose with int8 "
+                "gossip compression: a dead worker cannot quantize its "
+                "message or carry error feedback for rounds it never ran; "
+                "use compression='none' with a non-static rc.elastic")
+        if cc.compression not in consensus.COMPRESSION_MODES:
+            raise ValueError(f"unknown gossip compression "
+                             f"{cc.compression!r}")
+        self.Q = consensus.gossip_matrix(cc.topology, cc.n_workers)
+        self.lam2 = consensus.lambda2(self.Q)
+        self.rounds = cc.rounds if cc.rounds > 0 else consensus.min_rounds(
+            cc.delta, cc.n_workers, cc.msg_norm_J, self.lam2)
+        self.layout = arena_mod.make_layout(model.param_shapes())
+        self.gossip_impl = self._resolve_gossip_impl(cc, model.device)
+        # the neighbour index tensors, once, on the strategy's device
+        consensus.stencil_on(cc.topology, cc.n_workers, model.device)
+        self.init_state, self.train_step = self._build()
+
+    @staticmethod
+    def _resolve_gossip_impl(cc, device: torch.device) -> str:
+        impl = cc.gossip_impl
+        if impl == "auto":
+            # JAX's rule: one device per worker picks the per-device
+            # fold; the device count is the strategy's device type's
+            n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+            impl = "shard_map" if n_dev == cc.n_workers else "dense"
+        if impl == "shard_map":
+            raise NotImplementedError(
+                "gossip_impl='shard_map' (one worker per card, the "
+                "neighbour exchange over torch.distributed) is not ported "
+                "yet (ROADMAP A.11); gossip_impl='dense' runs the same "
+                "stencil fold on one card")
+        if impl != "dense":
+            raise ValueError(f"unknown gossip_impl {cc.gossip_impl!r}")
+        return impl
+
+    def _gossip_fn(self):
+        """(m0, residual, active) -> (z, residual'): the dense fold,
+        int8 with error feedback, or masked under churn."""
+        cc = self.rc.consensus
+        topology, rounds = cc.topology, self.rounds
+        if cc.compression == "int8":
+            return lambda m0, res, active: consensus.run_consensus_fold_int8(
+                m0, res, topology, rounds)
+        if self._elastic:
+            return lambda m0, res, active: (
+                consensus.run_consensus_fold_masked(m0, topology, rounds,
+                                                    active), res)
+        return lambda m0, res, active: (
+            consensus.run_consensus_fold(m0, topology, rounds), res)
+
+    def _build(self):
+        model, rc = self.model, self.rc
+        cfg = rc.ambdg
+        n = rc.consensus.n_workers
+        n_mb = cfg.n_microbatches
+        layout = self.layout
+        device = model.device
+        gossip = self._gossip_fn()
+        elastic = self._elastic
+        variable_batch = rc.batch_schedule.schedule != "fixed"
+
+        def init_state(generator: Optional[torch.Generator] = None
+                       ) -> DecentralizedState:
+            # every worker starts at the same point, in f32
+            params = arena_mod.tree_map(
+                lambda p: p.to(torch.float32).unsqueeze(0).repeat(
+                    (n,) + (1,) * p.dim()), model.init(generator))
+            zeros = lambda: torch.zeros((n, layout.rows, arena_mod.LANES),
+                                        dtype=torch.float32, device=device)
+            return DecentralizedState(
+                params=params, z=zeros(), residual=zeros(),
+                t=torch.zeros((), dtype=torch.int32, device=device),
+                step=torch.zeros((), dtype=torch.int32, device=device))
+
+        def per_worker_grads(params, batch):
+            """JAX's ``vmap`` over the workers as a loop: worker i runs the
+            anytime accumulation at its own slice of the stacked params on
+            its chunk of the batch. Returns (flat grads (n, rows, 128),
+            counts (n,), loss sums (n,))."""
+            for k, x in batch.items():
+                if x.shape[0] % n:
+                    raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows "
+                                     f"does not split over {n} workers")
+            chunks = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+                      for k, x in batch.items()}
+            g_flat = torch.zeros((n, layout.rows, arena_mod.LANES),
+                                 dtype=torch.float32, device=device)
+            counts, losses = [], []
+            for i in range(n):
+                g, c, m = anytime.accumulate_scan(
+                    model.loss, arena_mod.tree_map(lambda p: p[i], params),
+                    {k: x[i] for k, x in chunks.items()}, n_mb)
+                arena_mod.flatten_tree(layout, g, out=g_flat[i])
+                counts.append(c)
+                losses.append(m["loss_sum"])
+                del g
+            return g_flat, torch.stack(counts), torch.stack(losses)
+
+        def train_step(state: DecentralizedState, batch: Dict):
+            active = None
+            if elastic:
+                if "active" not in batch:
+                    raise ValueError(
+                        "decentralized elastic step needs the per-epoch "
+                        "active mask as batch['active'] (the host loop "
+                        "ships the (n_workers,) 0/1 vector the worker "
+                        "process drew)")
+                active = batch["active"].to(torch.float32).reshape(n)
+                batch = {k: v for k, v in batch.items() if k != "active"}
+            b_sched = None
+            if variable_batch:
+                if "b_sched" not in batch:
+                    raise ValueError(
+                        f"rc.batch_schedule.schedule="
+                        f"{rc.batch_schedule.schedule!r} needs a per-step "
+                        "batch['b_sched'] scalar (the host loop draws it "
+                        "from core.batch_schedule)")
+                b_sched = batch["b_sched"].to(torch.float32)
+                batch = {k: v for k, v in batch.items() if k != "b_sched"}
+            g_flat, b, loss = per_worker_grads(state.params, batch)
+            with torch.no_grad():
+                # the effective fleet size the Sec.-V messages scale by:
+                # n, or the alive count under churn
+                scale = torch.sum(active) if elastic else n
+                total_b = torch.sum(b)
+                denom = torch.clamp(total_b, min=1e-12)
+                # m_i(0) = n (b_i z_i + g_i) / b(t)  (paper Sec. V)
+                m0 = torch.div(scale * (state.z * b[:, None, None] + g_flat),
+                               denom)
+                z_new, res_new = gossip(m0, state.residual, active)
+                if elastic:
+                    # dead workers are frozen spectators
+                    z_new = torch.where(active[:, None, None] > 0, z_new,
+                                        state.z)
+                t_next = state.t + 1
+                a = da.alpha(t_next.to(torch.float32) + 1.0, cfg, b=b_sched)
+                w = -a * z_new
+                if cfg.proximal == "l2_ball":
+                    # each worker projects onto its own ball
+                    norms = torch.sqrt(torch.sum(torch.square(w), dim=(1, 2)))
+                    proj = torch.clamp(torch.div(
+                        da._const(cfg.radius_C, norms),
+                        torch.clamp(norms, min=1e-12)), max=1.0)
+                    w = w * proj[:, None, None]
+                params = arena_mod.unflatten_tree(layout, w, cast=False)
+                if elastic:
+                    alive = active > 0
+                    params = arena_mod.tree_map(
+                        lambda new, old: torch.where(
+                            alive.reshape((n,) + (1,) * (new.dim() - 1)),
+                            new, old), params, state.params)
+                grad_sum = torch.sum(g_flat, dim=0)
+                metrics = {
+                    "loss": torch.div(torch.sum(loss), denom),
+                    "applied_count": total_b,
+                    "local_count": total_b,
+                    "grad_norm": torch.div(
+                        torch.sqrt(torch.sum(torch.square(grad_sum))), denom),
+                    "consensus_error": (
+                        consensus.consensus_error_masked(
+                            z_new.reshape(n, -1), active) if elastic
+                        else consensus.consensus_error(z_new.reshape(n, -1))),
+                    "step": state.step + 1,
+                }
+                if elastic:
+                    metrics["active_workers"] = scale
+                if rc.consensus.debug_messages:
+                    # the exact messages this step gossiped, for an
+                    # oracle to fold again
+                    metrics["gossip_m0"] = m0
+                    metrics["gossip_r0"] = state.residual
+                    if elastic:
+                        metrics["gossip_active"] = active
+            return DecentralizedState(params=params, z=z_new,
+                                      residual=res_new, t=t_next,
+                                      step=state.step + 1), metrics
+
+        return init_state, train_step
+
+    def staleness_schedule(self) -> StalenessSchedule:
+        return StalenessSchedule(
+            "gossip", 0,
+            f"fresh local gradients; r={self.rounds} gossip rounds "
+            f"(eq. 24: delta={self.rc.consensus.delta}, "
+            f"lambda2={self.lam2:.4f}) bound the consensus error")
+
+    @classmethod
+    def timeline_model(cls) -> TimelineModel:
+        # synchronous epochs like AMB: the gossip exchange rides the
+        # round trip T_c between compute epochs
+        return TimelineModel(
+            scheme=cls.name, event_driven=False,
+            epoch_duration=lambda t_p, t_c: t_p + t_c,
+            update_time=lambda t, t_p, t_c: t * t_p + (t - 0.5) * t_c,
+            n_updates=lambda total, t_p, t_c:
+                max(int((total - t_p - 0.5 * t_c) // (t_p + t_c)) + 1, 0))

@@ -18,9 +18,9 @@ twin of ``core.delay_process``:
   * the cluster simulator draws per-epoch masks for the anytime
     engine and epoch-indexed masks for the k-batch arrival heap, so
     golden traces pin the sequences exactly;
-  * the decentralized strategy (ROADMAP A.10) ships the mask to the
-    device step as ``batch["active"]`` and renormalizes its gossip
-    stencil around dead neighbours.
+  * the decentralized strategy (``core.strategy.DecentralizedStrategy``)
+    gets the mask in its device step as ``batch["active"]`` and
+    renormalizes its gossip stencil around dead neighbours.
 
 Every process is seeded (``numpy.random.default_rng``), emits one
 boolean ``(n_workers,)`` active mask plus one float64 ``(n_workers,)``

@@ -18,7 +18,9 @@ checkpoint either package writes restores in the other. Tensors reach
 numpy through ``.cpu()`` in their own dtype (an int8 ring stays int8);
 ``restore`` places each leaf on its template leaf's device. Checkpoints
 of the older ring layouts migrate on restore as in JAX (v1 into a v2
-template, the per-slot delay-tolerant ring into the stacked v3).
+template, the per-slot delay-tolerant ring into the stacked v3), and a
+decentralized checkpoint saved before the gossip residual existed
+restores with a zero residual.
 """
 from __future__ import annotations
 
@@ -179,6 +181,22 @@ def _migrate_variable_ring_v2(data, keys) -> Dict[str, np.ndarray]:
     return out
 
 
+def _migrate_decentralized_residual(data, paths) -> Dict[str, np.ndarray]:
+    """A ``DecentralizedState`` saved before it held the int8 gossip's
+    error-feedback ``residual`` lacks the ``.residual`` key. A zero
+    residual is the state every compression="none" run carries (and
+    error feedback's cold start), so such a checkpoint restores with a
+    zero overlay and continues bit for bit. Only the top-level
+    ``.residual`` is made up (an arena's ``.arena.residual`` is always
+    saved). Returns an overlay consulted before the file."""
+    out: Dict[str, np.ndarray] = {}
+    for key, leaf in paths:
+        if key == ".residual" and key not in data and ".z" in data:
+            out[key] = np.zeros(tuple(leaf.shape),
+                                _torch_dtype_to_numpy(leaf.dtype))
+    return out
+
+
 def _torch_dtype_to_numpy(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
@@ -214,6 +232,7 @@ def restore(ckpt_dir: str, state_template, step: Optional[int] = None
         keys = [k for k, _ in paths]
         migrated = _migrate_ring_v1(data, keys)
         migrated.update(_migrate_variable_ring_v2(data, keys))
+        migrated.update(_migrate_decentralized_residual(data, paths))
         leaves = []
         for key, leaf in paths:
             arr = migrated[key] if key in migrated else data[key]

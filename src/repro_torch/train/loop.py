@@ -13,7 +13,9 @@ elastic workers. Each iteration:
      (active, speeds) pair, heartbeats ``train.fault.WorkerHealth`` on
      the virtual epoch clock (``at=float(step)``), readmits workers the
      process brings back, folds the draw into the anytime weights, and
-     on an eviction records a re-mesh plan and checkpoints at once;
+     on an eviction records a re-mesh plan and checkpoints at once; a
+     strategy that reads the mask (``consumes_active_mask``: the
+     decentralized gossip) gets it as ``batch["active"]``, (n,) f32;
   4. under a stochastic ``rc.delay`` the host draws this step's delay
      (``Strategy.delay_process``) into ``batch["delay"]``;
   5. the batch moves to the device and the strategy's step runs (AMB-DG:
@@ -98,6 +100,13 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     delay_proc = strategy.delay_process() if rc.strategy == "ambdg" else None
     batch_sched = strategy.batch_schedule()
     elastic_proc = strategy.worker_process(loop.n_workers)
+    wants_active = strategy.consumes_active_mask
+    if wants_active and loop.n_workers != rc.consensus.n_workers:
+        raise ValueError(
+            f"the elastic mask is drawn for loop.n_workers="
+            f"{loop.n_workers} workers but the gossip runs "
+            f"rc.consensus.n_workers={rc.consensus.n_workers}: set them "
+            "equal")
     # liveness on the virtual epoch clock: a missed epoch is a missed
     # heartbeat (none without an elastic process, ROADMAP C.2)
     health = (WorkerHealth(loop.n_workers, heartbeat_timeout=0.5,
@@ -163,6 +172,8 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             host["weights"] = fold_anytime_weights(
                 host["weights"], active, speeds, loop.n_workers,
                 loop.samples_per_worker)
+            if wants_active:
+                host["active"] = active.astype(np.float32)
             if newly_evicted:
                 # persistent failure: a re-mesh plan and a checkpoint as
                 # soon as this step commits

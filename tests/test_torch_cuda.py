@@ -836,3 +836,76 @@ def test_restart_on_cuda_is_bitwise(cuda, process, tmp_path):
     for (k, x), (_, y) in zip(la, lb):
         assert x.device.type == "cuda" and torch.equal(x, y), k
     assert whole["remesh_events"]
+
+
+# -- the decentralized gossip ---------------------------------------------------
+@pytest.mark.parametrize("topology,n", [("ring", 8), ("torus", 4),
+                                        ("torus", 16), ("complete", 6)])
+def test_gossip_folds_on_cuda_match_cpu_bitwise(cuda, topology, n):
+    """The int8 fold (values and residual) and the masked fold, 3 rounds,
+    on the card against the CPU: every product is its own op and every
+    int8 term is exact, so the two devices agree bit for bit."""
+    from repro_torch.core import consensus
+    rng = np.random.default_rng(n)
+    v = (rng.standard_normal((n, 6, 128)) * 3).astype(np.float32)
+    res = (rng.standard_normal((n, 6, 128)) * 1e-2).astype(np.float32)
+    active = (rng.uniform(size=n) < 0.6).astype(np.float32)
+    active[0] = 1.0
+    outs = {}
+    for dev in (cuda, "cpu"):
+        z, r = consensus.run_consensus_fold_int8(_t(v, dev), _t(res, dev),
+                                                 topology, 3)
+        m = consensus.run_consensus_fold_masked(_t(v, dev), topology, 3,
+                                                _t(active, dev))
+        ones = consensus.run_consensus_fold_masked(
+            _t(v, dev), topology, 3, torch.ones(n, device=dev))
+        plain = consensus.run_consensus_fold(_t(v, dev), topology, 3)
+        assert torch.equal(ones, plain)
+        outs[str(dev)] = [x.cpu().numpy() for x in (z, r, m)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_decentralized_linreg_step_on_cuda_matches_cpu(cuda, compression):
+    """One decentralized step of linreg (8 workers, ring, eq. 24's
+    rounds) on integer-valued data, whose gradient sums are exact in
+    any order: z, the residual and the weights on the card equal the
+    CPU's bit for bit, and the step reads nothing back to the host."""
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (ConsensusConfig, RunConfig,
+                                          TRAIN_4K)
+    from repro_torch.models.api import build_model
+    cfg = get_smoke_config("amb-linreg")
+    rc = RunConfig(model=cfg, shape=TRAIN_4K, strategy="decentralized",
+                   consensus=ConsensusConfig(topology="ring", n_workers=8,
+                                             gossip_impl="dense",
+                                             compression=compression))
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.integers(-2, 3, (64, cfg.linreg_dim)).astype(
+                 np.float32),
+             "y": rng.integers(-9, 10, (64,)).astype(np.float32),
+             "weights": (rng.uniform(size=64) < 0.8).astype(np.float32)}
+    out = {}
+    for dev in (cuda, "cpu"):
+        s = api.build(build_model(cfg, device=dev), rc, device=dev)
+        state = s.init_state()
+        b = {k: _t(v, dev) for k, v in batch.items()}
+        if dev == cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = s.train_step(state, b)
+        finally:
+            if dev == cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = (state, m)
+    (g, gm), (c, cm) = out["cuda"], out["cpu"]
+    assert s.rounds > 10
+    for x, y in ((g.z, c.z), (g.residual, c.residual),
+                 (g.params["w"], c.params["w"])):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+    assert gm["applied_count"].item() == cm["applied_count"].item()
+    np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(),
+                               rtol=1e-6)

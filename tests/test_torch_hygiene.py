@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -48,7 +49,9 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          # the CNN and the scenarios
          "repro_torch.configs.amb_cnn", "repro_torch.models.cnn",
          "repro_torch.core.batch_schedule", "repro_torch.core.worker_process",
-         "repro_torch.train.fault", "repro_torch.train.checkpoint"]
+         "repro_torch.train.fault", "repro_torch.train.checkpoint",
+         # the decentralized gossip
+         "repro_torch.core.consensus", "repro_torch.optim.compression"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -122,6 +125,14 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
         convert.params_from_jax({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         arena.init_arena(layout, 2, 1, "int8")
+    state = types.SimpleNamespace(params={"w": np.zeros((4, 3), np.float32)},
+                                  z=np.zeros((4, 256, 128), np.float32),
+                                  residual=np.zeros((4, 256, 128), np.float32),
+                                  t=np.int32(0), step=np.int32(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.decentralized_state_from_jax(state)
+    assert convert.decentralized_state_from_jax(
+        state, device="cpu").z.device.type == "cpu"
     assert arena.init_arena(layout, 2, 1, "int8",
                             device="cpu").ring[0].device.type == "cpu"
 
@@ -129,7 +140,7 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
 @pytest.mark.parametrize("knob,value,item", [
     ("optimizer", "sgd", "A.14"),
     ("optimizer", "adam", "A.14"),
-    ("strategy", "decentralized", "A.10"),
+    ("consensus", "shard_map", "A.11"),
     ("ambdg", "while_dynamic", "A.2"),
 ])
 def test_unported_knobs_raise(knob, value, item):
@@ -138,8 +149,10 @@ def test_unported_knobs_raise(knob, value, item):
     rc = _rc()
     if knob == "kbatch":
         knob, rc = "batch_schedule", rc.replace(strategy="kbatch")
+    if knob == "consensus":
+        rc = rc.replace(strategy="decentralized")
     field = {"ambdg": "anytime_impl", "batch_schedule": "schedule",
-             "elastic": "process"}.get(knob)
+             "elastic": "process", "consensus": "gossip_impl"}.get(knob)
     if field:
         rc = rc.replace(**{knob: dataclasses.replace(getattr(rc, knob),
                                                      **{field: value})})
@@ -153,13 +166,14 @@ def test_unported_knobs_raise(knob, value, item):
                                         ("strategy", "kbatch"),
                                         ("kbatch", "linear"),
                                         ("batch_schedule", "linear"),
-                                        ("elastic", "churn")])
+                                        ("elastic", "churn"),
+                                        ("strategy", "decentralized")])
 def test_ported_knobs_build_and_step(knob, value):
     """Knobs that raised before their slice build and step on the CPU:
     the pytree master, the K-batch strategy (also under a linear batch
     schedule), the linear batch schedule (its target rides the batch as
-    ``b_sched``) and the churn worker process (its seeded process comes
-    from the strategy)."""
+    ``b_sched``), the churn worker process (its seeded process comes
+    from the strategy) and the decentralized gossip (8 workers)."""
     import dataclasses
     from repro_torch import api
     from repro_torch.data.pipeline import AnytimePipeline
@@ -190,6 +204,9 @@ def test_ported_knobs_build_and_step(knob, value):
     elif rc.strategy == "kbatch":
         assert state.ref_epoch.item() == 4
         assert metrics["staleness"].item() == 0
+    elif rc.strategy == "decentralized":
+        assert state.z.shape[0] == rc.consensus.n_workers
+        assert metrics["consensus_error"].item() >= 0.0
 
 
 def test_loop_restores_from_ckpt_dir(tmp_path):

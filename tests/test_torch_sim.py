@@ -158,10 +158,11 @@ def test_timeline_models_pin_paper_algebra():
     assert dg.n_updates(60.0, t_p, t_c) == 22
     assert amb.n_updates(60.0, t_p, t_c) == 5
     assert kb.event_driven and kb.update_time is None
-    assert api.available_strategies() == ("amb", "ambdg", "kbatch")
-    assert [api.get_strategy(s).sim_engine for s in ("ambdg", "amb",
-                                                      "kbatch")] == [
-        "anytime", "anytime", "kbatch"]
+    assert api.available_strategies() == ("amb", "ambdg", "decentralized",
+                                          "kbatch")
+    assert [api.get_strategy(s).sim_engine for s in (
+        "ambdg", "amb", "kbatch", "decentralized")] == [
+        "anytime", "anytime", "kbatch", None]
 
 
 def _linreg_rc(strategy, dim=48, **kw):
