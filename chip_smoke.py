@@ -78,7 +78,8 @@ Phases (any failure raises and the script exits non-zero):
      no-grad eval, ``scan_impl="kernel"`` (the scan kernel) against
      ``"xla"`` (the plain chunked scan) in f32 and bf16 compute. Then
      AMB-DG as in phase 6 (8 sequences, 4 microbatches, tau 2, int8,
-     ``block_remat="full"``, l2 ball), 5 steps with each route: counts and
+     ``block_remat="full"``, l2 ball), 3 steps with each route (5 until
+     phase 16 came: cut for the script's time limit): counts and
      losses agree, w in the ball; the scan kernel launched 2 x 36 x 4
      times a step forward and 3 x 36 x 4 in its backward forms, and no
      plain scan (``ssd_chunked`` or the recurrence) called in that run
@@ -160,7 +161,31 @@ Phases (any failure raises and the script exits non-zero):
      sequences, ring, int8, 2 steps on the card: the flash kernels launch
      workers x layers x microbatches times a step.
 
-``python3 chip_smoke.py --only=13,14,15`` runs the build and then only
+ 16. train-while-serve (``repro_torch.serve``; no kernel of the port on
+     the decode path, which is JAX's plain ``gqa_attend`` and Mamba2
+     recurrence): (a) ``tests/test_serve.py``'s golden trace (qwen1.5-0.5b
+     SMOKE, 3 slots, Poisson 0.7, publish every 3, bound 6, seed 5, 40
+     steps) with the engine and the publisher on the card: every row of
+     ``tests/golden/serve_trace.json`` exact; (b) the engine on the card
+     against the CPU, f32, TF32 off, the same weights: qwen1.5-0.5b FULL
+     at 2 layers and zamba2-2.7b FULL at 6, 3 slots of ragged prompts (5,
+     7, 9 tokens), 16 steps: logits and caches within 1e-4 of the
+     largest, tokens equal; (c) serving at full size, the configs' bf16:
+     qwen1.5-0.5b FULL (24 layers, 16 slots of 512) and zamba2-2.7b at
+     12 layers (8 slots), Poisson 0.5 requests a step, prompts of 16-128
+     tokens, max_new 64, 32 warm-up steps then 256 (zamba2: 128) timed:
+     the median step, prefill and decode tokens/s, kernels a step, idle
+     share, peak memory and the kernel split (cuBLAS, casts, the rest);
+     (d) train-while-serve: qwen1.5-0.5b at 2 layers, seq 512, 4 workers
+     x 2, tau 2, int8, flash, publish every 2, bound 4, 6 master steps
+     with a checkpoint at step 4; an engine attached to ``train``'s
+     publisher refreshes at 6..10: staleness within the bound, the popped
+     trees and the ring's bytes and scale bits bit for bit against the
+     CPU's dequantize and quantize, the checkpoint and a resumed run
+     carry the publisher bit for bit; B.1 and B.2 once a step, the flash
+     kernels per layer and microbatch.
+
+``python3 chip_smoke.py --only=13,14,15,16`` runs the build and then only
 the phases named (a short call while working on them; no kernels or ok
 line).
 
@@ -1345,7 +1370,7 @@ def compare_lm_devices(gpu, cpu):
 
 # -- the hybrid slice (phases 8 and 9) ------------------------------------------
 Z_LAYERS = 36       # 6 groups of 6 Mamba2 layers: 1.70B parameters
-Z_STEPS = 5
+Z_STEPS = 3         # the third applies the first delayed update (tau 2)
 # the scan kernel ("kernel") against the plain chunked scan ("xla") on the
 # card at the init weights, and the card against the CPU in phase 9. The
 # backward of 36 random-init layers amplifies rounding: two plain runs that
@@ -3028,6 +3053,465 @@ def decentralized_phase(drive, expect):
     return out
 
 
+# -- phase 16: train-while-serve -------------------------------------------------
+SERVE_DEVICE_TOL = 1e-4     # 16b: logits and caches, of the largest |value|
+SERVE_SLOTS_ZAMBA = 8
+SERVE_WARMUP, SERVE_TIMED, SERVE_TIMED_ZAMBA = 32, 256, 128
+SERVE_PROFILED = 8          # engine steps under the profiler (16c)
+SERVE_Z_LAYERS = 12         # zamba2 in 16c: 2 groups of 6 Mamba2 layers
+
+
+def serve_golden_phase(drive, expect):
+    """Phase 16a: ``tests/test_serve.py::_golden_trace`` with the engine
+    and the publisher on the card (qwen1.5-0.5b SMOKE, 3 slots, max_len
+    32, max_new 4, Poisson 0.7, publish every 3, bound 6, seed 5, 40
+    steps): every row, ``completed`` and ``admitted`` equal
+    ``tests/golden/serve_trace.json`` and every served staleness is within
+    the bound. Returns the record."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.arena import make_layout
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine, RequestQueue, WeightPublisher
+
+    def run():
+        model = build_model(get_smoke_config("qwen1.5-0.5b"), device="cuda")
+        sc = ServeConfig(slots=3, max_len=32, max_new=4, arrival="poisson",
+                         arrival_rate=0.7, publish_period=3,
+                         staleness_bound=6, prompt_len_min=2,
+                         prompt_len_max=6, seed=5)
+        engine = Engine(model, sc.slots, sc.max_len)
+        queue = RequestQueue(sc, model.cfg.vocab_size)
+        pub = WeightPublisher(make_layout(engine.params), sc, device="cuda")
+        engine.attach_publisher(pub)
+        rows = []
+        for t in range(40):
+            slot = pub.publish(engine.params, t) \
+                if t % sc.publish_period == 0 else -1
+            stale = engine.refresh_weights(t) if t % 5 == 0 else None
+            arrived = queue.step()
+            ev = engine.step(queue)
+            rows.append({"step": t, "arrived": arrived,
+                         "admits": ev["admits"], "evicts": ev["evicts"],
+                         "active": ev["active"], "queued": ev["queued"],
+                         "publish_slot": slot, "staleness": stale})
+        return rows, engine, sc
+
+    (rows, engine, sc), n = drive(run)
+    assert n == expect(), n       # decoding launches no kernel of the port
+    want = json.loads((Path(__file__).resolve().parent / "tests" / "golden"
+                       / "serve_trace.json").read_text())
+    assert rows == want["trace"]
+    assert (engine.stats.completed, engine.stats.admitted) == (
+        want["completed"], want["admitted"])
+    served = [r["staleness"] for r in rows if r["staleness"] is not None]
+    assert served and all(0 <= s <= sc.staleness_bound for s in served)
+    rec = dict(steps=len(rows), completed=engine.stats.completed,
+               admitted=engine.stats.admitted, served_staleness=served)
+    log(f"phase 16a: golden serve trace on the card: {len(rows)} rows "
+        f"equal; {json.dumps(rec)}")
+    return rec
+
+
+class RecordingModel:
+    """A model whose ``decode_step`` also keeps each step's logits (f32,
+    on the host); everything else is the wrapped model's."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, *args):
+        logits, cache = self.model.decode_step(*args)
+        self.logits.append(logits[:, -1].float().cpu())
+        return logits, cache
+
+
+def serve_device_run(cfg, device, prompts, n_steps):
+    """16 engine steps of ``cfg`` (f32 compute, f32 KV cache) on
+    ``device`` with ``prompts`` in 3 slots: (tokens fed back a step,
+    logits a step, the final cache on the host)."""
+    import torch
+    from repro_torch.core.arena import tree_map
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine
+    from repro_torch.serve.engine import _StaticQueue
+    from repro_torch.serve.request_queue import Request
+    model = build_model(cfg, device=device)
+    engine = Engine(model, len(prompts), 64)
+    for name in ("cache", "_cache0"):
+        setattr(engine, name,
+                model.init_decode_state(len(prompts), 64, torch.float32)[0])
+    engine.model = RecordingModel(model)
+    q = _StaticQueue(Request(i, p, max_new=64) for i, p in
+                     enumerate(prompts))
+    outs = []
+    for _ in range(n_steps):
+        engine.step(q)
+        outs.append([list(o) for o in engine._out])
+    return outs, engine.model.logits, tree_map(lambda a: a.cpu(),
+                                               engine.cache)
+
+
+def serve_device_phase(drive, expect):
+    """Phase 16b: the engine on the card against the CPU, f32 compute,
+    TF32 off, the same weights: qwen1.5-0.5b FULL at 2 layers and zamba2
+    FULL at 6 layers (one shared block), 3 slots with ragged prompts of
+    5, 7 and 9 tokens, 16 engine steps. Each step's logits and the final
+    caches within SERVE_DEVICE_TOL of the largest |value|; the greedy
+    tokens equal (where one differs: its step and the top-2 margin, which
+    must lie under that limit). Returns the record."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.arena import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, layers in (("qwen1.5-0.5b", 2), ("zamba2-2.7b", 6)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  compute_dtype="float32")
+        rng = np.random.default_rng(16)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                   for n in (5, 7, 9)]
+        t0 = time.perf_counter()
+        (gpu_out, gpu_logits, gpu_cache), n = drive(
+            lambda: serve_device_run(cfg, "cuda", prompts, 16))
+        gpu_s = time.perf_counter() - t0
+        assert n == expect(), n
+        t0 = time.perf_counter()
+        cpu_out, cpu_logits, cpu_cache = serve_device_run(cfg, "cpu",
+                                                          prompts, 16)
+        cpu_s = time.perf_counter() - t0
+        gaps = []
+        for t, (a, b) in enumerate(zip(gpu_logits, cpu_logits)):
+            gap = float((a - b).abs().max()) / float(b.abs().max())
+            gaps.append(gap)
+            assert gap <= SERVE_DEVICE_TOL, (arch, t, gap)
+            ta, tb = a.argmax(-1), b.argmax(-1)
+            for i in torch.nonzero(ta != tb).flatten().tolist():
+                top2 = torch.topk(b[i], 2).values
+                margin = float(top2[0] - top2[1]) / float(b.abs().max())
+                log(f"phase 16b: {arch}: step {t} slot {i}: card token "
+                    f"{int(ta[i])}, cpu {int(tb[i])}, top-2 margin "
+                    f"{margin:.3e} of the largest |logit|")
+                assert margin <= SERVE_DEVICE_TOL, (arch, t, i, margin)
+        if gpu_out != cpu_out:
+            log(f"phase 16b: {arch}: the token streams part (a tie within "
+                "the limit, logged above)")
+        cache_gaps = [float((a - b).abs().max()) / (float(b.abs().max())
+                                                    or 1.0)
+                      for a, b in zip(tree_flatten(gpu_cache)[0],
+                                      tree_flatten(cpu_cache)[0])]
+        assert all(g <= SERVE_DEVICE_TOL for g in cache_gaps), cache_gaps
+        out[arch] = dict(layers=layers, gpu_s=gpu_s, cpu_s=cpu_s,
+                         max_logit_gap=max(gaps), cache_gaps=cache_gaps,
+                         tokens_equal=gpu_out == cpu_out,
+                         tokens=gpu_out[-1])
+        log(f"phase 16b: {arch} {layers} layers f32, 16 engine steps: card "
+            f"{gpu_s:.2f} s, cpu {cpu_s:.2f} s; logits within "
+            f"{max(gaps):.3e}, caches within {max(cache_gaps):.3e} of the "
+            f"largest (limit {SERVE_DEVICE_TOL}); tokens equal: "
+            f"{gpu_out == cpu_out}")
+    return out
+
+
+def serve_kernel_split(kernels, n_steps):
+    """The profiler's record of ``n_steps`` engine steps split by name:
+    cuBLAS/CUTLASS products, dtype-converting copies (the f32 -> bf16
+    weight casts and the activations' casts: ``copy`` kernels), the
+    rest (memcpy/memset apart); ms and launches per step, and the
+    rest's largest kernels."""
+    ms, n = collections.Counter(), collections.Counter()
+    rest, rest_n = collections.Counter(), collections.Counter()
+    for name, us in kernels:
+        low = name.lower()
+        if name.startswith(("Memcpy", "Memset")):
+            g = "memcpy"
+        elif any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma",
+                                    "cublas", "gemv")):
+            g = "cublas"
+        elif "copy" in low:
+            g = "cast"
+        else:
+            g = "rest"
+            rest[name[:REST_NAME_CHARS]] += us / 1e3 / n_steps
+            rest_n[name[:REST_NAME_CHARS]] += 1 / n_steps
+        ms[g] += us / 1e3 / n_steps
+        n[g] += 1 / n_steps
+    out = {f"{g}_ms": ms.get(g, 0.0) for g in ("cublas", "cast", "rest",
+                                                "memcpy")}
+    out.update({f"{g}_launches": n.get(g, 0.0) for g in
+                ("cublas", "cast", "rest", "memcpy")})
+    out["rest_top"] = [dict(name=k, ms=v, launches=rest_n[k])
+                       for k, v in rest.most_common(8)]
+    return out
+
+
+def serve_load(cfg, slots, n_timed):
+    """Phase 16c for one model: the engine on the card (the config's bf16
+    compute, bf16 KV cache) at ``slots`` slots of 512 positions under
+    Poisson traffic of 0.5 requests a step (prompts of 16-128 tokens,
+    max_new 64): SERVE_WARMUP steps, then ``n_timed`` timed steps (host
+    clock; each step ends in its one read back), then SERVE_PROFILED
+    steps under the profiler. Returns the record."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import Engine, RequestQueue
+    sc = ServeConfig(slots=slots, max_len=512, max_new=64,
+                     arrival="poisson", arrival_rate=0.5, prompt_len_min=16,
+                     prompt_len_max=128, seed=16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device="cuda")
+    engine = Engine(model, sc.slots, sc.max_len, seed=0)
+    queue = RequestQueue(sc, cfg.vocab_size)
+
+    def steps(n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            queue.step()
+            engine.step(queue)
+            times.append(time.perf_counter() - t0)
+        return times
+
+    steps(SERVE_WARMUP)
+    s0 = dataclasses.asdict(engine.stats)
+    times = steps(n_timed)
+    wall = sum(times)
+    prefill = engine.stats.prefill_tokens - s0["prefill_tokens"]
+    decode = engine.stats.decode_tokens - s0["decode_tokens"]
+    completed = engine.stats.completed - s0["completed"]
+
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(SERVE_PROFILED)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(PROFILER_TRIES):
+        prof_wall, kernels = profiled(window)
+        if kernels:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time in the "
+                           "serving window")
+    kernel_ms = sum(us for k, us in kernels
+                    if not k.startswith(("Memcpy", "Memset"))) / 1e3
+    n_params = sum(x.numel() for x in tree_flatten(engine.params)[0])
+    kv = engine.cache["shared"] if "shared" in engine.cache else engine.cache
+    kv_bytes = sum(x.numel() * x.element_size() for x in kv.values())
+    rec = dict(
+        layers=cfg.n_layers, slots=slots, max_len=sc.max_len,
+        n_params=n_params, timed_steps=n_timed,
+        median_step_ms=statistics.median(times) * 1e3,
+        p90_step_ms=sorted(times)[int(0.9 * len(times))] * 1e3,
+        prefill_tok_s=prefill / wall, decode_tok_s=decode / wall,
+        completed=completed, active_slots_last=engine.in_flight,
+        queued_last=len(queue),
+        kernels_per_step=len(kernels) / SERVE_PROFILED,
+        device_kernel_ms_per_step=kernel_ms / SERVE_PROFILED,
+        idle_share=1.0 - kernel_ms / (prof_wall * 1e3),
+        # the least bytes a step must move: every f32 weight read once
+        # and the whole KV cache read once, at 3.35 TB/s
+        hbm_floor_ms=(4 * n_params + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        split=serve_kernel_split(kernels, SERVE_PROFILED))
+    del engine, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_load_phase():
+    """Phase 16c: serving at full size (``serve_load``): qwen1.5-0.5b FULL
+    (24 layers, 16 slots, SERVE_TIMED steps) and zamba2-2.7b at full
+    width and SERVE_Z_LAYERS layers (SERVE_SLOTS_ZAMBA slots,
+    SERVE_TIMED_ZAMBA steps). Returns the record."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = {"qwen1.5-0.5b": serve_load(get_config("qwen1.5-0.5b"), 16,
+                                      SERVE_TIMED),
+           "zamba2-2.7b": serve_load(dataclasses.replace(
+               get_config("zamba2-2.7b"), n_layers=SERVE_Z_LAYERS),
+               SERVE_SLOTS_ZAMBA, SERVE_TIMED_ZAMBA)}
+    for arch, r in out.items():
+        split = r["split"]
+        log(f"phase 16c: {arch} {r['layers']} layers, {r['slots']} slots: "
+            f"median step {r['median_step_ms']:.3f} ms (p90 "
+            f"{r['p90_step_ms']:.3f}); prefill {r['prefill_tok_s']:.1f} "
+            f"tok/s, decode {r['decode_tok_s']:.1f} tok/s; "
+            f"{r['kernels_per_step']:.1f} kernels a step, "
+            f"{r['device_kernel_ms_per_step']:.3f} ms of kernels a step, "
+            f"idle share {r['idle_share']:.3f}; HBM floor "
+            f"{r['hbm_floor_ms']:.3f} ms; peak {r['peak_gib']:.2f} GiB")
+        log(f"phase 16c: {arch}: kernel split per step " + json.dumps(
+            {k: v for k, v in split.items() if k != "rest_top"}))
+        for t in split["rest_top"]:
+            log(f"phase 16c: {arch}: rest {t['ms']:.4f} ms/step "
+                f"({t['launches']:.1f} launches/step): {t['name']}")
+    return out
+
+
+TWS_STEPS, TWS_PERIOD, TWS_BOUND = 6, 2, 4
+TWS_SERVE_STEPS = 3         # engine steps after each refresh (16d)
+
+
+def train_serve_phase(drive, expect):
+    """Phase 16d: train-while-serve. qwen1.5-0.5b at full width, 2
+    layers, seq 512, 4 workers x 2 sequences (4 microbatches), tau 2,
+    int8, ``attn_impl="flash"``, ``publish_period=2``,
+    ``staleness_bound=4``: 6 master steps through ``train`` with a
+    checkpoint at step 4. An engine on the same config attaches the
+    publisher and refreshes at now = 6..10, serving a step after each.
+    Every served staleness within the bound and some > 0; each popped
+    tree equals the CPU dequantize of its ring slot bit for bit; each
+    slot's int8 bytes and bf16 scale bits equal the CPU quantize of the
+    card's w at its publish step; the step-4 checkpoint restores the
+    ring, the scales and the publish steps bit for bit, and a run resumed
+    from it carries them on. Returns the record."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.arena import (flatten_tree, tree_flatten,
+                                        tree_map, unflatten_tree)
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.compression import (dequantize_int8_rows,
+                                               quantize_int8_rows)
+    from repro_torch.serve import WeightPublisher
+    from repro_torch.train import checkpoint
+    from repro_torch.train.loop import LoopConfig, train
+    cfg = lm_config("flash", n_layers=2)
+    rc = lm_run_config(cfg, 512, 8, 4).replace(serve=ServeConfig(
+        slots=4, max_len=64, max_new=4, publish_period=TWS_PERIOD,
+        staleness_bound=TWS_BOUND, arrival_rate=1.0, prompt_len_min=4,
+        prompt_len_max=8, seed=3))
+    published = {}
+    publish = WeightPublisher.publish
+
+    def spy(self, params, step):
+        published[step] = tree_map(lambda a: a.detach().cpu().clone(),
+                                   params)
+        return publish(self, params, step)
+
+    def run(d, n_steps):
+        return train(build_model(cfg, device="cuda"), rc, LoopConfig(
+            n_steps=n_steps, n_workers=4, samples_per_worker=2, log_every=1,
+            ckpt_dir=d, ckpt_every=4), device="cuda")
+
+    WeightPublisher.publish = spy
+    torch.cuda.empty_cache()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            out, n_train = drive(lambda: run(f"{d}/run", TWS_STEPS))
+            train_s = time.perf_counter() - t0
+            # block_remat="full": the forward with lse runs twice a layer
+            # and microbatch (the forward and its recomputation)
+            want = expect(dual_update=TWS_STEPS, slot_rotate=TWS_STEPS,
+                          flash_fwd_lse=2 * 2 * 4 * TWS_STEPS,
+                          flash_bwd_dq=2 * 4 * TWS_STEPS,
+                          flash_bwd_dkv=2 * 4 * TWS_STEPS)
+            assert n_train == want, n_train
+            pub = out["publisher"]
+            assert pub.pub_step.tolist() == [2, 4, 6] and pub.seq == 3
+            # the slots against the CPU quantize of the card's w
+            layout = pub.layout
+            for k, step in enumerate(pub.pub_step.tolist()):
+                q, s = quantize_int8_rows(flatten_tree(layout,
+                                                       published[step]),
+                                          scale_dtype=torch.bfloat16)
+                assert torch.equal(pub.ring[k].cpu(), q), step
+                assert torch.equal(pub.scales[k].cpu().view(torch.int16),
+                                   s.view(torch.int16)), step
+            # the step-4 checkpoint restores the publisher bit for bit
+            _, extra = checkpoint.restore(f"{d}/run", out["state"], step=4)
+            p4 = WeightPublisher(layout, rc.serve, device="cuda")
+            p4.load_state_dict(extra["publisher"])
+            assert p4.pub_step.tolist() == [2, 4, -1] and p4.seq == 2
+            assert torch.equal(p4.ring[:2], pub.ring[:2])
+            assert torch.equal(p4.scales[:2].view(torch.int16),
+                               pub.scales[:2].view(torch.int16))
+            assert not p4.ring[2].any() and bool((p4.scales[2] == 1).all())
+            published.clear()
+            resumed, n_res = drive(lambda: run(f"{d}/run", TWS_STEPS))
+            rp = resumed["publisher"]
+            assert n_res["dual_update"] == TWS_STEPS - 4, n_res
+            assert rp.pub_step.tolist() == [2, 4, 6] and rp.seq == 3
+            assert torch.equal(rp.ring[:2], pub.ring[:2])
+            assert torch.equal(rp.scales[:2].view(torch.int16),
+                               pub.scales[:2].view(torch.int16))
+            q, s = quantize_int8_rows(flatten_tree(layout, published[6]),
+                                      scale_dtype=torch.bfloat16)
+            assert torch.equal(rp.ring[2].cpu(), q)
+            assert torch.equal(rp.scales[2].cpu().view(torch.int16),
+                               s.view(torch.int16))
+    finally:
+        WeightPublisher.publish = publish
+    # an engine on the same config serves what train published
+    model = build_model(cfg, device="cuda")
+
+    def serve():
+        engine, queue = api.serve(model, rc, publisher=pub, device="cuda")
+        stales = []
+        for now in range(TWS_STEPS, TWS_STEPS + TWS_BOUND + 1):
+            stale = engine.refresh_weights(now)
+            stales.append(stale)
+            k = pub.due_slot(now)
+            w = dequantize_int8_rows(pub.ring[k].cpu(), pub.scales[k].cpu())
+            want = unflatten_tree(layout, w, cast=True)
+            for a, b in zip(tree_flatten(engine.params)[0],
+                            tree_flatten(want)[0]):
+                assert torch.equal(a.cpu(), b), now
+            for _ in range(TWS_SERVE_STEPS):
+                queue.step()
+                engine.step(queue)
+        return engine, stales
+
+    (engine, stales), n = drive(serve)
+    assert n == expect(), n
+    assert all(s is not None and 0 <= s <= TWS_BOUND for s in stales)
+    assert any(s > 0 for s in stales), stales
+    hist = out["history"]
+    rec = dict(train_s=train_s, launches=n_train,
+               launches_resumed=n_res, loss=[h["loss"] for h in hist],
+               pub_step=pub.pub_step.tolist(), served_staleness=stales,
+               decode_tokens=engine.stats.decode_tokens,
+               completions=engine.completions,
+               w_norm=lm_norm(out["state"].params))
+    log(f"phase 16d: qwen1.5-0.5b 2 layers train-while-serve: "
+        f"{json.dumps(rec)}")
+    del out, resumed, engine, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_phase(drive, expect):
+    """Phase 16 (16a-d): the golden trace, card against CPU, serving at
+    full size, train-while-serve; each part's seconds in ``parts_s``."""
+    out, parts_s = {}, {}
+    for part, key, fn in (
+            ("16a", "golden", lambda: serve_golden_phase(drive, expect)),
+            ("16b", "devices", lambda: serve_device_phase(drive, expect)),
+            ("16c", "load", serve_load_phase),
+            ("16d", "train_serve", lambda: train_serve_phase(drive,
+                                                             expect))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        parts_s[part] = time.perf_counter() - t0
+        log(f"phase {part}: {parts_s[part]:.1f} s")
+    out["parts_s"] = parts_s
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3103,7 +3587,7 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=13,14,15``: after the build, run only those of phases 13-15
+    # ``--only=13,14,15,16``: after the build, run only those of phases 13-16
     # (a short call while working on them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
             if a.startswith("--only=")]
@@ -3122,6 +3606,10 @@ def main():
             t0 = time.perf_counter()
             record["decentralized"] = decentralized_phase(drive, expect)
             phase_done("phase 15", t0)
+        if "16" in picked:
+            t0 = time.perf_counter()
+            record["serve"] = serve_phase(drive, expect)
+            phase_done("phase 16", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         return 0
@@ -3539,11 +4027,16 @@ def main():
     t0 = time.perf_counter()
     decentralized = decentralized_phase(drive, expect)
     phase_done("phase 15", t0)
+
+    # -- 16. train-while-serve ----------------------------------------------
+    t0 = time.perf_counter()
+    serve = serve_phase(drive, expect)
+    phase_done("phase 16", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
-                    "phase_s": phase_s,
+                    "serve": serve, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -25,6 +25,13 @@ simulator (``repro_torch.sim``) through the same registry:
                            total_time=250.0, timing=ShiftedExponential(),
                            opt_cfg=rc.ambdg)
 
+``api.serve(model, rc, publisher=None)`` builds the continuous-
+batching engine and the seeded request queue of ``rc.serve``
+(``repro_torch.serve``):
+
+    engine, queue = api.serve(model, rc, publisher=out["publisher"])
+    trace         = engine.serve(queue, n_steps)
+
 ``device`` defaults to "cuda" and raises when CUDA is absent; only a
 caller that asks for the CPU runs there.
 """
@@ -46,6 +53,24 @@ def build(model: Model, rc: RunConfig, device="cuda") -> Strategy:
         raise ValueError(f"the model lives on {model.device}, the strategy "
                          f"was asked for {device}")
     return get_strategy(rc.strategy)(model, rc)
+
+
+def serve(model: Model, rc: RunConfig, publisher=None, device="cuda"):
+    """The continuous-batching engine and the seeded request queue of
+    ``rc.serve``, on ``device`` (the device ``model`` was built for).
+    Returns (engine, queue); pass the train loop's ``WeightPublisher``
+    to attach the bounded-staleness weight channel
+    (``engine.refresh_weights(now)`` pops the freshest due snapshot)."""
+    from repro_torch.serve import Engine, RequestQueue
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"the model lives on {model.device}, the engine "
+                         f"was asked for {device}")
+    engine = Engine(model, rc.serve.slots, rc.serve.max_len, seed=rc.seed)
+    queue = RequestQueue(rc.serve, model.cfg.vocab_size)
+    if publisher is not None:
+        engine.attach_publisher(publisher)
+    return engine, queue
 
 
 def simulate(strategy, problem, **kw):
@@ -91,4 +116,4 @@ def simulate(strategy, problem, **kw):
 
 __all__ = ["Strategy", "StalenessSchedule", "TimelineModel",
            "available_strategies", "build", "get_strategy", "register",
-           "simulate"]
+           "serve", "simulate"]

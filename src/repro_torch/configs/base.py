@@ -266,18 +266,38 @@ class BatchScheduleConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Train-while-serve knobs. The port has no serving path yet;
-    ``publish_period`` must stay 0 (channel off)."""
+    """Train-while-serve: the continuous-batching engine fed by
+    staleness-bounded weight publication (``repro_torch.serve``).
+
+      * ``slots``/``max_len``/``max_new`` size the engine: ``slots``
+        sequences share one fixed-slot KV / recurrent cache of depth
+        ``max_len``; finished sequences are evicted and new requests
+        admitted every decode step (``serve/engine.py``).
+      * ``arrival`` names the seeded request arrival process
+        (``serve/request_queue.py``): "poisson" draws
+        Poisson(``arrival_rate``) requests a decode step, "bursty" a
+        Gilbert-Elliott chain with Poisson(``burst_rate``) inside a
+        burst; prompts have seeded lengths in [prompt_len_min,
+        prompt_len_max].
+      * every ``publish_period`` master steps the train loop pushes a
+        ``w = -alpha z`` snapshot into the publish ring (int8 rows with
+        bf16 scales, ``serve/publisher.py``); servers pop the freshest
+        snapshot at most ``staleness_bound`` master steps old.
+        ``publish_period = 0`` turns the channel off.
+    """
     slots: int = 4
     max_len: int = 128
     max_new: int = 16
+    # master steps between published snapshots; 0 = channel off
     publish_period: int = 0
+    # the largest age (master steps) of a servable snapshot; ring depth
+    # staleness_bound // publish_period + 1
     staleness_bound: int = 4
     arrival: str = "poisson"    # poisson | bursty
-    arrival_rate: float = 0.5
-    burst_rate: float = 4.0
-    p_burst: float = 0.1
-    p_exit: float = 0.3
+    arrival_rate: float = 0.5   # mean new requests a decode step
+    burst_rate: float = 4.0     # "bursty": the rate inside a burst
+    p_burst: float = 0.1        # "bursty": P(normal -> burst) a step
+    p_exit: float = 0.3         # "bursty": P(burst -> normal) a step
     prompt_len_min: int = 4
     prompt_len_max: int = 12
     seed: int = 0

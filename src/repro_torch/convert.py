@@ -7,7 +7,13 @@ The functions take the JAX package's objects after ``jax.device_get``
 and return the port's, so that both
 frameworks can continue from one state. They read the containers by
 attribute name and import nothing of the JAX package. Values are copied
-exactly (same dtype, same bits).
+exactly (same dtype, same bits; a bf16 array, which numpy knows only
+through JAX's ``ml_dtypes``, by its raw bits).
+
+``decode_state_from_jax`` carries a decode cache (KV caches and Mamba2
+states) across. The weight publisher needs no converter: its
+``state_dict`` is the JAX publisher's format (numpy arrays, the bf16
+scales as u16 bits), which both packages load.
 """
 from __future__ import annotations
 
@@ -24,9 +30,14 @@ from repro_torch.device import resolve_device
 
 
 def to_tensor(x, device="cuda") -> torch.Tensor:
-    """An exact copy of a numpy array (or array-like) as a tensor."""
-    return torch.from_numpy(np.array(x, copy=True)).to(
-        resolve_device(device))
+    """An exact copy of a numpy array (or array-like) as a tensor; a
+    bf16 array (``ml_dtypes.bfloat16``) by its bits."""
+    device = resolve_device(device)
+    a = np.array(x, copy=True)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_jax(params, device="cuda"):
@@ -103,3 +114,13 @@ def decentralized_state_from_jax(state, device="cuda") -> DecentralizedState:
                               residual=to_tensor(state.residual, device),
                               t=to_tensor(state.t, device),
                               step=to_tensor(state.step, device))
+
+
+def decode_state_from_jax(cache, device="cuda"):
+    """A JAX decode cache (``init_decode_state``'s tree: the KV cache
+    {"k", "v"}, and for the hybrid family {"mamba": {"ssm", "conv"},
+    "shared": {"k", "v"}}), same keys, same dtypes and bits. The port
+    updates it in place; JAX's Mamba2 ``conv`` state comes back from a
+    step in the compute dtype, the port's stays in the dtype it was made
+    in (the same values)."""
+    return params_from_jax(cache, device)

@@ -8,14 +8,15 @@ case architectures:
     loss_sum, aux  = model.loss(params, batch)       # SUM + counts
     shapes         = model.param_shapes()             # on "meta"
     batch          = model.dummy_batch(batch_size, seq_len, generator)
+    cache, caxes   = model.init_decode_state(batch, max_len)
+    logits, cache  = model.decode_step(params, cache, tokens, pos)
 
 ``params`` is a nested dict of tensors on ``model.device``. Families:
 the paper's linear regression (an ``nn.Module`` evaluated at the given
 tensors through ``functional_call``), the paper's CNN (``models.cnn``),
 the DENSE transformers and the HYBRID zamba2 (``models.transformer``,
-functions over the tree). The decode path
-(``init_decode_state``, ``decode_step``) comes with serving (ROADMAP
-A.12) and raises.
+functions over the tree). The decode path (``init_decode_state``,
+``decode_step``) serves the DENSE and HYBRID families.
 """
 from __future__ import annotations
 
@@ -71,13 +72,25 @@ class Model:
                                generator=generator, dtype=torch.int32)
         return {"tokens": tokens.to(self.device), "weights": ones}
 
-    def init_decode_state(self, *args, **kwargs):
-        raise NotImplementedError("the decode path is not ported yet "
-                                  "(ROADMAP A.12)")
+    def _check_decodes(self):
+        if self.cfg.family not in (DENSE, HYBRID):
+            raise NotImplementedError(
+                f"model family {self.cfg.family!r} has no decode path")
 
-    def decode_step(self, *args, **kwargs):
-        raise NotImplementedError("the decode path is not ported yet "
-                                  "(ROADMAP A.12)")
+    def init_decode_state(self, batch: int, max_len: int,
+                          dtype=torch.bfloat16):
+        """(the decode cache on the model's device, its logical-axes
+        tree) for ``batch`` slots of ``max_len`` positions (the LM
+        families; KV entries in ``dtype``)."""
+        self._check_decodes()
+        return tf_mod.init_decode_state(self.cfg, batch, max_len, dtype,
+                                        self.device)
+
+    def decode_step(self, params: Dict, cache: Dict, tokens, pos):
+        """One token for every slot: (logits (B, 1, padded vocab), the
+        cache, updated in place)."""
+        self._check_decodes()
+        return tf_mod.decode_step(params, self.cfg, cache, tokens, pos)
 
 
 def _seeded_init(init):

@@ -1,6 +1,7 @@
-"""Transformer layers of the port (``repro/models/layers.py``), the
-training path: norms, RoPE (partial for chatglm), GQA attention with a
-causal mask, the gated MLP, the embedding and the tied or untied head.
+"""Transformer layers of the port (``repro/models/layers.py``): norms,
+RoPE (partial for chatglm), GQA attention with a causal mask, the
+one-token decode against a KV cache, the gated MLP, the embedding and
+the tied or untied head.
 
 Activations are (B, S, ...) as in JAX; attention holds q, k, v as
 (B, S, H, D). The rounding points follow the JAX code, which the
@@ -8,11 +9,12 @@ comments name where a straightforward port would round elsewhere.
 ``attention_apply`` honours ``cfg.attn_impl``: "xla" is ``gqa_attend``
 (the JAX model's attention, whatever its knob says), "flash" the port's
 flash-attention kernels (``kernels.flash_attention``) on CUDA tensors,
-their plain version on CPU tensors. JAX's ``constrain`` calls are
-sharding hints and are left out. Past ``_CHUNK_THRESHOLD`` tokens the
-plain path runs ``gqa_attend`` in exact q-blocks
-(``chunked_gqa_attend``), as JAX does, so it never forms the whole
-(S, S) score tensor there.
+their plain version on CPU tensors; ``decode_attention`` runs
+``gqa_attend`` under either knob, as JAX's decode does. JAX's
+``constrain`` calls are sharding hints and are left out. Past
+``_CHUNK_THRESHOLD`` tokens the plain path runs ``gqa_attend`` in exact
+q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
+whole (S, S) score tensor there.
 """
 from __future__ import annotations
 
@@ -203,6 +205,64 @@ def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None):
     else:
         out = gqa_attend(q, k, v, mask)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cpu"):
+    """The stacked cache {"k", "v"}, each (n_layers, batch, max_len,
+    n_kv_heads, head_dim) zeros. The rolling buffer of a sliding window
+    is not ported (``sliding_window`` raises, ROADMAP A.13)."""
+    if cfg.sliding_window:
+        raise NotImplementedError("the sliding-window (rolling) KV cache "
+                                  "is not ported yet (ROADMAP A.13)")
+    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_axes(cfg: ModelConfig):
+    ax = ("layers", "batch", "kv_seq", "heads", None)
+    return {"k": ax, "v": ax}
+
+
+def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
+    """One-token decode step against one layer's cache, written in place.
+
+    x (B, 1, d); k_cache, v_cache (B, slots, Hkv, D), views into the
+    stacked cache (JAX donates the cache through ``jit``; here the
+    layer's slice is updated where it lies). ``pos`` is a scalar (an
+    int or a 0-dim int tensor: lockstep decode, one position for the
+    batch) or a (B,) int tensor of per-slot positions (continuous
+    batching): row b writes column pos[b] and attends to the columns
+    kv_pos <= pos[b], so a sequence admitted at position 0 never sees a
+    previous occupant's entries. K and V are rounded to the cache dtype
+    on write and read back in q's dtype. Returns (out, k_cache,
+    v_cache)."""
+    if cfg.sliding_window or cfg.logit_softcap:
+        raise NotImplementedError("sliding_window and logit_softcap are not "
+                                  "ported yet at the model level (ROADMAP "
+                                  "A.13)")
+    B = x.shape[0]
+    slots = k_cache.shape[1]
+    kv_pos = torch.arange(slots, device=x.device)
+    pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    if pos.dim() == 0:
+        q, k, v = _project_qkv(p, cfg, x, pos.expand(B, 1))
+        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        mask = (kv_pos <= pos)[None, None, None, None, :]
+    else:
+        q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
+        mask = (kv_pos[None, :] <= pos[:, None])[:, None, None, None, :]
+    out = gqa_attend(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask)
+    out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    return out, k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Mamba2 (SSD, state-space duality) block of the port
-(``repro/models/ssm.py``), the training path.
+(``repro/models/ssm.py``): the training path and the decode recurrence.
 
 Training uses the chunked SSD algorithm: within a chunk the output is a
 masked, decay-weighted attention-like product; across chunks a small
@@ -8,8 +8,9 @@ masked, decay-weighted attention-like product; across chunks a small
 PyTorch; "kernel" is ``kernels.linear_scan.ops.ssd_mamba2``, the port's
 CUDA scan kernel on CUDA tensors (its plain recurrence on CPU tensors),
 which the JAX package keeps beside its model as the TPU target. The
-rounding points follow the JAX code. The decode path (the O(1)
-recurrence) comes with serving (ROADMAP A.12) and raises.
+rounding points follow the JAX code. Decoding runs the O(1)
+recurrence one token at a time (``mamba2_decode``) against a stacked
+state it updates in place.
 
 Shapes follow the Mamba2 paper: input (B, S, d_model), inner dim
 d_in = expand * d, nh = d_in / head_dim heads, n_groups shared B/C
@@ -72,14 +73,20 @@ def _split_proj(p, cfg: ModelConfig, u):
     return z, xBC, dt
 
 
-def _causal_conv(p, xBC):
+def _causal_conv(p, xBC, conv_state=None):
     """Depthwise causal conv of width d_conv over xBC (B, S, C), then
-    silu; the taps are summed in JAX's order."""
+    silu; the taps are summed in JAX's order. With ``conv_state``
+    (B, d_conv - 1, C), the decode path, the state is put in front of
+    xBC in place of the zero padding. Returns (out, the last d_conv - 1
+    inputs: the next state, in xBC's dtype)."""
     w = p["w_conv"].to(xBC.dtype)                  # (W, C)
     W, S = w.shape[0], xBC.shape[1]
-    xpad = F.pad(xBC, (0, 0, W - 1, 0))
+    if conv_state is not None:
+        xpad = torch.cat([conv_state.to(xBC.dtype), xBC], dim=1)
+    else:
+        xpad = F.pad(xBC, (0, 0, W - 1, 0))
     out = sum(xpad[:, i:i + S, :] * w[i] for i in range(W))
-    return _silu(out + p["b_conv"].to(xBC.dtype))
+    return _silu(out + p["b_conv"].to(xBC.dtype)), xpad[:, -(W - 1):, :]
 
 
 def _gated_norm(p, y, z, eps):
@@ -156,7 +163,7 @@ def mamba2_apply(p, cfg: ModelConfig, u):
     s = cfg.ssm
     d_in, nh = mamba2_dims(cfg)
     z, xBC, dt = _split_proj(p, cfg, u)
-    xBC = _causal_conv(p, xBC)
+    xBC, _ = _causal_conv(p, xBC)
     x = xBC[..., :d_in]
     Bmat = xBC[..., d_in:d_in + s.n_groups * s.d_state]
     Cmat = xBC[..., d_in + s.n_groups * s.d_state:]
@@ -193,11 +200,61 @@ def mamba2_apply(p, cfg: ModelConfig, u):
 
 
 # ---------------------------------------------------------------------------
-# Decode (the O(1) recurrence): with serving
+# Decode (the O(1) recurrence)
 # ---------------------------------------------------------------------------
-def _decode_not_ported(*args, **kwargs):
-    raise NotImplementedError("the Mamba2 decode path is not ported yet "
-                              "(ROADMAP A.12)")
+def mamba2_state_init(cfg: ModelConfig, n_layers: int, batch: int,
+                      dtype=torch.float32, device="cpu"):
+    """The stacked decode state: "ssm" (n_layers, batch, nh, head_dim,
+    d_state) and "conv" (n_layers, batch, d_conv - 1, conv_dim), zeros
+    in ``dtype`` (f32, as in JAX)."""
+    s = cfg.ssm
+    if s is None:
+        raise ValueError("the Mamba2 decode state needs an ssm config")
+    d_in, nh = mamba2_dims(cfg)
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return {
+        "ssm": torch.zeros((n_layers, batch, nh, s.head_dim, s.d_state),
+                           dtype=dtype, device=device),
+        "conv": torch.zeros((n_layers, batch, s.d_conv - 1, conv_dim),
+                            dtype=dtype, device=device),
+    }
 
 
-mamba2_state_init = mamba2_state_axes = mamba2_decode = _decode_not_ported
+def mamba2_state_axes():
+    return {"ssm": ("layers", "batch", "heads", None, None),
+            "conv": ("layers", "batch", None, "mlp")}
+
+
+def mamba2_decode(p, cfg: ModelConfig, u, ssm_state, conv_state):
+    """One token. u (B, 1, d); ssm_state (B, nh, hd, ds) and conv_state
+    (B, d_conv - 1, conv_dim), one layer's views into the stacked state,
+    are overwritten with the new state (JAX returns it). The rounding
+    points are JAX's: x * dt in the compute dtype, the outer product
+    with B and the decay in f32, the read-out with C in the compute
+    dtype. Returns (y, ssm_state, conv_state)."""
+    s = cfg.ssm
+    if u.shape[1] != 1:
+        raise ValueError(f"mamba2_decode takes one token, got {u.shape[1]}")
+    d_in, nh = mamba2_dims(cfg)
+    gs = s.n_groups * s.d_state
+    z, xBC, dt = _split_proj(p, cfg, u)
+    xBC, new_conv = _causal_conv(p, xBC, conv_state)
+    x = xBC[..., :d_in].reshape(-1, nh, s.head_dim)
+    Bmat = xBC[..., d_in:d_in + gs].reshape(-1, s.n_groups, s.d_state)
+    Cmat = xBC[..., d_in + gs:].reshape(-1, s.n_groups, s.d_state)
+    rep = nh // s.n_groups
+    Bfull = torch.repeat_interleave(Bmat, rep, dim=1)
+    Cfull = torch.repeat_interleave(Cmat, rep, dim=1)
+    dt_act = _softplus(dt[:, 0].to(torch.float32)
+                       + p["dt_bias"].to(torch.float32))         # (B, nh)
+    A = -torch.exp(p["a_log"].to(torch.float32))
+    decay = torch.exp(dt_act * A[None, :])                        # (B, nh)
+    xdt = (x * dt_act[..., None].to(x.dtype)).to(torch.float32)
+    upd = xdt[..., :, None] * Bfull.to(torch.float32)[..., None, :]
+    new_ssm = ssm_state * decay[:, :, None, None] + upd
+    y = torch.einsum("bhds,bhs->bhd", new_ssm.to(x.dtype), Cfull.to(x.dtype))
+    y = y + x * p["d_skip"].to(x.dtype)[None, :, None]
+    y = _gated_norm(p, y.reshape(-1, 1, d_in), z, cfg.norm_eps)
+    ssm_state.copy_(new_ssm)
+    conv_state.copy_(new_conv)
+    return y @ p["w_out"].to(u.dtype), ssm_state, conv_state

@@ -18,6 +18,10 @@ would write a zero gradient of the whole stack per layer.
 shared attention block; the shared MLP is not checkpointed, as in
 JAX); ``"none"`` saves everything.
 
+The decode path (``init_decode_state``, ``decode_step``) runs one
+token through every layer against a stacked cache it updates in
+place, slice by slice (JAX scans the layers and donates the cache).
+
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
 """
@@ -29,15 +33,17 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
 from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.layers import (attention_apply, attention_init,
-                                       causal_mask, chunks_queries,
+                                       cache_axes, causal_mask,
+                                       chunks_queries, decode_attention,
                                        embed_tokens, embedding_init,
-                                       mlp_apply, mlp_init, output_logits,
-                                       rmsnorm, rmsnorm_init, scalar)
+                                       init_kv_cache, mlp_apply, mlp_init,
+                                       output_logits, rmsnorm, rmsnorm_init,
+                                       scalar)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -221,3 +227,81 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     loss_sum = torch.sum(per_sample * weights)
     count = torch.sum(weights) * targets.shape[1]
     return loss_sum, {"count": count, "loss_sum": loss_sum}
+
+
+# ---------------------------------------------------------------------------
+# Decode (serve step)
+# ---------------------------------------------------------------------------
+def _check_decodes(cfg: ModelConfig) -> None:
+    if cfg.family in (MOE, SSM):
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's decode path is not ported yet "
+            "(ROADMAP A.13: MoE and xLSTM)")
+    check_supported(cfg)
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device="cpu"
+                      ) -> Tuple[Dict, Dict]:
+    """(the decode cache, its logical-axes tree): DENSE, the KV cache of
+    every layer; HYBRID, {"mamba": the f32 Mamba2 states of every layer,
+    "shared": the KV cache of each of the n_layers // shared_attn_every
+    applications of the shared block}."""
+    _check_decodes(cfg)
+    if cfg.family == HYBRID:
+        cache = {
+            "mamba": ssm_mod.mamba2_state_init(cfg, cfg.n_layers, batch,
+                                               device=device),
+            "shared": init_kv_cache(cfg, cfg.n_layers // cfg.shared_attn_every,
+                                    batch, max_len, dtype, device),
+        }
+        return cache, {"mamba": ssm_mod.mamba2_state_axes(),
+                       "shared": cache_axes(cfg)}
+    return (init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device),
+            cache_axes(cfg))
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
+    """One-token decode. tokens (B, 1) int; pos a scalar (lockstep) or
+    (B,) per-slot positions (continuous batching; see
+    ``layers.decode_attention``). The cache is updated in place, layer
+    by layer. Returns (logits (B, 1, padded vocab), cache)."""
+    _check_decodes(cfg)
+    dtype = _dtype(cfg.compute_dtype)
+    h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
+                                                     dtype)
+    if cfg.family == HYBRID:
+        h = _hybrid_decode(params, cfg, h, cache, pos)
+    else:
+        for i, layer_p in enumerate(unbind_layers(params["layers"])):
+            hn = rmsnorm(h, layer_p["ln1"], cfg.norm_eps)
+            y, _, _ = decode_attention(layer_p["attn"], cfg, hn, pos,
+                                       cache["k"][i], cache["v"][i])
+            h = h + y
+            h = h + mlp_apply(layer_p["mlp"], cfg,
+                              rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+    h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
+    return output_logits(params, cfg, h), cache
+
+
+def _hybrid_decode(params, cfg: ModelConfig, h, cache, pos):
+    """zamba2's decode: each Mamba2 layer's recurrence, the shared block
+    after every ``shared_attn_every`` layers with its own KV cache per
+    application."""
+    k = cfg.shared_attn_every
+    sh = params["shared_attn"]
+    mamba, shared = cache["mamba"], cache["shared"]
+    for i, layer_p in enumerate(unbind_layers(params["layers"])):
+        hn = rmsnorm(h, layer_p["ln1"], cfg.norm_eps)
+        y, _, _ = ssm_mod.mamba2_decode(layer_p["mamba"], cfg, hn,
+                                        mamba["ssm"][i], mamba["conv"][i])
+        h = h + y
+        if (i + 1) % k == 0:
+            g = i // k
+            hn = rmsnorm(h, sh["ln1"], cfg.norm_eps)
+            y, _, _ = decode_attention(sh["attn"], cfg, hn, pos,
+                                       shared["k"][g], shared["v"][g])
+            h = h + y
+            h = h + mlp_apply(sh["mlp"], cfg,
+                              rmsnorm(h, sh["ln2"], cfg.norm_eps))
+    return h

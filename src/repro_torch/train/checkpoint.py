@@ -20,7 +20,12 @@ numpy through ``.cpu()`` in their own dtype (an int8 ring stays int8);
 of the older ring layouts migrate on restore as in JAX (v1 into a v2
 template, the per-slot delay-tolerant ring into the stacked v3), and a
 decentralized checkpoint saved before the gossip residual existed
-restores with a zero residual.
+restores with a zero residual. A numpy array in ``extra`` (the weight
+publisher's state) goes into ``state.npz`` beside the state's leaves,
+under a key the manifest names (``NPZ_REF``): JAX's ``save`` hands such
+an array to ``json.dump`` and fails (ROADMAP C.13), and its ``restore``
+reads only the state's keys, so it still restores the port's
+checkpoints.
 """
 from __future__ import annotations
 
@@ -90,6 +95,33 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+# an array of ``extra`` (the publisher's ring, its scale bits and publish
+# steps) is saved in state.npz under "extra:<path>" and stands in the
+# manifest as {NPZ_REF: that key}: JSON holds no array, and a restore of
+# either package reads only the keys of its state template
+NPZ_REF = "__npz__"
+
+
+def _split_extra(extra, arrays: Dict[str, np.ndarray], path: str = "extra:"):
+    """``extra`` with each numpy array moved into ``arrays``."""
+    if isinstance(extra, np.ndarray):
+        arrays[path] = extra
+        return {NPZ_REF: path}
+    if isinstance(extra, dict):
+        return {k: _split_extra(v, arrays, f"{path}/{k}")
+                for k, v in extra.items()}
+    return extra
+
+
+def _join_extra(extra, data):
+    """The inverse of ``_split_extra`` against the loaded npz."""
+    if isinstance(extra, dict):
+        if set(extra) == {NPZ_REF}:
+            return np.array(data[extra[NPZ_REF]])
+        return {k: _join_extra(v, data) for k, v in extra.items()}
+    return extra
+
+
 def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -97,9 +129,10 @@ def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None,
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     os.makedirs(tmp, exist_ok=True)
     flat = {k: _numpy(v) for k, v in _flatten_with_paths(state)}
-    np.savez(os.path.join(tmp, "state.npz"), **flat)
-    manifest = {"step": int(step), "keys": sorted(flat),
-                "extra": extra or {}}
+    extra_arrays: Dict[str, np.ndarray] = {}
+    extra = _split_extra(extra or {}, extra_arrays)
+    np.savez(os.path.join(tmp, "state.npz"), **flat, **extra_arrays)
+    manifest = {"step": int(step), "keys": sorted(flat), "extra": extra}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -241,5 +274,6 @@ def restore(ckpt_dir: str, state_template, step: Optional[int] = None
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
             arr = arr.astype(_torch_dtype_to_numpy(leaf.dtype))
             leaves.append(torch.from_numpy(arr).to(leaf.device))
+        extra = _join_extra(manifest["extra"], data)
     restored = _rebuild(state_template, iter(leaves))
-    return sync_ring_phase(restored), manifest["extra"]
+    return sync_ring_phase(restored), extra

@@ -20,15 +20,20 @@ elastic workers. Each iteration:
      (``Strategy.delay_process``) into ``batch["delay"]``;
   5. the batch moves to the device and the strategy's step runs (AMB-DG:
      anytime accumulate -> delayed pod exchange -> dual averaging);
-  6. every ``ckpt_every`` steps the state and every host-side generator
+  6. with ``rc.serve.publish_period > 0``, every ``publish_period``
+     master steps the served weights (``_served_params``) are published
+     into the bounded-staleness ring (``serve.publisher``) at step
+     ``step + 1``; ``train`` returns the publisher for an engine to
+     attach;
+  7. every ``ckpt_every`` steps the state and every host-side generator
      (pipeline, delay process, worker process, health, batch schedule)
-     go to ``ckpt_dir``; a run started on a directory that holds a
-     checkpoint resumes from its latest, sample- and draw-exact.
+     and the publisher go to ``ckpt_dir``; a run started on a directory
+     that holds a checkpoint resumes from its latest, sample- and
+     draw-exact.
 
 Without an elastic process the loop builds no ``WorkerHealth``: the JAX
 loop ticks a wall-clock tracker that nothing feeds, which masks every
-worker once a run passes 30 s (ROADMAP C.2). The weight-publication
-channel is not ported yet and raises.
+worker once a run passes 30 s (ROADMAP C.2).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import LM_FAMILIES, RunConfig
+from repro_torch.core.arena import tree_map
 from repro_torch.data.pipeline import AnytimePipeline, apply_batch_target
 from repro_torch.data.timing import ShiftedExponential
 from repro_torch.device import resolve_device
@@ -63,11 +69,26 @@ class LoopConfig:
     eviction_misses: int = 3
 
 
+def _served_params(state, strategy_name: str):
+    """The parameter tree (w = -alpha z) the publication channel
+    snapshots, whatever the strategy's state: ambdg and amb carry it as
+    ``state.params``, kbatch wraps the base state, decentralized stacks
+    the workers' copies and serves worker 0's (after the gossip they
+    agree up to the consensus error)."""
+    if hasattr(state, "base"):
+        state = state.base
+    params = state.params
+    if strategy_name == "decentralized":
+        params = tree_map(lambda a: a[0], params)
+    return params
+
+
 def train(model: Model, rc: RunConfig, loop: LoopConfig,
           log_fn: Callable[[Dict], None] = None, device="cuda") -> Dict:
     """Run ``rc.strategy`` on ``device`` up to step ``loop.n_steps``
     (from the latest checkpoint in ``loop.ckpt_dir`` if it holds one).
-    Returns {"state", "history", "b_history", "remesh_events"}:
+    Returns {"state", "history", "b_history", "remesh_events",
+    "publisher"} (the publisher None unless ``rc.serve.publish_period``):
     ``history`` holds the metrics (as floats) every ``log_every`` steps
     and at the last step, with host-clock seconds: ``wall_s`` since the
     loop began, and for that step ``batch_s`` (the host batch), ``h2d_s``
@@ -82,9 +103,6 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     same one the JAX loop makes (``float(metrics["loss"])``)."""
     from repro_torch import api
     device = resolve_device(device)
-    if rc.serve.publish_period > 0:
-        raise NotImplementedError("the weight-publication channel is not "
-                                  "ported yet (ROADMAP A.12)")
     strategy = api.build(model, rc, device=device)
     pipeline = AnytimePipeline(
         cfg=rc.model, n_workers=loop.n_workers,
@@ -113,6 +131,16 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
                            eviction_misses=loop.eviction_misses, t0=0.0)
               if elastic_proc is not None else None)
 
+    # train-while-serve: every publish_period master updates the served
+    # w = -alpha z goes into the bounded-staleness ring (serve.publisher),
+    # laid out from the params' shapes on the meta device
+    publisher = None
+    if rc.serve.publish_period > 0:
+        from repro_torch.core.arena import make_layout
+        from repro_torch.serve.publisher import WeightPublisher
+        publisher = WeightPublisher(make_layout(model.param_shapes()),
+                                    rc.serve, device=device)
+
     # a CPU generator: the model's weights are drawn on the host, so the
     # card and the CPU start from the same ones
     generator = torch.Generator().manual_seed(rc.seed)
@@ -127,6 +155,8 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             elastic_proc.load_state_dict(extra["elastic_process"])
             if "health" in extra:
                 health.load_state_dict(extra["health"])
+        if publisher is not None and "publisher" in extra:
+            publisher.load_state_dict(extra["publisher"])
         if batch_sched is not None and "batch_schedule" in extra:
             batch_sched.load_state_dict(extra["batch_schedule"])
         start_step = extra["step"]
@@ -138,6 +168,8 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
         if elastic_proc is not None:
             extra["elastic_process"] = elastic_proc.state_dict()
             extra["health"] = health.state_dict()
+        if publisher is not None:
+            extra["publisher"] = publisher.state_dict()
         if batch_sched is not None:
             extra["batch_schedule"] = batch_sched.state_dict()
         if plan is not None:
@@ -198,6 +230,9 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
                 loss=float(metrics["loss"]),
                 tau_obs=(float(metrics["tau_applied"])
                          if "tau_applied" in metrics else None))
+        if publisher is not None and \
+                (step + 1) % rc.serve.publish_period == 0:
+            publisher.publish(_served_params(state, rc.strategy), step + 1)
         if (step + 1) % loop.log_every == 0 or step == loop.n_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}  # waits on the step
             t3 = time.monotonic()
@@ -215,4 +250,4 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             save_ckpt(step + 1, plan=remesh_plan)
     return {"state": state, "history": history,
             "b_history": pipeline.b_history,
-            "remesh_events": remesh_events}
+            "remesh_events": remesh_events, "publisher": publisher}

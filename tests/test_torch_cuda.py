@@ -909,3 +909,116 @@ def test_decentralized_linreg_step_on_cuda_matches_cpu(cuda, compression):
     assert gm["applied_count"].item() == cm["applied_count"].item()
     np.testing.assert_allclose(gm["loss"].item(), cm["loss"].item(),
                                rtol=1e-6)
+
+
+# -- train-while-serve --------------------------------------------------------
+def _serve_model(arch, device, **kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(dataclasses.replace(get_smoke_config(arch), **kw),
+                       device=device)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "zamba2-2.7b"])
+def test_engine_on_cuda_matches_cpu(cuda, arch):
+    """``generate`` in f32 (TF32 off, f32 KV cache) on the card gives the
+    CPU's tokens from the same weights, ragged prompts in 3 slots."""
+    from repro_torch.core.arena import tree_map
+    from repro_torch.serve import Engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for device in ("cpu", cuda):
+        model = _serve_model(arch, device, compute_dtype="float32")
+        engine = Engine(model, 3, 32)
+        for name in ("cache", "_cache0"):
+            setattr(engine, name, model.init_decode_state(
+                3, 32, torch.float32)[0])
+        rng = np.random.default_rng(0)
+        prompts = [list(rng.integers(1, 256, size=n)) for n in (4, 7, 5)]
+        out[str(device)] = (engine.generate(prompts, max_new=8),
+                            tree_map(lambda a: a.cpu(), engine.cache))
+    (tok_cpu, cache_cpu), (tok_gpu, cache_gpu) = out["cpu"], out["cuda"]
+    assert tok_gpu == tok_cpu
+    from repro_torch.core.arena import tree_flatten
+    for a, b in zip(tree_flatten(cache_gpu)[0], tree_flatten(cache_cpu)[0]):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def serve_golden_trace(device):
+    """``tests/test_serve.py::_golden_trace`` through the port on
+    ``device``: publish every 3 master steps, refresh every 5, Poisson
+    arrivals, 40 steps. Returns (rows, engine, serve config)."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.arena import make_layout
+    from repro_torch.serve import Engine, RequestQueue, WeightPublisher
+    model = _serve_model("qwen1.5-0.5b", device)
+    sc = ServeConfig(slots=3, max_len=32, max_new=4, arrival="poisson",
+                     arrival_rate=0.7, publish_period=3, staleness_bound=6,
+                     prompt_len_min=2, prompt_len_max=6, seed=5)
+    engine = Engine(model, sc.slots, sc.max_len)
+    queue = RequestQueue(sc, model.cfg.vocab_size)
+    pub = WeightPublisher(make_layout(engine.params), sc, device=device)
+    engine.attach_publisher(pub)
+    rows = []
+    for t in range(40):
+        slot = pub.publish(engine.params, t) \
+            if t % sc.publish_period == 0 else -1
+        stale = engine.refresh_weights(t) if t % 5 == 0 else None
+        arrived = queue.step()
+        ev = engine.step(queue)
+        rows.append({"step": t, "arrived": arrived, "admits": ev["admits"],
+                     "evicts": ev["evicts"], "active": ev["active"],
+                     "queued": ev["queued"], "publish_slot": slot,
+                     "staleness": stale})
+    return rows, engine, sc
+
+
+def assert_serve_golden(rows, engine, sc):
+    """The rows, ``completed`` and ``admitted`` equal
+    ``tests/golden/serve_trace.json``; every served staleness is within
+    the bound and one is above 0."""
+    import json
+    import os
+    served = [r["staleness"] for r in rows if r["staleness"] is not None]
+    assert served and all(0 <= s <= sc.staleness_bound for s in served)
+    assert any(s > 0 for s in served)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden", "serve_trace.json")
+    with open(path) as f:
+        want = json.load(f)
+    assert rows == want["trace"]
+    assert (engine.stats.completed, engine.stats.admitted) == \
+        (want["completed"], want["admitted"])
+
+
+def test_serve_golden_trace_on_cuda(cuda):
+    """The golden serve trace with the engine and the publisher on the
+    card: every row exact."""
+    assert_serve_golden(*serve_golden_trace(cuda))
+
+
+def test_publisher_on_cuda_matches_cpu_bitwise(cuda):
+    """The ring's int8 bytes, the bf16 scale bits and the popped tree of
+    a publisher on the card equal the CPU's on the same params."""
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.core.arena import make_layout, tree_flatten, tree_map
+    from repro_torch.serve import WeightPublisher
+    params = _serve_model("zamba2-2.7b", "cpu").init()
+    sc = ServeConfig(publish_period=1, staleness_bound=1)
+    pubs = {}
+    for device in ("cpu", cuda):
+        pub = WeightPublisher(make_layout(params), sc, device=device)
+        p = tree_map(lambda a: a.to(device), params)
+        pub.publish(p, 0)
+        pub.publish(tree_map(lambda a: 3 * a, p), 1)
+        pubs[str(device)] = pub
+    a, b = pubs["cuda"], pubs["cpu"]
+    assert torch.equal(a.ring.cpu(), b.ring)
+    assert torch.equal(a.scales.cpu().view(torch.int16),
+                       b.scales.view(torch.int16))
+    (ta, sa), (tb, sb) = a.pop(1), b.pop(1)
+    assert sa == sb == 0
+    for x, y in zip(tree_flatten(ta)[0], tree_flatten(tb)[0]):
+        assert torch.equal(x.cpu(), y)

@@ -51,7 +51,10 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.core.batch_schedule", "repro_torch.core.worker_process",
          "repro_torch.train.fault", "repro_torch.train.checkpoint",
          # the decentralized gossip
-         "repro_torch.core.consensus", "repro_torch.optim.compression"]
+         "repro_torch.core.consensus", "repro_torch.optim.compression",
+         # train-while-serve
+         "repro_torch.serve", "repro_torch.serve.engine",
+         "repro_torch.serve.publisher", "repro_torch.serve.request_queue"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -108,6 +111,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         api.build(_cpu_model(), _rc())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(_cpu_model(), _rc(), LoopConfig(n_steps=1))
+
+
+def test_serve_entry_points_default_to_cuda_and_raise_without_it():
+    """``api.serve`` and the weight publisher land on the card unless the
+    caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.core.arena import make_layout
+    from repro_torch.serve import WeightPublisher
+    model = _lm_model()
+    rc = _rc().replace(model=model.cfg)
+    sc = dataclasses.replace(rc.serve, publish_period=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.serve(model, rc)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WeightPublisher(make_layout(model.param_shapes()), sc)
+    engine, _ = api.serve(model, rc, device="cpu")
+    assert engine.cache["k"].device.type == "cpu"
+    pub = WeightPublisher(make_layout(model.param_shapes()), sc,
+                          device="cpu")
+    assert pub.ring.device.type == "cpu"
+
+
+def _lm_model():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.api import build_model
+    return build_model(get_smoke_config("qwen1.5-0.5b"), device="cpu")
 
 
 def test_state_constructors_default_to_cuda_and_raise_without_it():
@@ -230,12 +262,21 @@ def test_loop_restores_from_ckpt_dir(tmp_path):
 
 
 def test_unported_loop_options_raise():
+    """The loop's last unported option, the weight publisher
+    (``rc.serve.publish_period``), now runs and returns its publisher;
+    a serve config the publisher cannot hold raises before any step."""
     import dataclasses
     from repro_torch.train.loop import LoopConfig, train
     rc = _rc()
     rc = rc.replace(serve=dataclasses.replace(rc.serve, publish_period=2))
-    with pytest.raises(NotImplementedError, match="A.12"):
-        train(_cpu_model(), rc, LoopConfig(n_steps=1), device="cpu")
+    out = train(_cpu_model(), rc, LoopConfig(n_steps=2, n_workers=4,
+                                             samples_per_worker=8),
+                device="cpu")
+    assert out["publisher"].seq == 1
+    assert out["publisher"].pub_step.tolist() == [2, -1, -1]
+    bad = rc.replace(serve=dataclasses.replace(rc.serve, staleness_bound=-1))
+    with pytest.raises(ValueError, match="staleness_bound"):
+        train(_cpu_model(), bad, LoopConfig(n_steps=1), device="cpu")
 
 
 @pytest.mark.parametrize("op", ["dual_update", "delay_ring",
@@ -322,12 +363,28 @@ def test_unported_model_knobs_raise(kw, item):
         build_model(_dense(**kw), device="cpu")
 
 
+def _decode_entry(entry, cfg):
+    """Call the transformer's decode entry ``entry`` on ``cfg``."""
+    from repro_torch.models import transformer as tf
+    if entry == "init_decode_state":
+        return tf.init_decode_state(cfg, 2, 8)
+    return tf.decode_step({}, cfg, {}, torch.zeros((2, 1), dtype=torch.int64),
+                          0)
+
+
 @pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
 def test_decode_path_raises(entry):
+    """The DENSE decode path is ported (the model's entries run); the
+    MoE family's decode raises naming A.13."""
+    from repro_torch.configs.base import MoEConfig as MoE
     from repro_torch.models.api import build_model
     model = build_model(_dense(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        getattr(model, entry)(None, None)
+    cache, _ = model.init_decode_state(2, 8)
+    logits, _ = model.decode_step(model.init(), cache,
+                                  torch.zeros((2, 1), dtype=torch.int64), 0)
+    assert logits.shape == (2, 1, model.cfg.padded_vocab_size)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        _decode_entry(entry, _dense(family="moe", moe=MoE()))
 
 
 def _hybrid(**kw):
@@ -350,7 +407,15 @@ def test_hybrid_model_knobs_raise(kw, error, match):
 
 @pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
 def test_hybrid_decode_path_raises(entry):
+    """The HYBRID decode path is ported; the xLSTM (ssm) family's decode
+    raises naming A.13."""
     from repro_torch.models.api import build_model
     model = build_model(_hybrid(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        getattr(model, entry)(None, None)
+    cache, _ = model.init_decode_state(2, 8)
+    assert set(cache) == {"mamba", "shared"}
+    logits, _ = model.decode_step(model.init(), cache,
+                                  torch.zeros((2, 1), dtype=torch.int64),
+                                  torch.tensor([0, 3]))
+    assert logits.shape == (2, 1, model.cfg.padded_vocab_size)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        _decode_entry(entry, _hybrid(family="ssm", xlstm=XLSTMConfig()))

@@ -172,8 +172,26 @@ def test_init_matches_jax_tree():
 @pytest.mark.parametrize("fn", ["mamba2_state_init", "mamba2_state_axes",
                                 "mamba2_decode"])
 def test_decode_functions_raise(fn):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        getattr(ssm, fn)(None, None)
+    """The decode functions are ported (``tests/test_torch_decode.py``
+    holds them to JAX) and raise on what they cannot serve: a state for a
+    config without an ssm, more than one token a decode step, and (JAX's
+    signature) any argument to the axes tree."""
+    jcfg, cfg = _cfgs("float32")
+    if fn == "mamba2_state_init":
+        with pytest.raises(ValueError, match="ssm config"):
+            ssm.mamba2_state_init(dataclasses.replace(cfg, ssm=None), 1, 2)
+        assert ssm.mamba2_state_init(cfg, 1, 2)["ssm"].dtype == torch.float32
+    elif fn == "mamba2_state_axes":
+        with pytest.raises(TypeError):
+            ssm.mamba2_state_axes(cfg)
+        assert ssm.mamba2_state_axes() == jssm.mamba2_state_axes()
+    else:
+        p = convert.params_from_jax(jax.device_get(_jax_block(jcfg)),
+                                    device="cpu")
+        state = ssm.mamba2_state_init(cfg, 1, 2)
+        with pytest.raises(ValueError, match="one token"):
+            ssm.mamba2_decode(p, cfg, torch.zeros((2, 2, cfg.d_model)),
+                              state["ssm"][0], state["conv"][0])
 
 
 def test_unknown_scan_impl_raises():
