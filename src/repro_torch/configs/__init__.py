@@ -1,23 +1,27 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_smoke_config``.
 
 The port registers the architectures it can train: the paper's linear
-regression and CNN, the four DENSE transformers of the JAX package's zoo and
-the HYBRID zamba2 (Mamba2 layers with a shared attention block).
-The rest of the zoo follows in later slices (ROADMAP A.13). Each module
+regression and CNN, the four DENSE transformers of the JAX package's zoo,
+the HYBRID zamba2 (Mamba2 layers with a shared attention block) and the
+two MOE mixtrals (top-2 experts, a sliding window). The rest of the zoo
+follows in later slices (ROADMAP A.13). Each module
 exposes ``FULL`` (the published config) and ``SMOKE`` (a reduced
 same-family config for the CPU tests).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (amb_cnn, amb_linreg, chatglm3_6b, qwen1_5_0_5b,
+from repro_torch.configs import (amb_cnn, amb_linreg, chatglm3_6b,
+                                 mixtral_8x7b, mixtral_8x22b, qwen1_5_0_5b,
                                  qwen3_1_7b, yi_6b, zamba2_2_7b)
 from repro_torch.configs.base import (  # noqa: F401
     CNN, DENSE, ENCDEC, HYBRID, LINREG, LM_FAMILIES, MOE, SSM, VLM,
     AmbdgConfig, BatchScheduleConfig, ConsensusConfig, DelayConfig,
-    ElasticConfig, MeshConfig, ModelConfig, RunConfig, ServeConfig,
-    ShapeConfig, TRAIN_4K)
+    ElasticConfig, MeshConfig, ModelConfig, MoEConfig, RunConfig,
+    ServeConfig, ShapeConfig, TRAIN_4K)
 
 _MODULES = {
+    "mixtral-8x7b": mixtral_8x7b,
+    "mixtral-8x22b": mixtral_8x22b,
     "qwen1.5-0.5b": qwen1_5_0_5b,
     "yi-6b": yi_6b,
     "chatglm3-6b": chatglm3_6b,

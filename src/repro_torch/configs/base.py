@@ -29,6 +29,9 @@ LINREG = "linreg"    # paper's own linear-regression experiment
 CNN = "cnn"          # paper's own CIFAR-style CNN experiment
 
 LM_FAMILIES = (DENSE, MOE, SSM, HYBRID, ENCDEC, VLM)
+# the MoE dispatch routes (``models/moe.py``); JAX runs einsum for any
+# other name, the port raises
+MOE_IMPLS = ("einsum", "gather")
 
 
 @dataclass(frozen=True)
@@ -98,6 +101,8 @@ class ModelConfig:
     image_size: int = 0
     n_classes: int = 0
     # --- implementation knobs (perf levers, not architecture) ---
+    # "einsum" (the dense one-hot capacity dispatch) | "gather" (the
+    # scatter/gather routing); both drop the same assignments
     moe_impl: str = "einsum"
     # "xla" (plain PyTorch attention, the JAX model's gqa_attend) |
     # "flash" (the port's CUDA flash-attention kernels on the card)
@@ -124,38 +129,59 @@ class ModelConfig:
         return (self.head_dim if self.head_dim is not None
                 else self.d_model // self.n_heads)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Does this arch admit an O(1)/O(window) per-token decode state?"""
+        if self.family in (SSM, HYBRID):
+            return True
+        return self.sliding_window is not None
+
     def n_params(self) -> int:
         """Analytic parameter count of the families the port carries,
-        as the JAX package counts it (the unpadded vocab; qk-norm
-        scales, the Mamba2 conv bias and dt bias not counted; for the
-        CNN, JAX's count of a smaller net than the one it builds)."""
-        if self.family == LINREG:
-            return self.linreg_dim
-        if self.family == CNN:
-            return _cnn_param_count(self)
-        if self.family not in (DENSE, HYBRID):
-            raise NotImplementedError(
-                f"n_params for family {self.family!r} comes with its model "
-                "(ROADMAP A.13)")
-        d, hd = self.d_model, self.resolved_head_dim
-        nq, nkv = self.n_heads, self.n_kv_heads
-        attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
-        if self.qkv_bias:
-            attn += (nq + 2 * nkv) * hd
-        emb = self.vocab_size * d
-        head = 0 if self.tie_embeddings else self.vocab_size * d
-        total = emb + head + d
-        if self.family == DENSE:
-            return total + self.n_layers * (attn + 3 * d * self.d_ff + 2 * d)
-        s = self.ssm
-        d_in = s.expand * d
-        nh = d_in // s.head_dim
-        mamba2 = (d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
-                  + s.d_conv * (d_in + 2 * s.n_groups * s.d_state)
-                  + d_in * d + 2 * nh + d_in)
-        # one shared attention + MLP block, counted once
-        return (total + self.n_layers * (mamba2 + 2 * d)
-                + attn + 3 * d * self.d_ff + 2 * d)
+        as the JAX package counts it (every expert; the unpadded vocab;
+        qk-norm scales, the Mamba2 conv bias and dt bias not counted;
+        for the CNN, JAX's count of a smaller net than the one it
+        builds)."""
+        return _count_params(self)
+
+    def n_active_params(self) -> int:
+        """Parameters touched per token (MOE: only the routed experts)."""
+        return _count_params(self, active_only=True)
+
+
+def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    if cfg.family == LINREG:
+        return cfg.linreg_dim
+    if cfg.family == CNN:
+        return _cnn_param_count(cfg)
+    if cfg.family not in (DENSE, HYBRID, MOE):
+        raise NotImplementedError(
+            f"n_params for family {cfg.family!r} comes with its model "
+            "(ROADMAP A.13)")
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
+    if cfg.qkv_bias:
+        attn += (nq + 2 * nkv) * hd
+    emb = cfg.vocab_size * d
+    head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
+    total = emb + head + d
+    if cfg.family == DENSE:
+        return total + cfg.n_layers * (attn + 3 * d * cfg.d_ff + 2 * d)
+    if cfg.family == MOE:
+        m = cfg.moe
+        n_used = m.top_k if active_only else m.n_experts
+        moe_ffn = d * m.n_experts + n_used * 3 * d * cfg.d_ff
+        return total + cfg.n_layers * (attn + moe_ffn + 2 * d)
+    s = cfg.ssm
+    d_in = s.expand * d
+    nh = d_in // s.head_dim
+    mamba2 = (d * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
+              + s.d_conv * (d_in + 2 * s.n_groups * s.d_state)
+              + d_in * d + 2 * nh + d_in)
+    # one shared attention + MLP block, counted once
+    return (total + cfg.n_layers * (mamba2 + 2 * d)
+            + attn + 3 * d * cfg.d_ff + 2 * d)
 
 
 def _cnn_param_count(cfg: ModelConfig) -> int:

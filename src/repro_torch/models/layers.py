@@ -1,7 +1,9 @@
 """Transformer layers of the port (``repro/models/layers.py``): norms,
-RoPE (partial for chatglm), GQA attention with a causal mask, the
-one-token decode against a KV cache, the gated MLP, the embedding and
-the tied or untied head.
+RoPE (partial for chatglm), GQA attention with the causal,
+sliding-window and prefix-LM masks and the logit softcap, the one-token
+decode against a KV cache (a rolling buffer of ``sliding_window`` slots
+where the config has a window), the gated MLP, the embedding and the
+tied or untied head.
 
 Activations are (B, S, ...) as in JAX; attention holds q, k, v as
 (B, S, H, D). The rounding points follow the JAX code, which the
@@ -9,8 +11,10 @@ comments name where a straightforward port would round elsewhere.
 ``attention_apply`` honours ``cfg.attn_impl``: "xla" is ``gqa_attend``
 (the JAX model's attention, whatever its knob says), "flash" the port's
 flash-attention kernels (``kernels.flash_attention``) on CUDA tensors,
-their plain version on CPU tensors; ``decode_attention`` runs
-``gqa_attend`` under either knob, as JAX's decode does. JAX's
+their plain version on CPU tensors (the kernels take the causal mask
+and the window; a config with ``prefix_lm`` or ``logit_softcap`` under
+"flash" raises, as the kernels compute neither); ``decode_attention``
+runs ``gqa_attend`` under either knob, as JAX's decode does. JAX's
 ``constrain`` calls are sharding hints and are left out. Past
 ``_CHUNK_THRESHOLD`` tokens the plain path runs ``gqa_attend`` in exact
 q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
@@ -19,6 +23,8 @@ whole (S, S) score tensor there.
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -88,13 +94,26 @@ def apply_rope(x, positions, theta: float, partial: float = 1.0):
 # ---------------------------------------------------------------------------
 # Masks
 # ---------------------------------------------------------------------------
-def causal_mask(q_len: int, kv_len: int, device=None, q_offset: int = 0):
+def causal_mask(q_len: int, kv_len: int, device=None, *,
+                window: Optional[int] = None, q_offset: int = 0):
     """(q_len, kv_len) bool, True = attend; ``q_offset`` shifts the query
-    positions (a q-block of chunked attention). The model-level window is
-    not ported: ``sliding_window`` raises, ROADMAP A.13."""
+    positions (a q-block of chunked attention). With ``window`` a query
+    attends only to the ``window`` latest positions up to its own."""
     q_pos = torch.arange(q_len, device=device) + q_offset
     kv_pos = torch.arange(kv_len, device=device)
-    return q_pos[:, None] >= kv_pos[None, :]
+    m = q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        m &= (q_pos[:, None] - kv_pos[None, :]) < window
+    return m
+
+
+def prefix_lm_mask(q_len: int, kv_len: int, prefix_len: int, device=None,
+                   q_offset: int = 0):
+    """Bidirectional over the first ``prefix_len`` positions, causal
+    after (no window, as in JAX)."""
+    base = causal_mask(q_len, kv_len, device, q_offset=q_offset)
+    in_prefix = torch.arange(kv_len, device=device)[None, :] < prefix_len
+    return base | in_prefix
 
 
 # ---------------------------------------------------------------------------
@@ -137,17 +156,20 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def gqa_attend(q, k, v, mask):
+def gqa_attend(q, k, v, mask, softcap: Optional[float] = None):
     """Grouped-query attention core, the JAX model's: q (B, Sq, Hq, D),
     k and v (B, Skv, Hkv, D), mask (Sq, Skv) or broadcastable to
     (B, Hkv, G, Sq, Skv). The scores come from an einsum in q's dtype
-    and are then cast to f32; the softmax weights are cast back to q's
-    dtype before the second einsum."""
+    and are then cast to f32 (and, with ``softcap``, capped to
+    softcap * tanh(scores / softcap) before the mask); the softmax
+    weights are cast back to q's dtype before the second einsum."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     q = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k).to(torch.float32)
     scores = scores / math.sqrt(D)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
     if mask.dim() == 2:
         mask = mask[None, None, None]
     scores = torch.where(mask, scores, NEG_INF)
@@ -166,28 +188,45 @@ def chunks_queries(S: int) -> bool:
     return S > _CHUNK_THRESHOLD and S % _Q_CHUNK == 0
 
 
-def chunked_gqa_attend(q, k, v, mask_fn):
+def chunked_gqa_attend(q, k, v, mask_fn, softcap: Optional[float] = None):
     """Exact attention in q-blocks of ``_Q_CHUNK`` queries, each softmax
     over its full row: peak score memory O(_Q_CHUNK * S) instead of
     O(S^2). ``mask_fn(q_offset, q_len)`` gives the block's (q_len, Skv)
-    bool mask. JAX pins the batch sharding of q, k and v here; on one
-    device there is nothing to pin (ROADMAP A.11)."""
+    bool mask (the window or prefix with it). JAX pins the batch
+    sharding of q, k and v here; on one device there is nothing to pin
+    (ROADMAP A.11)."""
     c = _Q_CHUNK
-    return torch.cat([gqa_attend(q[:, i:i + c], k, v, mask_fn(i, c))
+    return torch.cat([gqa_attend(q[:, i:i + c], k, v, mask_fn(i, c), softcap)
                       for i in range(0, q.shape[1], c)], dim=1)
 
 
-def flash_attend(q, k, v):
-    """Causal attention through the flash kernels: (B, S, H, D) in and
-    out, (B, H, S, D) at the kernel API. With autograd recording (a
-    training forward, or its recomputation under checkpointing) it is
-    the training entry (the forward with lse, the dq and dk/dv kernels
-    in backward); otherwise the inference forward without lse."""
+def check_flash_masks(cfg: ModelConfig) -> None:
+    """Raise where ``attn_impl="flash"`` meets a mask or a cap the flash
+    kernels do not compute (they take the causal mask and the window):
+    running the plain core instead would hide that no kernel runs."""
+    if cfg.attn_impl != "flash":
+        return
+    for knob in ("prefix_lm", "logit_softcap"):
+        if getattr(cfg, knob):
+            raise NotImplementedError(
+                f"attn_impl='flash' with {knob}={getattr(cfg, knob)!r}: the "
+                "flash kernels compute the causal mask and the window only; "
+                "use attn_impl='xla'")
+
+
+def flash_attend(q, k, v, window: Optional[int] = None):
+    """Causal attention, with ``window`` a sliding window, through the
+    flash kernels: (B, S, H, D) in and out, (B, H, S, D) at the kernel
+    API. With autograd recording (a training forward, or its
+    recomputation under checkpointing) it is the training entry (the
+    forward with lse, the dq and dk/dv kernels in backward); otherwise
+    the inference forward without lse."""
     from repro_torch.kernels.flash_attention.ops import attend, attend_train
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (qh, kh, vh))
-    out = (attend_train if train else attend)(qh, kh, vh, causal=True)
+    out = (attend_train if train else attend)(qh, kh, vh, causal=True,
+                                              window=window)
     return out.transpose(1, 2)
 
 
@@ -195,15 +234,17 @@ def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None):
     """Full-sequence (training) attention, ``cfg.attn_impl`` choosing
     the core. For S beyond the chunk threshold, pass ``mask_fn`` to run
     the plain core in exact q-blocks (``chunked_gqa_attend``); ``mask``
-    may then be None."""
+    may then be None. The flash core takes the window from the config
+    and needs neither."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     B, S = x.shape[:2]
     if cfg.attn_impl == "flash":
-        out = flash_attend(q, k, v)
+        check_flash_masks(cfg)
+        out = flash_attend(q, k, v, cfg.sliding_window)
     elif mask_fn is not None and chunks_queries(S):
-        out = chunked_gqa_attend(q, k, v, mask_fn)
+        out = chunked_gqa_attend(q, k, v, mask_fn, cfg.logit_softcap)
     else:
-        out = gqa_attend(q, k, v, mask)
+        out = gqa_attend(q, k, v, mask, cfg.logit_softcap)
     return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
@@ -212,13 +253,12 @@ def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None):
 # ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cpu"):
-    """The stacked cache {"k", "v"}, each (n_layers, batch, max_len,
-    n_kv_heads, head_dim) zeros. The rolling buffer of a sliding window
-    is not ported (``sliding_window`` raises, ROADMAP A.13)."""
-    if cfg.sliding_window:
-        raise NotImplementedError("the sliding-window (rolling) KV cache "
-                                  "is not ported yet (ROADMAP A.13)")
-    shape = (n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    """The stacked cache {"k", "v"}, each (n_layers, batch, slots,
+    n_kv_heads, head_dim) zeros: ``max_len`` slots, or with a sliding
+    window a rolling buffer of min(window, max_len) slots."""
+    slots = (min(cfg.sliding_window, max_len) if cfg.sliding_window
+             else max_len)
+    shape = (n_layers, batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -238,29 +278,36 @@ def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
     batch) or a (B,) int tensor of per-slot positions (continuous
     batching): row b writes column pos[b] and attends to the columns
     kv_pos <= pos[b], so a sequence admitted at position 0 never sees a
-    previous occupant's entries. K and V are rounded to the cache dtype
-    on write and read back in q's dtype. Returns (out, k_cache,
+    previous occupant's entries. With a sliding window the cache is a
+    rolling buffer: position pos writes column pos % slots, and once
+    pos + 1 >= slots every column holds one of the window's latest
+    positions and all are attended. K and V are rounded to the cache
+    dtype on write and read back in q's dtype. Returns (out, k_cache,
     v_cache)."""
-    if cfg.sliding_window or cfg.logit_softcap:
-        raise NotImplementedError("sliding_window and logit_softcap are not "
-                                  "ported yet at the model level (ROADMAP "
-                                  "A.13)")
     B = x.shape[0]
     slots = k_cache.shape[1]
     kv_pos = torch.arange(slots, device=x.device)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
+    col = pos % slots if cfg.sliding_window else pos
     if pos.dim() == 0:
         q, k, v = _project_qkv(p, cfg, x, pos.expand(B, 1))
-        k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-        mask = (kv_pos <= pos)[None, None, None, None, :]
+        k_cache[:, col] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, col] = v[:, 0].to(v_cache.dtype)
+        valid = kv_pos <= pos
+        if cfg.sliding_window:
+            valid = valid | (pos + 1 >= slots)
+        mask = valid[None, None, None, None, :]
     else:
         q, k, v = _project_qkv(p, cfg, x, pos[:, None])
         rows = torch.arange(B, device=x.device)
-        k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
-        mask = (kv_pos[None, :] <= pos[:, None])[:, None, None, None, :]
-    out = gqa_attend(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask)
+        k_cache[rows, col] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, col] = v[:, 0].to(v_cache.dtype)
+        valid = kv_pos[None, :] <= pos[:, None]             # (B, slots)
+        if cfg.sliding_window:
+            valid = valid | (pos[:, None] + 1 >= slots)
+        mask = valid[:, None, None, None, :]
+    out = gqa_attend(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
+                     cfg.logit_softcap)
     out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
     return out, k_cache, v_cache
 

@@ -1,10 +1,16 @@
-"""Decoder-only LM of the port (``repro/models/transformer.py``), two
+"""Decoder-only LM of the port (``repro/models/transformer.py``), three
 families:
 
   dense  : [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
            optional QKV bias and qk-norm, tied or untied head;
+  moe    : [attention -> MoE FFN] x L (mixtral: top-k experts,
+           ``models/moe.py``), each layer adding its router's aux loss;
   hybrid : [Mamba2] x L with one *shared* attention + MLP block applied
            after every ``shared_attn_every`` layers (zamba2).
+
+The attention takes the config's mask: causal, with ``sliding_window``
+a window, or with ``prefix_lm`` bidirectional over a prefix; and
+``logit_softcap`` caps the scores.
 
 The parameter tree is the JAX one: a dict with the stacked ``layers``
 leaves along a leading ``n_layers`` dim, so ``core.arena``'s sorted-key
@@ -33,16 +39,19 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.core.arena import tree_flatten, tree_unflatten
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.layers import (attention_apply, attention_init,
                                        cache_axes, causal_mask,
-                                       chunks_queries, decode_attention,
-                                       embed_tokens, embedding_init,
-                                       init_kv_cache, mlp_apply, mlp_init,
-                                       output_logits, rmsnorm, rmsnorm_init,
+                                       check_flash_masks, chunks_queries,
+                                       decode_attention, embed_tokens,
+                                       embedding_init, init_kv_cache,
+                                       mlp_apply, mlp_init, output_logits,
+                                       prefix_lm_mask, rmsnorm, rmsnorm_init,
                                        scalar)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -57,22 +66,21 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every knob of ``cfg`` the port's transformer does not
     carry yet (never ignore one silently)."""
-    if cfg.family not in (DENSE, HYBRID):
+    if cfg.family not in (DENSE, HYBRID, MOE):
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
-            "the port's transformer carries the DENSE and HYBRID families)")
+            "the port's transformer carries the DENSE, MOE and HYBRID "
+            "families)")
     if cfg.family == HYBRID:
         k = cfg.shared_attn_every
         if cfg.ssm is None or k <= 0 or cfg.n_layers % k:
             raise ValueError(
                 f"a hybrid model needs an ssm config and n_layers "
                 f"({cfg.n_layers}) a multiple of shared_attn_every ({k})")
-    for knob, item in (("prefix_lm", "A.13"), ("logit_softcap", "A.13"),
-                       ("sliding_window", "A.13")):
-        if getattr(cfg, knob):
-            raise NotImplementedError(
-                f"{knob}={getattr(cfg, knob)!r} is not ported yet at the "
-                f"model level (ROADMAP {item})")
+    if cfg.family == MOE:
+        if cfg.moe is None:
+            raise ValueError("a moe model needs a moe config")
+        moe_mod.check_moe_impl(cfg)
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True is a sharding layout of "
                                   "the multi-GPU slice (ROADMAP A.11)")
@@ -82,6 +90,7 @@ def check_supported(cfg: ModelConfig) -> None:
             "A.13); the port runs 'full' and 'none'")
     if cfg.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    check_flash_masks(cfg)
     if cfg.scan_impl not in ssm_mod.SCAN_IMPLS:
         raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}; expected "
                          f"one of {ssm_mod.SCAN_IMPLS}")
@@ -93,15 +102,18 @@ def check_supported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 def _layer_init(f: ParamFactory, cfg: ModelConfig):
-    """One stacked layer's params (dense: attention + MLP; hybrid: a
-    Mamba2 block)."""
+    """One stacked layer's params (dense: attention + MLP; moe: attention
+    + the MoE FFN; hybrid: a Mamba2 block)."""
     rmsnorm_init(f, "ln1", cfg.d_model)
     if cfg.family == HYBRID:
         ssm_mod.mamba2_init(f, cfg)
         return
     attention_init(f, cfg)
     rmsnorm_init(f, "ln2", cfg.d_model)
-    mlp_init(f, cfg)
+    if cfg.family == MOE:
+        moe_mod.moe_init(f, cfg)
+    else:
+        mlp_init(f, cfg)
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -127,11 +139,20 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
 # ---------------------------------------------------------------------------
 def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask,
                  mask_fn=None):
+    """One attention + FFN layer: (h, the layer's MoE aux loss, a 0-dim
+    f32, 0 for a dense layer)."""
     h = h + attention_apply(layer_p["attn"], cfg,
                             rmsnorm(h, layer_p["ln1"], cfg.norm_eps),
                             positions, mask, mask_fn)
-    return h + mlp_apply(layer_p["mlp"], cfg,
-                         rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+    hn = rmsnorm(h, layer_p["ln2"], cfg.norm_eps)
+    if cfg.family == MOE:
+        y, aux = moe_mod.moe_apply(layer_p["moe"], cfg, hn)
+        return h + y, aux
+    return h + mlp_apply(layer_p["mlp"], cfg, hn), _zero(h.device)
+
+
+def _zero(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=device)
 
 
 def _mamba_block_apply(layer_p, cfg: ModelConfig, h):
@@ -179,28 +200,40 @@ def unbind_layers(stacked) -> list:
             for i in range(n)]
 
 
-def forward(params, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, padded vocab) in the compute
-    dtype."""
+def forward(params, cfg: ModelConfig, tokens, prefix_len=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (logits (B, S, padded vocab) in the compute
+    dtype, the MoE aux loss summed over the layers: a 0-dim f32, 0 for
+    the other families), JAX's signature. Under ``prefix_lm`` the first
+    ``prefix_len`` positions (default 0 outside the VLM family, as in
+    JAX) attend to each other both ways."""
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :]
-    mask_fn = lambda off, qn: causal_mask(qn, S, device=h.device,
-                                          q_offset=off)
+    if cfg.prefix_lm:
+        plen = prefix_len if prefix_len is not None else (
+            cfg.n_frontend_tokens if cfg.family == VLM else 0)
+        mask_fn = lambda off, qn: prefix_lm_mask(qn, S, plen, h.device,
+                                                 q_offset=off)
+    else:
+        mask_fn = lambda off, qn: causal_mask(
+            qn, S, h.device, window=cfg.sliding_window, q_offset=off)
     # the whole (S, S) mask only where the plain core takes it unchunked
     mask = (None if cfg.attn_impl == "flash" or chunks_queries(S) else
             mask_fn(0, S))
     remat = cfg.block_remat == "full" and torch.is_grad_enabled()
+    aux_total = _zero(h.device)
     if cfg.family == HYBRID:
         h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn)
     else:
         for layer_p in unbind_layers(params["layers"]):
-            h = _apply(remat, _block_apply, layer_p, cfg, h, positions, mask,
-                       mask_fn)
+            h, aux = _apply(remat, _block_apply, layer_p, cfg, h, positions,
+                            mask, mask_fn)
+            aux_total = aux_total + aux
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
-    return output_logits(params, cfg, h)
+    return output_logits(params, cfg, h), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +243,9 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     """Per-sample-weighted next-token cross entropy.
 
     batch: {"tokens": (B, S) int, "weights": (B,) f32}. Returns
-    (sum of the weighted loss, {"count": weighted token count,
-    "loss_sum"}), so AMB-DG normalizes by the global count (paper eq.
+    (sum of the weighted loss + the MoE aux loss times the count,
+    {"count": weighted token count, "loss_sum": the weighted loss
+    without aux}), so AMB-DG normalizes by the global count (paper eq.
     (5)). The forward runs at the full length and the logits are sliced,
     as in JAX."""
     tokens = batch["tokens"]
@@ -219,32 +253,34 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     if weights is None:
         weights = torch.ones((tokens.shape[0],), dtype=torch.float32,
                              device=tokens.device)
-    logits = forward(params, cfg, tokens)[:, :-1]
+    logits, aux = forward(params, cfg, tokens)
+    logits = logits[:, :-1]
     targets = tokens[:, 1:].to(torch.int64)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
     per_sample = -torch.sum(ll, dim=-1)                       # (B,)
     loss_sum = torch.sum(per_sample * weights)
     count = torch.sum(weights) * targets.shape[1]
-    return loss_sum, {"count": count, "loss_sum": loss_sum}
+    return loss_sum + aux * count, {"count": count, "loss_sum": loss_sum}
 
 
 # ---------------------------------------------------------------------------
 # Decode (serve step)
 # ---------------------------------------------------------------------------
 def _check_decodes(cfg: ModelConfig) -> None:
-    if cfg.family in (MOE, SSM):
+    if cfg.family == SSM:
         raise NotImplementedError(
             f"the {cfg.family!r} family's decode path is not ported yet "
-            "(ROADMAP A.13: MoE and xLSTM)")
+            "(ROADMAP A.13: xLSTM)")
     check_supported(cfg)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cpu"
                       ) -> Tuple[Dict, Dict]:
-    """(the decode cache, its logical-axes tree): DENSE, the KV cache of
-    every layer; HYBRID, {"mamba": the f32 Mamba2 states of every layer,
+    """(the decode cache, its logical-axes tree): DENSE and MOE, the KV
+    cache of every layer (a rolling buffer under a sliding window);
+    HYBRID, {"mamba": the f32 Mamba2 states of every layer,
     "shared": the KV cache of each of the n_layers // shared_attn_every
     applications of the shared block}."""
     _check_decodes(cfg)
@@ -278,8 +314,14 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
             y, _, _ = decode_attention(layer_p["attn"], cfg, hn, pos,
                                        cache["k"][i], cache["v"][i])
             h = h + y
-            h = h + mlp_apply(layer_p["mlp"], cfg,
-                              rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+            hn = rmsnorm(h, layer_p["ln2"], cfg.norm_eps)
+            if cfg.family == MOE:
+                # the (B, 1, d) step routed as a group of B tokens; its
+                # aux loss is dropped, as in JAX
+                y, _ = moe_mod.moe_apply(layer_p["moe"], cfg, hn)
+            else:
+                y = mlp_apply(layer_p["mlp"], cfg, hn)
+            h = h + y
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
     return output_logits(params, cfg, h), cache
 

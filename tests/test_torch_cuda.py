@@ -1022,3 +1022,73 @@ def test_publisher_on_cuda_matches_cpu_bitwise(cuda):
     assert sa == sb == 0
     for x, y in zip(tree_flatten(ta)[0], tree_flatten(tb)[0]):
         assert torch.equal(x.cpu(), y)
+
+
+# -- the MoE slice: mixtral's MoE dispatch and the windowed flash route -------
+def _moe_model(moe_impl, attn_impl="flash"):
+    """mixtral-8x7b SMOKE widened to head dim 64 (the flash kernels'),
+    window 32, f32 compute."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("mixtral-8x7b"), d_model=128,
+                               n_heads=4, n_kv_heads=2, head_dim=64,
+                               compute_dtype="float32", attn_impl=attn_impl,
+                               moe_impl=moe_impl)
+
+
+def _grads(cfg, params, batch, device):
+    from repro_torch.core.anytime import accumulate_scan
+    from repro_torch.core.arena import tree_flatten, tree_map
+    from repro_torch.models.api import build_model
+    g, _, m = accumulate_scan(
+        build_model(cfg, device=device).loss,
+        tree_map(lambda a: a.to(device), params),
+        {k: v.to(device) for k, v in batch.items()}, 1)
+    return [x.cpu() for x in tree_flatten(g)[0]], float(m["loss_sum"])
+
+
+@pytest.mark.parametrize("moe_impl", ["einsum", "gather"])
+def test_moe_model_on_cuda_matches_cpu(cuda, moe_impl):
+    """The MoE model with the windowed flash route (S = 128, window 32),
+    f32, TF32 off: the worker's gradient and loss on the card (the flash
+    kernels, the MoE dispatch in PyTorch's CUDA kernels) against the CPU
+    (the plain versions), each leaf within 1e-4 of its largest element,
+    the loss to 1e-5; the training flash kernels launch once per layer
+    (dq); the gather route repeats bit for bit on the card."""
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_model(moe_impl)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    batch = build_model(cfg, device="cpu").dummy_batch(
+        2, 128, torch.Generator().manual_seed(1))
+    n0 = kernel.DQ.launches
+    got, loss = _grads(cfg, params, batch, cuda)
+    assert kernel.DQ.launches - n0 == cfg.n_layers
+    again, _ = _grads(cfg, params, batch, cuda)
+    if moe_impl == "gather":
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want, want_loss = _grads(cfg, params, batch, "cpu")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_windowed_flash_matches_plain_attention_on_cuda(cuda):
+    """On the card, the model's flash route with a window of 32 (the
+    kernels) against its plain route (``gqa_attend`` under the windowed
+    mask), f32, TF32 off: the gradient within 1e-4 of each leaf's largest
+    element, the loss to 1e-5."""
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash, plain = _moe_model("einsum"), _moe_model("einsum", "xla")
+    params = build_model(flash, device="cpu").init(
+        torch.Generator().manual_seed(2))
+    batch = build_model(flash, device="cpu").dummy_batch(
+        2, 128, torch.Generator().manual_seed(3))
+    got, loss = _grads(flash, params, batch, cuda)
+    want, want_loss = _grads(plain, params, batch, cuda)
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -1,8 +1,11 @@
 """The port's decode path (``layers.decode_attention``,
 ``ssm.mamba2_decode``, ``transformer.init_decode_state`` and
-``decode_step``) against the JAX model's, for qwen1.5-0.5b (DENSE) and
-zamba2-2.7b (HYBRID: Mamba2 layers and the shared attention block) at
-their SMOKE widths.
+``decode_step``) against the JAX model's, for the DENSE qwen1.5-0.5b,
+qwen3-1.7b (qk-norm), yi-6b (GQA) and chatglm3-6b (half-rotary RoPE),
+and zamba2-2.7b (HYBRID: Mamba2
+layers and the shared attention block) at their SMOKE widths; and
+qwen1.5-0.5b with a sliding window of 8 (the rolling cache of 8 slots,
+12 steps: past its wrap).
 
 The JAX weights come across with ``convert.params_from_jax``; both
 models decode the same numpy-seeded tokens for 8 steps from a zero
@@ -39,7 +42,8 @@ from repro_torch.core.arena import tree_flatten
 from repro_torch.models import transformer as tf
 from repro_torch.models.api import build_model
 
-ARCHS = ["qwen1.5-0.5b", "zamba2-2.7b"]
+ARCHS = ["qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
+         "zamba2-2.7b"]
 B, MAX_LEN, STEPS = 3, 16, 8
 F32_TOL = 1e-5
 BF16_ULP, BF16_TOL = 2.0 ** -7, 1e-2
@@ -64,9 +68,11 @@ def assert_close(got, want, dtype, what):
     assert np.all(gap <= limit), (what, float(gap.max()), scale)
 
 
-def _models(arch, dtype):
-    jcfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype=dtype)
-    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype)
+def _models(arch, dtype, **kw):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype=dtype,
+                               **kw)
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype,
+                              **kw)
     jparams, _ = jtf.init(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_jax(jax.device_get(jparams), device="cpu")
     return jcfg, cfg, jparams, params
@@ -78,8 +84,8 @@ def _positions(ragged, t):
     return np.int32(t)
 
 
-def _decode_both(arch, dtype, ragged, steps=STEPS):
-    jcfg, cfg, jparams, params = _models(arch, dtype)
+def _decode_both(arch, dtype, ragged, steps=STEPS, **kw):
+    jcfg, cfg, jparams, params = _models(arch, dtype, **kw)
     # the KV cache in the compute dtype: under f32 compute a bf16 cache
     # would round k and v, and a last-bit difference upstream can flip
     # one rounding (ROADMAP C.13)
@@ -204,3 +210,18 @@ def test_per_slot_positions_equal_lockstep_rows():
                                       torch.full((B,), t))
             assert torch.equal(la, lb)
     assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["scalar", "ragged"])
+def test_windowed_dense_decode_matches_jax(ragged):
+    """qwen1.5-0.5b SMOKE with sliding_window = 8: the rolling cache holds
+    8 slots; 12 steps (the slots at t + 3 and t + 5 wrap at steps 5 and
+    3) give JAX's logits and cache, f32."""
+    steps, cache, jcache = _decode_both("qwen1.5-0.5b", "float32", ragged,
+                                        steps=12, sliding_window=8)
+    assert cache["k"].shape[2] == 8
+    for t, (logits, jlogits) in enumerate(steps):
+        assert_close(logits, jlogits, "float32", f"logits at step {t}")
+    for i, (c, j) in enumerate(zip(tree_flatten(cache)[0],
+                                   jax.tree.leaves(jcache))):
+        assert_close(c, j, "float32", f"cache leaf {i}")

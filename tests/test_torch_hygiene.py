@@ -331,7 +331,7 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.api import build_model
     for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
-                 "zamba2-2.7b"):
+                 "zamba2-2.7b", "mixtral-8x7b", "mixtral-8x22b"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(get_smoke_config(arch))
         assert build_model(get_smoke_config(arch),
@@ -345,21 +345,33 @@ def _dense(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(family="moe"), "A.13"),
+    (dict(family="moe"), "moe config"),
     (dict(family="ssm"), "A.13"),
     (dict(family="ssm", xlstm=XLSTMConfig()), "A.13"),
     (dict(family="vlm"), "A.13"),
     (dict(family="encdec"), "A.13"),
-    (dict(family="moe", moe=MoEConfig()), "A.13"),
-    (dict(prefix_lm=True), "A.13"),
-    (dict(logit_softcap=30.0), "A.13"),
-    (dict(sliding_window=16), "A.13"),
+    (dict(family="moe", moe=MoEConfig()), None),
+    (dict(prefix_lm=True), None),
+    (dict(logit_softcap=30.0), None),
+    (dict(sliding_window=16), None),
     (dict(seq_parallel=True), "A.11"),
     (dict(block_remat="dots"), "A.13"),
 ])
 def test_unported_model_knobs_raise(kw, item):
+    """Each knob the port does not carry raises naming its ROADMAP item;
+    the MOE family (given its moe config), prefix_lm, logit_softcap and
+    sliding_window are ported and build and take a loss on the CPU (a
+    MOE family without a moe config raises a ValueError, as JAX's
+    model fails on it)."""
     from repro_torch.models.api import build_model
-    with pytest.raises(NotImplementedError, match=item):
+    if item is None:
+        model = build_model(_dense(**kw), device="cpu")
+        batch = model.dummy_batch(2, 24, torch.Generator().manual_seed(0))
+        loss, aux = model.loss(model.init(), batch)
+        assert bool(torch.isfinite(loss)) and float(aux["count"]) == 46
+        return
+    error = ValueError if item == "moe config" else NotImplementedError
+    with pytest.raises(error, match=item):
         build_model(_dense(**kw), device="cpu")
 
 
@@ -374,8 +386,9 @@ def _decode_entry(entry, cfg):
 
 @pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
 def test_decode_path_raises(entry):
-    """The DENSE decode path is ported (the model's entries run); the
-    MoE family's decode raises naming A.13."""
+    """The DENSE and MOE decode paths are ported (the model's entries run,
+    the MOE one with a rolling window cache of 4 slots past its wrap);
+    the still-unported xLSTM (ssm) family's decode raises naming A.13."""
     from repro_torch.configs.base import MoEConfig as MoE
     from repro_torch.models.api import build_model
     model = build_model(_dense(), device="cpu")
@@ -383,8 +396,18 @@ def test_decode_path_raises(entry):
     logits, _ = model.decode_step(model.init(), cache,
                                   torch.zeros((2, 1), dtype=torch.int64), 0)
     assert logits.shape == (2, 1, model.cfg.padded_vocab_size)
+    moe = build_model(_dense(family="moe", moe=MoE(n_experts=4),
+                             sliding_window=4), device="cpu")
+    cache, _ = moe.init_decode_state(2, 8)
+    assert cache["k"].shape[2] == 4
+    params = moe.init()
+    for t in range(6):
+        logits, cache = moe.decode_step(
+            params, cache, torch.zeros((2, 1), dtype=torch.int64),
+            torch.tensor([t, t + 1]))
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="A.13"):
-        _decode_entry(entry, _dense(family="moe", moe=MoE()))
+        _decode_entry(entry, _dense(family="ssm", xlstm=XLSTMConfig()))
 
 
 def _hybrid(**kw):
@@ -394,13 +417,22 @@ def _hybrid(**kw):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(prefix_lm=True), NotImplementedError, "A.13"),
+    (dict(prefix_lm=True), None, None),
+    (dict(prefix_lm=True, attn_impl="flash"), NotImplementedError, "flash"),
     (dict(scan_impl="pallas"), ValueError, "scan_impl"),
     (dict(n_layers=3), ValueError, "shared_attn_every"),
     (dict(ssm=None), ValueError, "ssm config"),
 ])
 def test_hybrid_model_knobs_raise(kw, error, match):
+    """The hybrid's knobs that raise; prefix_lm is ported (the shared
+    attention block takes the mask) and builds, except under the flash
+    kernels, which do not compute it."""
     from repro_torch.models.api import build_model
+    if error is None:
+        model = build_model(_hybrid(**kw), device="cpu")
+        batch = model.dummy_batch(2, 16, torch.Generator().manual_seed(0))
+        assert bool(torch.isfinite(model.loss(model.init(), batch)[0]))
+        return
     with pytest.raises(error, match=match):
         build_model(_hybrid(**kw), device="cpu")
 

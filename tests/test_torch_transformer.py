@@ -75,7 +75,8 @@ def test_forward_loss_and_grads_match_jax(arch, dtype, attn_impl):
 
     jlogits, _ = jtf.forward(jparams, jcfg, jbatch["tokens"])
     with torch.no_grad():
-        logits = tf.forward(params, cfg, tbatch["tokens"])
+        logits, aux = tf.forward(params, cfg, tbatch["tokens"])
+    assert float(aux) == 0.0        # a dense model has no MoE aux loss
     assert logits.dtype == getattr(torch, dtype)
     assert tuple(logits.shape) == (2, 32, cfg.padded_vocab_size)
     assert _rel_err(logits, jlogits) <= tol["logits"]
@@ -194,9 +195,9 @@ def test_long_sequence_attention_runs_in_q_blocks_as_in_jax(arch,
 
     attend, scores = layers.gqa_attend, []
 
-    def port_attend(q, k, v, mask):
+    def port_attend(q, k, v, mask, softcap=None):
         scores.append((q.shape[1], k.shape[1], tuple(mask.shape)))
-        return attend(q, k, v, mask)
+        return attend(q, k, v, mask, softcap)
 
     monkeypatch.setattr(jlayers, "chunked_gqa_attend", jax_chunked)
     monkeypatch.setattr(layers, "gqa_attend", port_attend)
@@ -213,7 +214,7 @@ def test_long_sequence_attention_runs_in_q_blocks_as_in_jax(arch,
 
     jlogits, _ = jtf.forward(jparams, jcfg, jbatch["tokens"])
     with torch.no_grad():
-        logits = tf.forward(params, cfg, tbatch["tokens"])
+        logits, _ = tf.forward(params, cfg, tbatch["tokens"])
     assert _rel_err(logits, jlogits) <= tol["logits"]
     (jloss, _), jgrads = jax.value_and_grad(
         lambda p: jtf.lm_loss(p, jcfg, jbatch), has_aux=True)(jparams)
