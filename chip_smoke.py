@@ -218,9 +218,30 @@ Phases (any failure raises and the script exits non-zero):
      window: the rolling buffer wraps), as 16b; (d) serving 17a's model in
      bf16, 8 slots, Poisson 0.5, 16 warm-up then 64 timed steps, as 16c.
 
-``python3 chip_smoke.py --only=2,13,14,15,16,17`` runs the build and then
-only the phases named among 13-17 (``2``: phase 2's mixtral flash rows
-alone; a short call while working on them; no kernels or ok line).
+ 18. the xLSTM slice (xlstm-125m FULL: d_model 768, 12 layers, 6 mLSTM
+     blocks with heads of 384 and 6 sLSTM blocks with heads of 192,
+     vocab 50,304; JAX computes both blocks outside Pallas, so no kernel
+     is new and none but B.1/B.2 runs), every part from the init with
+     the sLSTM's recurrent weights rescaled to fan-in head_dim (at the
+     init's fan-in n_heads the recurrence is chaotic and its gradient at
+     1024 tokens is not finite, in JAX as in the port, ROADMAP C.16):
+     (a) f32, all 12 layers, one sequence of 1024 tokens (4 mLSTM
+     chunks): the loss and the worker's gradient on the card against the
+     CPU leaf by leaf and a prefill-by-decode over 512 tokens against the
+     forward's last position (limits below); a no-grad forward at 4096
+     tokens in bf16, timed; (b) AMB-DG through ``train`` in bf16 at 2 of
+     the 12 layers (a step at 4 is ~210,000 eager kernels), 2 workers x 2
+     sequences of 1024, 1 microbatch, tau 2, int8, full remat, 3 steps:
+     B.1 and B.2 once a step, the step split, the kernel
+     split and the peak; then one step with ``block_remat="dots"``
+     and one with ``rc.remat="whole_loss"``, each step's peak (dots no
+     lower than full); (c) serving xlstm-125m FULL in bf16, 8 slots of
+     512, Poisson 0.5, 16 + 64 steps, as 17d; the SMOKE engine in f32 on
+     the card against the CPU, 3 ragged slots, 24 steps, tokens equal.
+
+``python3 chip_smoke.py --only=2,13,14,15,16,17,18`` runs the build and
+then only the phases named among 13-18 (``2``: phase 2's mixtral flash
+rows alone; a short call while working on them; no kernels or ok line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -321,7 +342,9 @@ def profiled(fn, marks=False):
     and are dropped); callers run ``fn`` again, up to PROFILER_TRIES
     times, and raise if no try gave a complete record. With ``marks``
     the short spin kernels of ``gossip_marked`` stay in the record as
-    MARK."""
+    MARK. The kernels are read from the profiler's raw records
+    (``kineto_results.events()``), about 20x faster than parsing them
+    into ``FunctionEvent``s: phase 18b records ~630,000 kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -332,16 +355,15 @@ def profiled(fn, marks=False):
         out = fn()
         torch.cuda.synchronize()
 
-    def mark(e):
-        return (marks and "spin_kernel" in e.name
-                and e.time_range.elapsed_us() < MARK_MAX_US)
+    def mark(name, us):
+        return marks and "spin_kernel" in name and us < MARK_MAX_US
 
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and ("spin_kernel" not in e.name or mark(e))),
-                    key=lambda e: e.time_range.start)
-    kernels = [(MARK if mark(e) else e.name, e.time_range.elapsed_us())
-               for e in events]
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda)
+    kernels = [(MARK if mark(name, us) else name, us) for _, name, us in rows
+               if "spin_kernel" not in name or mark(name, us)]
     if not sum(us for _, us in kernels):
         log("note: torch.profiler recorded no device time in one session")
         kernels = []
@@ -1279,14 +1301,17 @@ def lm_run_config(cfg, seq_len, n_seqs, n_mb, tau=2):
                           pod_compression="int8"))
 
 
-def run_lm(cfg, rc, n_steps, n_workers, device, samples_per_worker=2):
-    """One ``train`` run of the LM slice; returns (result, seconds)."""
+def run_lm(cfg, rc, n_steps, n_workers, device, samples_per_worker=2,
+           model=None):
+    """One ``train`` run of the LM slice (of ``model``, by default
+    ``cfg``'s); returns (result, seconds)."""
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import LoopConfig, train
     loop = LoopConfig(n_steps=n_steps, n_workers=n_workers,
                       samples_per_worker=samples_per_worker, log_every=1)
     t0 = time.perf_counter()
-    out = train(build_model(cfg, device=device), rc, loop, device=device)
+    out = train(model or build_model(cfg, device=device), rc, loop,
+                device=device)
     return out, time.perf_counter() - t0
 
 
@@ -3396,8 +3421,11 @@ def serve_load(cfg, slots, n_timed, warmup=SERVE_WARMUP):
     kernel_ms = sum(us for k, us in kernels
                     if not k.startswith(("Memcpy", "Memset"))) / 1e3
     n_params = sum(x.numel() for x in tree_flatten(engine.params)[0])
+    # the attention's KV cache (zamba2: the shared block's), or the
+    # xLSTM's whole recurrent state
     kv = engine.cache["shared"] if "shared" in engine.cache else engine.cache
-    kv_bytes = sum(x.numel() * x.element_size() for x in kv.values())
+    kv_bytes = sum(x.numel() * x.element_size()
+                   for x in tree_flatten(kv)[0])
     rec = dict(
         layers=cfg.n_layers, slots=slots, max_len=sc.max_len,
         n_params=n_params, timed_steps=n_timed,
@@ -3410,7 +3438,8 @@ def serve_load(cfg, slots, n_timed, warmup=SERVE_WARMUP):
         device_kernel_ms_per_step=kernel_ms / SERVE_PROFILED,
         idle_share=1.0 - kernel_ms / (prof_wall * 1e3),
         # the least bytes a step must move: every f32 weight read once
-        # and the whole KV cache read once, at 3.35 TB/s
+        # and the whole KV cache (or recurrent state) read once, at
+        # 3.35 TB/s
         hbm_floor_ms=(4 * n_params + kv_bytes) / HBM_BYTES_PER_S * 1e3,
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         split=serve_kernel_split(kernels, SERVE_PROFILED))
@@ -3979,6 +4008,276 @@ def mixtral_phase(drive, expect):
     return out
 
 
+# -- the xLSTM slice (phase 18) -----------------------------------------------
+XL_SEQ = 1024        # 18a/18b: 4 mLSTM chunks of 256, so the carry runs
+XL_LONG = 4096       # train_4k's length: 18a's no-grad forward only
+XL_PREFILL = 512     # 18a: prefill by decode over two chunks
+XL_STEPS = 3         # 18b: the third applies the first delayed update
+# 18b's depth, of 12 (an mLSTM and an sLSTM block): a training step at
+# 4 x 1024 tokens is ~210,000 eager kernels at 4 layers (each sLSTM time
+# step ~25 forward and ~50 backward), ~30 us of host work each, 6.3 s
+XL_TRAIN_LAYERS = 2
+XL_SERVE_SLOTS, XL_SERVE_WARMUP, XL_SERVE_TIMED = 8, 16, 64
+XL_DEVICE_STEPS = 24     # 18c: SMOKE engine steps, card against CPU
+# 18a: prefill-by-decode against the forward's last position, f32, of the
+# largest |logit| (the recurrent and the chunked forms sum in other
+# orders; read: 3.9e-6, NVIDIA H100 80GB HBM3, 700 W)
+XL_DECODE_TOL = 1e-4
+# 18a: the card's f32 gradient against the CPU's, of each leaf's largest
+# element, 12 layers x 1024 tokens with w_h rescaled (read: 1.7e-5 to
+# 2.0e-4; the gradient itself moves 1e-6 to 5e-5 of a leaf when every
+# weight moves by 1e-7 of itself: the depth and the recurrences amplify
+# each rounding, so phase 7's 1e-4 is below what two summation orders
+# give here)
+XL_DEVICE_GRAD_TOL = 1e-3
+
+
+def xl_config(**kw):
+    """xlstm-125m FULL (12 layers, d 768) with full block remat (and any
+    overrides)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("xlstm-125m"),
+                               **{"block_remat": "full", **kw})
+
+
+def xl_rescale_(params, cfg):
+    """``params`` with the sLSTM's recurrent weights ``w_h`` (nh, hd,
+    4 hd) rescaled in place from the init's fan-in nh to fan-in hd. At
+    the init's own scale the recurrence is chaotic: its f32 gradient
+    moves by O(1) for a rounding and at 1024 tokens is not finite, in
+    JAX as in the port (ROADMAP C.16); at this scale it is well
+    conditioned."""
+    from repro_torch.models.xlstm import slstm_dims
+    nh, hd, _ = slstm_dims(cfg)
+    params["slstm_layers"]["slstm"]["w_h"].mul_((nh / hd) ** 0.5)
+    return params
+
+
+def xl_model(cfg, device):
+    """``cfg``'s model whose init draws are rescaled by ``xl_rescale_``."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    model = build_model(cfg, device=device)
+    return dataclasses.replace(model, init_fn=lambda dev, gen: xl_rescale_(
+        model.init_fn(dev, gen), cfg))
+
+
+def xlstm_init_phase(drive, expect):
+    """Phase 18a: xlstm-125m FULL, all 12 layers, f32, no block remat,
+    one sequence of XL_SEQ tokens, at the init weights with the sLSTM's
+    w_h rescaled (``xl_rescale_``): the loss and the worker's gradient on
+    the card against the CPU, leaf by leaf (XL_DEVICE_GRAD_TOL; the loss
+    to phase 7's LM_F32_RTOL), and the last position's logits of a
+    prefill-by-decode over XL_PREFILL tokens against the forward's
+    (XL_DECODE_TOL).
+    Then one no-grad forward at XL_LONG tokens in the config's bf16,
+    timed. No kernel of the port launches (JAX's xLSTM has no Pallas
+    call). Returns the record."""
+    import torch
+    from repro_torch.core.arena import tree_map
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as tf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # no block remat: the same gradient without the recompute's quarter
+    # of the ~0.6 M eager kernels (18b runs the remat modes)
+    cfg = xl_config(compute_dtype="float32", block_remat="none")
+    params = xl_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    host = TokenStream(cfg, seed=1).next_batch(1, XL_SEQ)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    batch = {k: v.to("cuda") for k, v in cpu_batch.items()}
+    names = leaf_names(params)
+    p = tree_map(lambda a: a.to("cuda"), params)
+    secs = {}
+    t0 = time.perf_counter()
+    (g_gpu, loss_gpu), n = drive(lambda: model_grads(cfg, p, batch))
+    torch.cuda.synchronize()
+    secs["grad_card"] = time.perf_counter() - t0
+    assert n == expect(), n
+    t0 = time.perf_counter()
+    g_cpu, loss_cpu = model_grads(cfg, params, cpu_batch)
+    secs["grad_cpu"] = time.perf_counter() - t0
+    gaps = leaf_gaps(g_gpu, g_cpu, names)
+    del g_gpu, g_cpu
+    # prefill by decode against the forward, on the card
+    model = xl_model(cfg, "cuda")
+    toks = batch["tokens"][:, :XL_PREFILL]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = tf.forward(p, cfg, toks)
+        cache, _ = model.init_decode_state(1, XL_PREFILL, torch.float32)
+        for pos in range(XL_PREFILL):
+            logits, cache = model.decode_step(p, cache, toks[:, pos:pos + 1],
+                                              pos)
+    torch.cuda.synchronize()
+    secs["prefill_by_decode"] = time.perf_counter() - t0
+    want = full[0, -1]
+    decode_gap = float((logits[0, 0] - want).abs().max()) / float(
+        want.abs().max())
+    del full, cache, p
+    # the no-grad forward at train_4k's length, in the config's bf16
+    cfg16 = xl_config()
+    p16 = xl_model(cfg16, "cuda").init(torch.Generator().manual_seed(0))
+    long = torch.from_numpy(TokenStream(cfg16, seed=2).next_batch(
+        1, XL_LONG)["tokens"]).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = tf.forward(p16, cfg16, long)
+    torch.cuda.synchronize()
+    secs["forward_4k"] = time.perf_counter() - t0
+    assert bool(torch.isfinite(logits).all())
+    del p16, logits, long
+    torch.cuda.empty_cache()
+    rec = dict(leaves=names, grad_gap_card_vs_cpu=gaps, loss_card=loss_gpu,
+               loss_cpu=loss_cpu, decode_gap=decode_gap, seconds=secs)
+    for i, name in enumerate(names):
+        log(f"phase 18a: gradient {name}: card vs cpu {gaps[i]:.3e} of the "
+            "leaf's largest element")
+    log(f"phase 18a: xlstm-125m {cfg.n_layers} layers f32, {XL_SEQ} tokens "
+        f"(w_h rescaled): loss per token card {loss_gpu:.7f}, cpu "
+        f"{loss_cpu:.7f}; prefill by decode over {XL_PREFILL} tokens "
+        f"against the forward: {decode_gap:.3e} of the largest logit; "
+        f"seconds {json.dumps(secs)} (forward_4k: the no-grad forward at "
+        f"{XL_LONG} tokens, bf16)")
+    assert all(g <= XL_DEVICE_GRAD_TOL for g in gaps), gaps
+    assert math.isclose(loss_gpu, loss_cpu, rel_tol=LM_F32_RTOL), (
+        loss_gpu, loss_cpu)
+    assert decode_gap <= XL_DECODE_TOL, decode_gap
+    return rec
+
+
+def xlstm_train_phase(drive, expect):
+    """Phase 18b: AMB-DG through ``train`` on xlstm-125m FULL widths at
+    XL_TRAIN_LAYERS layers in bf16, from the init with w_h rescaled
+    (``xl_rescale_``; at the init's own scale the first gradient is not
+    finite, C.16): 2 workers x 2 sequences of XL_SEQ, 1 microbatch, tau
+    2, int8, l2 ball, full block remat, XL_STEPS steps: B.1 and B.2 once
+    a step and no other kernel of the port, counts and losses, w in the
+    ball; the step split, the kernel split and the peak memory. Then one
+    step with ``block_remat="dots"`` and one with
+    ``rc.remat="whole_loss"``: B.1 and B.2 once, the first loss
+    equal to the full run's, each step's peak memory; the dots step
+    peaks no lower than the full one. Returns the record."""
+    import torch
+    rec = {}
+    n_workers, n_seqs = 2, 4
+    cfg = xl_config(n_layers=XL_TRAIN_LAYERS)
+    rc = lm_run_config(cfg, XL_SEQ, n_seqs, 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ((out, secs), kernels), n = drive(lambda: profiled(
+        lambda: run_lm(cfg, rc, XL_STEPS, n_workers, "cuda",
+                       model=xl_model(cfg, "cuda"))))
+    assert n == expect(dual_update=XL_STEPS, slot_rotate=XL_STEPS), n
+    hist = out["history"]
+    for t, h in enumerate(hist):
+        assert (h["applied_count"] == 0.0) == (t < 2), (t, h)
+        assert h["local_count"] == n_seqs * (XL_SEQ - 1), (t, h)
+        assert math.isfinite(h["loss"]), (t, h)
+    rec["full"] = dict(
+        seconds=secs, launches=n, kernels=len(kernels),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        w_norm=lm_weights_ok(out["state"].params),
+        loss=[h["loss"] for h in hist],
+        applied_count=[h["applied_count"] for h in hist],
+        split=step_split(out, kernels) if kernels else None,
+        kernel_split=kernel_split(kernels, XL_STEPS) if kernels else None)
+    del out, kernels
+    for tag, run_cfg, run_rc in (
+            ("dots", xl_config(n_layers=XL_TRAIN_LAYERS, block_remat="dots"),
+             None),
+            ("whole_loss", cfg, rc.replace(remat="whole_loss"))):
+        run_rc = run_rc or lm_run_config(run_cfg, XL_SEQ, n_seqs, 1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (one, secs), n = drive(lambda: run_lm(run_cfg, run_rc, 1, n_workers,
+                                              "cuda",
+                                              model=xl_model(run_cfg,
+                                                             "cuda")))
+        assert n == expect(dual_update=1, slot_rotate=1), n
+        rec[tag] = dict(seconds=secs, launches=n,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        loss=one["history"][0]["loss"])
+        assert math.isclose(rec[tag]["loss"], rec["full"]["loss"][0],
+                            rel_tol=LM_BF16_RTOL), (tag, rec[tag],
+                                                    rec["full"]["loss"])
+        del one
+    torch.cuda.empty_cache()
+    full = rec["full"]
+    log(f"phase 18b: xlstm-125m {cfg.n_layers} layers bf16: {XL_STEPS} "
+        f"steps of {n_seqs} x {XL_SEQ} tokens in {full['seconds']:.2f} s; "
+        "loss "
+        f"{full['loss']}; applied_count {full['applied_count']}; |w| = "
+        f"{full['w_norm']:.4f}; {full['kernels']} kernels recorded; "
+        f"launches {full['launches']}")
+    if full["split"]:
+        log(f"phase 18b: step split {json.dumps(full['split'])}")
+        log_kernel_split("phase 18b", "full", full["kernel_split"])
+    else:
+        log("note: no step split for phase 18b (the profiler recorded "
+            "nothing)")
+    log("phase 18b: peak memory of a step by remat: " + json.dumps(
+        {k: rec[k]["peak_gib"] for k in ("full", "dots", "whole_loss")})
+        + "; one-step seconds " + json.dumps(
+            {k: rec[k]["seconds"] for k in ("dots", "whole_loss")}))
+    assert rec["dots"]["peak_gib"] >= full["peak_gib"], rec
+    return rec
+
+
+def xlstm_serve_phase(drive, expect):
+    """Phase 18c: serving xlstm-125m FULL in bf16 (``serve_load``:
+    XL_SERVE_SLOTS slots, Poisson 0.5, XL_SERVE_WARMUP warm-up then
+    XL_SERVE_TIMED timed steps); then the SMOKE engine in f32 on the card
+    against the CPU (``compare_serve_devices``, 3 ragged slots,
+    XL_DEVICE_STEPS steps), the tokens equal. Returns the record."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    r = serve_load(xl_config(), XL_SERVE_SLOTS, XL_SERVE_TIMED,
+                   warmup=XL_SERVE_WARMUP)
+    split = r["split"]
+    log(f"phase 18c: xlstm-125m {r['layers']} layers, {r['slots']} slots: "
+        f"median step {r['median_step_ms']:.3f} ms (p90 "
+        f"{r['p90_step_ms']:.3f}); prefill {r['prefill_tok_s']:.1f} tok/s, "
+        f"decode {r['decode_tok_s']:.1f} tok/s; {r['kernels_per_step']:.1f} "
+        f"kernels a step, {r['device_kernel_ms_per_step']:.3f} ms of kernels "
+        f"a step, idle share {r['idle_share']:.3f}; HBM floor "
+        f"{r['hbm_floor_ms']:.3f} ms; peak {r['peak_gib']:.2f} GiB")
+    log("phase 18c: kernel split per step " + json.dumps(
+        {k: v for k, v in split.items() if k != "rest_top"}))
+    for t in split["rest_top"]:
+        log(f"phase 18c: rest {t['ms']:.4f} ms/step ({t['launches']:.1f} "
+            f"launches/step): {t['name']}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("xlstm-125m"),
+                              compute_dtype="float32")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(1, cfg.vocab_size, size=k).tolist()
+               for k in (5, 7, 9)]
+    dev = compare_serve_devices(drive, expect, "phase 18c", "xlstm-125m",
+                                cfg, prompts, XL_DEVICE_STEPS)
+    assert dev["tokens_equal"], dev
+    return {"load": r, "devices": dev}
+
+
+def xlstm_phase(drive, expect):
+    """Phase 18 (18a-c): the xLSTM slice; each part's seconds in
+    ``parts_s``."""
+    out, parts_s = {}, {}
+    for part, key, fn in (
+            ("18a", "init_weights", lambda: xlstm_init_phase(drive, expect)),
+            ("18b", "train", lambda: xlstm_train_phase(drive, expect)),
+            ("18c", "serve", lambda: xlstm_serve_phase(drive, expect))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        parts_s[part] = time.perf_counter() - t0
+        log(f"phase {part}: {parts_s[part]:.1f} s")
+    out["parts_s"] = parts_s
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4054,9 +4353,9 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,13,14,15,16,17``: after the build, run only those of phases
-    # 13-17 (2: phase 2's mixtral flash rows alone; a short call while
-    # working on them); prints no kernels or ok line
+    # ``--only=2,13,14,15,16,17,18``: after the build, run only those of
+    # phases 13-18 (2: phase 2's mixtral flash rows alone; a short call
+    # while working on them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
             if a.startswith("--only=")]
     if only:
@@ -4094,6 +4393,10 @@ def main():
             t0 = time.perf_counter()
             record["mixtral"] = mixtral_phase(drive, expect)
             phase_done("phase 17", t0)
+        if "18" in picked:
+            t0 = time.perf_counter()
+            record["xlstm"] = xlstm_phase(drive, expect)
+            phase_done("phase 18", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         return 0
@@ -4518,11 +4821,17 @@ def main():
     t0 = time.perf_counter()
     mixtral = mixtral_phase(drive, expect)
     phase_done("phase 17", t0)
+
+    # -- 18. the xLSTM slice --------------------------------------------------
+    t0 = time.perf_counter()
+    xlstm = xlstm_phase(drive, expect)
+    phase_done("phase 18", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
-                    "serve": serve, "mixtral": mixtral, "phase_s": phase_s,
+                    "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
+                    "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -2,9 +2,10 @@
 
 The port registers the architectures it can train: the paper's linear
 regression and CNN, the four DENSE transformers of the JAX package's zoo,
-the HYBRID zamba2 (Mamba2 layers with a shared attention block) and the
-two MOE mixtrals (top-2 experts, a sliding window). The rest of the zoo
-follows in later slices (ROADMAP A.13). Each module
+the HYBRID zamba2 (Mamba2 layers with a shared attention block), the
+two MOE mixtrals (top-2 experts, a sliding window) and the SSM xLSTM
+(mLSTM and sLSTM blocks). The encoder-decoder and the VLM follow in a
+later slice (ROADMAP A.13 part 2). Each module
 exposes ``FULL`` (the published config) and ``SMOKE`` (a reduced
 same-family config for the CPU tests).
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 from repro_torch.configs import (amb_cnn, amb_linreg, chatglm3_6b,
                                  mixtral_8x7b, mixtral_8x22b, qwen1_5_0_5b,
-                                 qwen3_1_7b, yi_6b, zamba2_2_7b)
+                                 qwen3_1_7b, xlstm_125m, yi_6b, zamba2_2_7b)
 from repro_torch.configs.base import (  # noqa: F401
     CNN, DENSE, ENCDEC, HYBRID, LINREG, LM_FAMILIES, MOE, SSM, VLM,
     AmbdgConfig, BatchScheduleConfig, ConsensusConfig, DelayConfig,
@@ -27,6 +28,7 @@ _MODULES = {
     "chatglm3-6b": chatglm3_6b,
     "qwen3-1.7b": qwen3_1_7b,
     "zamba2-2.7b": zamba2_2_7b,
+    "xlstm-125m": xlstm_125m,
     "amb-linreg": amb_linreg,
     "amb-cnn": amb_cnn,
 }

@@ -140,8 +140,9 @@ class ModelConfig:
         """Analytic parameter count of the families the port carries,
         as the JAX package counts it (every expert; the unpadded vocab;
         qk-norm scales, the Mamba2 conv bias and dt bias not counted;
-        for the CNN, JAX's count of a smaller net than the one it
-        builds)."""
+        for the xLSTM, JAX's formula, which is not its leaves' count,
+        ROADMAP C.15; for the CNN, JAX's count of a smaller net than the
+        one it builds)."""
         return _count_params(self)
 
     def n_active_params(self) -> int:
@@ -154,10 +155,10 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         return cfg.linreg_dim
     if cfg.family == CNN:
         return _cnn_param_count(cfg)
-    if cfg.family not in (DENSE, HYBRID, MOE):
+    if cfg.family not in (DENSE, HYBRID, MOE, SSM):
         raise NotImplementedError(
             f"n_params for family {cfg.family!r} comes with its model "
-            "(ROADMAP A.13)")
+            "(ROADMAP A.13 part 2)")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
@@ -173,6 +174,19 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         n_used = m.top_k if active_only else m.n_experts
         moe_ffn = d * m.n_experts + n_used * 3 * d * cfg.d_ff
         return total + cfg.n_layers * (attn + moe_ffn + 2 * d)
+    if cfg.family == SSM:
+        # JAX's formula, which counts 8 d^2 for the sLSTM gates (the
+        # model has w_x and a block-diagonal w_h) and 2 d_in for the
+        # mLSTM gates (the model has w_i, w_f of (d_in, n_heads) and their
+        # biases): more than the leaves the model builds (ROADMAP C.15)
+        x = cfg.xlstm
+        d_in_m = int(x.proj_factor_mlstm * d)
+        n_sl = cfg.n_layers // x.slstm_every
+        n_ml = cfg.n_layers - n_sl
+        mlstm = (d * 2 * d_in_m + 3 * d_in_m * d_in_m + 2 * d_in_m
+                 + d_in_m * d + 2 * d)
+        slstm = 8 * d * d + 3 * d * int(x.proj_factor_slstm * d) + 2 * d
+        return total + n_ml * mlstm + n_sl * slstm
     s = cfg.ssm
     d_in = s.expand * d
     nh = d_in // s.head_dim

@@ -10,8 +10,8 @@ attribute name and import nothing of the JAX package. Values are copied
 exactly (same dtype, same bits; a bf16 array, which numpy knows only
 through JAX's ``ml_dtypes``, by its raw bits).
 
-``decode_state_from_jax`` carries a decode cache (KV caches and Mamba2
-states) across. The weight publisher needs no converter: its
+``decode_state_from_jax`` carries a decode cache (KV caches, Mamba2
+and xLSTM states) across. The weight publisher needs no converter: its
 ``state_dict`` is the JAX publisher's format (numpy arrays, the bf16
 scales as u16 bits), which both packages load.
 """
@@ -118,8 +118,9 @@ def decentralized_state_from_jax(state, device="cuda") -> DecentralizedState:
 
 def decode_state_from_jax(cache, device="cuda"):
     """A JAX decode cache (``init_decode_state``'s tree: the KV cache
-    {"k", "v"}, and for the hybrid family {"mamba": {"ssm", "conv"},
-    "shared": {"k", "v"}}), same keys, same dtypes and bits. The port
+    {"k", "v"}; for the hybrid family {"mamba": {"ssm", "conv"},
+    "shared": {"k", "v"}}; for the xLSTM {"mlstm": {"C", "n", "m"},
+    "slstm": {"h", "c", "n", "m"}}), same keys, same dtypes and bits. The port
     updates it in place; JAX's Mamba2 ``conv`` state comes back from a
     step in the compute dtype, the port's stays in the dtype it was made
     in (the same values)."""

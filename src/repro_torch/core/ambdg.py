@@ -37,14 +37,17 @@ draws from ``core.batch_schedule`` as a 0-dim ``batch["b_sched"]``
 tensor on the device, which replaces ``b_bar`` in alpha. It runs on
 the arena master only, as in the JAX package.
 
-Every knob the port does not carry yet raises ``NotImplementedError``
-naming its ROADMAP item.
+``rc.remat="whole_loss"`` wraps the whole loss in
+``torch.utils.checkpoint`` (``loss_with_remat``, the same for every
+strategy that takes a gradient of an LM). Every knob the port does not
+carry yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import anytime, delayed
@@ -81,9 +84,16 @@ def check_supported(rc: RunConfig) -> None:
         raise NotImplementedError(
             f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while is "
             "not ported yet (ROADMAP A.2)")
+
+
+def loss_with_remat(model: Model, rc: RunConfig):
+    """``model.loss``, under ``torch.utils.checkpoint`` as a whole when
+    ``rc.remat == "whole_loss"`` (JAX's ``_loss_with_remat``: any other
+    value leaves it as it is; the blocks' own remat is
+    ``ModelConfig.block_remat``)."""
     if rc.remat == "whole_loss":
-        raise NotImplementedError("rc.remat='whole_loss' is not ported "
-                                  "(ROADMAP A.13)")
+        return lambda p, b: checkpoint(model.loss, p, b, use_reentrant=False)
+    return model.loss
 
 
 def arena_master_update(layout, opt, params, opt_state, arena_state,
@@ -154,6 +164,7 @@ def build_step_fns(model: Model, rc: RunConfig):
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
     use_arena = rc.master_impl == "arena"
+    loss_fn = loss_with_remat(model, rc)
     if use_arena:
         # shapes only (the meta device), as JAX builds it from eval_shape:
         # no second parameter set is allocated or drawn
@@ -184,7 +195,7 @@ def build_step_fns(model: Model, rc: RunConfig):
             {k: v.reshape((n_pods, v.shape[0] // n_pods)
                           + tuple(v.shape[1:]))[p] for k, v in batch.items()}
             for p in range(n_pods)]
-        out = [anytime.accumulate_scan(model.loss, params, c, n_mb)
+        out = [anytime.accumulate_scan(loss_fn, params, c, n_mb)
                for c in chunks]
         per_pod = [arena_mod.tree_flatten(g)[0] for g, _, _ in out]
         treedef = arena_mod.tree_flatten(out[0][0])[1]

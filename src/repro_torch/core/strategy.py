@@ -356,9 +356,6 @@ class DecentralizedStrategy(Strategy):
             raise NotImplementedError(
                 f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while "
                 "is not ported yet (ROADMAP A.2)")
-        if rc.remat == "whole_loss":
-            raise NotImplementedError("rc.remat='whole_loss' is not ported "
-                                      "(ROADMAP A.13)")
         if rc.ambdg.proximal not in ("l2", "l2_ball"):
             raise ValueError(f"unknown proximal {rc.ambdg.proximal!r}")
         cc = rc.consensus
@@ -423,6 +420,7 @@ class DecentralizedStrategy(Strategy):
         n_mb = cfg.n_microbatches
         layout = self.layout
         device = model.device
+        loss_fn = ambdg.loss_with_remat(model, rc)
         gossip = self._gossip_fn()
         elastic = self._elastic
         variable_batch = rc.batch_schedule.schedule != "fixed"
@@ -456,7 +454,7 @@ class DecentralizedStrategy(Strategy):
             counts, losses = [], []
             for i in range(n):
                 g, c, m = anytime.accumulate_scan(
-                    model.loss, arena_mod.tree_map(lambda p: p[i], params),
+                    loss_fn, arena_mod.tree_map(lambda p: p[i], params),
                     {k: x[i] for k, x in chunks.items()}, n_mb)
                 arena_mod.flatten_tree(layout, g, out=g_flat[i])
                 counts.append(c)

@@ -90,7 +90,7 @@ class TokenStream:
     """Synthetic LM token stream: Zipf(1.3) token ids clipped to the
     vocab, so the loss has structure (the text stream of the JAX
     ``TokenStream``; its VLM/encdec extras come with those families,
-    ROADMAP A.13)."""
+    ROADMAP A.13 part 2)."""
     cfg: ModelConfig
     seed: int = 0
     sample_seed: Optional[int] = None
@@ -123,5 +123,5 @@ def make_stream(cfg: ModelConfig, seed: int = 0,
                                 sample_seed)
     if cfg.family in (VLM, ENCDEC):
         raise NotImplementedError(f"no {cfg.family} stream in the port yet "
-                                  "(ROADMAP A.13)")
+                                  "(ROADMAP A.13 part 2)")
     return TokenStream(cfg, seed, sample_seed)

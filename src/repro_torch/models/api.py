@@ -14,10 +14,10 @@ case architectures:
 ``params`` is a nested dict of tensors on ``model.device``. Families:
 the paper's linear regression (an ``nn.Module`` evaluated at the given
 tensors through ``functional_call``), the paper's CNN (``models.cnn``),
-the DENSE transformers, the MOE mixtrals and the HYBRID zamba2
-(``models.transformer``, functions over the tree). The decode path
-(``init_decode_state``, ``decode_step``) serves the DENSE, MOE and
-HYBRID families.
+the DENSE transformers, the MOE mixtrals, the SSM xLSTM and the HYBRID
+zamba2 (``models.transformer``, functions over the tree). The decode
+path (``init_decode_state``, ``decode_step``) serves those four
+families.
 """
 from __future__ import annotations
 
@@ -27,11 +27,15 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import (CNN, DENSE, HYBRID, LINREG, MOE,
-                                      ModelConfig)
+                                      SSM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import linear as linear_mod
 from repro_torch.models import transformer as tf_mod
+
+
+# the LM families the port's transformer carries
+_LM = (DENSE, HYBRID, MOE, SSM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +79,7 @@ class Model:
         return {"tokens": tokens.to(self.device), "weights": ones}
 
     def _check_decodes(self):
-        if self.cfg.family not in (DENSE, HYBRID, MOE):
+        if self.cfg.family not in _LM:
             raise NotImplementedError(
                 f"model family {self.cfg.family!r} has no decode path")
 
@@ -117,7 +121,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                          linear_mod.init(cfg, dev),
                      loss_fn=lambda p, b: torch.func.functional_call(
                          module, p, (b,)))
-    if cfg.family in (DENSE, HYBRID, MOE):
+    if cfg.family in _LM:
         tf_mod.check_supported(cfg)
         return Model(cfg, device, init_fn=_seeded_init(
                          lambda dev, gen: tf_mod.init(cfg, gen, dev)),
@@ -127,6 +131,6 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                          lambda dev, gen: cnn_mod.init(cfg, gen, dev)),
                      loss_fn=lambda p, b: cnn_mod.loss(p, cfg, b))
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
-        "the port carries the DENSE, MOE and HYBRID families of the LLM "
-        "zoo)")
+        f"model family {cfg.family!r} is not ported yet (ROADMAP A.13 "
+        "part 2: the port carries the DENSE, MOE, SSM and HYBRID families "
+        "of the LLM zoo)")

@@ -1,10 +1,13 @@
-"""Decoder-only LM of the port (``repro/models/transformer.py``), three
+"""Decoder-only LM of the port (``repro/models/transformer.py``), four
 families:
 
   dense  : [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
            optional QKV bias and qk-norm, tied or untied head;
   moe    : [attention -> MoE FFN] x L (mixtral: top-k experts,
            ``models/moe.py``), each layer adding its router's aux loss;
+  ssm    : [mLSTM | sLSTM] x L (xLSTM, ``models/xlstm.py``): layer i is
+           an sLSTM block iff (i + 1) % slstm_every == 0, each block
+           residual after its own pre-RMSNorm;
   hybrid : [Mamba2] x L with one *shared* attention + MLP block applied
            after every ``shared_attn_every`` layers (zamba2).
 
@@ -13,7 +16,8 @@ a window, or with ``prefix_lm`` bidirectional over a prefix; and
 ``logit_softcap`` caps the scores.
 
 The parameter tree is the JAX one: a dict with the stacked ``layers``
-leaves along a leading ``n_layers`` dim, so ``core.arena``'s sorted-key
+leaves along a leading ``n_layers`` dim (the xLSTM: two stacks,
+``mlstm_layers`` and ``slstm_layers``), so ``core.arena``'s sorted-key
 flatten gives the JAX arena layout row for row and
 ``convert.params_from_jax`` carries the weights unchanged. The forward
 loops over the layers on ``torch.unbind`` slices of the stack: its
@@ -22,28 +26,35 @@ would write a zero gradient of the whole stack per layer.
 ``block_remat="full"`` (JAX's ``jax.checkpoint`` per scanned block) is
 ``torch.utils.checkpoint`` per layer (hybrid: per Mamba2 layer and per
 shared attention block; the shared MLP is not checkpointed, as in
-JAX); ``"none"`` saves everything.
+JAX); ``"dots"`` (JAX's ``checkpoint_dots`` policy) checkpoints the same
+blocks but saves the outputs of their matrix products (``aten.mm``,
+``bmm``, ``addmm``, ``baddbmm``) and recomputes the rest; ``"none"``
+saves everything.
 
 The decode path (``init_decode_state``, ``decode_step``) runs one
-token through every layer against a stacked cache it updates in
-place, slice by slice (JAX scans the layers and donates the cache).
+token through every layer against a stacked cache (KV entries, or the
+Mamba2 and xLSTM recurrent states) it updates in place, slice by slice
+(JAX scans the layers and donates the cache).
 
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.layers import (attention_apply, attention_init,
                                        cache_axes, causal_mask,
@@ -55,6 +66,11 @@ from repro_torch.models.layers import (attention_apply, attention_init,
                                        scalar)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+BLOCK_REMATS = ("full", "dots", "none")
+# JAX's checkpoint_dots saves the results of dot_general: here the
+# matrix products autograd dispatches to
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -66,11 +82,13 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every knob of ``cfg`` the port's transformer does not
     carry yet (never ignore one silently)."""
-    if cfg.family not in (DENSE, HYBRID, MOE):
+    if cfg.family not in (DENSE, HYBRID, MOE, SSM):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP A.13: "
-            "the port's transformer carries the DENSE, MOE and HYBRID "
-            "families)")
+            f"model family {cfg.family!r} is not ported yet (ROADMAP A.13 "
+            "part 2: the port's transformer carries the DENSE, MOE, SSM "
+            "and HYBRID families)")
+    if cfg.family == SSM and cfg.xlstm is None:
+        raise ValueError("an ssm (xLSTM) model needs an xlstm config")
     if cfg.family == HYBRID:
         k = cfg.shared_attn_every
         if cfg.ssm is None or k <= 0 or cfg.n_layers % k:
@@ -84,10 +102,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True is a sharding layout of "
                                   "the multi-GPU slice (ROADMAP A.11)")
-    if cfg.block_remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"block_remat={cfg.block_remat!r} is not ported yet (ROADMAP "
-            "A.13); the port runs 'full' and 'none'")
+    if cfg.block_remat not in BLOCK_REMATS:
+        raise ValueError(f"unknown block_remat {cfg.block_remat!r}; "
+                         f"expected one of {BLOCK_REMATS}")
     if cfg.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     check_flash_masks(cfg)
@@ -124,6 +141,16 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
     f = ParamFactory(generator, _dtype(cfg.param_dtype), device)
     embedding_init(f, cfg)
     rmsnorm_init(f, "ln_final", cfg.d_model)
+    if cfg.family == SSM:
+        # the two block types in two stacks, each block with its ln1
+        n_ml, n_sl = xlstm_mod.n_blocks(cfg)
+        for name, n, block_init in (("mlstm_layers", n_ml,
+                                     xlstm_mod.mlstm_init),
+                                    ("slstm_layers", n_sl,
+                                     xlstm_mod.slstm_init)):
+            f.stacked_children(name, n, lambda g, block_init=block_init: (
+                rmsnorm_init(g, "ln1", cfg.d_model), block_init(g, cfg)))
+        return f.params
     f.stacked_children("layers", cfg.n_layers, lambda g: _layer_init(g, cfg))
     if cfg.family == HYBRID:
         sh = f.child("shared_attn")
@@ -167,6 +194,29 @@ def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask,
                                positions, mask, mask_fn)
 
 
+def _mlstm_layer(lp, cfg: ModelConfig, h):
+    return xlstm_mod.mlstm_block_apply(lp["mlstm"], cfg,
+                                       rmsnorm(h, lp["ln1"], cfg.norm_eps))
+
+
+def _slstm_layer(lp, cfg: ModelConfig, h):
+    return xlstm_mod.slstm_block_apply(lp["slstm"], cfg,
+                                       rmsnorm(h, lp["ln1"], cfg.norm_eps))[0]
+
+
+def _xlstm_forward(params, cfg: ModelConfig, h, remat):
+    """The mLSTM and sLSTM blocks in their true layer order, each a
+    residual block under ``remat``."""
+    ml = iter(unbind_layers(params["mlstm_layers"]))
+    sl = iter(unbind_layers(params["slstm_layers"]))
+    for i in range(cfg.n_layers):
+        if xlstm_mod.is_slstm(cfg, i):
+            h = h + _apply(remat, _slstm_layer, next(sl), cfg, h)
+        else:
+            h = h + _apply(remat, _mlstm_layer, next(ml), cfg, h)
+    return h
+
+
 def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat,
                     mask_fn=None):
     """zamba2: groups of ``shared_attn_every`` Mamba2 layers, the one
@@ -184,10 +234,22 @@ def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat,
     return h
 
 
-def _apply(remat: bool, fn, *args):
-    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat``."""
-    if remat:
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _apply(remat: str, fn, *args):
+    """``fn(*args)`` under ``block_remat`` ``remat``: "full" saves only
+    the inputs (``torch.utils.checkpoint``), "dots" the matrix products'
+    outputs as well (selective checkpointing), "none" everything."""
+    if remat == "full":
         return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
     return fn(*args)
 
 
@@ -221,11 +283,13 @@ def forward(params, cfg: ModelConfig, tokens, prefix_len=None
         mask_fn = lambda off, qn: causal_mask(
             qn, S, h.device, window=cfg.sliding_window, q_offset=off)
     # the whole (S, S) mask only where the plain core takes it unchunked
-    mask = (None if cfg.attn_impl == "flash" or chunks_queries(S) else
-            mask_fn(0, S))
-    remat = cfg.block_remat == "full" and torch.is_grad_enabled()
+    mask = (None if cfg.family == SSM or cfg.attn_impl == "flash"
+            or chunks_queries(S) else mask_fn(0, S))
+    remat = cfg.block_remat if torch.is_grad_enabled() else "none"
     aux_total = _zero(h.device)
-    if cfg.family == HYBRID:
+    if cfg.family == SSM:
+        h = _xlstm_forward(params, cfg, h, remat)
+    elif cfg.family == HYBRID:
         h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn)
     else:
         for layer_p in unbind_layers(params["layers"]):
@@ -267,14 +331,6 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
 # ---------------------------------------------------------------------------
 # Decode (serve step)
 # ---------------------------------------------------------------------------
-def _check_decodes(cfg: ModelConfig) -> None:
-    if cfg.family == SSM:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's decode path is not ported yet "
-            "(ROADMAP A.13: xLSTM)")
-    check_supported(cfg)
-
-
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cpu"
                       ) -> Tuple[Dict, Dict]:
@@ -282,8 +338,18 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     cache of every layer (a rolling buffer under a sliding window);
     HYBRID, {"mamba": the f32 Mamba2 states of every layer,
     "shared": the KV cache of each of the n_layers // shared_attn_every
-    applications of the shared block}."""
-    _check_decodes(cfg)
+    applications of the shared block}; SSM, {"mlstm": {"C", "n", "m"},
+    "slstm": {"h", "c", "n", "m"}}, the f32 recurrent states of each
+    stack (``dtype`` and ``max_len`` unused, as in JAX; each ``m`` starts
+    at its block's own floor, NEG_INF and SLSTM_M0)."""
+    check_supported(cfg)
+    if cfg.family == SSM:
+        n_ml, n_sl = xlstm_mod.n_blocks(cfg)
+        cache = {"mlstm": xlstm_mod.mlstm_state_init(cfg, n_ml, batch,
+                                                     device),
+                 "slstm": xlstm_mod.slstm_state_init(cfg, n_sl, batch,
+                                                     device)}
+        return cache, xlstm_mod.state_axes()
     if cfg.family == HYBRID:
         cache = {
             "mamba": ssm_mod.mamba2_state_init(cfg, cfg.n_layers, batch,
@@ -301,12 +367,15 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One-token decode. tokens (B, 1) int; pos a scalar (lockstep) or
     (B,) per-slot positions (continuous batching; see
     ``layers.decode_attention``). The cache is updated in place, layer
-    by layer. Returns (logits (B, 1, padded vocab), cache)."""
-    _check_decodes(cfg)
+    by layer (the xLSTM's recurrence reads no position). Returns
+    (logits (B, 1, padded vocab), cache)."""
+    check_supported(cfg)
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
-    if cfg.family == HYBRID:
+    if cfg.family == SSM:
+        h = _xlstm_decode(params, cfg, h, cache)
+    elif cfg.family == HYBRID:
         h = _hybrid_decode(params, cfg, h, cache, pos)
     else:
         for i, layer_p in enumerate(unbind_layers(params["layers"])):
@@ -346,4 +415,30 @@ def _hybrid_decode(params, cfg: ModelConfig, h, cache, pos):
             h = h + y
             h = h + mlp_apply(sh["mlp"], cfg,
                               rmsnorm(h, sh["ln2"], cfg.norm_eps))
+    return h
+
+
+def _xlstm_decode(params, cfg: ModelConfig, h, cache):
+    """The xLSTM's decode: each block's recurrence in layer order, its
+    slice of the stacked state updated in place."""
+    ml = unbind_layers(params["mlstm_layers"])
+    sl = unbind_layers(params["slstm_layers"])
+    m_st, s_st = cache["mlstm"], cache["slstm"]
+    ml_i = sl_i = 0
+    for i in range(cfg.n_layers):
+        if xlstm_mod.is_slstm(cfg, i):
+            lp = sl[sl_i]
+            st = tuple(s_st[k][sl_i] for k in ("h", "c", "n", "m"))
+            y, out = xlstm_mod.slstm_block_apply(
+                lp["slstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps), st)
+            for view, new in zip(st, out):
+                view.copy_(new)
+            sl_i += 1
+        else:
+            lp = ml[ml_i]
+            y, _ = xlstm_mod.mlstm_block_decode(
+                lp["mlstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps),
+                {k: m_st[k][ml_i] for k in ("C", "n", "m")})
+            ml_i += 1
+        h = h + y
     return h

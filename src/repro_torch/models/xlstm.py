@@ -1,0 +1,320 @@
+"""xLSTM blocks of the port (``repro/models/xlstm.py``): the mLSTM
+(matrix memory, chunk-parallel) and the sLSTM (scalar memory, strictly
+recurrent), per arXiv:2405.04517.
+
+The mLSTM is a gated linear-attention recurrence
+    C_t = f_t C_{t-1} + i_t k_t v_t^T,   n_t = f_t n_{t-1} + i_t k_t,
+    h_t = (C_t^T q_t) / max(|n_t^T q_t|, exp(-m_t))
+with exponential input gates stabilised by a running max ``m``. Training
+runs the chunkwise-parallel form: quadratic within a chunk, the
+stabilised (C, n, m) carry across chunks in a Python loop (JAX's
+``lax.scan``). Decoding runs the O(1) recurrence. The sLSTM has no
+parallel form: a loop over time with block-diagonal recurrent weights.
+
+JAX computes both outside Pallas, so the port computes them in PyTorch
+ops (cuBLAS and elementwise kernels on the card). The rounding points
+are JAX's: under bf16 compute the intra-chunk weights are cast to v's
+dtype before their product with v, the carried C and n and the inter-
+chunk weights to q's; the gates and the carry stay f32. JAX's
+three-operand einsums are contracted pairwise in one fixed order (the
+gate weights first), which moves an f32 result by its summation order
+only.
+
+Two head dims: the mLSTM's is ``d_in // n_heads`` (``mlstm_dims``), the
+sLSTM's ``d_model // n_heads`` (``slstm_dims``); neither is the
+config's ``head_dim``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamFactory
+from repro_torch.models.layers import rmsnorm
+from repro_torch.models.ssm import _silu
+
+NEG_INF = -1e30
+SLSTM_M0 = -30.0      # the sLSTM stabiliser's initial value (JAX's)
+
+
+def n_blocks(cfg: ModelConfig):
+    """(mLSTM blocks, sLSTM blocks): layer i is sLSTM iff (i + 1) %
+    slstm_every == 0."""
+    n_sl = cfg.n_layers // cfg.xlstm.slstm_every
+    return cfg.n_layers - n_sl, n_sl
+
+
+def is_slstm(cfg: ModelConfig, i: int) -> bool:
+    return (i + 1) % cfg.xlstm.slstm_every == 0
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+def mlstm_dims(cfg: ModelConfig):
+    d_in = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
+    nh = cfg.n_heads
+    return d_in, nh, d_in // nh
+
+
+def mlstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "mlstm"):
+    d = cfg.d_model
+    d_in, nh, _ = mlstm_dims(cfg)
+    m = f.child(name)
+    m.param("w_up", (d, 2 * d_in))
+    m.param("w_q", (d_in, d_in))
+    m.param("w_k", (d_in, d_in))
+    m.param("w_v", (d_in, d_in))
+    m.param("w_i", (d_in, nh))       # input gate pre-activations
+    m.param("w_f", (d_in, nh))       # forget gate pre-activations
+    m.param("b_i", (nh,), init="zeros")
+    m.param("b_f", (nh,), init="ones")
+    m.param("norm_scale", (d_in,), init="ones")
+    m.param("w_down", (d_in, d))
+
+
+def _mlstm_chunk(q, k, v, logf, logi, carry):
+    """One chunk, stabilised. q, k, v (B, nh, L, hd); logf, logi (B, nh,
+    L) f32; carry = (C (B, nh, hd, hd), n (B, nh, hd), m (B, nh)), f32.
+    Returns (y (B, nh, L, hd) f32, the carry after the chunk)."""
+    C_st, n_st, m_st = carry
+    L, hd = q.shape[2], q.shape[3]
+    lf = torch.cumsum(logf, dim=-1)                      # inclusive
+    Fsum = lf[..., -1]                                   # (B, nh)
+
+    # intra-chunk log weights: D~_ij = lf_i - lf_j + logi_j, i >= j
+    Dt = lf[..., :, None] - lf[..., None, :] + logi[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    Dt = torch.where(mask, Dt, torch.full((), NEG_INF, device=q.device))
+    inter_log = lf + m_st[..., None]                     # (B, nh, L)
+    m_row = torch.maximum(torch.amax(Dt, dim=-1), inter_log)
+
+    S = torch.exp(Dt - m_row[..., None])                 # (B, nh, L, L)
+    qk = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) / (hd ** 0.5)
+    num_intra = torch.matmul((S * qk).to(v.dtype), v)
+    # normaliser: n_i = sum_j decay_ij i_j k_j; the denominator is q_i . n_i
+    den_intra = torch.sum(S * qk, dim=-1)                # (B, nh, L)
+
+    w_inter = torch.exp(inter_log - m_row)               # (B, nh, L)
+    num_inter = torch.matmul(q, C_st.to(q.dtype))
+    num_inter = num_inter * w_inter[..., None].to(q.dtype) / (hd ** 0.5)
+    den_inter = torch.matmul(q, n_st.to(q.dtype)[..., None])[..., 0] \
+        / (hd ** 0.5)
+    den_inter = den_inter * w_inter
+
+    num = num_intra.to(torch.float32) + num_inter.to(torch.float32)
+    den = den_intra + den_inter
+    denom = torch.maximum(torch.abs(den), torch.exp(-m_row))
+    y = num / denom[..., None]
+
+    # carry: token j's weight surviving to the chunk's end is
+    # F - lf_j + logi_j
+    w_end_log = Fsum[..., None] - lf + logi              # (B, nh, L)
+    m_new = torch.maximum(m_st + Fsum, torch.amax(w_end_log, dim=-1))
+    w_end = torch.exp(w_end_log - m_new[..., None])
+    decay = torch.exp(m_st + Fsum - m_new)
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    kw = k32 * w_end[..., None]                          # (B, nh, L, hd)
+    C_new = (C_st * decay[..., None, None]
+             + torch.matmul(kw.transpose(-1, -2), v32))
+    n_new = n_st * decay[..., None] + torch.sum(kw, dim=-2)
+    return y, (C_new, n_new, m_new)
+
+
+def mlstm_sequence(q, k, v, logf, logi, chunk: int):
+    """q, k, v (B, S, nh, hd); gates (B, S, nh) f32. Returns y (B, S, nh,
+    hd) f32. S must be a multiple of min(chunk, S)."""
+    B, S, nh, hd = q.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} is not a multiple of chunk={chunk}")
+    carry = (torch.zeros((B, nh, hd, hd), dtype=torch.float32,
+                         device=q.device),
+             torch.zeros((B, nh, hd), dtype=torch.float32, device=q.device),
+             torch.full((B, nh), NEG_INF, dtype=torch.float32,
+                        device=q.device))
+    heads_first = lambda x: x.transpose(1, 2)            # (B, nh, S, ...)
+    qh, kh, vh = heads_first(q), heads_first(k), heads_first(v)
+    fh, ih = heads_first(logf), heads_first(logi)
+    ys = []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        y, carry = _mlstm_chunk(qh[:, :, sl], kh[:, :, sl], vh[:, :, sl],
+                                fh[:, :, sl], ih[:, :, sl], carry)
+        ys.append(y)
+    return torch.cat(ys, dim=2).transpose(1, 2)
+
+
+def _mlstm_proj(p, cfg: ModelConfig, x):
+    """x (B, S, d) -> q, k, v (B, S, nh, hd) in x's dtype, logi and logf
+    (B, S, nh) f32 (logf the log-sigmoid of the forget pre-activation),
+    and the output gate's pre-activation (B, S, d_in)."""
+    d_in, nh, hd = mlstm_dims(cfg)
+    B, S, _ = x.shape
+    up = x @ p["w_up"].to(x.dtype)
+    a, gate = up[..., :d_in], up[..., d_in:]
+    q = (a @ p["w_q"].to(x.dtype)).reshape(B, S, nh, hd)
+    k = (a @ p["w_k"].to(x.dtype)).reshape(B, S, nh, hd)
+    v = (a @ p["w_v"].to(x.dtype)).reshape(B, S, nh, hd)
+    logi = (a @ p["w_i"].to(x.dtype)).to(torch.float32) + p["b_i"]
+    logf = F.logsigmoid((a @ p["w_f"].to(x.dtype)).to(torch.float32)
+                        + p["b_f"])
+    return q, k, v, logi, logf, gate
+
+
+def _mlstm_out(p, cfg: ModelConfig, y, gate, x):
+    """The normed, gated read-out y (B, S, d_in) -> (B, S, d)."""
+    y = rmsnorm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
+    y = y * _silu(gate)
+    return y @ p["w_down"].to(x.dtype)
+
+
+def mlstm_block_apply(p, cfg: ModelConfig, x):
+    """x (B, S, d) -> (B, S, d): the up-projection, the mLSTM path and
+    the gate path."""
+    d_in = mlstm_dims(cfg)[0]
+    B, S, _ = x.shape
+    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x)
+    y = mlstm_sequence(q, k, v, logf, logi, cfg.xlstm.conv_width * 64)
+    return _mlstm_out(p, cfg, y.reshape(B, S, d_in), gate, x)
+
+
+def mlstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
+                     device="cpu"):
+    """The stacked decode state, f32: C (n_layers, B, nh, hd, hd) and n
+    (n_layers, B, nh, hd) zeros, m (n_layers, B, nh) at NEG_INF."""
+    _, nh, hd = mlstm_dims(cfg)
+    lead = (n_layers, batch, nh)
+    return {
+        "C": torch.zeros(lead + (hd, hd), dtype=torch.float32, device=device),
+        "n": torch.zeros(lead + (hd,), dtype=torch.float32, device=device),
+        "m": torch.full(lead, NEG_INF, dtype=torch.float32, device=device),
+    }
+
+
+def mlstm_block_decode(p, cfg: ModelConfig, x, state):
+    """One token. x (B, 1, d); state {"C", "n", "m"}, one layer's views
+    into the stacked state, overwritten with the new state (JAX returns
+    it). Returns (y (B, 1, d), state)."""
+    d_in, nh, hd = mlstm_dims(cfg)
+    B = x.shape[0]
+    if x.shape[1] != 1:
+        raise ValueError(f"mlstm_block_decode takes one token, got "
+                         f"{x.shape[1]}")
+    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x)
+    q, k, v = (t.reshape(B, nh, hd) for t in (q, k, v))
+    logi, logf = logi.reshape(B, nh), logf.reshape(B, nh)
+    C_st, n_st, m_st = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(logf + m_st, logi)
+    f_w = torch.exp(logf + m_st - m_new)
+    i_w = torch.exp(logi - m_new)
+    k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    ki = k32 * i_w[..., None]
+    C_new = C_st * f_w[..., None, None] + ki[..., :, None] * v32[..., None, :]
+    n_new = n_st * f_w[..., None] + ki
+    qs = q.to(torch.float32) / (hd ** 0.5)
+    num = torch.matmul(qs[..., None, :], C_new)[..., 0, :]      # (B, nh, hd)
+    den = torch.maximum(torch.abs(torch.sum(qs * n_new, dim=-1)),
+                        torch.exp(-m_new))
+    y = (num / den[..., None]).reshape(B, 1, d_in)
+    state["C"].copy_(C_new)
+    state["n"].copy_(n_new)
+    state["m"].copy_(m_new)
+    return _mlstm_out(p, cfg, y, gate, x), state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+def slstm_dims(cfg: ModelConfig):
+    nh = cfg.n_heads
+    return nh, cfg.d_model // nh, int(cfg.xlstm.proj_factor_slstm
+                                      * cfg.d_model)
+
+
+def slstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "slstm"):
+    d = cfg.d_model
+    nh, hd, d_ff = slstm_dims(cfg)
+    m = f.child(name)
+    # 4 gates (z, i, f, o): input weights (d, 4d), block-diagonal R
+    m.param("w_x", (d, 4 * d))
+    m.param("w_h", (nh, hd, 4 * hd))
+    m.param("b", (4 * d,), init="zeros")
+    # the gated FFN after the recurrence
+    m.param("w_ff_gate", (d, d_ff))
+    m.param("w_ff_up", (d, d_ff))
+    m.param("w_ff_down", (d_ff, d))
+
+
+def slstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
+                     device="cpu"):
+    """The stacked decode state, f32, each (n_layers, B, nh, hd): h, c
+    and n zeros, m at SLSTM_M0."""
+    nh, hd, _ = slstm_dims(cfg)
+    shape = (n_layers, batch, nh, hd)
+    state = {k: torch.zeros(shape, dtype=torch.float32, device=device)
+             for k in ("h", "c", "n")}
+    state["m"] = torch.full(shape, SLSTM_M0, dtype=torch.float32,
+                            device=device)
+    return state
+
+
+def slstm_zero_state(cfg: ModelConfig, batch: int, device="cpu"):
+    """(h, c, n, m), each (B, nh, hd) f32: zeros, m at SLSTM_M0."""
+    return tuple(v[0] for v in slstm_state_init(cfg, 1, batch,
+                                                device).values())
+
+
+def state_axes():
+    """The logical axes of the decode state ``transformer`` stacks:
+    {"mlstm": {"C", "n", "m"}, "slstm": {"h", "c", "n", "m"}}."""
+    laxes = ("layers", "batch", "heads", None)
+    return {"mlstm": {"C": ("layers", "batch", "heads", None, None),
+                      "n": laxes, "m": ("layers", "batch", "heads")},
+            "slstm": {k: laxes for k in ("h", "c", "n", "m")}}
+
+
+def slstm_scan(p, cfg: ModelConfig, x, init_state=None):
+    """The strict recurrence over time. x (B, S, d). The input gates are
+    laid out gate-major over the whole width, (B, S, 4, nh, hd); the
+    recurrent ones head-major, (B, nh, 4, hd), as in JAX. Returns (y
+    (B, S, d) in x's dtype, the final (h, c, n, m))."""
+    B, S, d = x.shape
+    nh, hd, _ = slstm_dims(cfg)
+    # the bias is added in the compute dtype, as in JAX
+    xg = (x @ p["w_x"].to(x.dtype) + p["b"].to(x.dtype)).reshape(
+        B, S, 4, nh, hd)
+    if init_state is None:
+        init_state = slstm_zero_state(cfg, B, x.device)
+    h, c, n, m = init_state
+    w_h = p["w_h"].to(torch.float32)                     # (nh, hd, 4 hd)
+    # JAX casts each step's slice to f32: the same values, cast at once
+    xg = xg.to(torch.float32)
+    hs = []
+    for t in range(S):
+        rec = torch.matmul(h.transpose(0, 1), w_h)       # (nh, B, 4 hd)
+        rec = rec.reshape(nh, B, 4, hd).permute(1, 2, 0, 3)   # (B, 4, nh, hd)
+        pre = xg[:, t] + rec
+        z = torch.tanh(pre[:, 0])
+        i_pre, f_pre, o_pre = pre[:, 1], pre[:, 2], pre[:, 3]
+        log_f = F.logsigmoid(f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_w = torch.exp(i_pre - m_new)
+        f_w = torch.exp(log_f + m - m_new)
+        c = f_w * c + i_w * z
+        n = f_w * n + i_w
+        h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    return y, (h, c, n, m)
+
+
+def slstm_block_apply(p, cfg: ModelConfig, x, init_state=None):
+    """The recurrence, then the gated FFN (tanh GELU whatever ``cfg.act``
+    says: JAX's ``jax.nn.gelu`` default). Returns (y, the final state)."""
+    y, state = slstm_scan(p, cfg, x, init_state)
+    act = F.gelu(y @ p["w_ff_gate"].to(x.dtype), approximate="tanh")
+    h = act * (y @ p["w_ff_up"].to(x.dtype))
+    return h @ p["w_ff_down"].to(x.dtype), state

@@ -1092,3 +1092,78 @@ def test_windowed_flash_matches_plain_attention_on_cuda(cuda):
     assert loss == pytest.approx(want_loss, rel=1e-5)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# -- the xLSTM slice ----------------------------------------------------------
+def _xlstm_params(cfg):
+    """The SMOKE model's init with the sLSTM's ``w_h`` rescaled from
+    fan-in n_heads to fan-in head_dim (at the init's fan-in the f32
+    gradient of the recurrence is chaotic, ROADMAP C.16)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.models.xlstm import slstm_dims
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    nh, hd, _ = slstm_dims(cfg)
+    params["slstm_layers"]["slstm"]["w_h"].mul_((nh / hd) ** 0.5)
+    return params
+
+
+def test_xlstm_on_cuda_matches_cpu(cuda):
+    """xlstm-125m SMOKE, f32, TF32 off, S = 128 over chunks of 64
+    (conv_width 1: the mLSTM carry runs): the worker's gradient on the
+    card against the CPU, each leaf within 1e-4 of its largest element,
+    the loss to 1e-5; one AMB-DG step (tau 0) launches the dual update
+    once and agrees; 8 decode steps' logits and states within 1e-4 of
+    the largest."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.configs import base, get_smoke_config
+    from repro_torch.core.arena import tree_flatten, tree_map
+    from repro_torch.kernels.dual_update import kernel
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = get_smoke_config("xlstm-125m")
+    cfg = dataclasses.replace(smoke, compute_dtype="float32",
+                              xlstm=dataclasses.replace(smoke.xlstm,
+                                                        conv_width=1))
+    params = _xlstm_params(cfg)
+    batch = build_model(cfg, device="cpu").dummy_batch(
+        2, 128, torch.Generator().manual_seed(1))
+    got, loss = _grads(cfg, params, batch, cuda)
+    want, want_loss = _grads(cfg, params, batch, "cpu")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    rc = base.RunConfig(model=cfg, shape=dataclasses.replace(
+        base.TRAIN_4K, seq_len=128, global_batch=2),
+        ambdg=base.AmbdgConfig(tau=0, b_bar=2.0, n_microbatches=1))
+    metrics = {}
+    for device in ("cpu", cuda):
+        s = api.build(build_model(cfg, device=device), rc, device=device)
+        state = s.init_state()._replace(params=tree_map(
+            lambda a: a.to(device), params))
+        n0 = kernel.KERNEL.launches
+        state, m = s.train_step(state, {k: v.to(device)
+                                        for k, v in batch.items()})
+        if device != "cpu":
+            assert kernel.KERNEL.launches - n0 == 1
+        metrics[str(device)] = float(m["loss"])
+    assert metrics["cuda"] == pytest.approx(metrics["cpu"], rel=1e-5)
+    caches, logits = {}, {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device=device)
+        p = tree_map(lambda a: a.to(device), params)
+        cache, _ = model.init_decode_state(3, 8)
+        out = []
+        for t in range(8):
+            tok = torch.full((3, 1), 3 * t + 1, dtype=torch.int64,
+                             device=device)
+            with torch.no_grad():
+                lg, cache = model.decode_step(p, cache, tok, t)
+            out.append(lg.cpu())
+        caches[str(device)] = [x.cpu() for x in tree_flatten(cache)[0]]
+        logits[str(device)] = torch.stack(out)
+    for a, b in zip(caches["cuda"] + [logits["cuda"]],
+                    caches["cpu"] + [logits["cpu"]]):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a - b).abs().max()) <= 1e-4 * scale

@@ -9,6 +9,7 @@ import sys
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +55,9 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.core.consensus", "repro_torch.optim.compression",
          # train-while-serve
          "repro_torch.serve", "repro_torch.serve.engine",
-         "repro_torch.serve.publisher", "repro_torch.serve.request_queue"]
+         "repro_torch.serve.publisher", "repro_torch.serve.request_queue",
+         # the xLSTM slice
+         "repro_torch.models.xlstm", "repro_torch.configs.xlstm_125m"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -331,7 +334,8 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.api import build_model
     for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
-                 "zamba2-2.7b", "mixtral-8x7b", "mixtral-8x22b"):
+                 "zamba2-2.7b", "mixtral-8x7b", "mixtral-8x22b",
+                 "xlstm-125m"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(get_smoke_config(arch))
         assert build_model(get_smoke_config(arch),
@@ -346,8 +350,8 @@ def _dense(**kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(family="moe"), "moe config"),
-    (dict(family="ssm"), "A.13"),
-    (dict(family="ssm", xlstm=XLSTMConfig()), "A.13"),
+    (dict(family="ssm"), "xlstm config"),
+    (dict(family="ssm", xlstm=XLSTMConfig()), None),
     (dict(family="vlm"), "A.13"),
     (dict(family="encdec"), "A.13"),
     (dict(family="moe", moe=MoEConfig()), None),
@@ -355,14 +359,16 @@ def _dense(**kw):
     (dict(logit_softcap=30.0), None),
     (dict(sliding_window=16), None),
     (dict(seq_parallel=True), "A.11"),
-    (dict(block_remat="dots"), "A.13"),
+    (dict(block_remat="dots"), None),
+    (dict(block_remat="selective"), "block_remat"),
 ])
 def test_unported_model_knobs_raise(kw, item):
     """Each knob the port does not carry raises naming its ROADMAP item;
-    the MOE family (given its moe config), prefix_lm, logit_softcap and
-    sliding_window are ported and build and take a loss on the CPU (a
-    MOE family without a moe config raises a ValueError, as JAX's
-    model fails on it)."""
+    the MOE family (given its moe config), the SSM family (given its
+    xlstm config), prefix_lm, logit_softcap, sliding_window and
+    ``block_remat="dots"`` are ported and build and take a loss on the
+    CPU (a MOE or SSM family without its config, and an unknown
+    block_remat, raise a ValueError, as JAX's model fails on them)."""
     from repro_torch.models.api import build_model
     if item is None:
         model = build_model(_dense(**kw), device="cpu")
@@ -370,25 +376,45 @@ def test_unported_model_knobs_raise(kw, item):
         loss, aux = model.loss(model.init(), batch)
         assert bool(torch.isfinite(loss)) and float(aux["count"]) == 46
         return
-    error = ValueError if item == "moe config" else NotImplementedError
+    error = (ValueError if item in ("moe config", "xlstm config",
+                                    "block_remat")
+             else NotImplementedError)
     with pytest.raises(error, match=item):
         build_model(_dense(**kw), device="cpu")
 
 
 def _decode_entry(entry, cfg):
-    """Call the transformer's decode entry ``entry`` on ``cfg``."""
+    """Call the transformer's decode entry ``entry`` on ``cfg``: the cache
+    tree's keys, or one step's logits."""
     from repro_torch.models import transformer as tf
     if entry == "init_decode_state":
-        return tf.init_decode_state(cfg, 2, 8)
-    return tf.decode_step({}, cfg, {}, torch.zeros((2, 1), dtype=torch.int64),
-                          0)
+        return set(tf.init_decode_state(cfg, 2, 8)[0])
+    params = tf.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache, _ = tf.init_decode_state(cfg, 2, 8)
+    return tf.decode_step(params, cfg, cache,
+                          torch.zeros((2, 1), dtype=torch.int64), 0)[0]
+
+
+def _check_xlstm_decodes(entry, cfg):
+    """The xLSTM (ssm) family decodes through ``entry`` given its xlstm
+    config, and raises a ValueError without one."""
+    import dataclasses
+    got = _decode_entry(entry, cfg)
+    if entry == "init_decode_state":
+        assert got == {"mlstm", "slstm"}
+    else:
+        assert got.shape == (2, 1, cfg.padded_vocab_size)
+        assert bool(torch.isfinite(got).all())
+    with pytest.raises(ValueError, match="xlstm config"):
+        _decode_entry(entry, dataclasses.replace(cfg, xlstm=None))
 
 
 @pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
 def test_decode_path_raises(entry):
     """The DENSE and MOE decode paths are ported (the model's entries run,
     the MOE one with a rolling window cache of 4 slots past its wrap);
-    the still-unported xLSTM (ssm) family's decode raises naming A.13."""
+    the xLSTM (ssm) family's decodes, and raises a ValueError without its
+    xlstm config."""
     from repro_torch.configs.base import MoEConfig as MoE
     from repro_torch.models.api import build_model
     model = build_model(_dense(), device="cpu")
@@ -406,8 +432,7 @@ def test_decode_path_raises(entry):
             params, cache, torch.zeros((2, 1), dtype=torch.int64),
             torch.tensor([t, t + 1]))
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _decode_entry(entry, _dense(family="ssm", xlstm=XLSTMConfig()))
+    _check_xlstm_decodes(entry, _dense(family="ssm", xlstm=XLSTMConfig()))
 
 
 def _hybrid(**kw):
@@ -439,8 +464,8 @@ def test_hybrid_model_knobs_raise(kw, error, match):
 
 @pytest.mark.parametrize("entry", ["init_decode_state", "decode_step"])
 def test_hybrid_decode_path_raises(entry):
-    """The HYBRID decode path is ported; the xLSTM (ssm) family's decode
-    raises naming A.13."""
+    """The HYBRID decode path is ported; so is the xLSTM (ssm) family's,
+    which raises a ValueError without its xlstm config."""
     from repro_torch.models.api import build_model
     model = build_model(_hybrid(), device="cpu")
     cache, _ = model.init_decode_state(2, 8)
@@ -449,5 +474,69 @@ def test_hybrid_decode_path_raises(entry):
                                   torch.zeros((2, 1), dtype=torch.int64),
                                   torch.tensor([0, 3]))
     assert logits.shape == (2, 1, model.cfg.padded_vocab_size)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _decode_entry(entry, _hybrid(family="ssm", xlstm=XLSTMConfig()))
+    _check_xlstm_decodes(entry, _hybrid(family="ssm", xlstm=XLSTMConfig()))
+
+
+@pytest.mark.parametrize("stack,floor", [("mlstm", -1e30), ("slstm", -30.0)])
+def test_xlstm_decode_state_starts_each_m_at_its_floor(stack, floor):
+    """The mLSTM's m starts at -1e30 (JAX's NEG_INF), the sLSTM's at -30
+    (JAX's ``slstm_zero_state``), in f32; every other state leaf at 0.
+    The engine's slot reset copies these from its template."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.models.api import build_model
+    model = build_model(get_smoke_config("xlstm-125m"), device="cpu")
+    cache, caxes = model.init_decode_state(3, 8)
+    m = cache[stack]["m"]
+    assert m.dtype == torch.float32 and caxes[stack]["m"][1] == "batch"
+    assert torch.equal(m, torch.full_like(m, floor))
+    for name, leaf in cache[stack].items():
+        if name != "m":
+            assert leaf.dtype == torch.float32
+            assert not bool(leaf.any()), name
+    assert len(tree_flatten(cache)[0]) == 7
+
+
+@pytest.mark.parametrize("strategy", ["ambdg", "amb", "kbatch",
+                                      "decentralized"])
+def test_remat_knobs_step_every_lm_strategy(strategy):
+    """``block_remat="dots"`` with ``rc.remat="whole_loss"`` (which raised
+    before the xLSTM slice) builds and steps every strategy that takes an
+    LM's gradient, on xlstm-125m SMOKE in f32: two steps whose losses and
+    gradient norms equal those of the default (full block remat, no
+    whole-loss checkpoint) to rtol 1e-6."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (AmbdgConfig, ConsensusConfig,
+                                          RunConfig, TRAIN_4K)
+    from repro_torch.data.pipeline import AnytimePipeline
+    from repro_torch.models.api import build_model
+    runs, threads = [], torch.get_num_threads()
+    torch.set_num_threads(1)       # the sLSTM's time loop of tiny ops
+    try:
+        for block_remat, remat in (("dots", "whole_loss"), ("full", "none")):
+            cfg = dataclasses.replace(get_smoke_config("xlstm-125m"),
+                                      compute_dtype="float32",
+                                      block_remat=block_remat)
+            rc = RunConfig(model=cfg, strategy=strategy, remat=remat,
+                           shape=dataclasses.replace(TRAIN_4K, seq_len=16,
+                                                     global_batch=4),
+                           ambdg=AmbdgConfig(tau=1, b_bar=4.0,
+                                             n_microbatches=2),
+                           consensus=ConsensusConfig(n_workers=2, rounds=1))
+            s = api.build(build_model(cfg, device="cpu"), rc, device="cpu")
+            state = s.init_state(torch.Generator().manual_seed(0))
+            pipe = AnytimePipeline(cfg, 2, 2, seq_len=16, seed=0)
+            out = []
+            for _ in range(2):
+                batch = {k: torch.from_numpy(v)
+                         for k, v in pipe.next_global_batch().items()}
+                state, m = s.train_step(state, batch)
+                out.append([float(m["loss"]), float(m.get(
+                    "grad_norm", m["loss"]))])
+            runs.append(out)
+    finally:
+        torch.set_num_threads(threads)
+    assert all(np.isfinite(runs[0]).ravel())
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-6)

@@ -231,3 +231,95 @@ def test_long_sequence_attention_runs_in_q_blocks_as_in_jax(arch,
         assert _rel_err(g, jg) <= limit, (name, _rel_err(g, jg))
     assert jcalls and set(jcalls) == {S}
     assert scores and set(scores) == {(chunk, S, (chunk, S))}
+
+
+# -- the remat knobs: block_remat="dots" and rc.remat="whole_loss" ------------
+REMAT_ARCHS = ["qwen1.5-0.5b", "xlstm-125m"]
+
+
+def _remat_grads(arch, block_remat="full", remat="none"):
+    """The worker's f32 gradient on one batch of the SMOKE model, through
+    ``ambdg.loss_with_remat`` (the loss every LM strategy takes)."""
+    from repro_torch.configs import base
+    from repro_torch.core.ambdg import loss_with_remat
+    from repro_torch.core.anytime import accumulate_scan
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32",
+                              block_remat=block_remat)
+    model = build_model(cfg, device="cpu")
+    rc = base.RunConfig(model=cfg, shape=base.TRAIN_4K, remat=remat)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    g, _, m = accumulate_scan(loss_with_remat(model, rc),
+                              model.init(torch.Generator().manual_seed(0)),
+                              batch, 1)
+    return tree_flatten(g)[0], float(m["loss_sum"])
+
+
+@pytest.mark.parametrize("knob", ["block_remat=dots", "remat=whole_loss",
+                                  "remat=ablation_name"])
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_knobs_give_the_gradient_of_full(arch, knob):
+    """``block_remat="dots"`` (JAX's checkpoint_dots) and
+    ``rc.remat="whole_loss"`` (JAX's ``_loss_with_remat``; any other
+    value leaves the loss as it is, as in JAX) recompute what "full"
+    recomputes or less: the same loss and each gradient leaf within 1e-6
+    of its largest element (ROADMAP C.9: the CPU's embedding gradient
+    need not repeat bit for bit)."""
+    name, value = knob.split("=")
+    want, want_loss = _remat_grads(arch)
+    got, loss = _remat_grads(arch, **{name: value})
+    assert loss == want_loss
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+
+
+def _bytes_held_for_backward(fn):
+    """The bytes of every storage the forward ``fn()`` made that is still
+    alive when it returns (what autograd and the checkpoints keep for
+    the backward, and the output). ``saved_tensors_hooks`` cannot count
+    them: a checkpointed region saves through the checkpoint's own hooks,
+    and the "dots" policy keeps the products' outputs in its cache."""
+    import gc
+    from torch.multiprocessing.reductions import StorageWeakRef
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Watch(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.made = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_leaves(out):
+                if isinstance(t, torch.Tensor):
+                    s = t.untyped_storage()
+                    self.made.setdefault(s._cdata, (StorageWeakRef(s),
+                                                    s.nbytes()))
+            return out
+
+    with Watch() as watch:
+        out = fn()
+    gc.collect()
+    held = sum(n for ref, n in watch.made.values() if not ref.expired())
+    del out
+    return held
+
+
+@pytest.mark.parametrize("arch", REMAT_ARCHS)
+def test_remat_modes_order_the_bytes_held_for_backward(arch):
+    """After the forward of the SMOKE model, "full" holds fewer bytes for
+    the backward than "dots" (which keeps the matrix products' outputs
+    too), and "dots" fewer than "none" (which keeps everything)."""
+    held = {}
+    for remat in ("full", "dots", "none"):
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32", block_remat=remat)
+        model = build_model(cfg, device="cpu")
+        leaves, treedef = tree_flatten(model.init(
+            torch.Generator().manual_seed(0)))
+        params = arena.tree_unflatten(
+            treedef, [x.requires_grad_(True) for x in leaves])
+        batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+        held[remat] = _bytes_held_for_backward(
+            lambda: model.loss(params, batch)[0])
+    assert held["full"] < held["dots"] < held["none"], held
