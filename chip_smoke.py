@@ -225,7 +225,7 @@ Phases (any failure raises and the script exits non-zero):
      the sLSTM's recurrent weights rescaled to fan-in head_dim (at the
      init's fan-in n_heads the recurrence is chaotic and its gradient at
      1024 tokens is not finite, in JAX as in the port, ROADMAP C.16):
-     (a) f32, all 12 layers, one sequence of 1024 tokens (4 mLSTM
+     (a) f32, 6 of the 12 layers, one sequence of 1024 tokens (4 mLSTM
      chunks): the loss and the worker's gradient on the card against the
      CPU leaf by leaf and a prefill-by-decode over 512 tokens against the
      forward's last position (limits below); a no-grad forward at 4096
@@ -239,9 +239,32 @@ Phases (any failure raises and the script exits non-zero):
      512, Poisson 0.5, 16 + 64 steps, as 17d; the SMOKE engine in f32 on
      the card against the CPU, 3 ragged slots, 24 steps, tokens equal.
 
-``python3 chip_smoke.py --only=2,13,14,15,16,17,18`` runs the build and
-then only the phases named among 13-18 (``2``: phase 2's mixtral flash
-rows alone; a short call while working on them; no kernels or ok line).
+ 19. the encoder-decoder and the VLM (seamless-m4t-large-v2 FULL widths:
+     d_model 1024, 16/16 heads of 64, d_ff 8192, vocab 256,206;
+     paligemma-3b FULL widths: d_model 2048, 8 query heads on 1 kv head
+     of 256, d_ff 16384, vocab 257,216, 256 stub patches, prefix-LM; JAX
+     computes both outside Pallas, so no kernel is new), each from one
+     seeded init on the card: (a) f32, the worker's gradient and loss on
+     the card against the CPU leaf by leaf at seamless 2 + 2 layers
+     (under "flash": the kernels, non-causal in the encoder and the
+     cross-attention, against their plain version on the CPU; and against
+     "xla" on the card) and paligemma 1 layer, one sequence of 512 tokens
+     (phase 7's limits); seamless's no-grad forward at 4096 tokens, 6 + 6
+     layers, bf16, flash against xla; (b) AMB-DG through ``train`` in
+     bf16, 2 workers x 1 sequence of 4096 tokens, 2 microbatches, tau 2,
+     int8, l2 ball, full remat, 3 steps, on seamless at 6 + 6 of its 24 +
+     24 layers under "flash" (B.1 and B.2 once a step, the forward with
+     lse twice and dq and dk/dv once per attention and microbatch) and
+     paligemma at 4 of its 18 layers (the plain prefix-LM core: B.1 and
+     B.2 only): the step split, the kernel split and the peak; (c)
+     serving each (``api.serve``) in bf16, 8 slots of 512, Poisson 0.5,
+     16 + 64 steps, as 17d; each SMOKE engine in f32 on the card against
+     the CPU, 3 ragged slots, 24 steps, tokens equal.
+
+``python3 chip_smoke.py --only=2,13,14,15,16,17,18,19`` runs the build
+and then only the phases named among 13-19 (``2``: phase 2's mixtral and
+non-causal flash rows alone; a short call while working on them; no
+kernels or ok line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -252,7 +275,11 @@ D = 128, S = 4096), at mixtral-8x7b's (32/8 heads, D = 128, S = 8192, a
 queries (Sq = 256, Skv = 512), untimed on rows with no valid key, at a
 ragged GQA length and with a window at D = 128; and in f32 at the main
 path's and the GQA shapes, on rows with no valid key and with a window
-at D = 128. bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles),
+at D = 128. Non-causal (every query over every key): timed in bf16 at
+seamless-m4t's encoder shape (B = 2, 16/16 heads, S = 4096, D = 64; SDPA
+with ``is_causal=False`` the library time), untimed at the
+cross-attention's Sq = 320 over Skv = 4096 and Sq = 4096 over Skv = 1000,
+and in f32 at the encoder's shape. bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles),
 f32 the exact CUDA-core kernels.
 Each element is held on its own: within one ulp of its dtype (2^-7 of
 the element in bf16) plus 1e-5 of the tensor's largest element. Two
@@ -891,6 +918,22 @@ FLASH_BF16_EDGES = [
     ("gqa-ragged", 1, 8, 2, 192, 192, 128, None),
     ("gqa-d128", 1, 8, 2, 512, 512, 128, 200),
 ]
+# non-causal (every query over every key), bf16, timed: seamless-m4t's
+# encoder self-attention at train_4k (16/16 heads of 64, one microbatch
+# of 2 sequences); its decoder's cross-attention has the same shape
+FLASH_NONCAUSAL = [
+    ("seamless-encoder", 2, 16, 16, 4096, 4096, 64, None),
+]
+# non-causal, correctness only: the cross-attention with a target shorter
+# and longer than the source (ragged last tiles in both walks), bf16; the
+# encoder's shape in f32
+FLASH_NONCAUSAL_EDGES = [
+    ("cross-short-target", 1, 16, 16, 320, 4096, 64, None),
+    ("cross-long-target", 1, 16, 16, 4096, 1000, 64, None),
+]
+FLASH_NONCAUSAL_F32 = [
+    ("seamless-encoder", 2, 16, 16, 4096, 4096, 64, None),
+]
 # correctness only, f32: the main path's shape and the GQA shapes, rows
 # with no valid key (Sq > Skv), a window at D = 128
 FLASH_F32 = [
@@ -956,17 +999,19 @@ def log_flash_row(r):
              f"{r['wrapper_ms']:.4f}")
     log(f"phase 2: flash {r['kernel']} {r['label']} {r['dtype']} "
         f"B={r['B']} H={r['Hq']}/{r['Hkv']} S={r['Sq']}/{r['Skv']} "
-        f"D={r['D']} window={r['window']}: bitwise-repeat="
+        f"D={r['D']} causal={r['causal']} window={r['window']}: "
+        f"bitwise-repeat="
         f"{r['bitwise']} max_abs_err={r['max_abs_err']:.3e} rel_err="
         f"{r['rel_err']:.3e} err/limit={r['err_over_limit']:.3f} "
         f"<= 1{times}")
 
 
 def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
-                timed_run=True):
+                timed_run=True, causal=True):
     """The four flash kernels against their plain versions at one shape
-    (causal): errors, bitwise repeat, and (``timed_run``) the kernel, plain
-    and SDPA times with the bound. Returns one dict per kernel."""
+    (causal, or every query over every key): errors, bitwise repeat, and
+    (``timed_run``) the kernel, plain and SDPA times with the bound over
+    the attended pairs. Returns one dict per kernel."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -976,10 +1021,10 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
     k = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
     v = torch.randn((B, Hkv, Skv, D), generator=gen, device=dev).to(dtype)
     do = torch.randn((B, Hq, Sq, D), generator=gen, device=dev).to(dtype)
-    kw = dict(causal=True, window=window, scale=D ** -0.5)
+    kw = dict(causal=causal, window=window, scale=D ** -0.5)
     runs = {
         "fwd": (lambda: (fa.flash_attention_fwd(q, k, v, **kw),),
-                lambda: (ref.attention_ref(q, k, v, causal=True,
+                lambda: (ref.attention_ref(q, k, v, causal=causal,
                                            window=window),)),
         "fwd_lse": (lambda: fa.flash_fwd_lse(q, k, v, **kw),
                     lambda: ref.flash_fwd_lse_ref(q, k, v, **kw)),
@@ -991,11 +1036,13 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
                   lambda: (ref.flash_bwd_dq_ref(*bargs, **kw),))
     runs["dkv"] = (lambda: fa.flash_bwd_dkv(*bargs, **kw),
                    lambda: ref.flash_bwd_dkv_ref(*bargs, **kw))
-    mask = ref.attention_mask(Sq, Skv, True, window, dev)
+    mask = ref.attention_mask(Sq, Skv, causal, window, dev)
     n_pairs = int(mask.sum())
     ulp = FLASH_ULP[str(dtype).split(".")[-1]]
     sdpa_kw = dict(enable_gqa=Hq != Hkv)
-    if Sq == Skv and window is None:
+    if not causal and window is None:
+        pass                # SDPA's default: every query over every key
+    elif Sq == Skv and window is None:
         sdpa_kw["is_causal"] = True
     else:   # SDPA's is_causal is top-left aligned: pass the mask itself
         sdpa_kw["attn_mask"] = mask
@@ -1027,7 +1074,7 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
         del got, again, want
         r = dict(kernel=kind, label=label, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq,
                  Skv=Skv, D=D, window=window, dtype=str(dtype).split(".")[-1],
-                 bitwise=bitwise, max_abs_err=err, rel_err=rel,
+                 causal=causal, bitwise=bitwise, max_abs_err=err, rel_err=rel,
                  err_over_limit=ratio)
         if timed_run:
             r.update(timed(kern, plain, FLASH_SYMBOLS[kind], n=N_FLASH_TIMED))
@@ -1039,6 +1086,22 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
         torch.cuda.empty_cache()
         out.append(r)
     return out
+
+
+def noncausal_flash_rows(gen):
+    """Phase 2's non-causal rows: FLASH_NONCAUSAL timed in bf16 (SDPA
+    with ``is_causal=False`` the library time), FLASH_NONCAUSAL_EDGES in
+    bf16 and FLASH_NONCAUSAL_F32 in f32, untimed. Returns the rows."""
+    import torch
+    rows = []
+    for shapes, dtype, timed_run in (
+            (FLASH_NONCAUSAL, torch.bfloat16, True),
+            (FLASH_NONCAUSAL_EDGES, torch.bfloat16, False),
+            (FLASH_NONCAUSAL_F32, torch.float32, False)):
+        for shape in shapes:
+            rows += check_flash(*shape, dtype, gen, timed_run=timed_run,
+                                causal=False)
+    return rows
 
 
 # -- the linear scan and the pytree dual update (phase 2) ---------------------
@@ -3365,27 +3428,33 @@ def serve_kernel_split(kernels, n_steps):
     return out
 
 
-def serve_load(cfg, slots, n_timed, warmup=SERVE_WARMUP):
-    """Phase 16c for one model: the engine on the card (the config's bf16
-    compute, bf16 KV cache) at ``slots`` slots of 512 positions under
-    Poisson traffic of 0.5 requests a step (prompts of 16-128 tokens,
-    max_new 64): ``warmup`` steps, then ``n_timed`` timed steps (host
-    clock; each step ends in its one read back), then SERVE_PROFILED
-    steps under the profiler. Returns the record."""
+def serve_load(cfg, slots, n_timed, warmup=SERVE_WARMUP, params=None):
+    """Phase 16c for one model: the engine and its request queue from
+    ``api.serve`` on the card (the config's bf16 compute, bf16 KV cache;
+    the weights ``params``, by default the model's init from seed 0) at
+    ``slots`` slots of 512 positions under Poisson traffic of 0.5
+    requests a step (prompts of 16-128 tokens, max_new 64): ``warmup``
+    steps, then ``n_timed`` timed steps (host clock; each step ends in
+    its one read back), then SERVE_PROFILED steps under the profiler.
+    Returns the record."""
     import dataclasses
     import torch
-    from repro_torch.configs.base import ServeConfig
+    from repro_torch import api
+    from repro_torch.configs.base import (MeshConfig, RunConfig, ServeConfig,
+                                          TRAIN_4K)
     from repro_torch.core.arena import tree_flatten
     from repro_torch.models.api import build_model
-    from repro_torch.serve import Engine, RequestQueue
     sc = ServeConfig(slots=slots, max_len=512, max_new=64,
                      arrival="poisson", arrival_rate=0.5, prompt_len_min=16,
                      prompt_len_max=128, seed=16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda")
-    engine = Engine(model, sc.slots, sc.max_len, seed=0)
-    queue = RequestQueue(sc, cfg.vocab_size)
+    if params is not None:
+        model = dataclasses.replace(model, init_fn=lambda dev, gen: params)
+    engine, queue = api.serve(model, RunConfig(
+        model=cfg, shape=TRAIN_4K, mesh=MeshConfig(1, 1, 1), serve=sc),
+        device="cuda")
 
     def steps(n):
         times = []
@@ -4017,6 +4086,9 @@ XL_STEPS = 3         # 18b: the third applies the first delayed update
 # 4 x 1024 tokens is ~210,000 eager kernels at 4 layers (each sLSTM time
 # step ~25 forward and ~50 backward), ~30 us of host work each, 6.3 s
 XL_TRAIN_LAYERS = 2
+# 18a's depth, of 12 (12 until phase 19 came, cut for the script's time
+# limit: the card's cold gradient and the CPU's took 15 + 22 s at 12)
+XL_DEVICE_LAYERS = 6
 XL_SERVE_SLOTS, XL_SERVE_WARMUP, XL_SERVE_TIMED = 8, 16, 64
 XL_DEVICE_STEPS = 24     # 18c: SMOKE engine steps, card against CPU
 # 18a: prefill-by-decode against the forward's last position, f32, of the
@@ -4064,15 +4136,14 @@ def xl_model(cfg, device):
 
 
 def xlstm_init_phase(drive, expect):
-    """Phase 18a: xlstm-125m FULL, all 12 layers, f32, no block remat,
-    one sequence of XL_SEQ tokens, at the init weights with the sLSTM's
-    w_h rescaled (``xl_rescale_``): the loss and the worker's gradient on
-    the card against the CPU, leaf by leaf (XL_DEVICE_GRAD_TOL; the loss
-    to phase 7's LM_F32_RTOL), and the last position's logits of a
-    prefill-by-decode over XL_PREFILL tokens against the forward's
-    (XL_DECODE_TOL).
-    Then one no-grad forward at XL_LONG tokens in the config's bf16,
-    timed. No kernel of the port launches (JAX's xLSTM has no Pallas
+    """Phase 18a: xlstm-125m FULL at XL_DEVICE_LAYERS of its 12 layers,
+    f32, no block remat, one sequence of XL_SEQ tokens, at the init
+    weights with the sLSTM's w_h rescaled (``xl_rescale_``): the loss and
+    the worker's gradient on the card against the CPU, leaf by leaf
+    (XL_DEVICE_GRAD_TOL; the loss to phase 7's LM_F32_RTOL), and the last
+    position's logits of a prefill-by-decode over XL_PREFILL tokens
+    against the forward's (XL_DECODE_TOL). Then one no-grad forward of
+    all 12 layers at XL_LONG tokens in the config's bf16, timed. No kernel of the port launches (JAX's xLSTM has no Pallas
     call). Returns the record."""
     import torch
     from repro_torch.core.arena import tree_map
@@ -4081,7 +4152,8 @@ def xlstm_init_phase(drive, expect):
     torch.backends.cuda.matmul.allow_tf32 = False
     # no block remat: the same gradient without the recompute's quarter
     # of the ~0.6 M eager kernels (18b runs the remat modes)
-    cfg = xl_config(compute_dtype="float32", block_remat="none")
+    cfg = xl_config(compute_dtype="float32", block_remat="none",
+                    n_layers=XL_DEVICE_LAYERS)
     params = xl_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     host = TokenStream(cfg, seed=1).next_batch(1, XL_SEQ)
     cpu_batch = {k: torch.from_numpy(v) for k, v in host.items()}
@@ -4278,6 +4350,300 @@ def xlstm_phase(drive, expect):
     return out
 
 
+# -- the encoder-decoder and the VLM (phase 19) --------------------------------
+SEAMLESS, PALIGEMMA = "seamless-m4t-large-v2", "paligemma-3b"
+# 19b/19c depths at full width, for the AMB-DG state (~38 bytes a
+# parameter) and the 256k-wide logits of a 4096-token sequence to fit one
+# card: seamless 6 encoder + 6 decoder layers of 24 + 24 (0.90B
+# parameters), paligemma 4 of its 18 layers (0.97B)
+ED_LAYERS, PG_LAYERS = 6, 4
+# 19a: f32, the card against the CPU (and seamless's flash against xla)
+# at 2 + 2 seamless layers and 1 paligemma layer, one sequence of
+# ED_SHORT tokens (paligemma: its 256 patches and 256 text tokens)
+ED_DEVICE_LAYERS, PG_DEVICE_LAYERS, ED_SHORT = 2, 1, 512
+ED_LONG = 4096       # train_4k's length: 19a's no-grad forward and 19b
+ED_STEPS = 3         # 19b: the third applies the first delayed update
+ED_SERVE_SLOTS, ED_SERVE_WARMUP, ED_SERVE_TIMED = 8, 16, 64
+ED_DEVICE_STEPS = 24     # 19c: SMOKE engine steps, card against CPU
+
+
+def ed_config(arch, n_layers, **kw):
+    """``arch``'s FULL config at ``n_layers`` layers (seamless:
+    ``n_layers`` encoder and ``n_layers`` decoder layers), with any
+    overrides."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    depth = dict(n_layers=n_layers)
+    if cfg.family == "encdec":
+        depth["n_encoder_layers"] = n_layers
+    return dataclasses.replace(cfg, **depth, **kw)
+
+
+def stack_prefix(params, n):
+    """``params`` with every stacked child (``encoder``, ``decoder``,
+    ``layers``) cut to its first ``n`` layers (views)."""
+    from repro_torch.core.arena import tree_map
+    return {k: tree_map(lambda a: a[:n], v)
+            if k in ("encoder", "decoder", "layers") else v
+            for k, v in params.items()}
+
+
+def fixed_model(cfg, params):
+    """``cfg``'s model on the card whose ``init`` returns ``params``."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    return dataclasses.replace(build_model(cfg, device="cuda"),
+                               init_fn=lambda dev, gen: params)
+
+
+def ed_flash_launches(n_enc, n_dec):
+    """Flash calls of one seamless forward: the encoder's self-attention
+    per encoder layer, the decoder's self- and cross-attention per decoder
+    layer."""
+    return n_enc + 2 * n_dec
+
+
+def ed_device_check(drive, expect, arch, p0, n_layers, label):
+    """19a for one family: at the FULL widths, ``n_layers`` layers of the
+    seeded init ``p0``, f32, one sequence of ED_SHORT tokens: the worker's
+    gradient and loss on the card against the CPU, leaf by leaf
+    (LM_DEVICE_GRAD_TOL, LM_F32_RTOL); seamless under "flash" (the
+    kernels, non-causal in its encoder and cross-attention, on the card;
+    their plain version on the CPU) and also against "xla" on the card
+    (LM_F32_GRAD_TOL). Returns the record."""
+    import dataclasses
+    import torch
+    from repro_torch.core.arena import tree_map
+    from repro_torch.data.synthetic import TokenStream
+    encdec = arch == SEAMLESS
+    cfg = ed_config(arch, n_layers, compute_dtype="float32",
+                    block_remat="none",
+                    **({"attn_impl": "flash"} if encdec else {}))
+    params = stack_prefix(p0, n_layers)
+    host = TokenStream(cfg, seed=1).next_batch(1, ED_SHORT)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    batch = {k: v.to("cuda") for k, v in cpu_batch.items()}
+    names = leaf_names(params)
+    secs, rec = {}, {}
+    t0 = time.perf_counter()
+    (g_gpu, loss_gpu), n = drive(lambda: model_grads(cfg, params, batch))
+    torch.cuda.synchronize()
+    secs["grad_card"] = time.perf_counter() - t0
+    per = ed_flash_launches(n_layers, n_layers) if encdec else 0
+    assert n == (expect(flash_fwd_lse=per, flash_bwd_dq=per,
+                        flash_bwd_dkv=per) if encdec else expect()), n
+    if encdec:
+        g_xla, loss_xla = model_grads(dataclasses.replace(cfg,
+                                                          attn_impl="xla"),
+                                      params, batch)
+        rec["grad_gap_flash_vs_xla"] = leaf_gaps(g_gpu, g_xla, names)
+        rec["loss_xla"] = loss_xla
+        del g_xla
+    t0 = time.perf_counter()
+    g_cpu, loss_cpu = model_grads(cfg, tree_map(lambda a: a.cpu(), params),
+                                  cpu_batch)
+    secs["grad_cpu"] = time.perf_counter() - t0
+    rec.update(leaves=names, layers=n_layers,
+               grad_gap_card_vs_cpu=leaf_gaps(g_gpu, g_cpu, names),
+               loss_card=loss_gpu, loss_cpu=loss_cpu, seconds=secs)
+    del g_gpu, g_cpu
+    torch.cuda.empty_cache()
+    for i, name in enumerate(names):
+        extra = (f"; flash vs xla {rec['grad_gap_flash_vs_xla'][i]:.3e}"
+                 if encdec else "")
+        log(f"{label}: {arch} gradient {name}: card vs cpu "
+            f"{rec['grad_gap_card_vs_cpu'][i]:.3e}{extra} (of the leaf's "
+            "largest element)")
+    log(f"{label}: {arch} {n_layers} layers f32, {ED_SHORT} tokens: loss per "
+        f"token card {loss_gpu:.7f}, cpu {loss_cpu:.7f}"
+        + (f", card xla {rec['loss_xla']:.7f}" if encdec else "")
+        + f"; launches {n}; seconds {json.dumps(secs)}")
+    assert all(g <= LM_DEVICE_GRAD_TOL for g in rec["grad_gap_card_vs_cpu"]), \
+        rec["grad_gap_card_vs_cpu"]
+    assert math.isclose(loss_gpu, loss_cpu, rel_tol=LM_F32_RTOL), (
+        loss_gpu, loss_cpu)
+    if encdec:
+        assert all(g <= LM_F32_GRAD_TOL
+                   for g in rec["grad_gap_flash_vs_xla"]), \
+            rec["grad_gap_flash_vs_xla"]
+        assert math.isclose(loss_gpu, rec["loss_xla"], rel_tol=LM_F32_RTOL)
+    return rec
+
+
+def ed_long_forward(drive, expect, p0):
+    """19a's no-grad forward: seamless at ED_LAYERS + ED_LAYERS layers,
+    one sequence of ED_LONG source and target tokens, bf16: the loss per
+    token under "flash" (one forward kernel per attention: the encoder's
+    and the cross-attention's non-causal) against "xla", timed. Returns
+    the record."""
+    import dataclasses
+    import torch
+    from repro_torch.data.synthetic import TokenStream
+    cfg = ed_config(SEAMLESS, ED_LAYERS, attn_impl="flash")
+    host = TokenStream(cfg, seed=2).next_batch(1, ED_LONG)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+    secs, ev = {}, {}
+    for impl in ("flash", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[impl], n = drive(lambda: lm_eval(
+            dataclasses.replace(cfg, attn_impl=impl), p0, batch))
+        secs[impl] = time.perf_counter() - t0
+        want = ed_flash_launches(ED_LAYERS, ED_LAYERS) if impl == "flash" \
+            else 0
+        assert n == (expect(flash_fwd=want) if want else expect()), (impl, n)
+    torch.cuda.empty_cache()
+    log(f"phase 19a: {SEAMLESS} {ED_LAYERS} + {ED_LAYERS} layers bf16, "
+        f"{ED_LONG} tokens, no-grad loss per token: flash {ev['flash']:.6f}, "
+        f"xla {ev['xla']:.6f}; seconds {json.dumps(secs)}")
+    assert math.isfinite(ev["flash"])
+    assert math.isclose(ev["flash"], ev["xla"], rel_tol=LM_BF16_RTOL), ev
+    return dict(eval=ev, seconds=secs)
+
+
+def ed_train(drive, expect, arch, cfg, params):
+    """19b for one family: AMB-DG through ``train`` (``api.build``) from
+    ``params``, bf16, 2 workers x 1 sequence of ED_LONG tokens in 2
+    microbatches, tau 2, int8, l2 ball, full remat, ED_STEPS steps: B.1
+    and B.2 once a step; seamless under "flash" launches the forward with
+    lse twice (remat) and dq and dk/dv once per attention and microbatch,
+    paligemma (prefix-LM: the plain core) no flash kernel. Counts,
+    finite losses, w in the ball; the step split, the kernel split and
+    the peak memory. Returns the record."""
+    import torch
+    n_workers, n_mb = 2, 2
+    rc = lm_run_config(cfg, ED_LONG, n_workers, n_mb)
+    per = n_mb * ED_STEPS * (ed_flash_launches(cfg.n_encoder_layers,
+                                               cfg.n_layers)
+                             if arch == SEAMLESS else 0)
+    want = expect(dual_update=ED_STEPS, slot_rotate=ED_STEPS,
+                  **({"flash_fwd_lse": 2 * per, "flash_bwd_dq": per,
+                      "flash_bwd_dkv": per} if per else {}))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = fixed_model(cfg, params)
+    ((out, secs), kernels), n = drive(lambda: profiled(
+        lambda: run_lm(cfg, rc, ED_STEPS, n_workers, "cuda",
+                       samples_per_worker=1, model=model)))
+    assert n == want, (arch, n, want)
+    n_text = ED_LONG - (cfg.n_frontend_tokens if arch == PALIGEMMA else 0)
+    hist = out["history"]
+    for t, h in enumerate(hist):
+        assert (h["applied_count"] == 0.0) == (t < 2), (t, h)
+        assert h["local_count"] == n_workers * (n_text - 1), (t, h)
+        assert math.isfinite(h["loss"]), (t, h)
+    rec = dict(seconds=secs, launches=n, kernels=len(kernels),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               w_norm=lm_weights_ok(out["state"].params),
+               loss=[h["loss"] for h in hist],
+               applied_count=[h["applied_count"] for h in hist],
+               split=step_split(out, kernels) if kernels else None,
+               kernel_split=kernel_split(kernels, ED_STEPS) if kernels
+               else None)
+    del out, kernels
+    torch.cuda.empty_cache()
+    layers = (f"{cfg.n_encoder_layers} + {cfg.n_layers}" if arch == SEAMLESS
+              else f"{cfg.n_layers}")
+    log(f"phase 19b: {arch} {layers} layers attn_impl={cfg.attn_impl} bf16: "
+        f"{ED_STEPS} steps of {n_workers} x {ED_LONG} tokens in {n_mb} "
+        f"microbatches in {secs:.2f} s; loss {rec['loss']}; applied_count "
+        f"{rec['applied_count']}; |w| = {rec['w_norm']:.4f}; peak "
+        f"{rec['peak_gib']:.2f} GiB; launches {n}")
+    if rec["split"]:
+        log(f"phase 19b: {arch}: step split {json.dumps(rec['split'])}")
+        log_kernel_split("phase 19b", arch, rec["kernel_split"])
+    else:
+        log(f"note: no step split for {arch} in phase 19b (the profiler "
+            "recorded nothing)")
+    return rec
+
+
+def ed_serve(arch, cfg, params):
+    """19c for one family: ``serve_load`` (through ``api.serve``) at
+    ED_SERVE_SLOTS slots in bf16 from ``params``. Returns the record."""
+    r = serve_load(cfg, ED_SERVE_SLOTS, ED_SERVE_TIMED,
+                   warmup=ED_SERVE_WARMUP, params=params)
+    split = r["split"]
+    log(f"phase 19c: {arch} {r['layers']} decoder layers, {r['slots']} "
+        f"slots: median step {r['median_step_ms']:.3f} ms (p90 "
+        f"{r['p90_step_ms']:.3f}); prefill {r['prefill_tok_s']:.1f} tok/s, "
+        f"decode {r['decode_tok_s']:.1f} tok/s; {r['kernels_per_step']:.1f} "
+        f"kernels a step, {r['device_kernel_ms_per_step']:.3f} ms of kernels "
+        f"a step, idle share {r['idle_share']:.3f}; HBM floor "
+        f"{r['hbm_floor_ms']:.3f} ms; peak {r['peak_gib']:.2f} GiB")
+    log(f"phase 19c: {arch}: kernel split per step " + json.dumps(
+        {k: v for k, v in split.items() if k != "rest_top"}))
+    for t in split["rest_top"]:
+        log(f"phase 19c: {arch}: rest {t['ms']:.4f} ms/step "
+            f"({t['launches']:.1f} launches/step): {t['name']}")
+    return r
+
+
+def encdec_vlm_phase(drive, expect):
+    """Phase 19 (19a-c): the encoder-decoder (seamless-m4t-large-v2) and
+    the VLM (paligemma-3b) at full width, each from one seeded init on the
+    card cut to the phase's depths: 19a the card against the CPU in f32
+    (and seamless's flash kernels against xla) and seamless's no-grad
+    forward at ED_LONG tokens; 19b AMB-DG through ``train``; 19c serving
+    through ``api.serve``, then each SMOKE engine in f32 on the card
+    against the CPU (3 ragged slots, ED_DEVICE_STEPS steps, tokens
+    equal). Each part's seconds in ``parts_s``. Returns the record."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.arena import tree_map
+    from repro_torch.models.api import build_model
+    out, parts_s = {}, collections.Counter()
+    for arch, n_layers, n_device in (
+            (SEAMLESS, ED_LAYERS, ED_DEVICE_LAYERS),
+            (PALIGEMMA, PG_LAYERS, PG_DEVICE_LAYERS)):
+        cfg = ed_config(arch, n_layers,
+                        **({"attn_impl": "flash"} if arch == SEAMLESS
+                           else {}))
+        rec = out[arch] = {}
+        t0 = time.perf_counter()
+        p0 = build_model(cfg, device="cuda").init(
+            torch.Generator().manual_seed(0))
+        rec["init_s"] = time.perf_counter() - t0
+        rec["devices"] = ed_device_check(drive, expect, arch, p0, n_device,
+                                         "phase 19a")
+        if arch == SEAMLESS:
+            rec["long_forward"] = ed_long_forward(drive, expect, p0)
+        parts_s["19a"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["train"] = ed_train(drive, expect, arch, cfg,
+                                tree_map(torch.clone, p0))
+        parts_s["19b"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["serve"] = ed_serve(arch, cfg, p0)
+        del p0
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        smoke = dataclasses.replace(get_smoke_config(arch),
+                                    compute_dtype="float32")
+        rng = np.random.default_rng(19)
+        prompts = [rng.integers(1, smoke.vocab_size, size=k).tolist()
+                   for k in (5, 7, 9)]
+        rec["serve_devices"] = compare_serve_devices(
+            drive, expect, "phase 19c", arch, smoke, prompts, ED_DEVICE_STEPS)
+        assert rec["serve_devices"]["tokens_equal"], rec["serve_devices"]
+        parts_s["19c"] += time.perf_counter() - t0
+    for part in ("19a", "19b", "19c"):
+        log(f"phase {part}: {parts_s[part]:.1f} s")
+    out["parts_s"] = dict(parts_s)
+    return out
+
+
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4353,9 +4719,10 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,13,14,15,16,17,18``: after the build, run only those of
-    # phases 13-18 (2: phase 2's mixtral flash rows alone; a short call
-    # while working on them); prints no kernels or ok line
+    # ``--only=2,13,14,15,16,17,18,19``: after the build, run only those
+    # of phases 13-19 (2: phase 2's mixtral and non-causal flash rows
+    # alone; a short call while working on them); prints no kernels or ok
+    # line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
             if a.startswith("--only=")]
     if only:
@@ -4366,13 +4733,14 @@ def main():
             gen = torch.Generator(device="cuda").manual_seed(0)
             rows = (check_flash(*MIX_FLASH, torch.bfloat16, gen)
                     + check_flash(*MIX_FLASH, torch.float32, gen,
-                                  timed_run=False))
+                                  timed_run=False)
+                    + noncausal_flash_rows(gen))
             for r in rows:
                 log_flash_row(r)
             for r in rows:
                 assert r["bitwise"] and r["err_over_limit"] <= 1.0, r
-            record["flash_mixtral"] = rows
-            phase_done("phase 2 (mixtral rows)", t0)
+            record["flash_mixtral_noncausal"] = rows
+            phase_done("phase 2 (mixtral and non-causal rows)", t0)
         if "13" in picked:
             t0 = time.perf_counter()
             record["cnn"] = cnn_phase(drive, expect)
@@ -4397,8 +4765,13 @@ def main():
             t0 = time.perf_counter()
             record["xlstm"] = xlstm_phase(drive, expect)
             phase_done("phase 18", t0)
+        if "19" in picked:
+            t0 = time.perf_counter()
+            record["encdec_vlm"] = encdec_vlm_phase(drive, expect)
+            phase_done("phase 19", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
+        log(card_line())
         return 0
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -4460,6 +4833,8 @@ def main():
     for shape in FLASH_F32:
         for r in check_flash(*shape, torch.float32, gen, timed_run=False):
             flash[r["kernel"]].append(r)
+    for r in noncausal_flash_rows(gen):
+        flash[r["kernel"]].append(r)
     for rs in flash.values():
         for r in rs:
             log_flash_row(r)
@@ -4826,12 +5201,17 @@ def main():
     t0 = time.perf_counter()
     xlstm = xlstm_phase(drive, expect)
     phase_done("phase 18", t0)
+
+    # -- 19. the encoder-decoder and the VLM --------------------------------
+    t0 = time.perf_counter()
+    encdec_vlm = encdec_vlm_phase(drive, expect)
+    phase_done("phase 19", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
-                    "phase_s": phase_s,
+                    "encdec_vlm": encdec_vlm, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):
@@ -4858,7 +5238,7 @@ def main():
         keys = ("kernel", "label", "dtype", "B", "Hq", "Hkv", "Sq", "Skv",
                 "D", "window", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_fwd_bwd_ms", "wrapper_ms",
-                "max_abs_err", "rel_err", "err_over_limit")
+                "max_abs_err", "rel_err", "err_over_limit", "causal")
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4934,10 +5314,7 @@ def main():
               "src/repro/kernels/dual_update/kernel.py:73",
               results["dual_update_pytree"], launches["dual_update_pytree"]),
     ]}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -137,12 +137,13 @@ class ModelConfig:
         return self.sliding_window is not None
 
     def n_params(self) -> int:
-        """Analytic parameter count of the families the port carries,
-        as the JAX package counts it (every expert; the unpadded vocab;
-        qk-norm scales, the Mamba2 conv bias and dt bias not counted;
-        for the xLSTM, JAX's formula, which is not its leaves' count,
-        ROADMAP C.15; for the CNN, JAX's count of a smaller net than the
-        one it builds)."""
+        """Analytic parameter count, as the JAX package counts it (every
+        expert; the unpadded vocab; qk-norm scales, the Mamba2 conv bias
+        and dt bias not counted; for the xLSTM, JAX's formula, which is
+        not its leaves' count, ROADMAP C.15; for the CNN, JAX's count of
+        a smaller net than the one it builds; for the ENCDEC, no
+        frame_proj, and for the VLM, the stub as its n_frontend_tokens
+        positions, C.17)."""
         return _count_params(self)
 
     def n_active_params(self) -> int:
@@ -155,10 +156,8 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
         return cfg.linreg_dim
     if cfg.family == CNN:
         return _cnn_param_count(cfg)
-    if cfg.family not in (DENSE, HYBRID, MOE, SSM):
-        raise NotImplementedError(
-            f"n_params for family {cfg.family!r} comes with its model "
-            "(ROADMAP A.13 part 2)")
+    if cfg.family not in LM_FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     attn = d * (nq * hd) + 2 * d * (nkv * hd) + (nq * hd) * d
@@ -167,8 +166,18 @@ def _count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     emb = cfg.vocab_size * d
     head = 0 if cfg.tie_embeddings else cfg.vocab_size * d
     total = emb + head + d
-    if cfg.family == DENSE:
-        return total + cfg.n_layers * (attn + 3 * d * cfg.d_ff + 2 * d)
+    if cfg.family in (DENSE, VLM):
+        total += cfg.n_layers * (attn + 3 * d * cfg.d_ff + 2 * d)
+        # JAX counts the VLM's stub as its positional table's rows alone
+        # (the model builds patch_proj (d, d) and patch_pos (P, d):
+        # ROADMAP C.17)
+        return total + (cfg.n_frontend_tokens if cfg.frontend else 0)
+    if cfg.family == ENCDEC:
+        # JAX leaves out frame_proj (d, d), which the model builds (C.17)
+        enc = attn + 3 * d * cfg.d_ff + 2 * d
+        dec = 2 * attn + 3 * d * cfg.d_ff + 3 * d
+        return (total + cfg.n_encoder_layers * enc + cfg.n_layers * dec
+                + d)        # the encoder's final norm
     if cfg.family == MOE:
         m = cfg.moe
         n_used = m.top_k if active_only else m.n_experts

@@ -11,7 +11,7 @@ exactly (same dtype, same bits; a bf16 array, which numpy knows only
 through JAX's ``ml_dtypes``, by its raw bits).
 
 ``decode_state_from_jax`` carries a decode cache (KV caches, Mamba2
-and xLSTM states) across. The weight publisher needs no converter: its
+and xLSTM states, the encoder-decoder's memory K/V) across. The weight publisher needs no converter: its
 ``state_dict`` is the JAX publisher's format (numpy arrays, the bf16
 scales as u16 bits), which both packages load.
 """
@@ -120,7 +120,8 @@ def decode_state_from_jax(cache, device="cuda"):
     """A JAX decode cache (``init_decode_state``'s tree: the KV cache
     {"k", "v"}; for the hybrid family {"mamba": {"ssm", "conv"},
     "shared": {"k", "v"}}; for the xLSTM {"mlstm": {"C", "n", "m"},
-    "slstm": {"h", "c", "n", "m"}}), same keys, same dtypes and bits. The port
+    "slstm": {"h", "c", "n", "m"}}; for the encoder-decoder {"self":
+    {"k", "v"}, "mem_k", "mem_v"}), same keys, same dtypes and bits. The port
     updates it in place; JAX's Mamba2 ``conv`` state comes back from a
     step in the compute dtype, the port's stays in the dtype it was made
     in (the same values)."""

@@ -1,5 +1,6 @@
 """Synthetic data streams (the paper's linear regression, its CNN's
-image stand-in for CIFAR-10, and the LM token stream), seeded numpy: the
+image stand-in for CIFAR-10, and the LM token stream with the VLM's and
+the encoder-decoder's stub inputs), seeded numpy: the
 same bytes as the JAX package's ``repro/data/synthetic.py`` for the same
 seed and cursor, so both frameworks train on identical batches.
 
@@ -88,9 +89,11 @@ class ImageClassStream:
 @dataclass
 class TokenStream:
     """Synthetic LM token stream: Zipf(1.3) token ids clipped to the
-    vocab, so the loss has structure (the text stream of the JAX
-    ``TokenStream``; its VLM/encdec extras come with those families,
-    ROADMAP A.13 part 2)."""
+    vocab, so the loss has structure, with the VLM's and the encoder-
+    decoder's stub inputs: ``patches`` (batch, n_frontend_tokens, d) in
+    front of a text of seq - n_frontend_tokens tokens, and ``frames``
+    (batch, seq, d), standard normal, drawn after the tokens from the
+    same generator (JAX's ``TokenStream``, draw for draw)."""
     cfg: ModelConfig
     seed: int = 0
     sample_seed: Optional[int] = None
@@ -103,9 +106,18 @@ class TokenStream:
     def next_batch(self, batch: int, seq: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.sample_seed + 1, self._cursor))
         self._cursor += 1
-        z = rng.zipf(1.3, size=(batch, seq))
-        tokens = np.minimum(z, self.cfg.vocab_size - 1).astype(np.int32)
-        return {"tokens": tokens, "weights": np.ones((batch,), np.float32)}
+        cfg = self.cfg
+        n_text = seq - cfg.n_frontend_tokens if cfg.family == VLM else seq
+        z = rng.zipf(1.3, size=(batch, n_text))
+        tokens = np.minimum(z, cfg.vocab_size - 1).astype(np.int32)
+        out = {"tokens": tokens, "weights": np.ones((batch,), np.float32)}
+        if cfg.family == VLM:
+            out["patches"] = rng.standard_normal(
+                (batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == ENCDEC:
+            out["frames"] = rng.standard_normal(
+                (batch, seq, cfg.d_model)).astype(np.float32)
+        return out
 
     def state_dict(self):
         return {"cursor": self._cursor}
@@ -121,7 +133,4 @@ def make_stream(cfg: ModelConfig, seed: int = 0,
     if cfg.family == CNN:
         return ImageClassStream(cfg.image_size, cfg.n_classes, seed,
                                 sample_seed)
-    if cfg.family in (VLM, ENCDEC):
-        raise NotImplementedError(f"no {cfg.family} stream in the port yet "
-                                  "(ROADMAP A.13 part 2)")
     return TokenStream(cfg, seed, sample_seed)

@@ -14,10 +14,10 @@ case architectures:
 ``params`` is a nested dict of tensors on ``model.device``. Families:
 the paper's linear regression (an ``nn.Module`` evaluated at the given
 tensors through ``functional_call``), the paper's CNN (``models.cnn``),
-the DENSE transformers, the MOE mixtrals, the SSM xLSTM and the HYBRID
-zamba2 (``models.transformer``, functions over the tree). The decode
-path (``init_decode_state``, ``decode_step``) serves those four
-families.
+the DENSE transformers, the MOE mixtrals, the SSM xLSTM, the HYBRID
+zamba2 and the VLM paligemma (``models.transformer``, functions over
+the tree), and the ENCDEC seamless-m4t (``models.encdec``). The decode
+path (``init_decode_state``, ``decode_step``) serves the LM families.
 """
 from __future__ import annotations
 
@@ -26,16 +26,17 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import (CNN, DENSE, HYBRID, LINREG, MOE,
-                                      SSM, ModelConfig)
+from repro_torch.configs.base import (CNN, DENSE, ENCDEC, HYBRID, LINREG,
+                                      MOE, SSM, VLM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import linear as linear_mod
 from repro_torch.models import transformer as tf_mod
 
 
-# the LM families the port's transformer carries
-_LM = (DENSE, HYBRID, MOE, SSM)
+# the LM families: the transformer's, and the encoder-decoder
+_LM = (DENSE, HYBRID, MOE, SSM, VLM, ENCDEC)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +60,11 @@ class Model:
 
     def dummy_batch(self, batch: int, seq: int,
                     generator: Optional[torch.Generator] = None) -> Dict:
-        """Random tokens (LM families) or images and labels (the CNN;
-        ``seq`` unused) on the model's device."""
+        """Random tokens (LM families; with the VLM's ``patches`` (batch,
+        n_frontend_tokens, d) in front of seq - n_frontend_tokens text
+        tokens, the encoder-decoder's ``frames`` (batch, seq, d)) or
+        images and labels (the CNN; ``seq`` unused) on the model's
+        device."""
         if self.cfg.family == LINREG:
             raise NotImplementedError("dummy_batch is for the LM families "
                                       "and the CNN; the linear regression "
@@ -74,29 +78,40 @@ class Model:
                                    generator=generator, dtype=torch.int32)
             return {"images": images.to(self.device),
                     "labels": labels.to(self.device), "weights": ones}
-        tokens = torch.randint(0, self.cfg.vocab_size, (batch, seq),
+        cfg = self.cfg
+        n_text = seq - cfg.n_frontend_tokens if cfg.family == VLM else seq
+        tokens = torch.randint(0, cfg.vocab_size, (batch, n_text),
                                generator=generator, dtype=torch.int32)
-        return {"tokens": tokens.to(self.device), "weights": ones}
+        out = {"tokens": tokens.to(self.device), "weights": ones}
+        if cfg.family == VLM:
+            out["patches"] = torch.randn(
+                (batch, cfg.n_frontend_tokens, cfg.d_model),
+                generator=generator).to(self.device)
+        if cfg.family == ENCDEC:
+            out["frames"] = torch.randn((batch, seq, cfg.d_model),
+                                        generator=generator).to(self.device)
+        return out
 
-    def _check_decodes(self):
+    def _decoder(self):
+        """The module of the family's decode path."""
         if self.cfg.family not in _LM:
             raise NotImplementedError(
                 f"model family {self.cfg.family!r} has no decode path")
+        return encdec_mod if self.cfg.family == ENCDEC else tf_mod
 
     def init_decode_state(self, batch: int, max_len: int,
                           dtype=torch.bfloat16):
         """(the decode cache on the model's device, its logical-axes
         tree) for ``batch`` slots of ``max_len`` positions (the LM
         families; KV entries in ``dtype``)."""
-        self._check_decodes()
-        return tf_mod.init_decode_state(self.cfg, batch, max_len, dtype,
-                                        self.device)
+        return self._decoder().init_decode_state(self.cfg, batch, max_len,
+                                                 dtype, self.device)
 
     def decode_step(self, params: Dict, cache: Dict, tokens, pos):
         """One token for every slot: (logits (B, 1, padded vocab), the
         cache, updated in place)."""
-        self._check_decodes()
-        return tf_mod.decode_step(params, self.cfg, cache, tokens, pos)
+        return self._decoder().decode_step(params, self.cfg, cache, tokens,
+                                           pos)
 
 
 def _seeded_init(init):
@@ -121,6 +136,11 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                          linear_mod.init(cfg, dev),
                      loss_fn=lambda p, b: torch.func.functional_call(
                          module, p, (b,)))
+    if cfg.family == ENCDEC:
+        encdec_mod.check_supported(cfg)
+        return Model(cfg, device, init_fn=_seeded_init(
+                         lambda dev, gen: encdec_mod.init(cfg, gen, dev)),
+                     loss_fn=lambda p, b: encdec_mod.loss(p, cfg, b))
     if cfg.family in _LM:
         tf_mod.check_supported(cfg)
         return Model(cfg, device, init_fn=_seeded_init(
@@ -130,7 +150,4 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return Model(cfg, device, init_fn=_seeded_init(
                          lambda dev, gen: cnn_mod.init(cfg, gen, dev)),
                      loss_fn=lambda p, b: cnn_mod.loss(p, cfg, b))
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP A.13 "
-        "part 2: the port carries the DENSE, MOE, SSM and HYBRID families "
-        "of the LLM zoo)")
+    raise ValueError(f"unknown model family {cfg.family!r}")

@@ -12,9 +12,11 @@ comments name where a straightforward port would round elsewhere.
 (the JAX model's attention, whatever its knob says), "flash" the port's
 flash-attention kernels (``kernels.flash_attention``) on CUDA tensors,
 their plain version on CPU tensors (the kernels take the causal mask
-and the window; a config with ``prefix_lm`` or ``logit_softcap`` under
-"flash" raises, as the kernels compute neither); ``decode_attention``
-runs ``gqa_attend`` under either knob, as JAX's decode does. JAX's
+and the window, or no mask at all for the encoder-decoder's
+bidirectional attention; a config with ``prefix_lm`` or
+``logit_softcap`` under "flash" raises, as the kernels compute
+neither); ``decode_attention`` runs ``gqa_attend`` under either knob,
+as JAX's decode does. JAX's
 ``constrain`` calls are sharding hints and are left out. Past
 ``_CHUNK_THRESHOLD`` tokens the plain path runs ``gqa_attend`` in exact
 q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
@@ -214,33 +216,41 @@ def check_flash_masks(cfg: ModelConfig) -> None:
                 "use attn_impl='xla'")
 
 
-def flash_attend(q, k, v, window: Optional[int] = None):
-    """Causal attention, with ``window`` a sliding window, through the
-    flash kernels: (B, S, H, D) in and out, (B, H, S, D) at the kernel
-    API. With autograd recording (a training forward, or its
-    recomputation under checkpointing) it is the training entry (the
-    forward with lse, the dq and dk/dv kernels in backward); otherwise
-    the inference forward without lse."""
+def flash_attend(q, k, v, window: Optional[int] = None,
+                 causal: bool = True):
+    """Attention through the flash kernels, causal (with ``window`` a
+    sliding window) or, with ``causal=False``, every query over every
+    key (no window): q (B, Sq, H, D), k and v (B, Skv, Hkv, D) in,
+    (B, Sq, H, D) out, (B, H, S, D) at the kernel API (a causal query
+    sits at position i + Skv - Sq). With autograd recording (a training
+    forward, or its recomputation under checkpointing) it is the
+    training entry (the forward with lse, the dq and dk/dv kernels in
+    backward); otherwise the inference forward without lse."""
     from repro_torch.kernels.flash_attention.ops import attend, attend_train
+    if not causal and window is not None:
+        raise ValueError("flash_attend: a window needs causal=True")
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (qh, kh, vh))
-    out = (attend_train if train else attend)(qh, kh, vh, causal=True,
+    out = (attend_train if train else attend)(qh, kh, vh, causal=causal,
                                               window=window)
     return out.transpose(1, 2)
 
 
-def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None):
+def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None,
+                    causal: bool = True):
     """Full-sequence (training) attention, ``cfg.attn_impl`` choosing
     the core. For S beyond the chunk threshold, pass ``mask_fn`` to run
     the plain core in exact q-blocks (``chunked_gqa_attend``); ``mask``
     may then be None. The flash core takes the window from the config
-    and needs neither."""
+    and needs neither: it is causal, or with ``causal=False`` (the
+    encoder's bidirectional attention, whose plain mask is all ones)
+    runs without a mask."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     B, S = x.shape[:2]
     if cfg.attn_impl == "flash":
         check_flash_masks(cfg)
-        out = flash_attend(q, k, v, cfg.sliding_window)
+        out = flash_attend(q, k, v, cfg.sliding_window, causal)
     elif mask_fn is not None and chunks_queries(S):
         out = chunked_gqa_attend(q, k, v, mask_fn, cfg.logit_softcap)
     else:

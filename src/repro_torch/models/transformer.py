@@ -1,4 +1,4 @@
-"""Decoder-only LM of the port (``repro/models/transformer.py``), four
+"""Decoder-only LM of the port (``repro/models/transformer.py``), five
 families:
 
   dense  : [attention -> gated MLP] x L with pre-RMSNorm, RoPE, GQA,
@@ -9,7 +9,14 @@ families:
            an sLSTM block iff (i + 1) % slstm_every == 0, each block
            residual after its own pre-RMSNorm;
   hybrid : [Mamba2] x L with one *shared* attention + MLP block applied
-           after every ``shared_attn_every`` layers (zamba2).
+           after every ``shared_attn_every`` layers (zamba2);
+  vlm    : the dense backbone with the image stub in front of the text
+           (paligemma): ``patches @ patch_proj + patch_pos``, the first
+           ``n_frontend_tokens`` positions, attended both ways under
+           ``prefix_lm``; the loss is on the text alone, and the decode
+           is the dense one (it never sees the patches, as in JAX).
+
+The encoder-decoder family is ``models/encdec.py``'s.
 
 The attention takes the config's mask: causal, with ``sliding_window``
 a window, or with ``prefix_lm`` bidirectional over a prefix; and
@@ -49,8 +56,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import (DENSE, HYBRID, MOE, SSM, VLM,
-                                      ModelConfig)
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM,
+                                      VLM, ModelConfig)
 from repro_torch.core.arena import tree_flatten, tree_unflatten
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -82,11 +89,15 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every knob of ``cfg`` the port's transformer does not
     carry yet (never ignore one silently)."""
-    if cfg.family not in (DENSE, HYBRID, MOE, SSM):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP A.13 "
-            "part 2: the port's transformer carries the DENSE, MOE, SSM "
-            "and HYBRID families)")
+    if cfg.family == ENCDEC:
+        raise ValueError("the encoder-decoder family is models/encdec.py's "
+                         "(models.api.build_model sends it there)")
+    if cfg.family not in (DENSE, HYBRID, MOE, SSM, VLM):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    if cfg.family == VLM and not cfg.frontend:
+        raise ValueError("a vlm model needs its frontend stub (frontend, "
+                         "n_frontend_tokens): JAX's model builds no patch "
+                         "projection without one and fails on the patches")
     if cfg.family == SSM and cfg.xlstm is None:
         raise ValueError("an ssm (xLSTM) model needs an xlstm config")
     if cfg.family == HYBRID:
@@ -99,6 +110,14 @@ def check_supported(cfg: ModelConfig) -> None:
         if cfg.moe is None:
             raise ValueError("a moe model needs a moe config")
         moe_mod.check_moe_impl(cfg)
+    check_knobs(cfg)
+
+
+def check_knobs(cfg: ModelConfig) -> None:
+    """The checks every LM family shares (``models/encdec.py`` runs them
+    too): sequence parallelism raises, the remat, attention and scan
+    knobs and the dtypes must be known, and the flash kernels must
+    compute the config's masks."""
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True is a sharding layout of "
                                   "the multi-GPU slice (ROADMAP A.11)")
@@ -119,8 +138,8 @@ def check_supported(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 def _layer_init(f: ParamFactory, cfg: ModelConfig):
-    """One stacked layer's params (dense: attention + MLP; moe: attention
-    + the MoE FFN; hybrid: a Mamba2 block)."""
+    """One stacked layer's params (dense and vlm: attention + MLP; moe:
+    attention + the MoE FFN; hybrid: a Mamba2 block)."""
     rmsnorm_init(f, "ln1", cfg.d_model)
     if cfg.family == HYBRID:
         ssm_mod.mamba2_init(f, cfg)
@@ -158,6 +177,11 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
         attention_init(sh, cfg)
         rmsnorm_init(sh, "ln2", cfg.d_model)
         mlp_init(sh, cfg)
+    if cfg.family == VLM:
+        # the stub frontend: a learned projection of the precomputed
+        # patch embeddings and a positional table
+        f.param("patch_proj", (cfg.d_model, cfg.d_model))
+        f.param("patch_pos", (cfg.n_frontend_tokens, cfg.d_model))
     return f.params
 
 
@@ -262,16 +286,22 @@ def unbind_layers(stacked) -> list:
             for i in range(n)]
 
 
-def forward(params, cfg: ModelConfig, tokens, prefix_len=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) int -> (logits (B, S, padded vocab) in the compute
-    dtype, the MoE aux loss summed over the layers: a 0-dim f32, 0 for
-    the other families), JAX's signature. Under ``prefix_lm`` the first
-    ``prefix_len`` positions (default 0 outside the VLM family, as in
-    JAX) attend to each other both ways."""
+def forward(params, cfg: ModelConfig, tokens, *, extra: Optional[Dict] = None,
+            prefix_len=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S_text) int -> (logits (B, S, padded vocab) in the
+    compute dtype, the MoE aux loss summed over the layers: a 0-dim f32,
+    0 for the other families), JAX's signature. For the VLM,
+    ``extra["patches"]`` (B, P, d) goes in front of the text (S = P +
+    S_text). Under ``prefix_lm`` the first ``prefix_len`` positions
+    (default n_frontend_tokens for the VLM, 0 otherwise, as in JAX)
+    attend to each other both ways."""
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
+    if cfg.family == VLM and extra is not None and "patches" in extra:
+        patches = extra["patches"].to(dtype) @ params["patch_proj"].to(dtype)
+        patches = patches + params["patch_pos"].to(dtype)[None]
+        h = torch.cat([patches, h], dim=1)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device)[None, :]
     if cfg.prefix_lm:
@@ -306,26 +336,38 @@ def forward(params, cfg: ModelConfig, tokens, prefix_len=None
 def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     """Per-sample-weighted next-token cross entropy.
 
-    batch: {"tokens": (B, S) int, "weights": (B,) f32}. Returns
-    (sum of the weighted loss + the MoE aux loss times the count,
-    {"count": weighted token count, "loss_sum": the weighted loss
-    without aux}), so AMB-DG normalizes by the global count (paper eq.
-    (5)). The forward runs at the full length and the logits are sliced,
-    as in JAX."""
+    batch: {"tokens": (B, S) int, "weights": (B,) f32, the VLM's
+    "patches"}. Returns (sum of the weighted loss + the MoE aux loss
+    times the count, {"count": weighted token count, "loss_sum": the
+    weighted loss without aux}), so AMB-DG normalizes by the global
+    count (paper eq. (5)). The forward runs at the full length and the
+    logits are sliced, as in JAX: the VLM's patch positions first, then
+    the last position."""
     tokens = batch["tokens"]
     weights = batch.get("weights")
     if weights is None:
         weights = torch.ones((tokens.shape[0],), dtype=torch.float32,
                              device=tokens.device)
-    logits, aux = forward(params, cfg, tokens)
-    logits = logits[:, :-1]
+    extra = {k: v for k, v in batch.items()
+             if k not in ("tokens", "weights", "targets")}
+    logits, aux = forward(params, cfg, tokens, extra=extra or None)
+    if cfg.family == VLM and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
+    loss_sum, count = next_token_loss(logits, tokens, weights)
+    return loss_sum + aux * count, {"count": count, "loss_sum": loss_sum}
+
+
+def next_token_loss(logits, tokens, weights):
+    """(the weighted sum of the next-token cross entropy of ``logits``
+    (B, S, V) at positions 0..S-2 against ``tokens`` (B, S) at 1..S-1, in
+    f32; the weighted token count)."""
     targets = tokens[:, 1:].to(torch.int64)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, targets[..., None])[..., 0]
     per_sample = -torch.sum(ll, dim=-1)                       # (B,)
     loss_sum = torch.sum(per_sample * weights)
     count = torch.sum(weights) * targets.shape[1]
-    return loss_sum + aux * count, {"count": count, "loss_sum": loss_sum}
+    return loss_sum, count
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +376,8 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cpu"
                       ) -> Tuple[Dict, Dict]:
-    """(the decode cache, its logical-axes tree): DENSE and MOE, the KV
-    cache of every layer (a rolling buffer under a sliding window);
+    """(the decode cache, its logical-axes tree): DENSE, VLM and MOE, the
+    KV cache of every layer (a rolling buffer under a sliding window);
     HYBRID, {"mamba": the f32 Mamba2 states of every layer,
     "shared": the KV cache of each of the n_layers // shared_attn_every
     applications of the shared block}; SSM, {"mlstm": {"C", "n", "m"},

@@ -268,6 +268,8 @@ FLASH_CASES = [   # B, Hq, Hkv, Sq, Skv, D, causal, window
     (1, 4, 2, 320, 320, 64, True, 96),        # sliding window
     (1, 2, 2, 128, 256, 128, False, None),    # bidirectional
     (1, 2, 2, 256, 128, 64, True, None),      # rows with no valid key
+    (1, 4, 4, 1024, 1024, 64, False, None),   # the encoder: multi-tile
+    (1, 4, 4, 320, 1152, 128, False, None),   # the cross-attention
 ]
 
 
@@ -1167,3 +1169,76 @@ def test_xlstm_on_cuda_matches_cpu(cuda):
                     caches["cpu"] + [logits["cpu"]]):
         scale = float(b.abs().max()) or 1.0
         assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+# -- the encoder-decoder slice ------------------------------------------------
+def test_encdec_on_cuda_matches_cpu(cuda):
+    """seamless-m4t-large-v2 SMOKE widened to the kernels' head dim (d 128,
+    2 heads of 64), f32, TF32 off, ``attn_impl="flash"``, a 256-frame
+    source and a 128-token target: the worker's gradient on the card (the
+    kernels: the encoder's and the cross-attention's non-causal, the
+    decoder's causal) against the CPU (their plain version), each leaf
+    within 1e-4 of its largest element, the loss to 1e-5, one dq and one
+    dk/dv launch per attention and two of the forward with lse (the
+    forward and its recomputation under the config's full block remat);
+    then three AMB-DG steps (tau 2, int8) through ``train`` on both
+    devices, phase 3's checks."""
+    import dataclasses
+    from repro_torch.configs import base, get_smoke_config
+    from repro_torch.core.anytime import accumulate_scan
+    from repro_torch.core.arena import tree_flatten, tree_map
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                              d_model=128, n_heads=2, n_kv_heads=2,
+                              head_dim=64, compute_dtype="float32",
+                              attn_impl="flash")
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, size=(2, 128)).astype(np.int32)),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, 256, cfg.d_model)).astype(np.float32)),
+             "weights": torch.ones(2)}
+
+    def grads(device):
+        model = build_model(cfg, device=device)
+        g, count, m = accumulate_scan(
+            model.loss, tree_map(lambda a: a.to(device), params),
+            {k: v.to(device) for k, v in batch.items()}, 1)
+        return ([x.cpu() for x in tree_flatten(g)[0]],
+                float(m["loss_sum"]) / float(count))
+
+    n0 = [c.launches for c in (kernel.FWD_LSE, kernel.DQ, kernel.DKV)]
+    got, loss = grads(cuda)
+    per = cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert cfg.block_remat == "full"
+    assert [c.launches for c in (kernel.FWD_LSE, kernel.DQ, kernel.DKV)] \
+        == [n0[0] + 2 * per, n0[1] + per, n0[2] + per]
+    want, want_loss = grads("cpu")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    rc = base.RunConfig(model=cfg, shape=dataclasses.replace(
+        base.TRAIN_4K, seq_len=128), mesh=base.MeshConfig(1, 1, 1),
+        ambdg=base.AmbdgConfig(tau=2, n_microbatches=2, b_bar=8.0,
+                               pod_compression="int8"))
+    loop = LoopConfig(n_steps=3, n_workers=2, samples_per_worker=2,
+                      log_every=1)
+    n0 = kernel.DQ.launches
+    gpu = train(build_model(cfg, device=cuda), rc, loop, device=cuda)
+    assert kernel.DQ.launches - n0 == per * 2 * 3
+    cpu = train(build_model(cfg, device="cpu"), rc, loop, device="cpu")
+    for a, b in zip(gpu["history"], cpu["history"]):
+        assert a["applied_count"] == b["applied_count"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+    step = max(float(s.max()) for s in cpu["state"].arena.scales) / \
+        cpu["history"][-1]["applied_count"]
+    for wg, wc in zip(tree_flatten(gpu["state"].params)[0],
+                      tree_flatten(cpu["state"].params)[0]):
+        wg, wc = wg.cpu().numpy(), wc.numpy()
+        np.testing.assert_allclose(wg, wc, rtol=0,
+                                   atol=1e-4 * np.abs(wc).max() + step)

@@ -2,8 +2,12 @@
 ``ssm.mamba2_decode``, ``transformer.init_decode_state`` and
 ``decode_step``) against the JAX model's, for the DENSE qwen1.5-0.5b,
 qwen3-1.7b (qk-norm), yi-6b (GQA) and chatglm3-6b (half-rotary RoPE),
-and zamba2-2.7b (HYBRID: Mamba2
-layers and the shared attention block) at their SMOKE widths; and
+zamba2-2.7b (HYBRID: Mamba2
+layers and the shared attention block), seamless-m4t-large-v2 (ENCDEC:
+the decoder's self-attention cache and the cross-attention's memory
+K/V, left at 0 as JAX's serve path leaves them, ROADMAP C.17) and
+paligemma-3b (VLM: the dense decode, MQA, head dim 16) at their SMOKE
+widths; and
 qwen1.5-0.5b with a sliding window of 8 (the rolling cache of 8 slots,
 12 steps: past its wrap).
 
@@ -35,15 +39,15 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import encdec as jed
 from repro.models import transformer as jtf
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.arena import tree_flatten
-from repro_torch.models import transformer as tf
 from repro_torch.models.api import build_model
 
 ARCHS = ["qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
-         "zamba2-2.7b"]
+         "zamba2-2.7b", "seamless-m4t-large-v2", "paligemma-3b"]
 B, MAX_LEN, STEPS = 3, 16, 8
 F32_TOL = 1e-5
 BF16_ULP, BF16_TOL = 2.0 ** -7, 1e-2
@@ -73,9 +77,14 @@ def _models(arch, dtype, **kw):
                                **kw)
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype,
                               **kw)
-    jparams, _ = jtf.init(jax.random.PRNGKey(0), jcfg)
+    jparams, _ = _jax_model(jcfg).init(jax.random.PRNGKey(0), jcfg)
     params = convert.params_from_jax(jax.device_get(jparams), device="cpu")
     return jcfg, cfg, jparams, params
+
+
+def _jax_model(jcfg):
+    """The JAX module of the family: ``encdec`` or ``transformer``."""
+    return jed if jcfg.family == "encdec" else jtf
 
 
 def _positions(ragged, t):
@@ -89,10 +98,11 @@ def _decode_both(arch, dtype, ragged, steps=STEPS, **kw):
     # the KV cache in the compute dtype: under f32 compute a bf16 cache
     # would round k and v, and a last-bit difference upstream can flip
     # one rounding (ROADMAP C.13)
-    jcache, _ = jtf.init_decode_state(jcfg, B, MAX_LEN, jnp.dtype(dtype))
+    jm = _jax_model(jcfg)
+    jcache, _ = jm.init_decode_state(jcfg, B, MAX_LEN, jnp.dtype(dtype))
     model = build_model(cfg, device="cpu")
     cache, _ = model.init_decode_state(B, MAX_LEN, getattr(torch, dtype))
-    jstep = jax.jit(lambda p, c, t, pos: jtf.decode_step(p, jcfg, c, t, pos))
+    jstep = jax.jit(lambda p, c, t, pos: jm.decode_step(p, jcfg, c, t, pos))
     rng = np.random.default_rng(11)
     out = []
     for t in range(steps):
@@ -149,11 +159,12 @@ def test_init_decode_state_matches_jax(arch, dtype):
     f32) and the logical-axes trees."""
     jcfg, cfg, _, _ = _models(arch, "bfloat16")
     model = build_model(cfg, device="cpu")
+    jm = _jax_model(jcfg)
     if dtype is None:
-        jcache, jaxes = jtf.init_decode_state(jcfg, B, MAX_LEN)
+        jcache, jaxes = jm.init_decode_state(jcfg, B, MAX_LEN)
         cache, axes = model.init_decode_state(B, MAX_LEN)
     else:
-        jcache, jaxes = jtf.init_decode_state(jcfg, B, MAX_LEN, jnp.float32)
+        jcache, jaxes = jm.init_decode_state(jcfg, B, MAX_LEN, jnp.float32)
         cache, axes = model.init_decode_state(B, MAX_LEN, torch.float32)
     jl = jax.tree_util.tree_flatten_with_path(jcache)[0]
     leaves, _ = tree_flatten(cache)
@@ -171,8 +182,9 @@ def test_jax_cache_carried_across_continues_as_jax(arch):
     """``convert.decode_state_from_jax``: from JAX's cache after 4 ragged
     steps, the port's next step equals JAX's next step (f32)."""
     jcfg, cfg, jparams, params = _models(arch, "float32")
-    jcache, _ = jtf.init_decode_state(jcfg, B, MAX_LEN, jnp.float32)
-    jstep = jax.jit(lambda p, c, t, pos: jtf.decode_step(p, jcfg, c, t, pos))
+    jm = _jax_model(jcfg)
+    jcache, _ = jm.init_decode_state(jcfg, B, MAX_LEN, jnp.float32)
+    jstep = jax.jit(lambda p, c, t, pos: jm.decode_step(p, jcfg, c, t, pos))
     rng = np.random.default_rng(12)
     toks = [rng.integers(0, cfg.vocab_size, size=(B, 1)).astype(np.int32)
             for _ in range(5)]
@@ -186,9 +198,9 @@ def test_jax_cache_carried_across_continues_as_jax(arch):
     jlogits, _ = jstep(jparams, jcache, jnp.asarray(toks[4]),
                        jnp.asarray(_positions(True, 4)))
     with torch.no_grad():
-        logits, _ = tf.decode_step(params, cfg, cache,
-                                   torch.from_numpy(toks[4]),
-                                   torch.as_tensor(_positions(True, 4)))
+        logits, _ = build_model(cfg, device="cpu").decode_step(
+            params, cache, torch.from_numpy(toks[4]),
+            torch.as_tensor(_positions(True, 4)))
     assert_close(logits, jlogits, "float32", "logits after the carry")
 
 

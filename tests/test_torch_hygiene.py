@@ -57,7 +57,11 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          "repro_torch.serve", "repro_torch.serve.engine",
          "repro_torch.serve.publisher", "repro_torch.serve.request_queue",
          # the xLSTM slice
-         "repro_torch.models.xlstm", "repro_torch.configs.xlstm_125m"]
+         "repro_torch.models.xlstm", "repro_torch.configs.xlstm_125m",
+         # the encoder-decoder and the VLM
+         "repro_torch.models.encdec",
+         "repro_torch.configs.seamless_m4t_large_v2",
+         "repro_torch.configs.paligemma_3b"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -335,7 +339,7 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.models.api import build_model
     for arch in ("qwen1.5-0.5b", "qwen3-1.7b", "yi-6b", "chatglm3-6b",
                  "zamba2-2.7b", "mixtral-8x7b", "mixtral-8x22b",
-                 "xlstm-125m"):
+                 "xlstm-125m", "seamless-m4t-large-v2", "paligemma-3b"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_model(get_smoke_config(arch))
         assert build_model(get_smoke_config(arch),
@@ -352,8 +356,8 @@ def _dense(**kw):
     (dict(family="moe"), "moe config"),
     (dict(family="ssm"), "xlstm config"),
     (dict(family="ssm", xlstm=XLSTMConfig()), None),
-    (dict(family="vlm"), "A.13"),
-    (dict(family="encdec"), "A.13"),
+    (dict(family="vlm"), "frontend"),
+    (dict(family="encdec", n_encoder_layers=2), None),
     (dict(family="moe", moe=MoEConfig()), None),
     (dict(prefix_lm=True), None),
     (dict(logit_softcap=30.0), None),
@@ -365,9 +369,10 @@ def _dense(**kw):
 def test_unported_model_knobs_raise(kw, item):
     """Each knob the port does not carry raises naming its ROADMAP item;
     the MOE family (given its moe config), the SSM family (given its
-    xlstm config), prefix_lm, logit_softcap, sliding_window and
-    ``block_remat="dots"`` are ported and build and take a loss on the
-    CPU (a MOE or SSM family without its config, and an unknown
+    xlstm config), the ENCDEC family (given its encoder layers),
+    prefix_lm, logit_softcap, sliding_window and ``block_remat="dots"``
+    are ported and build and take a loss on the CPU (a MOE or SSM family
+    without its config, a VLM without its frontend stub, and an unknown
     block_remat, raise a ValueError, as JAX's model fails on them)."""
     from repro_torch.models.api import build_model
     if item is None:
@@ -377,7 +382,7 @@ def test_unported_model_knobs_raise(kw, item):
         assert bool(torch.isfinite(loss)) and float(aux["count"]) == 46
         return
     error = (ValueError if item in ("moe config", "xlstm config",
-                                    "block_remat")
+                                    "block_remat", "frontend")
              else NotImplementedError)
     with pytest.raises(error, match=item):
         build_model(_dense(**kw), device="cpu")
@@ -538,5 +543,106 @@ def test_remat_knobs_step_every_lm_strategy(strategy):
             runs.append(out)
     finally:
         torch.set_num_threads(threads)
+    assert all(np.isfinite(runs[0]).ravel())
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-6)
+
+
+def _seamless(**kw):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("seamless-m4t-large-v2"),
+                               **kw)
+
+
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(seq_parallel=True), NotImplementedError, "A.11"),
+    (dict(sliding_window=16), NotImplementedError, "sliding_window"),
+    (dict(prefix_lm=True), NotImplementedError, "prefix_lm"),
+    (dict(block_remat="selective"), ValueError, "block_remat"),
+    (dict(attn_impl="pallas"), ValueError, "attn_impl"),
+    (dict(attn_impl="flash", logit_softcap=30.0), NotImplementedError,
+     "flash"),
+    (dict(family="dense"), None, None),
+])
+def test_encdec_model_knobs_raise(kw, error, match):
+    """The encoder-decoder's knobs that raise: sequence parallelism
+    (A.11), the masks JAX's encoder-decoder leaves out of training, an
+    unknown remat or attention knob, a cap under the flash kernels; and
+    the transformer sends the family to ``models/encdec.py`` (a dense
+    config built as an encoder-decoder through ``encdec.init`` raises)."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.api import build_model
+    if error is None:
+        with pytest.raises(ValueError, match="encdec"):
+            encdec.init(_seamless(**kw), None, "meta")
+        with pytest.raises(ValueError, match="encdec.py"):
+            transformer.init(_seamless(), None, "meta")
+        return
+    with pytest.raises(error, match=match):
+        build_model(_seamless(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paligemma-3b"])
+def test_encdec_and_vlm_decode_paths(arch):
+    """Both families decode through the model's entries on the CPU, with
+    ragged positions: the encoder-decoder's cache {"self", "mem_k",
+    "mem_v"} (the slot reset reads "batch" in each), the VLM's the dense
+    KV cache; finite logits over the padded vocab."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.models.api import build_model
+    model = build_model(get_smoke_config(arch), device="cpu")
+    cache, axes = model.init_decode_state(2, 8)
+    want = ({"self", "mem_k", "mem_v"} if arch.startswith("seamless")
+            else {"k", "v"})
+    assert set(cache) == want
+    assert all("batch" in ax for ax in tree_flatten(axes)[0])
+    params = model.init()
+    for t in range(4):
+        logits, cache = model.decode_step(
+            params, cache, torch.full((2, 1), t + 1, dtype=torch.int64),
+            torch.tensor([t, t + 2]))
+    assert logits.shape == (2, 1, model.cfg.padded_vocab_size)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("strategy", ["ambdg", "amb", "kbatch",
+                                      "decentralized"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "paligemma-3b"])
+def test_encdec_and_vlm_step_every_lm_strategy(arch, strategy):
+    """Both families build and step every strategy that takes an LM's
+    gradient, their frames or patches split with the tokens (across the
+    decentralized workers, then into microbatches), on SMOKE in f32:
+    with ``block_remat="dots"`` and ``rc.remat="whole_loss"``, two steps
+    whose losses and gradient norms equal those of the default (full
+    block remat on every encoder and decoder layer) to rtol 1e-6."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import (AmbdgConfig, ConsensusConfig,
+                                          RunConfig, TRAIN_4K)
+    from repro_torch.data.pipeline import AnytimePipeline
+    from repro_torch.models.api import build_model
+    runs = []
+    for block_remat, remat in (("dots", "whole_loss"), ("full", "none")):
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32",
+                                  block_remat=block_remat)
+        rc = RunConfig(model=cfg, strategy=strategy, remat=remat,
+                       shape=dataclasses.replace(TRAIN_4K, seq_len=24,
+                                                 global_batch=4),
+                       ambdg=AmbdgConfig(tau=1, b_bar=4.0, n_microbatches=2),
+                       consensus=ConsensusConfig(n_workers=2, rounds=1))
+        s = api.build(build_model(cfg, device="cpu"), rc, device="cpu")
+        state = s.init_state(torch.Generator().manual_seed(0))
+        pipe = AnytimePipeline(cfg, 2, 2, seq_len=24, seed=0)
+        out = []
+        for _ in range(2):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in pipe.next_global_batch().items()}
+            state, m = s.train_step(state, batch)
+            out.append([float(m["loss"]), float(m.get("grad_norm",
+                                                      m["loss"]))])
+        runs.append(out)
     assert all(np.isfinite(runs[0]).ravel())
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-6)
