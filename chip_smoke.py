@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
      ``nvcc`` per source, all started together) and print the time, each
      kernel's registers and spills, and the count of wgmma instructions
      (``HGMMA``) in the SASS of each flash kernel (``cuobjdump -sass``):
-     every bf16 kernel must hold some, the f32 ones none; and the count
+     every bf16 kernel must hold some, the f32 ones none, and each of
+     the six is built at every head dim (64, 80, 128, 256); and the count
      of tensor-core instructions (``HMMA``) in each linear-scan kernel:
      every chunk-state and output kernel must hold some;
   2. hold each kernel against its plain PyTorch version on the card,
@@ -77,20 +78,28 @@ Phases (any failure raises and the script exits non-zero):
      the AMB-DG state on one card; 36, then 24 until phase 17 came, cut
      for the script's time limit), seq 4096. At the init weights, on one
      microbatch of 2 sequences: the worker's gradient leaf by leaf and a
-     no-grad eval, ``scan_impl="kernel"`` (the scan kernel) against
-     ``"xla"`` (the plain chunked scan) in f32 and bf16 compute. Then
+     no-grad eval, the kernel route (``scan_impl="kernel"``, the scan
+     kernel, and ``attn_impl="flash"``, the shared block on the flash
+     kernels at head dim 80) against ``"xla"`` (the plain chunked scan
+     and plain attention) in f32 and bf16 compute, and the flash kernels
+     alone (on the plain scan) against plain attention at phase 6's
+     limits. Then
      AMB-DG as in phase 6 (8 sequences, 4 microbatches, tau 2, int8,
      ``block_remat="full"``, l2 ball), 3 steps with each route (5 until
      phase 16 came: cut for the script's time limit): counts and
      losses agree, w in the ball; the scan kernel launched 2 x 6 x 4
-     times a step forward and 3 x 6 x 4 in its backward forms, and no
-     plain scan (``ssd_chunked`` or the recurrence) called in that run
-     (a scan call is three device kernels: the counts are calls);
+     times a step forward and 3 x 6 x 4 in its backward forms, the
+     forward with lse 2 x 1 x 4 times a step (one shared-block
+     application a microbatch, recomputed under full remat) and dq and
+     dk/dv 1 x 4, and no plain scan (``ssd_chunked`` or the recurrence)
+     or plain attention called in that run (a scan call is three device
+     kernels: the counts are calls);
      the step split, peak memory and the kernel time split, with the
      15 largest kernels of the rest by name;
-  9. zamba2 at full width with one group of 6 layers: seq 512, 2
-     workers x 1 sequence, tau 1, 2 steps (2 x 2 sequences, tau 2 and 3
-     steps until phase 17 came, cut for the script's time limit), f32,
+  9. zamba2 at full width with one group of 6 layers: seq 512, 1
+     worker x 1 sequence, tau 1, 2 steps (2 x 2 sequences, tau 2 and 3
+     steps until phase 17 came; 2 workers until phase 20 came: cut for
+     the script's time limit), f32,
      the card (the scan kernel) against the CPU
      (the plain recurrence), with phase 3's checks and the init-weight
      gradient;
@@ -122,7 +131,7 @@ Phases (any failure raises and the script exits non-zero):
      weights on 128 images, card and CPU each against an f64 gradient on
      the card and against each other (limits below); AMB-DG through
      ``train`` (fig5_nn.py's 4 workers x 128, T_p = T_c = 10, tau 1, L 4,
-     b_bar 240), 6 steps (12 until phase 17 came), int8 and none, card
+     b_bar 240), 4 steps (12 until phase 17 came, 6 until phase 20), int8 and none, card
      then CPU: counts exact,
      losses, acc_sum and weights within the limits below, the dual
      update once a step and the int8 slot rotate once a step, the step
@@ -225,7 +234,8 @@ Phases (any failure raises and the script exits non-zero):
      the sLSTM's recurrent weights rescaled to fan-in head_dim (at the
      init's fan-in n_heads the recurrence is chaotic and its gradient at
      1024 tokens is not finite, in JAX as in the port, ROADMAP C.16):
-     (a) f32, 6 of the 12 layers, one sequence of 1024 tokens (4 mLSTM
+     (a) f32, 4 of the 12 layers (6 until phase 20 came, cut for the
+     script's time limit), one sequence of 1024 tokens (4 mLSTM
      chunks): the loss and the worker's gradient on the card against the
      CPU leaf by leaf and a prefill-by-decode over 512 tokens against the
      forward's last position (limits below); a no-grad forward at 4096
@@ -261,10 +271,22 @@ Phases (any failure raises and the script exits non-zero):
      16 + 64 steps, as 17d; each SMOKE engine in f32 on the card against
      the CPU, 3 ragged slots, 24 steps, tokens equal.
 
-``python3 chip_smoke.py --only=2,13,14,15,16,17,18,19`` runs the build
-and then only the phases named among 13-19 (``2``: phase 2's mixtral and
-non-causal flash rows alone; a short call while working on them; no
-kernels or ok line).
+ 20. the launchers on the card (``repro_torch.launch``, called in
+     process): ``launch.train.main`` on qwen1.5-0.5b FULL (all 24
+     layers) at 1024 tokens, 2 workers x 1 sequence, 3 steps, with each
+     of ``--optimizer dual_averaging``, ``sgd`` and ``adam``: finite
+     losses, B.1 once a step under dual averaging and no kernel of the
+     port under sgd and adam; each optimizer on amb-linreg SMOKE on the
+     card against ``--device cpu`` (phase 7's limits on the loss and the
+     weights); ``launch.serve.main`` on qwen1.5-0.5b FULL, 16 slots, 32
+     steps, publishing every 4: staleness within the bound; and
+     ``anytime_impl="while_dynamic"`` on phase 3's linreg, 3 steps, bit
+     for bit the "scan_masked" run.
+
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20`` runs the
+build and then only the phases named among 8 and 13-20 (``2``: phase
+2's mixtral, non-causal and head-dim 80/256 flash rows alone; a short
+call while working on them; no kernels or ok line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -279,7 +301,10 @@ at D = 128. Non-causal (every query over every key): timed in bf16 at
 seamless-m4t's encoder shape (B = 2, 16/16 heads, S = 4096, D = 64; SDPA
 with ``is_causal=False`` the library time), untimed at the
 cross-attention's Sq = 320 over Skv = 4096 and Sq = 4096 over Skv = 1000,
-and in f32 at the encoder's shape. bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles),
+and in f32 at the encoder's shape. At the widened head dims, timed in
+bf16 and in f32: zamba2-2.7b's shared block (B = 2, 32/32 heads, S =
+4096, D = 80) and paligemma-3b's head layout (B = 1, 8/1 heads, S =
+4096, D = 256), causal. bf16 runs the Hopper kernels (wgmma on TMA-loaded tiles),
 f32 the exact CUDA-core kernels.
 Each element is held on its own: within one ulp of its dtype (2^-7 of
 the element in bf16) plus 1e-5 of the tensor's largest element. Two
@@ -952,9 +977,21 @@ FLASH_F32 = [
 # in f32). limit(x) = FLASH_ULP * |want(x)| + FLASH_F32_TOL * max |want|
 FLASH_ULP = {"bfloat16": 2.0 ** -7, "float32": 0.0}
 FLASH_F32_TOL = 1e-5
-# the timed rows are bf16: the Hopper kernels' names in csrc
-FLASH_SYMBOLS = {"fwd": "flash_fwd_wgmma", "fwd_lse": "flash_fwd_wgmma",
-                 "dq": "flash_bwd_dq_wgmma", "dkv": "flash_bwd_dkv_wgmma"}
+# the kernels' names in csrc: bf16 the Hopper kernels, f32 the CUDA-core
+FLASH_SYMBOLS = {
+    "bfloat16": {"fwd": "flash_fwd_wgmma", "fwd_lse": "flash_fwd_wgmma",
+                 "dq": "flash_bwd_dq_wgmma", "dkv": "flash_bwd_dkv_wgmma"},
+    "float32": {"fwd": "flash_fwd_kernel", "fwd_lse": "flash_fwd_kernel",
+                "dq": "flash_bwd_dq_kernel", "dkv": "flash_bwd_dkv_kernel"}}
+# the head dims the kernels were widened to, timed in bf16 and in f32:
+# zamba2-2.7b's shared block at train_4k (one microbatch of 2 sequences,
+# 32/32 heads of 80, the tile read as 128 columns) and paligemma-3b's
+# head layout (8 query heads on 1 kv head of 256; causal, as the kernels
+# take no prefix-LM mask, so no model path runs it yet)
+FLASH_HEAD_DIMS = [
+    ("zamba2-shared", 2, 32, 32, 4096, 4096, 80, None),
+    ("paligemma", 1, 8, 1, 4096, 4096, 256, None),
+]
 
 
 def flash_err(got, want, ulp):
@@ -975,7 +1012,8 @@ def flash_err(got, want, ulp):
 def flash_bound(kind, B, Hq, Hkv, Sq, Skv, D, n_pairs, elt):
     """The least time for one call: every input read once, every output
     written once, at 3.35 TB/s; the products it must do over the
-    attended (query, key) pairs at 989 TFLOP/s bf16 (forward 2 of them,
+    attended (query, key) pairs at 989 TFLOP/s bf16 on the tensor cores
+    (67 TFLOP/s for the f32 kernels' CUDA-core FMAs) (forward 2 of them,
     4 n D flops; dq 3, as S = q k^T, dP = do v^T and dq = dS k; dk/dv 2,
     dv = P^T do and dk = dS^T q: the backward is 2.5x the forward)."""
     q_b, kv_b, row_b = B * Hq * Sq * D * elt, B * Hkv * Skv * D * elt, \
@@ -987,7 +1025,7 @@ def flash_bound(kind, B, Hq, Hkv, Sq, Skv, D, n_pairs, elt):
         "dkv": (2 * q_b + 4 * kv_b + 2 * row_b, 2),
     }[kind]
     return bound_ms(n_bytes, 2 * n_mm * B * Hq * n_pairs * D,
-                    BF16_FLOPS_PER_S)
+                    BF16_FLOPS_PER_S if elt == 2 else F32_FLOPS_PER_S)
 
 
 def log_flash_row(r):
@@ -1077,7 +1115,8 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
                  causal=causal, bitwise=bitwise, max_abs_err=err, rel_err=rel,
                  err_over_limit=ratio)
         if timed_run:
-            r.update(timed(kern, plain, FLASH_SYMBOLS[kind], n=N_FLASH_TIMED))
+            r.update(timed(kern, plain, FLASH_SYMBOLS[r["dtype"]][kind],
+                           n=N_FLASH_TIMED))
             b_ms, by = flash_bound(kind, B, Hq, Hkv, Sq, Skv, D, n_pairs,
                                    q.element_size())
             r.update(bound_ms=b_ms, bound_by=by, n_pairs=n_pairs,
@@ -1086,6 +1125,15 @@ def check_flash(label, B, Hq, Hkv, Sq, Skv, D, window, dtype, gen,
         torch.cuda.empty_cache()
         out.append(r)
     return out
+
+
+def head_dim_flash_rows(gen):
+    """Phase 2's rows at the widened head dims (FLASH_HEAD_DIMS), each
+    timed in bf16 and in f32. Returns the rows."""
+    import torch
+    return [r for shape in FLASH_HEAD_DIMS
+            for dtype in (torch.bfloat16, torch.float32)
+            for r in check_flash(*shape, dtype, gen)]
 
 
 def noncausal_flash_rows(gen):
@@ -1520,6 +1568,135 @@ def compare_lm_devices(gpu, cpu, tau=2):
     return worst
 
 
+# -- phase 20: the launchers on the card ---------------------------------------
+CLI_STEPS = 3
+# qwen1.5-0.5b FULL, all 24 layers, through ``python -m
+# repro_torch.launch.train``'s ``main`` (the CLI's defaults otherwise:
+# tau 1, 2 microbatches, compression none, plain attention)
+CLI_TRAIN = ["--arch", "qwen1.5-0.5b", "--seq-len", "1024", "--n-workers",
+             "2", "--samples-per-worker", "1", "--steps", str(CLI_STEPS)]
+# the card against ``--device cpu``: amb-linreg SMOKE (f32 arithmetic;
+# the SMOKE LMs compute in bf16, where the two devices' matmuls round
+# apart), 6 steps, phase 7's limits on the loss and the weights
+CLI_SMOKE = ["--arch", "amb-linreg", "--smoke", "--steps", "6"]
+CLI_SERVE = ["--arch", "qwen1.5-0.5b", "--slots", "16", "--n-steps", "32",
+             "--publish-period", "4"]
+CLI_STALENESS_BOUND = 4   # the serve CLI's default --staleness-bound
+
+
+def cli_phase(drive, expect):
+    """Phase 20: the launchers on the card, in process: the train CLI on
+    qwen1.5-0.5b FULL with each optimizer (finite losses; B.1 once a
+    step under dual averaging, no kernel of the port under sgd and
+    adam: their updates are plain tensor code, as in JAX), each
+    optimizer on the card against ``--device cpu``, the serve CLI with
+    its stand-in master publishing every 4 steps (staleness within the
+    bound), and ``anytime_impl="while_dynamic"`` on phase 3's linreg
+    bit for bit against "scan_masked" (n_active = n_mb: the step reads
+    no count back). Returns the record."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    rec = {}
+    t0 = time.perf_counter()
+    for opt in ("dual_averaging", "sgd", "adam"):
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            out, n = drive(lambda: train_cli.main(
+                CLI_TRAIN + ["--optimizer", opt]))
+        lines = text.getvalue().splitlines()
+        hist = out["history"]
+        assert lines[-1].startswith("done: "), lines
+        assert len(lines) == len(hist) + 1, lines
+        assert all(math.isfinite(h["loss"]) for h in hist), hist
+        assert hist[-1]["step"] == CLI_STEPS, hist
+        assert n == (expect(dual_update=CLI_STEPS) if opt == "dual_averaging"
+                     else expect()), (opt, n)
+        rec[f"train_{opt}"] = dict(seconds=time.perf_counter() - t1,
+                                   launches=n, done=lines[-1],
+                                   loss=[h["loss"] for h in hist])
+        log(f"phase 20: train CLI qwen1.5-0.5b 24 layers --optimizer {opt}: "
+            f"{lines[-1]}; {rec[f'train_{opt}']['seconds']:.2f} s; "
+            f"launches {n}")
+        del out
+        torch.cuda.empty_cache()
+    rec["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for opt in ("dual_averaging", "sgd", "adam"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[dev] = train_cli.main(CLI_SMOKE + ["--optimizer", opt,
+                                                        "--device", dev])
+        hg, hc = runs["cuda"]["history"], runs["cpu"]["history"]
+        assert len(hg) == len(hc) > 0
+        for a, b in zip(hg, hc):
+            assert a["applied_count"] == b["applied_count"], (a, b)
+            for key in ("loss", "grad_norm"):
+                assert math.isclose(a[key], b[key], rel_tol=1e-4,
+                                    abs_tol=1e-30), (opt, key, a, b)
+        worst = 0.0
+        for wg, wc in zip(tree_flatten(runs["cuda"]["state"].params)[0],
+                          tree_flatten(runs["cpu"]["state"].params)[0]):
+            wc = wc.float()
+            gap = float((wg.cpu().float() - wc).abs().max()) / max(
+                float(wc.abs().max()), 1e-30)
+            assert gap <= 1e-4, (opt, gap)
+            worst = max(worst, gap)
+        rec[f"smoke_{opt}"] = dict(loss=[hg[-1]["loss"], hc[-1]["loss"]],
+                                   w_gap=worst)
+        log(f"phase 20: train CLI amb-linreg SMOKE --optimizer {opt}: loss "
+            f"{hg[-1]['loss']} (cuda), {hc[-1]['loss']} (cpu); weights "
+            f"within {worst:.3e} <= 1e-4 of the leaf's largest")
+    rec["smoke_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        served, n = drive(lambda: serve_cli.main(CLI_SERVE))
+    lines = text.getvalue().splitlines()
+    stats = served["engine"].stats
+    assert n == expect(), n
+    assert stats.steps == 32 and stats.publish_pops > 0, stats
+    assert stats.staleness_max <= CLI_STALENESS_BOUND, stats
+    rec["serve"] = dict(seconds=time.perf_counter() - t0, lines=lines,
+                        publish_pops=stats.publish_pops,
+                        staleness_max=stats.staleness_max)
+    for line in lines:
+        log(f"phase 20: serve CLI qwen1.5-0.5b 16 slots: {line}")
+    del served
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, rc_of = main_path_config()
+    rc = rc_of("none")
+    params = {}
+    for impl in ("scan_masked", "while_dynamic"):
+        r = rc.replace(ambdg=dataclasses.replace(rc.ambdg, anytime_impl=impl))
+        loop = LoopConfig(n_steps=CLI_STEPS, n_workers=10,
+                          samples_per_worker=150, log_every=1)
+        out, n = drive(lambda: train(build_model(cfg, device="cuda"), r,
+                                     loop, device="cuda"))
+        assert n == expect(dual_update=CLI_STEPS), (impl, n)
+        params[impl] = (tree_flatten(out["state"].params)[0],
+                        [h["loss"] for h in out["history"]])
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        params["scan_masked"][0], params["while_dynamic"][0])) and \
+        params["scan_masked"][1] == params["while_dynamic"][1]
+    assert bitwise, params
+    rec["while_dynamic"] = dict(seconds=time.perf_counter() - t0,
+                                bitwise=bitwise,
+                                loss=params["while_dynamic"][1])
+    log(f"phase 20: linreg FULL anytime_impl=while_dynamic {CLI_STEPS} "
+        f"steps: bit for bit the scan_masked run ({bitwise}); loss "
+        f"{params['while_dynamic'][1]}")
+    return rec
+
+
 # -- the hybrid slice (phases 8 and 9) ------------------------------------------
 Z_LAYERS = 6        # 1 group of 6 Mamba2 layers: 0.51B parameters
 Z_STEPS = 3         # the third applies the first delayed update (tau 2)
@@ -1545,6 +1722,9 @@ Z_F32_RTOL = 1e-5
 Z_BF16_GRAD_RATIO = 3.0
 Z_BF16_RTOL = 1e-3
 Z_DEVICE_GRAD_TOL = 1e-3
+# phase 9's workers, one sequence each (2 until phase 20 came, cut for the
+# script's time limit: the CPU's plain recurrence took 61 s for 2 x 2)
+Z9_WORKERS = 1
 
 
 def z_config(scan_impl, n_layers=Z_LAYERS, **kw):
@@ -1576,10 +1756,20 @@ class counting:
         setattr(self.module, self.name, self.original)
 
 
+def z_route(impl, n_layers=Z_LAYERS, **kw):
+    """Phase 8's routes: "kernel" runs the scan kernel and the shared
+    block's attention on the flash kernels, "xla" the plain chunked scan
+    and plain attention."""
+    if impl == "kernel":
+        kw.setdefault("attn_impl", "flash")
+    return z_config(impl, n_layers=n_layers, **kw)
+
+
 def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     """Phase 8: zamba2 at full width, Z_LAYERS layers, ``seq`` tokens: the
     init-weight gradient and eval checks, then AMB-DG through ``train``
-    with the scan kernel and with the plain chunked scan. ``drive`` and
+    with the scan kernel and the flash kernels (the shared block) and
+    with the plain chunked scan and plain attention. ``drive`` and
     ``expect`` are main's launch-count helpers. Returns the record."""
     import dataclasses
 
@@ -1587,30 +1777,38 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels.linear_scan import ops as scan_ops
     from repro_torch.kernels.linear_scan.kernel import kernels_per_call
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.api import build_model
     zb = {}
     per_step = Z_LAYERS * n_mb    # Mamba2 layers x microbatches
-    rcz = lm_run_config(z_config("kernel"), seq, 2 * n_workers, n_mb)
-    params0 = build_model(z_config("kernel"), device="cuda").init(
+    # shared-block applications x microbatches: the forward with lse twice
+    # (full remat recomputes it), dq and dk/dv once each
+    attn_step = Z_LAYERS // z_config("xla").shared_attn_every * n_mb
+    rcz = lm_run_config(z_route("kernel"), seq, 2 * n_workers, n_mb)
+    params0 = build_model(z_route("kernel"), device="cuda").init(
         torch.Generator().manual_seed(rcz.seed))
-    host = TokenStream(z_config("kernel"), seed=1).next_batch(2, seq)
+    host = TokenStream(z_route("kernel"), seed=1).next_batch(2, seq)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
     names = leaf_names(params0)
     # the worker's gradient on one microbatch at the init weights: the
-    # kernel against the plain chunked scan, in f32 and bf16 compute, each
+    # kernel route against the plain one, in f32 and bf16 compute, each
     # leaf held against the f32 plain gradient; the plain route at chunk
-    # 128 gives the f32 noise floor
-    ref32, loss_ref = model_grads(z_config("xla", compute_dtype="float32"),
-                               params0, batch)
+    # 128 gives the f32 noise floor. The flash kernels alone (the plain
+    # scan) against plain attention at phase 6's limits
+    ref32, loss_ref = model_grads(z_route("xla", compute_dtype="float32"),
+                                  params0, batch)
     zgap, zloss = {}, {"xla_float32": loss_ref}
     chunk128 = dataclasses.replace(z_config("xla").ssm, chunk_size=128)
     for tag, cfg in (
-            ("xla_chunk128_float32", z_config("xla", compute_dtype="float32",
-                                              ssm=chunk128)),
-            ("kernel_float32", z_config("kernel", compute_dtype="float32")),
-            ("kernel_bfloat16", z_config("kernel")),
-            ("xla_bfloat16", z_config("xla"))):
+            ("xla_chunk128_float32", z_route("xla", compute_dtype="float32",
+                                             ssm=chunk128)),
+            ("kernel_float32", z_route("kernel", compute_dtype="float32")),
+            ("flash_float32", z_route("xla", compute_dtype="float32",
+                                      attn_impl="flash")),
+            ("kernel_bfloat16", z_route("kernel")),
+            ("flash_bfloat16", z_route("xla", attn_impl="flash")),
+            ("xla_bfloat16", z_route("xla"))):
         g_, zloss[tag] = model_grads(cfg, params0, batch)
         zgap[tag] = leaf_gaps(g_, ref32, names)
         del g_
@@ -1619,22 +1817,27 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     torch.cuda.empty_cache()
     zev = {}
     zev["kernel_bfloat16"], n_zev = drive(lambda: lm_eval(
-        z_config("kernel"), params0, batch))
-    zev["xla_bfloat16"] = lm_eval(z_config("xla"), params0, batch)
+        z_route("kernel"), params0, batch))
+    zev["flash_bfloat16"] = lm_eval(z_route("xla", attn_impl="flash"),
+                                    params0, batch)
+    zev["xla_bfloat16"] = lm_eval(z_route("xla"), params0, batch)
     del params0
     torch.cuda.empty_cache()
     zb["init_weights"] = dict(leaves=names, grad_gap_to_f32_xla=zgap,
                               loss=zloss, eval=zev, eval_launches=n_zev)
     for i, name in enumerate(names):
         log(f"phase 8: init weights, gradient {name} against the f32 xla "
-            f"gradient: f32 kernel {zgap['kernel_float32'][i]:.3e}, xla at "
-            f"chunk 128 {zgap['xla_chunk128_float32'][i]:.3e}; bf16 kernel "
-            f"{zgap['kernel_bfloat16'][i]:.3e}, xla "
+            f"gradient: f32 kernel {zgap['kernel_float32'][i]:.3e}, flash "
+            f"{zgap['flash_float32'][i]:.3e}, xla at chunk 128 "
+            f"{zgap['xla_chunk128_float32'][i]:.3e}; bf16 kernel "
+            f"{zgap['kernel_bfloat16'][i]:.3e}, flash "
+            f"{zgap['flash_bfloat16'][i]:.3e}, xla "
             f"{zgap['xla_bfloat16'][i]:.3e} (of the leaf's largest element)")
     log(f"phase 8: init weights, loss per token of the gradient batch "
         f"{json.dumps(zloss)}; no-grad eval {json.dumps(zev)}; eval "
         f"launches {n_zev}")
-    assert n_zev == expect(linear_scan_fwd=Z_LAYERS), n_zev
+    assert n_zev == expect(linear_scan_fwd=Z_LAYERS,
+                           flash_fwd=attn_step // n_mb), n_zev
     for i, name in enumerate(names):
         assert zgap["kernel_float32"][i] <= (
             Z_F32_RATIO * zgap["xla_chunk128_float32"][i] + Z_F32_FLOOR), (
@@ -1642,29 +1845,52 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
         assert zgap["kernel_bfloat16"][i] <= (
             Z_BF16_GRAD_RATIO * zgap["xla_bfloat16"][i]), (
             name, zgap["kernel_bfloat16"][i], zgap["xla_bfloat16"][i])
+        # phase 6's limits: flash and plain attention on the same scan;
+        # in f32 a leaf may also lie as far as the plain route's own
+        # chunk-to-chunk gap, where that is larger (the Mamba layers'
+        # backward amplifies one rounding of the shared block's output:
+        # a_log and dt_bias read 3.2e-5 and 1.5e-5 against gaps of 6.1e-5
+        # and 4.1e-5, every other leaf at most 2.5e-6; NVIDIA H100 80GB
+        # HBM3, 700 W)
+        assert zgap["flash_float32"][i] <= max(
+            LM_F32_GRAD_TOL, zgap["xla_chunk128_float32"][i]), (
+            name, zgap["flash_float32"][i], zgap["xla_chunk128_float32"][i])
+        assert zgap["flash_bfloat16"][i] <= (
+            LM_BF16_GRAD_RATIO * zgap["xla_bfloat16"][i]), (
+            name, zgap["flash_bfloat16"][i], zgap["xla_bfloat16"][i])
     for a, b, rtol in (("kernel_float32", "xla_float32", Z_F32_RTOL),
-                       ("kernel_bfloat16", "xla_bfloat16", Z_BF16_RTOL)):
+                       ("kernel_bfloat16", "xla_bfloat16", Z_BF16_RTOL),
+                       ("flash_float32", "xla_float32", LM_F32_RTOL),
+                       ("flash_bfloat16", "xla_bfloat16", LM_BF16_RTOL)):
         assert math.isclose(zloss[a], zloss[b], rel_tol=rtol), (a, b, zloss)
     assert math.isclose(zev["kernel_bfloat16"], zev["xla_bfloat16"],
                         rel_tol=Z_BF16_RTOL), zev
+    assert math.isclose(zev["flash_bfloat16"], zev["xla_bfloat16"],
+                        rel_tol=LM_BF16_RTOL), zev
     zruns = {}
     for impl in ("kernel", "xla"):
-        cfg = z_config(impl)
+        cfg = z_route(impl)
         rc = lm_run_config(cfg, seq, 2 * n_workers, n_mb)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with counting(ssm_mod, "ssd_chunked") as n_chunked, \
-                counting(scan_ops, "linear_scan_ref") as n_plain:
+                counting(scan_ops, "linear_scan_ref") as n_plain, \
+                counting(layers_mod, "gqa_attend") as n_plain_attn:
             ((out, secs), kernels), n = drive(lambda: profiled(
                 lambda: run_lm(cfg, rc, Z_STEPS, n_workers, "cuda")))
         if impl == "kernel":
             # the forward and its recomputation under block_remat="full";
-            # the backward's dv, dk and dq forms; no plain scan at all
+            # the backward's dv, dk and dq forms; no plain scan at all;
+            # the shared block on the flash kernels, no plain attention
             assert n == expect(dual_update=Z_STEPS, slot_rotate=Z_STEPS,
                                linear_scan_fwd=2 * per_step * Z_STEPS,
-                               linear_scan_bwd=3 * per_step * Z_STEPS), n
+                               linear_scan_bwd=3 * per_step * Z_STEPS,
+                               flash_fwd_lse=2 * attn_step * Z_STEPS,
+                               flash_bwd_dq=attn_step * Z_STEPS,
+                               flash_bwd_dkv=attn_step * Z_STEPS), n
             assert n_chunked.calls == n_plain.calls == 0, (
                 n_chunked.calls, n_plain.calls)
+            assert n_plain_attn.calls == 0, n_plain_attn.calls
         else:
             assert n == expect(dual_update=Z_STEPS, slot_rotate=Z_STEPS), n
             assert n_chunked.calls == 2 * per_step * Z_STEPS, n_chunked.calls
@@ -1672,7 +1898,7 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
         norm = lm_weights_ok(out["state"].params)
         hist = out["history"]
         # a no-grad eval at the run's final weights, both routes
-        ev = {i: lm_eval(z_config(i), out["state"].params, batch)
+        ev = {i: lm_eval(z_route(i), out["state"].params, batch)
               for i in ("kernel", "xla")}
         assert math.isclose(ev["kernel"], ev["xla"], rel_tol=Z_BF16_RTOL), ev
         zruns[impl] = hist
@@ -1687,7 +1913,8 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
             else None)
         del out
         per_call = kernels_per_call(seq, cfg.ssm.chunk_size)
-        log(f"phase 8: zamba2 {Z_LAYERS} layers scan_impl={impl}: "
+        log(f"phase 8: zamba2 {Z_LAYERS} layers scan_impl={impl} "
+            f"attn_impl={cfg.attn_impl}: "
             f"{Z_STEPS} steps in {secs:.2f} s; loss {zb[impl]['loss']}; "
             f"applied_count {zb[impl]['applied_count']}; |w| = {norm:.4f}; "
             f"peak {zb[impl]['peak_gib']:.2f} GiB; launches {n} (calls; a "
@@ -1711,7 +1938,7 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
 
 def hybrid_device_phase(drive, expect):
     """Phase 9: zamba2 at full width with one group of 6 layers, seq 512,
-    2 workers x 1 sequence, tau 1, 2 steps (the second applies the first
+    Z9_WORKERS worker(s) x 1 sequence, tau 1, 2 steps (the second applies the first
     delayed update), f32: the card (the scan kernel) against the CPU
     (the plain recurrence), with phase 3's checks and the init-weight
     gradient on one sequence. The CPU's plain recurrence (512
@@ -1722,7 +1949,7 @@ def hybrid_device_phase(drive, expect):
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models.api import build_model
     cfg9 = z_config("kernel", n_layers=6, compute_dtype="float32")
-    rc9 = lm_run_config(cfg9, 512, 2, 1, tau=1)
+    rc9 = lm_run_config(cfg9, 512, Z9_WORKERS, 1, tau=1)
     params9 = build_model(cfg9, device="cpu").init(
         torch.Generator().manual_seed(rc9.seed))
     host9 = TokenStream(cfg9, seed=1).next_batch(1, 512)
@@ -1741,16 +1968,18 @@ def hybrid_device_phase(drive, expect):
     assert math.isclose(loss9_gpu, loss9_cpu, rel_tol=Z_F32_RTOL), (
         loss9_gpu, loss9_cpu)
     del g9_cpu, g9_gpu, params9, leaves9
-    (gpu9, secs9), n = drive(lambda: run_lm(cfg9, rc9, 2, 2, "cuda", 1))
+    (gpu9, secs9), n = drive(lambda: run_lm(cfg9, rc9, 2, Z9_WORKERS,
+                                            "cuda", 1))
     assert n == expect(dual_update=2, slot_rotate=2,
                        linear_scan_fwd=2 * 6 * 1 * 2,
                        linear_scan_bwd=3 * 6 * 1 * 2), n
-    cpu9, cpu_secs9 = run_lm(cfg9, rc9, 2, 2, "cpu", 1)
+    cpu9, cpu_secs9 = run_lm(cfg9, rc9, 2, Z9_WORKERS, "cpu", 1)
     diff9, tol9 = compare_lm_devices(gpu9, cpu9, tau=1)
     out = dict(gpu_s=secs9, cpu_s=cpu_secs9, launches=n, init_grad_gap=gap9,
                loss=[h["loss"] for h in gpu9["history"]], w_max_diff=diff9,
                w_tol=tol9)
-    log(f"phase 9: zamba2 6 layers f32, 2 steps on cuda in {secs9:.2f} s, "
+    log(f"phase 9: zamba2 6 layers f32, {Z9_WORKERS} worker(s), 2 steps on "
+        f"cuda in {secs9:.2f} s, "
         f"on cpu in {cpu_secs9:.2f} s; loss {out['loss']}"
         f"; max |w_gpu - w_cpu| = {diff9:.3e} <= {tol9:.3e}; launches {n}")
     del gpu9, cpu9
@@ -2121,7 +2350,9 @@ def kbatch_phase(drive, expect):
 
 
 # -- the CNN and the training scenarios (phases 13 and 14) ---------------------
-CNN_STEPS = 6          # the CPU's reference run sets the phase's time
+# the CPU's reference run sets the phase's time (6 until phase 20 came,
+# cut for the script's time limit; tau 1: the second step applies)
+CNN_STEPS = 4
 CNN_WORKERS, CNN_PER_WORKER = 4, 128   # fig5_nn.py: n = 4, 4 x 128 a step
 # The card (cuDNN, cuBLAS; TF32 off) against the CPU, f32. The f32 gradient
 # of the first convolutions is far from exact on both devices: at the init
@@ -4086,9 +4317,10 @@ XL_STEPS = 3         # 18b: the third applies the first delayed update
 # 4 x 1024 tokens is ~210,000 eager kernels at 4 layers (each sLSTM time
 # step ~25 forward and ~50 backward), ~30 us of host work each, 6.3 s
 XL_TRAIN_LAYERS = 2
-# 18a's depth, of 12 (12 until phase 19 came, cut for the script's time
-# limit: the card's cold gradient and the CPU's took 15 + 22 s at 12)
-XL_DEVICE_LAYERS = 6
+# 18a's depth, of 12 (12 until phase 19 came, 6 until phase 20 came, cut
+# for the script's time limit: the card's cold gradient and the CPU's
+# took 15 + 22 s at 12); 4 keeps two blocks of each kind
+XL_DEVICE_LAYERS = 4
 XL_SERVE_SLOTS, XL_SERVE_WARMUP, XL_SERVE_TIMED = 8, 16, 64
 XL_DEVICE_STEPS = 24     # 18c: SMOKE engine steps, card against CPU
 # 18a: prefill-by-decode against the forward's last position, f32, of the
@@ -4682,6 +4914,12 @@ def main():
     assert any("_wgmma" in name for name in hgmma), hgmma
     for name, n in hgmma.items():
         assert (n > 0) == ("_wgmma" in name), (name, n)
+    for d in flash_kernel.HEAD_DIMS:    # every head dim, each kernel
+        for k in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                  "flash_bwd_dkv_wgmma", "flash_fwd_kernel",
+                  "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+            assert any(k in name and f"ILi{d}E" in name
+                       for name in hgmma), (k, d)
     hmma = sass_counts(build.library_path("linear_scan"), "HMMA")
     for name, n in sorted(hmma.items()):
         log(f"  linear_scan SASS: {n} HMMA in {name}")
@@ -4719,10 +4957,10 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,13,14,15,16,17,18,19``: after the build, run only those
-    # of phases 13-19 (2: phase 2's mixtral and non-causal flash rows
-    # alone; a short call while working on them); prints no kernels or ok
-    # line
+    # ``--only=2,8,13,14,15,16,17,18,19,20``: after the build, run only
+    # those of phases 8 and 13-20 (2: phase 2's mixtral, non-causal and
+    # head-dim 80/256 flash rows alone; a short call while working on
+    # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
             if a.startswith("--only=")]
     if only:
@@ -4734,13 +4972,17 @@ def main():
             rows = (check_flash(*MIX_FLASH, torch.bfloat16, gen)
                     + check_flash(*MIX_FLASH, torch.float32, gen,
                                   timed_run=False)
-                    + noncausal_flash_rows(gen))
+                    + noncausal_flash_rows(gen) + head_dim_flash_rows(gen))
             for r in rows:
                 log_flash_row(r)
             for r in rows:
                 assert r["bitwise"] and r["err_over_limit"] <= 1.0, r
             record["flash_mixtral_noncausal"] = rows
             phase_done("phase 2 (mixtral and non-causal rows)", t0)
+        if "8" in picked:
+            t0 = time.perf_counter()
+            record["zamba2"] = hybrid_phase(drive, expect, 4, 4, 4096)
+            phase_done("phase 8", t0)
         if "13" in picked:
             t0 = time.perf_counter()
             record["cnn"] = cnn_phase(drive, expect)
@@ -4769,6 +5011,10 @@ def main():
             t0 = time.perf_counter()
             record["encdec_vlm"] = encdec_vlm_phase(drive, expect)
             phase_done("phase 19", t0)
+        if "20" in picked:
+            t0 = time.perf_counter()
+            record["cli"] = cli_phase(drive, expect)
+            phase_done("phase 20", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -4833,7 +5079,7 @@ def main():
     for shape in FLASH_F32:
         for r in check_flash(*shape, torch.float32, gen, timed_run=False):
             flash[r["kernel"]].append(r)
-    for r in noncausal_flash_rows(gen):
+    for r in noncausal_flash_rows(gen) + head_dim_flash_rows(gen):
         flash[r["kernel"]].append(r)
     for rs in flash.values():
         for r in rs:
@@ -5206,12 +5452,17 @@ def main():
     t0 = time.perf_counter()
     encdec_vlm = encdec_vlm_phase(drive, expect)
     phase_done("phase 19", t0)
+
+    # -- 20. the launchers on the card --------------------------------------
+    t0 = time.perf_counter()
+    cli = cli_phase(drive, expect)
+    phase_done("phase 20", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
-                    "encdec_vlm": encdec_vlm, "phase_s": phase_s,
+                    "encdec_vlm": encdec_vlm, "cli": cli, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model families
@@ -233,6 +233,11 @@ class ShapeConfig:
 
 
 TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +389,20 @@ class MeshConfig:
     n_pods: int = 1
     data: int = 16
     model: int = 16
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return (("pod", "data", "model") if self.n_pods > 1
+                else ("data", "model"))
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ((self.n_pods, self.data, self.model) if self.n_pods > 1
+                else (self.data, self.model))
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_pods * self.data * self.model
 
 
 @dataclass(frozen=True)

@@ -80,10 +80,24 @@ def check_supported(rc: RunConfig) -> None:
             "adaptive batch schedules run on the arena master pipeline "
             "only (rc.master_impl='arena'); the pytree reference path keeps "
             "the paper's static b_bar")
-    if rc.ambdg.anytime_impl != "scan_masked":
-        raise NotImplementedError(
-            f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while is "
-            "not ported yet (ROADMAP A.2)")
+    check_anytime_impl(rc)
+
+
+def check_anytime_impl(rc: RunConfig) -> None:
+    if rc.ambdg.anytime_impl not in ("scan_masked", "while_dynamic"):
+        raise ValueError(f"unknown anytime_impl {rc.ambdg.anytime_impl!r}; "
+                         "expected 'scan_masked' or 'while_dynamic'")
+
+
+def accumulate(rc: RunConfig, loss_fn, params, chunk, n_active):
+    """One chunk's (grad_sum, count, metrics) by ``rc.ambdg.anytime_impl``:
+    the masked accumulation over every microbatch, or the dynamic trip
+    over the first ``n_active`` (None: all)."""
+    n_mb = rc.ambdg.n_microbatches
+    if rc.ambdg.anytime_impl == "while_dynamic":
+        return anytime.accumulate_while(loss_fn, params, chunk, n_mb,
+                                        n_active)
+    return anytime.accumulate_scan(loss_fn, params, chunk, n_mb)
 
 
 def loss_with_remat(model: Model, rc: RunConfig):
@@ -159,7 +173,6 @@ def build_step_fns(model: Model, rc: RunConfig):
     _, tau_max = resolve_bounds(rc.delay, tau)   # validates rc.delay
     # a stochastic delay's ring holds its cap: tau_max + 1 slots
     ring_tau = tau_max if variable_delay else tau
-    n_mb = rc.ambdg.n_microbatches
     compression = rc.ambdg.pod_compression
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
@@ -190,13 +203,16 @@ def build_step_fns(model: Model, rc: RunConfig):
 
     def pod_chunk_grads(params, batch):
         """Pod-stacked (grads {k: (n_pods, ...)}, counts (n_pods,), loss
-        sums (n_pods,)): each pod's chunk of the batch on its own."""
+        sums (n_pods,)): each pod's chunk of the batch on its own (the
+        first ``batch["n_active"]`` microbatches of it under
+        "while_dynamic")."""
+        batch, n_active = anytime.pop_n_active(batch, n_pods)
         chunks = [batch] if n_pods == 1 else [
             {k: v.reshape((n_pods, v.shape[0] // n_pods)
                           + tuple(v.shape[1:]))[p] for k, v in batch.items()}
             for p in range(n_pods)]
-        out = [anytime.accumulate_scan(loss_fn, params, c, n_mb)
-               for c in chunks]
+        out = [accumulate(rc, loss_fn, params, c, a)
+               for c, a in zip(chunks, n_active)]
         per_pod = [arena_mod.tree_flatten(g)[0] for g, _, _ in out]
         treedef = arena_mod.tree_flatten(out[0][0])[1]
         grads = arena_mod.tree_unflatten(

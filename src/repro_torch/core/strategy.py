@@ -352,10 +352,7 @@ class DecentralizedStrategy(Strategy):
                              "gossip consensus exchanges fresh local duals "
                              "every epoch (no master delay ring to jitter)")
         super().__init__(model, rc)
-        if rc.ambdg.anytime_impl != "scan_masked":
-            raise NotImplementedError(
-                f"anytime_impl={rc.ambdg.anytime_impl!r}: accumulate_while "
-                "is not ported yet (ROADMAP A.2)")
+        ambdg.check_anytime_impl(rc)
         if rc.ambdg.proximal not in ("l2", "l2_ball"):
             raise ValueError(f"unknown proximal {rc.ambdg.proximal!r}")
         cc = rc.consensus
@@ -417,7 +414,6 @@ class DecentralizedStrategy(Strategy):
         model, rc = self.model, self.rc
         cfg = rc.ambdg
         n = rc.consensus.n_workers
-        n_mb = cfg.n_microbatches
         layout = self.layout
         device = model.device
         loss_fn = ambdg.loss_with_remat(model, rc)
@@ -441,8 +437,10 @@ class DecentralizedStrategy(Strategy):
         def per_worker_grads(params, batch):
             """JAX's ``vmap`` over the workers as a loop: worker i runs the
             anytime accumulation at its own slice of the stacked params on
-            its chunk of the batch. Returns (flat grads (n, rows, 128),
-            counts (n,), loss sums (n,))."""
+            its chunk of the batch (the first ``batch["n_active"]``
+            microbatches of it under "while_dynamic"). Returns (flat grads
+            (n, rows, 128), counts (n,), loss sums (n,))."""
+            batch, n_active = anytime.pop_n_active(batch, n)
             for k, x in batch.items():
                 if x.shape[0] % n:
                     raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows "
@@ -453,9 +451,9 @@ class DecentralizedStrategy(Strategy):
                                  dtype=torch.float32, device=device)
             counts, losses = [], []
             for i in range(n):
-                g, c, m = anytime.accumulate_scan(
-                    loss_fn, arena_mod.tree_map(lambda p: p[i], params),
-                    {k: x[i] for k, x in chunks.items()}, n_mb)
+                g, c, m = ambdg.accumulate(
+                    rc, loss_fn, arena_mod.tree_map(lambda p: p[i], params),
+                    {k: x[i] for k, x in chunks.items()}, n_active[i])
                 arena_mod.flatten_tree(layout, g, out=g_flat[i])
                 counts.append(c)
                 losses.append(m["loss_sum"])

@@ -7,7 +7,7 @@
 //                                          src/repro/kernels/flash_attention/bwd.py:199
 //
 // Layout as in JAX: q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), contiguous,
-// f32 or bf16, D 64 or 128; queries right-aligned (query row i sits at key
+// f32 or bf16, D 64, 80, 128 or 256; queries right-aligned (query row i sits at key
 // position i + Skv - Sq); causal and sliding-window masks; GQA by grouping
 // (q head h reads kv head h / (Hq / Hkv)). Softmax state (m, l), lse, delta
 // and every accumulator are f32; outputs are rounded once to the input type
@@ -87,10 +87,24 @@
 // f32: the first version's CUDA-core kernels (flash_*_kernel), kept as the
 // exact-f32 path: every product an f32 FMA (67 TFLOP/s peak), k/v (or q/do)
 // tiles staged in shared memory and broadcast to the threads of a warp.
-// Every thread owns one row (a query row, or a key row in dkv) and 32 of
-// its D dims, in four-element chunks interleaved with the row's other
+// Every thread owns one row (a query row, or a key row in dkv) and kE of
+// its D dims (32; 20 at D = 80, so that a row has a power of two of
+// threads), in four-element chunks interleaved with the row's other
 // threads, and finishes a row's dot products with a butterfly of
-// __shfl_xor_sync over its D/32 threads, which leaves the same bits in each.
+// __shfl_xor_sync over its D/kE threads, which leaves the same bits in
+// each. A block holds 64 rows (32 at D = 256: 8 threads a row, and four
+// 32-dim rows of registers a thread in dk/dv).
+//
+// Head dims 80 and 256 in bf16. A row of 80 is 160 bytes, no whole number
+// of 128-byte swizzle boxes: its tiles are read as D = 128 tiles (the
+// tensor map's row is 80 columns, so TMA zero-fills columns 80..127 of
+// the second box), the products over the head dim stop at column 80, and
+// only 80 columns of o, dq, dk and dv are stored; the products that run
+// across the head dim (p v, ds k, p^T do, ds^T q) carry the zero columns.
+// At D = 256 a 64 x 256 f32 accumulator is 128 registers a thread: the
+// forward and dq loop over 64- and 32-key tiles in 2 stages, and dk/dv,
+// two such accumulators, runs as two blocks a key tile, each computing the
+// products over all 256 dims and accumulating 128 columns of dk and dv.
 #include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -147,10 +161,18 @@ __device__ __forceinline__ void q_tiles(int k0, int Sq, int Skv, int causal,
 // f32: CUDA-core kernels
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;             // query rows per tile
-constexpr int kBK = 64;             // key rows per tile
-constexpr int kE = 32;              // head dims a thread owns
+constexpr int kBQ = 64;             // query rows a tile (dk/dv's ring)
+constexpr int kBK = 64;             // key rows a tile (the forward's, dq's)
 constexpr int kChunk = 16;          // keys per online-softmax update (fwd)
+
+// kE: head dims a thread owns (D / kE threads a row, a power of two);
+// kRows: the rows of a block (query rows; key rows in dk/dv)
+template <int D>
+struct F32Shape {
+  static constexpr int kE = D == 80 ? 20 : 32;
+  static constexpr int kRows = D == 256 ? 32 : 64;
+  static constexpr int kThreads = kRows * (D / kE);
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -181,10 +203,10 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int n) {
   }
 }
 
-// this thread's 32 dims of a row: chunks part, part + TPR, ...
+// this thread's kE dims of a row: chunks part, part + TPR, ...
 template <int D>
 __device__ __forceinline__ void load_row(float* x, const float* row, int part) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE;
 #pragma unroll
   for (int t = 0; t < kE / 4; ++t) {
     const float4 v = load4(row + 4 * (part + TPR * t));
@@ -194,18 +216,18 @@ __device__ __forceinline__ void load_row(float* x, const float* row, int part) {
 
 template <int D>
 __device__ __forceinline__ void store_row(float* row, const float* x, int part) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE;
 #pragma unroll
   for (int t = 0; t < kE / 4; ++t)
     store4(row + 4 * (part + TPR * t),
            make_float4(x[4 * t], x[4 * t + 1], x[4 * t + 2], x[4 * t + 3]));
 }
 
-// partial dot of this thread's 32 dims with a shared f32 row
+// partial dot of this thread's kE dims with a shared f32 row
 template <int D>
 __device__ __forceinline__ float dot_part(const float* x, const float* srow,
                                           int part) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE;
   float d = 0.f;
 #pragma unroll
   for (int t = 0; t < kE / 4; ++t) {
@@ -218,11 +240,11 @@ __device__ __forceinline__ float dot_part(const float* x, const float* srow,
   return d;
 }
 
-// acc += a * (this thread's 32 dims of a shared f32 row)
+// acc += a * (this thread's kE dims of a shared f32 row)
 template <int D>
 __device__ __forceinline__ void axpy_part(float* acc, float a,
                                           const float* srow, int part) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE;
 #pragma unroll
   for (int t = 0; t < kE / 4; ++t) {
     const float4 y = *reinterpret_cast<const float4*>(srow + 4 * (part + TPR * t));
@@ -234,12 +256,12 @@ __device__ __forceinline__ void axpy_part(float* acc, float a,
 }
 
 template <int D, bool kLse>
-__global__ void __launch_bounds__(kBQ * (D / kE))
+__global__ void __launch_bounds__(F32Shape<D>::kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                  int causal, int window, float scale) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE, R = F32Shape<D>::kRows;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [kBK][D]
   float* Vs = Ks + kBK * D;                      // [kBK][D]
@@ -247,7 +269,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh - (bh / Hq) * Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * R;
   const int part = threadIdx.x % TPR;
   const int i = q0 + threadIdx.x / TPR;
   const bool row_ok = i < Sq;
@@ -262,7 +284,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)kvh * Skv * D;
   const float* vb = v + (size_t)kvh * Skv * D;
   int lo, hi;
-  kv_tiles<kBQ, kBK>(q0, Sq, Skv, causal, window, &lo, &hi);
+  kv_tiles<R, kBK>(q0, Sq, Skv, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     const int nk = min(kBK, Skv - k0);
@@ -306,14 +328,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBQ * (D / kE))
+__global__ void __launch_bounds__(F32Shape<D>::kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                     float scale) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE, R = F32Shape<D>::kRows;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [kBK][D]
   float* Vs = Ks + kBK * D;                      // [kBK][D]
@@ -321,7 +343,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh - (bh / Hq) * Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * R;
   const int part = threadIdx.x % TPR;
   const int i = q0 + threadIdx.x / TPR;
   const bool row_ok = i < Sq;
@@ -338,7 +360,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)kvh * Skv * D;
   const float* vb = v + (size_t)kvh * Skv * D;
   int lo, hi;
-  kv_tiles<kBQ, kBK>(q0, Sq, Skv, causal, window, &lo, &hi);
+  kv_tiles<R, kBK>(q0, Sq, Skv, causal, window, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
     const int nk = min(kBK, Skv - k0);
@@ -362,14 +384,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBK * (D / kE))
+__global__ void __launch_bounds__(F32Shape<D>::kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int Hq, int Hkv, int Sq, int Skv,
                      int causal, int window, float scale) {
-  constexpr int TPR = D / kE;
+  constexpr int kE = F32Shape<D>::kE, TPR = D / kE, R = F32Shape<D>::kRows;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][D]
   float* Ds = Qs + kBQ * D;                      // [kBQ][D] (do)
@@ -379,7 +401,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bkv = blockIdx.y;
   const int b = bkv / Hkv, hkv = bkv - (bkv / Hkv) * Hkv;
   const int G = Hq / Hkv;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * R;
   const int part = threadIdx.x % TPR;
   const int j = k0 + threadIdx.x / TPR;
   const bool col_ok = j < Skv;
@@ -393,7 +415,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int e = 0; e < kE; ++e) { dka[e] = 0.f; dva[e] = 0.f; }
 
   int lo, hi;
-  q_tiles<kBQ, kBK>(k0, Sq, Skv, causal, window, &lo, &hi);
+  q_tiles<kBQ, R>(k0, Sq, Skv, causal, window, &lo, &hi);
   for (int g = 0; g < G; ++g) {
     const size_t bh = (size_t)b * Hq + (size_t)hkv * G + g;
     for (int qt = lo; qt < hi; ++qt) {
@@ -444,8 +466,9 @@ int launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
   const int smem = 2 * kBK * D * (int)sizeof(float);
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
-  kernel<<<grid, kBQ * (D / kE), smem, stream>>>(
+  constexpr int R = F32Shape<D>::kRows;
+  const dim3 grid((Sq + R - 1) / R, B * Hq);
+  kernel<<<grid, F32Shape<D>::kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o,
       (float*)lse, Hq, Hkv, Sq, Skv, causal, window, scale);
   return (int)cudaGetLastError();
@@ -460,8 +483,9 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
   const int smem = 2 * kBK * D * (int)sizeof(float);
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
-  kernel<<<grid, kBQ * (D / kE), smem, stream>>>(
+  constexpr int R = F32Shape<D>::kRows;
+  const dim3 grid((Sq + R - 1) / R, B * Hq);
+  kernel<<<grid, F32Shape<D>::kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (float*)dq, Hq, Hkv, Sq, Skv,
       causal, window, scale);
@@ -478,8 +502,9 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
   const int smem = (2 * kBQ * D + 2 * kBQ) * (int)sizeof(float);
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid((Skv + kBK - 1) / kBK, B * Hkv);
-  kernel<<<grid, kBK * (D / kE), smem, stream>>>(
+  constexpr int R = F32Shape<D>::kRows;
+  const dim3 grid((Skv + R - 1) / R, B * Hkv);
+  kernel<<<grid, F32Shape<D>::kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, Hq, Hkv,
       Sq, Skv, causal, window, scale);
@@ -703,16 +728,25 @@ __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db,
   else if constexpr (N == 64) mma_ss_n64(d, da, db, acc);
   else mma_ss_n128(d, da, db, acc);
 }
-// d += (hi + lo) b over one k-step, b MN-major in shared memory
+// d += (hi + lo) b over k-step kk, b the N-column MN-major tile (64-column
+// panels `panel` bytes apart) in shared memory; N = 256 as two 128-column
+// halves (registers 0..63 and 64..127 of the accumulator)
 template <int N>
 __device__ __forceinline__ void mma_rs2(float* d, const uint32_t* hi,
-                                        const uint32_t* lo, uint64_t db) {
+                                        const uint32_t* lo,
+                                        const uint8_t* tile, int panel,
+                                        int kk) {
+  const uint64_t db = mnmajor(tile, panel, kk);
   if constexpr (N == 64) {
     mma_rs_n64(d, hi, db, 1);
     mma_rs_n64(d, lo, db, 1);
-  } else {
+  } else if constexpr (N == 128) {
     mma_rs_n128(d, hi, db, 1);
     mma_rs_n128(d, lo, db, 1);
+  } else {
+    static_assert(N == 256, "N is 64, 128 or 256");
+    mma_rs2<128>(d, hi, lo, tile, panel, kk);
+    mma_rs2<128>(d + 64, hi, lo, tile + 2 * panel, panel, kk);
   }
 }
 
@@ -758,7 +792,8 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 // Shared memory of a block: its fixed tiles, then a ring of kStages stages
 // (two tiles each, then the columns' lse and delta if any, each stage
 // 1024-aligned), then the mbarriers (fixed, full[kStages]) and the stages'
-// release counters. A tile of R rows is D / 64 panels of R x 128 bytes.
+// release counters. A tile of R rows and D columns (a head dim's kPad) is
+// D / 64 panels of R x 128 bytes.
 template <int kTile, int kCols>
 __host__ __device__ constexpr int stage_bytes() {
   return 2 * kTile + (kCols ? 1024 : 0);
@@ -769,19 +804,33 @@ constexpr int smem_bytes() {
          (1 + kStages) * 8 + kStages * 4;
 }
 
+// The columns a head dim's tiles are read at: whole 64-column TMA boxes
+// (D = 80 as 128, the columns past 80 zero)
+template <int D>
+constexpr int kPad = (D + 63) / 64 * 64;
+
 // The forward's ring: at D = 64, 64-key tiles in 2 stages and two blocks
 // an SM (at most 128 registers a thread; a second block's warps issue
-// while the first block's wait on their products or exps); at D = 128,
-// 128-key tiles in 3 stages, one block an SM (the 64 x 128 f32 output
-// accumulator alone is 64 registers a thread). dq: 64-key tiles; dk/dv:
-// 32-query tiles (two 64 x D f32 accumulators); both 3 stages, one block.
+// while the first block's wait on their products or exps); at D = 80 and
+// 128, 128-key tiles in 3 stages, one block an SM (the 64 x 128 f32 output
+// accumulator alone is 64 registers a thread); at D = 256, 64-key tiles in
+// 2 stages (a 128 x 256 q tile and two 64 x 256 tiles a stage: 192 KiB).
+// dq: 64-key tiles in 3 stages (32 keys in 2 at D = 256); dk/dv: 32-query
+// tiles (two 64 x 128 f32 accumulators, over 128 of the columns at D =
+// 256) in 3 stages (2 at D = 256); one block an SM.
 template <int D>
 struct FwdShape {
-  static constexpr int kBK = D == 64 ? 64 : 128;
-  static constexpr int kStages = D == 64 ? 2 : 3;
+  static constexpr int kBK = D == 64 || D == 256 ? 64 : 128;
+  static constexpr int kStages = D == 64 || D == 256 ? 2 : 3;
   static constexpr int kBlocks = D == 64 ? 2 : 1;
 };
-constexpr int kDqBK = 64, kDkvBQ = 32, kBwdStages = 3;
+template <int D>
+struct BwdShape {
+  static constexpr int kDqBK = D == 256 ? 32 : 64;
+  static constexpr int kStages = D == 256 ? 2 : 3;
+  static constexpr int kCols = kPad<D> < 128 ? kPad<D> : 128;  // dk/dv's
+};
+constexpr int kDkvBQ = 32;
 
 // The ring of a block: n tiles in order, tile i in stage i % kStages.
 // Thread 0 copies the fixed tiles and the first kStages ring tiles in; a
@@ -975,7 +1024,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                 float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
                 int causal, int window, float scale) {
-  constexpr int BK = FwdShape<D>::kBK, kQ = 128 * D * 2;
+  constexpr int DP = kPad<D>;
+  constexpr int BK = FwdShape<D>::kBK, kQ = 128 * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);
   const int nqt = (Sq + 127) / 128;
@@ -984,7 +1034,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const int kvh = b * Hkv + h / (Hq / Hkv);
   int lo, hi;
   kv_tiles<128, BK>(q0, Sq, Skv, causal, window, &lo, &hi);
-  const auto ring = make_ring<D, BK, FwdShape<D>::kStages>(
+  const auto ring = make_ring<DP, BK, FwdShape<D>::kStages>(
       sq + kQ, &tk, &tv, hi - lo,
                                      [=](int i, int* row, int* head) {
                                        *row = (lo + i) * BK;
@@ -1000,11 +1050,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   int wlo, whi;
   kv_tiles<64, BK>(qw, Sq, Skv, causal, window, &wlo, &whi);
   clamp(lo, hi, &wlo, &whi);
-  float acc[D / 2], sc[BK / 2];
+  float acc[DP / 2], sc[BK / 2];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
   uint32_t ph[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
   const uint8_t* qs = sq + (qw - q0) * kPanelRow;
   // s = q k^T of ring tile i into sc; o += p v of ring tile i
   auto scores = [&](int i) {
@@ -1017,7 +1067,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   auto pv = [&](int i) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      mma_rs2<D>(acc, ph[kk], pl[kk], mnmajor(ring.b(i), BK * kPanelRow, kk));
+      mma_rs2<DP>(acc, ph[kk], pl[kk], ring.b(i), BK * kPanelRow, kk);
     wg_commit();
   };
   auto softmax = [&](int i) {
@@ -1047,16 +1097,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       pin<BK / 2>(sc);
       softmax(i + 1);
       wg_wait<0>();
-      pin<D / 2>(acc);
+      pin<DP / 2>(acc);
       ring.release(i);
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) acc[e] *= corr[acc_half(e)];
+      for (int e = 0; e < DP / 2; ++e) acc[e] *= corr[acc_half(e)];
       to_a<BK>(sc, ph, pl);
     }
     wg_fence();
     pv(i);
     wg_wait<0>();
-    pin<D / 2>(acc);
+    pin<DP / 2>(acc);
     ring.release(i++);
   }
   for (; lo + i < hi; ++i) ring.skip(i);
@@ -1091,8 +1141,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const float* __restrict__ delta, bf16* __restrict__ dq,
                    int Hq, int Hkv, int Sq, int Skv, int causal, int window,
                    float scale) {
-  constexpr int BK = kDqBK;
-  constexpr int kQ = 128 * D * 2;
+  constexpr int DP = kPad<D>;
+  constexpr int BK = BwdShape<D>::kDqBK;
+  constexpr int kQ = 128 * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = align1024(smem_raw);     // q, then do
   const int nqt = (Sq + 127) / 128;
@@ -1101,7 +1152,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int kvh = b * Hkv + h / (Hq / Hkv);
   int lo, hi;
   kv_tiles<128, BK>(q0, Sq, Skv, causal, window, &lo, &hi);
-  const auto ring = make_ring<D, BK, kBwdStages>(
+  const auto ring = make_ring<DP, BK, BwdShape<D>::kStages>(
       sq + 2 * kQ, &tk, &tv, hi - lo,
                                      [=](int i, int* row, int* head) {
                                        *row = (lo + i) * BK;
@@ -1124,10 +1175,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     lse2[r] = row < Sq ? lse_log2(lse[(size_t)bh * Sq + row]) : 0.f;
     dl_r[r] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
   }
-  float acc[D / 2], sc[BK / 2], dp[BK / 2];
+  float acc[DP / 2], sc[BK / 2], dp[BK / 2];
   uint32_t dh[BK / 16][4], dl[BK / 16][4];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DP / 2; ++e) acc[e] = 0.f;
   const uint8_t* qs = sq + (qw - q0) * kPanelRow;
   const uint8_t* dos = qs + kQ;
   // s = q k^T and dp = do v^T of ring tile i; dq += ds k of ring tile i
@@ -1145,7 +1196,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   auto dsk = [&](int i) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      mma_rs2<D>(acc, dh[kk], dl[kk], mnmajor(ring.a(i), BK * kPanelRow, kk));
+      mma_rs2<DP>(acc, dh[kk], dl[kk], ring.a(i), BK * kPanelRow, kk);
     wg_commit();
   };
   // p = 2^(t - lse2) (t masked as the forward), ds = p (dp - delta) scale,
@@ -1183,14 +1234,14 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       pin<BK / 2>(dp);
       ds(i + 1);
       wg_wait<0>();
-      pin<D / 2>(acc);
+      pin<DP / 2>(acc);
       ring.release(i);
       to_a<BK>(sc, dh, dl);
     }
     wg_fence();
     dsk(i);
     wg_wait<0>();
-    pin<D / 2>(acc);
+    pin<DP / 2>(acc);
     ring.release(i++);
   }
   for (; lo + i < hi; ++i) ring.skip(i);
@@ -1216,7 +1267,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 // over a group of 8 heads of 4096 queries its drift reaches two bf16 ulps
 // (PERF.md), so with G > 1 each head's sums are moved into an f32 scratch
 // (B, Hkv, Skv, D) pair, (((head 0) + head 1) + ...) rounded to nearest,
-// and the accumulators start again from zero.
+// and the accumulators start again from zero. Block z of a key tile
+// accumulates the kCols columns of dk and dv from c0 = kCols z (all of
+// them below D = 256).
 template <int D, int BQ>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -1228,16 +1281,19 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                     bf16* __restrict__ dk, bf16* __restrict__ dv,
                     float* __restrict__ scratch, int Hq, int Hkv, int Sq,
                     int Skv, int causal, int window, float scale) {
-  constexpr int kK = 128 * D * 2;
+  constexpr int DP = kPad<D>, DN = BwdShape<D>::kCols;
+  constexpr int kOut = DN < D ? DN : D;  // the columns this block stores
+  constexpr int kK = 128 * DP * 2;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align1024(smem_raw);     // k, then v
   const int bkv = blockIdx.y, b = bkv / Hkv, hkv = bkv - b * Hkv;
   const int G = Hq / Hkv;
   const int k0 = 128 * blockIdx.x;
+  const int c0 = DN * blockIdx.z;        // this block's dk/dv columns
   int lo, hi;
   q_tiles<BQ, 128>(k0, Sq, Skv, causal, window, &lo, &hi);
   const int nq = max(hi - lo, 0);
-  auto ring = make_ring<D, BQ, kBwdStages, BQ>(
+  auto ring = make_ring<DP, BQ, BwdShape<D>::kStages, BQ>(
       sk + 2 * kK, &tq, &tdo, G * nq, [=](int i, int* row, int* head) {
         *row = (lo + i % nq) * BQ;
         *head = b * Hq + hkv * G + i / nq;
@@ -1255,10 +1311,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   int wlo, whi;
   q_tiles<BQ, 64>(kw, Sq, Skv, causal, window, &wlo, &whi);
   clamp(lo, lo + nq, &wlo, &whi);
-  float dka[D / 2], dva[D / 2], st[BQ / 2], dpt[BQ / 2];
+  float dka[DN / 2], dva[DN / 2], st[BQ / 2], dpt[BQ / 2];
   uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dl[BQ / 16][4];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+  for (int e = 0; e < DN / 2; ++e) dka[e] = dva[e] = 0.f;
   const uint8_t* ks = sk + (kw - k0) * kPanelRow;
   const uint8_t* vs = ks + kK;
   // s^T = k q^T and dp^T = v do^T of ring tile i; then dv += p^T do and
@@ -1274,13 +1330,16 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
                  kmajor(ring.b(i), BQ * kPanelRow, kk), kk > 0);
     wg_commit();
   };
+  const int cpanel = (c0 / 64) * BQ * kPanelRow;   // c0's panel in a tile
   auto grads = [&](int i) {
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs2<D>(dva, ph[kk], pl[kk], mnmajor(ring.b(i), BQ * kPanelRow, kk));
+      mma_rs2<DN>(dva, ph[kk], pl[kk], ring.b(i) + cpanel, BQ * kPanelRow,
+                  kk);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs2<D>(dka, dh[kk], dl[kk], mnmajor(ring.a(i), BQ * kPanelRow, kk));
+      mma_rs2<DN>(dka, dh[kk], dl[kk], ring.a(i) + cpanel, BQ * kPanelRow,
+                  kk);
     wg_commit();
   };
   // p^T = 2^(t^T - lse2) into st, ds^T = p^T (dp^T - delta) scale into dpt,
@@ -1308,9 +1367,10 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int key = key0 + 8 * r;
       if (key >= Skv) continue;
-      float* sk_ = scratch + ((size_t)bkv * Skv + key) * D + 2 * (lane & 3);
+      float* sk_ =
+          scratch + ((size_t)bkv * Skv + key) * D + c0 + 2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < kOut / 8; ++j) {
         float2* pk = reinterpret_cast<float2*>(sk_ + 8 * j);
         float2* pv = reinterpret_cast<float2*>(sk_ + half + 8 * j);
         float2 ak = make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
@@ -1333,7 +1393,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     if (!last) {
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+      for (int e = 0; e < DN / 2; ++e) dka[e] = dva[e] = 0.f;
     }
   };
   int i = 0;
@@ -1359,8 +1419,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
         pin<BQ / 2>(dpt);
         p_ds(i + 1, qt * BQ);
         wg_wait<0>();
-        pin<D / 2>(dka);
-        pin<D / 2>(dva);
+        pin<DN / 2>(dka);
+        pin<DN / 2>(dva);
         ring.release(i);
         to_a<BQ>(st, ph, pl);
         to_a<BQ>(dpt, dh, dl);
@@ -1368,8 +1428,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
       wg_fence();
       grads(i);
       wg_wait<0>();
-      pin<D / 2>(dka);
-      pin<D / 2>(dva);
+      pin<DN / 2>(dka);
+      pin<DN / 2>(dva);
       ring.release(i++);
     }
     for (int qt = whi; qt < lo + nq; ++qt) ring.skip(i++);
@@ -1379,9 +1439,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= Skv) continue;
-    const size_t base = ((size_t)bkv * Skv + key) * D + 2 * (lane & 3);
+    const size_t base = ((size_t)bkv * Skv + key) * D + c0 + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kOut / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * j) =
           __floats2bfloat162_rn(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * j) =
@@ -1417,7 +1477,8 @@ EncodeTiled encode_tiled() {
 }
 
 // (BH, S, D) bf16 as a 3-D tensor map read in (rows x 64 columns) boxes,
-// 128-byte swizzled; rows past S read as zeros. Returns a cudaError_t.
+// 128-byte swizzled; rows past S and columns past D (D = 80: 80..127 of
+// the second box) read as zeros. Returns a cudaError_t.
 int tile_map(CUtensorMap* map, const void* base, int BH, int S, int D,
              int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -1447,8 +1508,9 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o,
       (err = tile_map(&tv, v, B * Hkv, Skv, D, BK)))
     return err;
   auto kernel = flash_fwd_wgmma<D, kLse>;
+  constexpr int DP = kPad<D>;
   constexpr int smem =
-      smem_bytes<128 * D * 2, BK * D * 2, FwdShape<D>::kStages>();
+      smem_bytes<128 * DP * 2, BK * DP * 2, FwdShape<D>::kStages>();
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid((Sq + 127) / 128, B * Hq);
@@ -1463,16 +1525,17 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int Hq, int Hkv, int Sq, int Skv,
                    int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int DP = kPad<D>, BK = BwdShape<D>::kDqBK;
   CUtensorMap tq, tk, tv, tdo;
   int err;
   if ((err = tile_map(&tq, q, B * Hq, Sq, D, 128)) ||
       (err = tile_map(&tdo, dout, B * Hq, Sq, D, 128)) ||
-      (err = tile_map(&tk, k, B * Hkv, Skv, D, kDqBK)) ||
-      (err = tile_map(&tv, v, B * Hkv, Skv, D, kDqBK)))
+      (err = tile_map(&tk, k, B * Hkv, Skv, D, BK)) ||
+      (err = tile_map(&tv, v, B * Hkv, Skv, D, BK)))
     return err;
   auto kernel = flash_bwd_dq_wgmma<D>;
   constexpr int smem =
-      smem_bytes<2 * 128 * D * 2, kDqBK * D * 2, kBwdStages>();
+      smem_bytes<2 * 128 * DP * 2, BK * DP * 2, BwdShape<D>::kStages>();
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
   const dim3 grid((Sq + 127) / 128, B * Hq);
@@ -1516,11 +1579,12 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
       (err = tile_map(&tv, v, B * Hkv, Skv, D, 128)))
     return err;
   auto kernel = flash_bwd_dkv_wgmma<D, BQ>;
+  constexpr int DP = kPad<D>;
   constexpr int smem =
-      smem_bytes<2 * 128 * D * 2, BQ * D * 2, kBwdStages, BQ>();
+      smem_bytes<2 * 128 * DP * 2, BQ * DP * 2, BwdShape<D>::kStages, BQ>();
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid((Skv + 127) / 128, B * Hkv);
+  const dim3 grid((Skv + 127) / 128, B * Hkv, DP / BwdShape<D>::kCols);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, tlse, tdelta, (bf16*)dk, (bf16*)dv, (float*)scratch,
       Hq, Hkv, Sq, Skv, causal, window, scale);
@@ -1529,16 +1593,21 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
 
 bool shapes_ok(int B, int Hq, int Hkv, int Sq, int Skv, int D) {
   return B > 0 && Hkv > 0 && Hq % Hkv == 0 && Sq > 0 && Skv > 0 &&
-         (D == 64 || D == 128) && (long long)B * Hq < 65536;
+         (D == 64 || D == 80 || D == 128 || D == 256) &&
+         (long long)B * Hq < 65536;
 }
 
 // dispatch on (dtype, D): dtype 0 = f32 (the CUDA-core kernels), 1 = bf16
 // (the Hopper kernels); anything else is refused
 #define REPRO_FLASH_DISPATCH(D, dtype, F32, BF16)                         \
   if (dtype == 0 && D == 64) { constexpr int kD = 64; return F32; }       \
+  if (dtype == 0 && D == 80) { constexpr int kD = 80; return F32; }       \
   if (dtype == 0 && D == 128) { constexpr int kD = 128; return F32; }     \
+  if (dtype == 0 && D == 256) { constexpr int kD = 256; return F32; }     \
   if (dtype == 1 && D == 64) { constexpr int kD = 64; return BF16; }      \
+  if (dtype == 1 && D == 80) { constexpr int kD = 80; return BF16; }      \
   if (dtype == 1 && D == 128) { constexpr int kD = 128; return BF16; }    \
+  if (dtype == 1 && D == 256) { constexpr int kD = 256; return BF16; }    \
   return (int)cudaErrorInvalidValue;
 
 }  // namespace

@@ -6,7 +6,7 @@
 sum).
 
 The wrappers check device, dtype (f32 or bf16, the same for every
-input), shapes (head dim 64 or 128, Hq a multiple of Hkv), contiguity
+input), shapes (head dim 64, 80, 128 or 256, Hq a multiple of Hkv), contiguity
 and 16-byte alignment (TMA reads the bf16 tiles, and lse and delta in
 dk/dv), allocate the outputs, launch on PyTorch's current stream and
 raise on a non-zero ``cudaError_t``. Each entry takes both types: bf16
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel, check_tensor
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SHAPE_ARGS = [_I] * 9 + [_F]   # B Hq Hkv Sq Skv D dtype causal window, scale

@@ -270,6 +270,12 @@ FLASH_CASES = [   # B, Hq, Hkv, Sq, Skv, D, causal, window
     (1, 2, 2, 256, 128, 64, True, None),      # rows with no valid key
     (1, 4, 4, 1024, 1024, 64, False, None),   # the encoder: multi-tile
     (1, 4, 4, 320, 1152, 128, False, None),   # the cross-attention
+    (1, 4, 4, 256, 256, 80, True, None),      # zamba2's head dim
+    (1, 8, 2, 192, 192, 80, True, 96),        # ragged GQA, a window
+    (1, 2, 2, 128, 320, 80, False, None),     # non-causal
+    (1, 8, 1, 256, 256, 256, True, None),     # paligemma's head layout
+    (1, 4, 2, 200, 200, 256, True, 64),       # ragged GQA, a window
+    (1, 2, 2, 100, 70, 256, False, None),     # non-causal, ragged
 ]
 
 
@@ -568,6 +574,33 @@ def test_hybrid_on_cuda_matches_cpu(cuda, scan_impl):
         wg, wc = wg.cpu().numpy(), wc.numpy()
         np.testing.assert_allclose(wg, wc, rtol=0,
                                    atol=1e-4 * np.abs(wc).max() + step)
+
+
+def test_zamba2_shared_block_flash_on_cuda_matches_cpu(cuda):
+    """zamba2 SMOKE with its shared block at the full config's head dim
+    of 80 under ``attn_impl="flash"``, f32, TF32 off: the worker's
+    gradient on the card (the flash kernels, D = 80) against the CPU's
+    (the plain version), each leaf within 1e-4 of its largest element,
+    the loss to 1e-5; dq launches once per shared-block application."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke_config("zamba2-2.7b"), head_dim=80,
+                              attn_impl="flash", compute_dtype="float32")
+    assert cfg.resolved_head_dim == 80
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(4))
+    batch = build_model(cfg, device="cpu").dummy_batch(
+        2, 128, torch.Generator().manual_seed(5))
+    n0 = kernel.DQ.launches
+    got, loss = _grads(cfg, params, batch, cuda)
+    assert kernel.DQ.launches - n0 == cfg.n_layers // cfg.shared_attn_every
+    want, want_loss = _grads(cfg, params, batch, "cpu")
+    assert loss == pytest.approx(want_loss, rel=1e-5)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 def _linreg64():

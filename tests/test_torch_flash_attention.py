@@ -29,6 +29,13 @@ FWD_GRID = [   # tests/test_kernels.py:17-25
     (2, 4, 1, 256, 512, 64, True, None),      # MQA, right-aligned q
     (1, 4, 2, 256, 256, 64, True, 128),       # sliding window
     (1, 2, 2, 128, 256, 64, False, None),     # bidirectional
+    # the head dims the CUDA kernels widen to: zamba2's 80, paligemma's 256
+    (1, 4, 2, 256, 256, 80, True, None),      # GQA
+    (1, 2, 2, 256, 256, 80, True, 96),        # sliding window
+    (1, 2, 2, 128, 256, 80, False, None),     # bidirectional
+    (1, 8, 1, 128, 128, 256, True, None),     # MQA (paligemma's layout)
+    (1, 2, 2, 256, 256, 256, True, 64),       # sliding window
+    (1, 2, 2, 128, 128, 256, False, None),    # bidirectional
 ]
 BWD_GRID = [   # tests/test_kernels_bwd.py:12-18
     (1, 2, 2, 128, 128, 64, True, None),
@@ -36,6 +43,12 @@ BWD_GRID = [   # tests/test_kernels_bwd.py:12-18
     (1, 2, 1, 128, 256, 64, True, None),      # MQA, right-aligned q
     (1, 2, 2, 128, 128, 64, True, 64),        # sliding window
     (1, 2, 2, 128, 128, 64, False, None),     # bidirectional
+    (1, 4, 2, 128, 128, 80, True, None),      # D = 80, GQA
+    (1, 2, 2, 128, 128, 80, True, 64),        # D = 80, sliding window
+    (1, 2, 2, 128, 128, 80, False, None),     # D = 80, bidirectional
+    (1, 4, 1, 128, 128, 256, True, None),     # D = 256, MQA
+    (1, 2, 2, 128, 128, 256, True, 64),       # D = 256, sliding window
+    (1, 2, 2, 128, 128, 256, False, None),    # D = 256, bidirectional
 ]
 # causal with Sq > Skv: the first Sq - Skv query rows have no valid key
 NO_KEY = (1, 2, 2, 256, 128, 64, True, None)
@@ -262,7 +275,7 @@ def _modelled(kind, q, k, v, do, lse, delta, rounding):
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_split_operand_meets_the_element_limit(kind, D):
     """The hi/lo split keeps each output within the element limit the
     card holds the bf16 kernels to; a single bf16 rounding of the

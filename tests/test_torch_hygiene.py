@@ -61,7 +61,11 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          # the encoder-decoder and the VLM
          "repro_torch.models.encdec",
          "repro_torch.configs.seamless_m4t_large_v2",
-         "repro_torch.configs.paligemma_3b"]
+         "repro_torch.configs.paligemma_3b",
+         # the launchers and the AMB alias
+         "repro_torch.core.amb", "repro_torch.launch",
+         "repro_torch.launch.mesh", "repro_torch.launch.train",
+         "repro_torch.launch.serve"]
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -177,10 +181,7 @@ def test_state_constructors_default_to_cuda_and_raise_without_it():
 
 
 @pytest.mark.parametrize("knob,value,item", [
-    ("optimizer", "sgd", "A.14"),
-    ("optimizer", "adam", "A.14"),
     ("consensus", "shard_map", "A.11"),
-    ("ambdg", "while_dynamic", "A.2"),
 ])
 def test_unported_knobs_raise(knob, value, item):
     import dataclasses
@@ -206,20 +207,25 @@ def test_unported_knobs_raise(knob, value, item):
                                         ("kbatch", "linear"),
                                         ("batch_schedule", "linear"),
                                         ("elastic", "churn"),
-                                        ("strategy", "decentralized")])
+                                        ("strategy", "decentralized"),
+                                        ("optimizer", "sgd"),
+                                        ("optimizer", "adam"),
+                                        ("ambdg", "while_dynamic")])
 def test_ported_knobs_build_and_step(knob, value):
     """Knobs that raised before their slice build and step on the CPU:
     the pytree master, the K-batch strategy (also under a linear batch
     schedule), the linear batch schedule (its target rides the batch as
     ``b_sched``), the churn worker process (its seeded process comes
-    from the strategy) and the decentralized gossip (8 workers)."""
+    from the strategy), the decentralized gossip (8 workers), the sgd
+    and adam optimizers and the dynamic-trip accumulation."""
     import dataclasses
     from repro_torch import api
     from repro_torch.data.pipeline import AnytimePipeline
     rc = _rc()
     if knob == "kbatch":
         knob, rc = "batch_schedule", rc.replace(strategy="kbatch")
-    field = {"batch_schedule": "schedule", "elastic": "process"}.get(knob)
+    field = {"batch_schedule": "schedule", "elastic": "process",
+             "ambdg": "anytime_impl"}.get(knob)
     if field:
         rc = rc.replace(**{knob: dataclasses.replace(getattr(rc, knob),
                                                      **{field: value})})
@@ -646,3 +652,16 @@ def test_encdec_and_vlm_step_every_lm_strategy(arch, strategy):
         runs.append(out)
     assert all(np.isfinite(runs[0]).ravel())
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-6)
+
+
+def test_full_width_attention_head_dims_are_kernel_head_dims():
+    """Every full-width config that attends has a head dim the flash
+    kernels take, so ``attn_impl="flash"`` runs each on the card."""
+    from repro_torch.configs import _MODULES, get_config
+    from repro_torch.configs.base import DENSE, ENCDEC, HYBRID, MOE, VLM
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    dims = {arch: get_config(arch).resolved_head_dim for arch in _MODULES
+            if get_config(arch).family in (DENSE, ENCDEC, HYBRID, MOE, VLM)}
+    assert dims["zamba2-2.7b"] == 80 and dims["paligemma-3b"] == 256, dims
+    assert len(dims) == 9, dims
+    assert all(d in HEAD_DIMS for d in dims.values()), dims

@@ -41,6 +41,8 @@ CASES = [   # B, Hq, Hkv, Sq, Skv, D, causal, window
     (1, 2, 2, 128, 256, 128, False, None),
     (1, 2, 2, 100, 70, 64, True, None),       # lengths not a multiple of 4
     (1, 2, 2, 70, 100, 128, False, 30),
+    (1, 8, 2, 192, 192, 80, True, 96),        # D = 80: read as 128 columns
+    (1, 4, 1, 200, 200, 256, True, None),     # D = 256: dk/dv in halves
 ]
 TIMED = [("main", 2, 16, 16, 4096, 64), ("qwen3", 1, 16, 8, 4096, 128),
          ("yi", 1, 32, 4, 4096, 128)]
