@@ -283,8 +283,32 @@ Phases (any failure raises and the script exits non-zero):
      ``anytime_impl="while_dynamic"`` on phase 3's linreg, 3 steps, bit
      for bit the "scan_masked" run.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20`` runs the
-build and then only the phases named among 8 and 13-20 (``2``: phase
+ 21. the pod axis across processes (``torch.distributed``): (a) each
+     sharded wrapper (``dual_update_arena_sharded``,
+     ``ring_slot_rotate_int8_sharded``, ``ring_variable_pop_sharded`` f32
+     and int8) at world size 1 on NCCL at qwen1.5-0.5b's arena (3,624,960
+     rows), bitwise against the off-mesh route, one launch a call, timed
+     beside the off-mesh route and phase 2's kernel alone; (b) two
+     spawned ranks on gloo sharing the card (NCCL refuses two ranks on
+     one device): which collectives gloo takes on CUDA tensors, the
+     wrappers at 2 pods of 262,144 rows bitwise against the off-mesh
+     route, and linreg FULL (phase 3's settings, int8, l2 ball) on
+     ``--mesh 2x1x1`` for 6 steps through ``python -m
+     torch.distributed.run -m repro_torch.launch.train``'s ``main``,
+     twice, each run's state joined by ``checkpoint.save_sharded``, bit
+     for bit (metrics and every state leaf) the same mesh's pods
+     stacked in one process (``train(..., mesh=None)``) at n_pods = 2,
+     run beside them in a process of its own with the ranks' one host
+     BLAS thread (``torch.distributed.run`` sets OMP_NUM_THREADS=1, and
+     the linreg stream's y = x w* rounds with OpenBLAS's thread split,
+     ROADMAP C.18); the witness printed beside it: the ranks' two runs against each other,
+     and the stacked run made in this process with its default BLAS
+     threads against the reference; (c) the four ``examples_torch``
+     scripts on the card, each within 10 s. (c) runs while (b)'s ranks
+     run, (a) after both.
+
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21`` runs the
+build and then only the phases named among 8 and 13-21 (``2``: phase
 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a short
 call while working on them; no kernels or ok line).
 
@@ -4868,6 +4892,547 @@ def encdec_vlm_phase(drive, expect):
     return out
 
 
+# -- phase 21: the pod axis across processes ----------------------------------
+DIST_AXES = ("pod", "data", "model")
+# (b)'s rows: the two ranks share the card and gloo stages every
+# collective through host memory, so they run the wrappers on 2^18 rows
+# (one pod each; 128 MiB of f32 rows a pod), not at qwen's arena
+GLOO_ROWS = 262_144
+# linreg FULL on 2x1x1 through ``python -m torch.distributed.run`` (the
+# paper's Sec. VI-A settings, as phase 3: 10 workers x 150 samples, tau
+# 4, b_bar 800, the l2 ball, int8), 6 steps
+DIST_STEPS = 6
+DIST_CLI = ["--arch", "amb-linreg", "--mesh", "2x1x1", "--steps",
+            str(DIST_STEPS), "--n-workers", "10", "--samples-per-worker",
+            "150", "--tau", "4", "--t-p", "2.5", "--t-c", "10", "--b-bar",
+            "800", "--pod-compression", "int8", "--proximal", "l2_ball",
+            "--radius-c", repr(1.05 * math.sqrt(10_000))]
+# the ranks train it twice (the run is repeatable); the stacked run is made
+# twice too: the reference with the ranks' BLAS threads, a witness here
+DIST_RUNS = ("mesh", "mesh_again")
+# (c): each example at a size that runs in a few seconds on the card
+EXAMPLES = {"quickstart": ["--steps", "3", "--seq-len", "32"],
+            "linreg_paper": ["--dim", "512", "--total-time", "15"],
+            "decentralized": ["--epochs", "40"],
+            "serve_batched": ["--steps", "24"]}
+EXAMPLE_LIMIT_S = 10.0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sharded_inputs(kind, rows, n_pods, gen):
+    """Stacked inputs of one sharded wrapper on the card: (kind, args)."""
+    import torch
+    dev = torch.device("cuda")
+    if kind == "dual_update":
+        return (torch.randn((rows, 128), generator=gen, device=dev),
+                torch.randn((rows, 128), generator=gen, device=dev) * 300,
+                torch.full((), 1377.0, device=dev),
+                torch.full((), 0.0123, device=dev))
+    if kind == "slot_rotate":
+        q = [torch.randint(-127, 128, (n_pods, rows, 128), generator=gen,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+        s = [torch.rand((n_pods, rows), generator=gen, device=dev) * 1e-2
+             + 1e-4 for _ in range(2)]
+        fed = torch.randn((n_pods, rows, 128), generator=gen, device=dev)
+        return (q[0], s[0], q[1], s[1], fed,
+                torch.clamp(fed.abs().amax(-1), min=1e-12) / 127)
+    int8 = kind.endswith("int8")
+    shape = (N_SLOTS, n_pods, rows, 128)
+    ring = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8) if int8 else
+            torch.randn(shape, generator=gen, device=dev))
+    scales = (torch.rand(shape[:3], generator=gen, device=dev) + 1e-3
+              if int8 else None)
+    mask = torch.zeros(N_SLOTS, dtype=torch.bool, device=dev)
+    mask[list(DUE[2])] = True
+    cs = torch.stack([
+        torch.randint(0, 300, (N_SLOTS,), generator=gen, device=dev),
+        torch.randint(0, 9, (N_SLOTS,), generator=gen, device=dev)]).float()
+    return ring, mask, scales, cs
+
+
+def sharded_call(kind, args, pod=None):
+    """(the sharded wrapper on the rank's pod ``pod`` of ``args`` (all of
+    it when None), the off-mesh route on the whole of ``args``): two
+    callables, each returning the outputs compared (the pod-summed rows
+    first). Each works on its own copy of the operands it updates in
+    place, so their first calls see the same inputs; calls after that
+    update them again (the timing loops: the same work)."""
+    from repro_torch.core.delayed import pod_sum
+    from repro_torch.kernels.delay_ring import ops as ring_ops
+    from repro_torch.kernels.dual_update import ops as update_ops
+
+    def own(t, dim=0):
+        return t if pod is None else t.narrow(dim, pod, 1).contiguous()
+    if kind == "dual_update":
+        z, g, c, a = args
+        z_s, z_p = z.clone(), z.clone()
+        return (lambda: update_ops.dual_update_arena_sharded(z_s, g, c, a),
+                lambda: update_ops.dual_update_arena(z_p, g, c, a))
+    if kind == "slot_rotate":
+        # in place: the push slot, its scales and fed
+        mine = [own(t) for t in args]
+        theirs = list(args)
+        for i in (2, 3, 4):
+            mine[i], theirs[i] = mine[i].clone(), theirs[i].clone()
+        return (lambda: ring_ops.ring_slot_rotate_int8_sharded(*mine)[:1],
+                lambda: (pod_sum(ring_ops.ring_slot_rotate_int8(
+                    *theirs)[0]),))
+    ring, mask, scales, cs = args
+    ring_l = own(ring, 1)
+    scales_l = None if scales is None else own(scales, 1)
+    return (lambda: ring_ops.ring_variable_pop_sharded(
+                ring_l, mask, scales=scales_l, counts_stale=cs),
+            lambda: (lambda p, m: (pod_sum(p), m))(
+                *ring_ops.ring_variable_pop(ring, mask, scales=scales,
+                                            counts_stale=cs)))
+
+
+SHARDED_KINDS = {"dual_update": "dual_update", "slot_rotate": "slot_rotate",
+                 "variable_pop_f32": "variable_pop",
+                 "variable_pop_int8": "variable_pop"}
+
+
+def nccl_world_one(drive, expect, rows, phase2):
+    """Phase 21a: each sharded wrapper at world size 1 on NCCL (a
+    ("pod", "data", "model") DeviceMesh of one rank; the collectives run
+    through NCCL) at ``rows``, bitwise against the off-mesh route on the
+    same inputs, one launch of its kernel a call; the wrapper's time
+    beside the off-mesh route's (CUDA events, both in this call) and
+    phase 2's kernel alone at the same shape (``phase2``: its rows)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist.context import use_device_mesh
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    out = {}
+    try:
+        dm = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=DIST_AXES)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        with use_device_mesh(dm):
+            for kind, counter in SHARDED_KINDS.items():
+                args = sharded_inputs(kind, rows, 1, gen)
+                sharded, plain = sharded_call(kind, args)
+                want = plain()
+                got, n = drive(sharded)
+                assert n == expect(**{counter: 1}), (kind, n)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+                err = max_abs_err(got, want)
+                assert bitwise, (kind, err)
+                del got, want
+                ms, off_ms = cuda_ms(sharded), cuda_ms(plain)
+                lead = phase2.get(kind) or {}
+                out[kind] = dict(rows=rows, bitwise=bitwise, max_abs_err=err,
+                                 launches=n[counter], wrapper_ms=ms,
+                                 off_mesh_ms=off_ms,
+                                 phase2_kernel_ms=lead.get("ms"),
+                                 phase2_wrapper_ms=lead.get("wrapper_ms"))
+                log(f"phase 21a: {kind} rows={rows} NCCL world 1: bitwise="
+                    f"{bitwise}; sharded wrapper {ms:.4f} ms, off-mesh "
+                    f"route {off_ms:.4f} ms (CUDA events); phase 2 kernel "
+                    f"alone {lead.get('ms')} ms, its wrapper "
+                    f"{lead.get('wrapper_ms')} ms")
+                del args, sharded, plain
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+GLOO_PROBES = ("all_gather_into_tensor int8", "all_gather_into_tensor f32",
+               "all_reduce f32 sum", "all_reduce f32 max",
+               "reduce_scatter_tensor f32")
+
+
+def dist_rank_main(out_dir):
+    """Phase 21b's ranks, each a ``python3 chip_smoke.py --dist-rank=DIR``
+    process that ``torch.distributed.run`` starts: gloo on CUDA tensors
+    of the shared card. Probes the collectives the sharded path uses;
+    runs the sharded wrappers on its pod of 2 and holds each against the
+    off-mesh route on the stacked inputs (drawn alike on both ranks from
+    one seed); then trains linreg FULL on 2x1x1 through
+    ``launch.train.main`` in the same world, twice (DIST_RUNS), and
+    writes each run's whole state (``save_rank_state``). Writes its
+    record (and the kernels' launches in each part) to ``out_dir``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.context import use_device_mesh
+    from repro_torch.kernels.delay_ring import kernel as rk
+    from repro_torch.kernels.dual_update import kernel as uk
+    from repro_torch.launch import train as train_cli
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    counters = {"dual_update": uk.KERNEL, "slot_rotate": rk.KERNEL,
+                "variable_pop": rk.VARIABLE_POP_KERNEL}
+    rec = {"probes": {}, "wrappers": {}}
+    try:
+        x = torch.arange(8.0, device="cuda") + rank
+        tries = {
+            "all_gather_into_tensor int8": lambda: col.all_gather(
+                x.to(torch.int8), None, world),
+            "all_gather_into_tensor f32": lambda: col.all_gather(
+                x, None, world),
+            "all_reduce f32 sum": lambda: col.all_reduce(x.clone(), None),
+            "all_reduce f32 max": lambda: col.all_reduce(
+                x.clone(), None, op=dist.ReduceOp.MAX),
+            "reduce_scatter_tensor f32": lambda: col.reduce_scatter_rows(
+                x, None, world)}
+        for name in GLOO_PROBES:
+            try:
+                tries[name]()
+                torch.cuda.synchronize()
+                rec["probes"][name] = "ok"
+            except Exception as e:  # noqa: BLE001 - a refusal is recorded
+                rec["probes"][name] = f"refused: {str(e).splitlines()[0]}"
+        dm = init_device_mesh("cuda", (world, 1, 1),
+                              mesh_dim_names=DIST_AXES)
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        with use_device_mesh(dm):
+            for kind, counter in SHARDED_KINDS.items():
+                args = sharded_inputs(kind, GLOO_ROWS, world, gen)
+                # the dual update's rows are whole on every rank
+                sharded, plain = sharded_call(
+                    kind, args, pod=None if kind == "dual_update" else rank)
+                want = plain()
+                before = counters[counter].launches
+                got = sharded()
+                launches = counters[counter].launches - before
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+                rec["wrappers"][kind] = dict(
+                    bitwise=bitwise, max_abs_err=max_abs_err(got, want),
+                    launches=launches, counter=counter, rows=GLOO_ROWS,
+                    wrapper_ms=cuda_ms(sharded, n=3, warmup=1))
+                del args, got, want, sharded, plain
+                torch.cuda.empty_cache()
+        for run in DIST_RUNS:
+            for k in counters.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            out = train_cli.main(DIST_CLI + ["--backend", "gloo"])
+            rec[run] = dict(
+                history=out["history"], seconds=time.perf_counter() - t0,
+                launches={n: k.launches for n, k in counters.items()})
+            save_rank_state(out["state"], f"{out_dir}/{run}")
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def start_dist_ranks(tmp):
+    """Start phase 21b's two ranks (``dist_rank_main``) under ``python -m
+    torch.distributed.run`` in the background: (the process, its start
+    time)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run",
+         "--nproc-per-node=2", f"--master-port={free_port()}",
+         "--monitor-interval=0.5", str(root / "chip_smoke.py"),
+         f"--dist-rank={tmp}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def stop_dist_ranks(proc):
+    """Kill phase 21b's agent and its ranks (one process group) if they
+    still run."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def save_rank_state(state, path):
+    """Write a rank's 2x1x1 linreg state as the checkpoint the single
+    process would write (``checkpoint.save_sharded``, as ``train.loop``
+    writes one: the ranks' shards joined on rank 0's host). Every rank
+    calls it."""
+    from repro_torch.core.ambdg import shard_specs
+    from repro_torch.core.arena import make_layout
+    from repro_torch.dist.collectives import require_mesh
+    from repro_torch.launch.mesh import make_mesh, parse_mesh
+    from repro_torch.train import checkpoint as ckpt
+    cfg = parse_mesh("2x1x1")
+    with make_mesh(cfg, "cuda"):
+        ckpt.save_sharded(path, DIST_STEPS, state,
+                          shard_specs(make_layout(state.params), state, cfg),
+                          cfg, require_mesh("phase 21b"))
+
+
+def stacked_linreg(ckpt_dir):
+    """Phase 21b's reference: linreg FULL with the 2x1x1 mesh's pods
+    stacked in this process (``train(..., mesh=None)`` on the CLI's run
+    config), every step logged, its step-6 state written to
+    ``ckpt_dir``. Returns the loop's output."""
+    from repro_torch.launch.train import parse_args, run_config
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    rc = run_config(parse_args(DIST_CLI))
+    loop = LoopConfig(n_steps=DIST_STEPS, ckpt_dir=ckpt_dir,
+                      ckpt_every=DIST_STEPS, log_every=1, n_workers=10,
+                      samples_per_worker=150)
+    return train(build_model(rc.model, device="cuda"), rc, loop,
+                 device="cuda")
+
+
+def start_reference(tmp):
+    """Start phase 21b's reference: the stacked run in a process of its
+    own (``python3 chip_smoke.py --stacked-ref=DIR``), beside the ranks,
+    with the ranks' host BLAS threads: ``torch.distributed.run`` gives
+    each rank OMP_NUM_THREADS=1, and the linreg stream's y = x w* is a
+    numpy product whose rounding follows OpenBLAS's thread split
+    (ROADMAP C.18). Returns (the process, its start time)."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(root / "chip_smoke.py"),
+                             f"--stacked-ref={tmp}/fresh"], env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def reference_result(tmp, proc, t_start):
+    """Wait for ``start_reference``'s process: (its record: history and
+    launches, its seconds)."""
+    _, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        log(stderr[-8000:])
+    assert proc.returncode == 0, proc.returncode
+    with open(f"{tmp}/fresh.json") as f:
+        return json.load(f), time.perf_counter() - t_start
+
+
+def stacked_ref_main(ckpt_dir):
+    """``--stacked-ref=DIR`` (``start_reference``'s process): the stacked
+    run, its record written beside DIR."""
+    from repro_torch.kernels.delay_ring import kernel as rk
+    from repro_torch.kernels.dual_update import kernel as uk
+    counters = {"dual_update": uk.KERNEL, "slot_rotate": rk.KERNEL,
+                "variable_pop": rk.VARIABLE_POP_KERNEL}
+    out = stacked_linreg(ckpt_dir)
+    with open(f"{ckpt_dir}.json", "w") as f:
+        json.dump({"history": out["history"],
+                   "launches": {n: k.launches for n, k in counters.items()}},
+                  f)
+    return 0
+
+
+def state_leaves(path):
+    """The state leaves of the checkpoint under ``path``."""
+    import numpy as np
+    with np.load(next(Path(path).glob("step_*/state.npz"))) as f:
+        return {k: f[k] for k in f.files}
+
+
+def unequal_leaves(a, b):
+    """{leaf: max |a - b|} of the leaves that differ."""
+    import numpy as np
+    assert sorted(a) == sorted(b)
+    return {k: float(np.abs(a[k].astype(np.float64) - b[k]).max())
+            for k in b if not np.array_equal(a[k], b[k])}
+
+
+def dist_linreg(expect, tmp, proc, t_start, stacked):
+    """Phase 21b: waits for the ranks (``start_dist_ranks``) and holds
+    each of their linreg FULL runs on 2x1x1 against the stacked run at
+    n_pods = 2 made with the ranks' BLAS threads (``start_reference``):
+    bit for bit, the metrics at the logged step and every state leaf
+    (D = 1: each pod's gradient is the same computation on the same
+    rows, and the pod fold's order is fixed). The witness, printed:
+    which leaves differ between the ranks' two runs, and between the
+    reference and the stacked run made in this process beside the
+    ranks (``stacked_linreg``, this process's default BLAS threads).
+    Returns (record, the ranks' records)."""
+    (fresh, fresh_s), (loaded, n), loaded_s = stacked
+    stdout, stderr = proc.communicate(timeout=600)
+    dist_s = time.perf_counter() - t_start
+    if proc.returncode != 0:
+        log(stdout[-4000:])
+        log(stderr[-8000:])
+    assert proc.returncode == 0, proc.returncode
+    assert sum(ln.startswith("done:") for ln in stdout.splitlines()) == \
+        len(DIST_RUNS)
+    ranks = []
+    for r in range(2):
+        with open(f"{tmp}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    want = {"dual_update": DIST_STEPS, "slot_rotate": DIST_STEPS,
+            "variable_pop": 0}
+    assert n == expect(**want), n
+    assert fresh["launches"] == want, fresh["launches"]
+    hist_s = fresh["history"]
+    assert len(hist_s) == DIST_STEPS, len(hist_s)
+    states = {name: state_leaves(f"{tmp}/{name}")
+              for name in DIST_RUNS + ("fresh", "loaded")}
+    for run in DIST_RUNS:
+        hist_d = ranks[0][run]["history"]
+        assert [h["step"] for h in hist_d] == [hist_s[-1]["step"]], hist_d
+        for key in ("applied_count", "loss", "grad_norm"):
+            assert hist_d[-1][key] == hist_s[-1][key], (run, key)
+        diff = unequal_leaves(states[run], states["fresh"])
+        assert not diff, (run, diff)
+        for r, got in enumerate(ranks):
+            assert got[run]["launches"] == want, (r, run, got[run])
+    witness = {"mesh_again_vs_mesh": unequal_leaves(states["mesh_again"],
+                                                    states["mesh"]),
+               "stacked_here_vs_reference": unequal_leaves(
+                   states["loaded"], states["fresh"]),
+               "stacked_here_metrics_bitwise": all(
+                   a[k] == b[k] for a, b in zip(loaded["history"], hist_s)
+                   for k in ("loss", "grad_norm", "applied_count"))}
+    return dict(dist_s=dist_s,
+                loop_s=[ranks[0][r]["history"][-1]["wall_s"]
+                        for r in DIST_RUNS],
+                rank_train_s=[ranks[0][r]["seconds"] for r in DIST_RUNS],
+                fresh_s=fresh_s, stacked_here_s=loaded_s, steps=DIST_STEPS,
+                witness=witness, loss=[h["loss"] for h in hist_s],
+                applied_count=[h["applied_count"] for h in hist_s],
+                reference_launches=fresh["launches"],
+                stacked_here_launches=n), ranks
+
+
+def examples_phase(strict=True):
+    """Phase 21c: the four ``examples_torch`` scripts on the card (their
+    ``main(argv)``, in process), each within EXAMPLE_LIMIT_S (``strict``;
+    under ``--only`` no earlier phase has run the LM's kernels, whose
+    first launches load their CUDA modules, so only the time is
+    printed)."""
+    import contextlib
+    import importlib.util
+    import io
+    root = Path(__file__).resolve().parent / "examples_torch"
+    out = {}
+    for name, argv in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            f"examples_torch_{name}", root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            res = mod.main(argv + ["--device", "cuda"])
+        secs = time.perf_counter() - t0
+        lines = text.getvalue().splitlines()
+        if name == "quickstart":
+            ok = all(math.isfinite(x) for x in res) and res[-1] < res[0]
+        elif name == "linreg_paper":
+            ok = all(len(tr.times) > 0 and all(map(math.isfinite, tr.errors))
+                     for tr in res.values())
+        elif name == "decentralized":
+            ok = res[-1] < 0.05
+        else:
+            ok = res.stats.publish_pops > 0 and res.stats.staleness_max <= 8
+        out[name] = dict(seconds=secs, ok=ok, last=lines[-1] if lines else "")
+        log(f"phase 21c: examples_torch/{name}.py {' '.join(argv)} on the "
+            f"card: {secs:.2f} s; {out[name]['last']}")
+        assert ok, (name, lines[-5:])
+        assert secs <= EXAMPLE_LIMIT_S or not strict, (name, secs)
+    return out
+
+
+def start_dist_background():
+    """Start phase 21b's processes, the reference (``start_reference``)
+    and the ranks (``start_dist_ranks``), in a temporary directory:
+    (the directory, (the reference, its start), (the ranks' agent, its
+    start))."""
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    return tmp, start_reference(tmp), start_dist_ranks(tmp)
+
+
+def stop_dist_background(bg):
+    """Kill ``start_dist_background``'s processes if they still run and
+    remove their directory."""
+    import shutil
+    tmp, (ref, _), (proc, _) = bg
+    stop_dist_ranks(proc)
+    stop_dist_ranks(ref)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dist_phase(drive, expect, launches, phase2, big_rows, strict=True,
+               bg=None):
+    """Phase 21: the pod axis across processes (see the module's
+    docstring). 21b's reference (the stacked run in a process of its
+    own) and ranks run in the background (``bg``, started before phase
+    20 so that their start overlaps it; None starts them here); this
+    process trains the witness's stacked run and runs the examples (21c)
+    while they run; the NCCL checks (21a, timed) come once they are
+    done. Returns the record; adds 21b's launches to ``launches``."""
+    rec = {}
+    t0 = time.perf_counter()
+    bg = bg or start_dist_background()
+    tmp, (ref, t_ref), (proc, t_proc) = bg
+    try:
+        t1 = time.perf_counter()
+        here = drive(lambda: stacked_linreg(f"{tmp}/loaded"))
+        here_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        rec["examples"] = examples_phase(strict)
+        rec["examples_s"] = time.perf_counter() - t1
+        fresh = reference_result(tmp, ref, t_ref)
+        for name, k in fresh[0]["launches"].items():
+            launches[name] += k
+        rec["linreg_2x1x1"], ranks = dist_linreg(
+            expect, tmp, proc, t_proc, (fresh, here, here_s))
+    finally:
+        stop_dist_background(bg)
+    rec["gloo_s"] = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        for name, res in got["probes"].items():
+            log(f"phase 21b: rank {r} gloo on CUDA tensors, {name}: {res}")
+        for kind, w in got["wrappers"].items():
+            log(f"phase 21b: rank {r} {kind} 2 pods rows={w['rows']} gloo: "
+                f"bitwise={w['bitwise']} (max |err| {w['max_abs_err']:.3e}); "
+                f"launches {w['launches']}; {w['wrapper_ms']:.3f} ms a call "
+                f"(CUDA events)")
+            assert w["bitwise"] and w["launches"] == 1, (r, kind, w)
+            launches[w["counter"]] += w["launches"]
+        for run in DIST_RUNS:
+            for name, n in got[run]["launches"].items():
+                launches[name] += n
+    rec["gloo_ranks"] = ranks
+    r = rec["linreg_2x1x1"]
+    log(f"phase 21b: linreg FULL 2x1x1 int8 l2-ball, {r['steps']} steps "
+        f"under torch.distributed.run (gloo, 2 ranks on the card, after "
+        f"the wrappers), twice, {r['dist_s']:.2f} s from their start (the "
+        f"loops "
+        f"{r['loop_s']} s): bit for bit, metrics and every state leaf, "
+        f"the stacked run with the ranks' one BLAS thread (a process of "
+        f"its own, {r['fresh_s']:.2f} s); applied_count "
+        f"{r['applied_count']}; loss {r['loss']}")
+    log(f"phase 21b: witness: {json.dumps(r['witness'])} (the stacked run "
+        f"made here with this process's BLAS threads, "
+        f"{r['stacked_here_s']:.2f} s)")
+    t1 = time.perf_counter()
+    rec["nccl_world_1"] = nccl_world_one(drive, expect, big_rows, phase2)
+    rec["nccl_s"] = time.perf_counter() - t1
+    log(f"phase 21: 21b with 21c beside it {rec['gloo_s']:.1f} s (21c "
+        f"{rec['examples_s']:.1f} s, a rank's linreg runs "
+        f"{r['rank_train_s']} s), 21a {rec['nccl_s']:.1f} s")
+    return rec
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi`` reads them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4882,6 +5447,14 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside the repository)
+    ranked = [a.split("=", 1)[1] for a in sys.argv[1:]
+              if a.startswith("--dist-rank=")]
+    if ranked:           # one of phase 21b's ranks (dist_rank_main)
+        return dist_rank_main(ranked[0])
+    ref = [a.split("=", 1)[1] for a in sys.argv[1:]
+           if a.startswith("--stacked-ref=")]
+    if ref:              # phase 21b's reference (start_reference)
+        return stacked_ref_main(ref[0])
     from repro_torch.kernels import build
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
     from repro_torch.kernels.dual_update import kernel as update_kernel
@@ -4957,8 +5530,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,14,15,16,17,18,19,20``: after the build, run only
-    # those of phases 8 and 13-20 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,14,15,16,17,18,19,20,21``: after the build, run only
+    # those of phases 8 and 13-21 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -5015,6 +5588,14 @@ def main():
             t0 = time.perf_counter()
             record["cli"] = cli_phase(drive, expect)
             phase_done("phase 20", t0)
+        if "21" in picked:
+            t0 = time.perf_counter()
+            from repro_torch.configs import get_config
+            n_params = get_config("qwen1.5-0.5b").n_params()
+            record["dist"] = dist_phase(
+                drive, expect, launches, {},
+                -(-(-(-n_params // 128)) // 256) * 256, strict=False)
+            phase_done("phase 21", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -5455,14 +6036,36 @@ def main():
 
     # -- 20. the launchers on the card --------------------------------------
     t0 = time.perf_counter()
-    cli = cli_phase(drive, expect)
+    # phase 2's kernel alone at qwen's arena, one pod (2 due slots)
+    phase2 = {
+        "dual_update": results["dual_update"][1],
+        "slot_rotate": results["slot_rotate"][1],
+        "variable_pop_f32": next(
+            r for r in results["variable_pop"] if not r["int8"]
+            and r["pods"] == 1 and r["rows"] == big_rows and r["due"] == 2),
+        "variable_pop_int8": next(
+            r for r in results["variable_pop"] if r["int8"]
+            and r["pods"] == 1 and r["rows"] == big_rows and r["due"] == 2)}
+    # phase 21b's processes start now: their start overlaps phase 20
+    dist_bg = start_dist_background()
+    try:
+        cli = cli_phase(drive, expect)
+    except BaseException:
+        stop_dist_background(dist_bg)
+        raise
     phase_done("phase 20", t0)
+
+    # -- 21. the pod axis across processes ----------------------------------
+    t0 = time.perf_counter()
+    dist = dist_phase(drive, expect, launches, phase2, big_rows, bg=dist_bg)
+    phase_done("phase 21", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
-                    "encdec_vlm": encdec_vlm, "cli": cli, "phase_s": phase_s,
+                    "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
+                    "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -371,7 +371,7 @@ class ConsensusConfig:
     msg_norm_J: float = 1.0       # message-norm bound J of eq. (24)
     rounds: int = 0               # 0 = derive from eq. (24)
     # "dense" folds the stacked messages on one device; "shard_map" (one
-    # worker per card) is ROADMAP A.11 and raises; "auto" picks it
+    # worker per card) is ROADMAP A.11 part 2 and raises; "auto" picks it
     # exactly when the card count equals n_workers, else "dense"
     gossip_impl: str = "auto"
     # "none" exchanges f32 messages; "int8" quantizes each round's

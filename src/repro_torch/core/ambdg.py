@@ -37,6 +37,19 @@ draws from ``core.batch_schedule`` as a 0-dim ``batch["b_sched"]``
 tensor on the device, which replaces ``b_bar`` in alpha. It runs on
 the arena master only, as in the JAX package.
 
+Under a multi-rank ``P x D x 1`` mesh (``launch.mesh``; an active
+``dist.context`` profile of more than one device) the step is the
+sharded master, ZeRO-like: each rank gets its block of the batch (its
+share of its pod's microbatches), runs it, reduce-scatters the pod's
+gradient rows over ``data``, pushes and pops its row shard through the
+ring (``arena.push_pop``'s sharded route: the pods cross in the ring's
+collectives), updates z on its rows and all-gathers w over ``data`` to
+rebuild the replicated parameters (``dual_averaging.update_arena``).
+The pods' counts and losses cross in one small gather, so the metrics
+are global on every rank. amb and kbatch share this step; the pytree
+master, sgd and adam, and the dynamic trip over more than one data
+rank raise (ROADMAP A.11 part 2).
+
 ``rc.remat="whole_loss"`` wraps the whole loss in
 ``torch.utils.checkpoint`` (``loss_with_remat``, the same for every
 strategy that takes a gradient of an LM). Every knob the port does not
@@ -52,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import anytime, delayed
 from repro_torch.core import arena as arena_mod
+from repro_torch.core import dual_averaging as _da
 from repro_torch.core.delayed import pod_sum
 from repro_torch.models.api import Model
 
@@ -89,11 +103,13 @@ def check_anytime_impl(rc: RunConfig) -> None:
                          "expected 'scan_masked' or 'while_dynamic'")
 
 
-def accumulate(rc: RunConfig, loss_fn, params, chunk, n_active):
+def accumulate(rc: RunConfig, loss_fn, params, chunk, n_active,
+               n_mb: Optional[int] = None):
     """One chunk's (grad_sum, count, metrics) by ``rc.ambdg.anytime_impl``:
-    the masked accumulation over every microbatch, or the dynamic trip
-    over the first ``n_active`` (None: all)."""
-    n_mb = rc.ambdg.n_microbatches
+    the masked accumulation over every microbatch (``n_mb``, by default
+    ``rc.ambdg.n_microbatches``), or the dynamic trip over the first
+    ``n_active`` (None: all)."""
+    n_mb = rc.ambdg.n_microbatches if n_mb is None else n_mb
     if rc.ambdg.anytime_impl == "while_dynamic":
         return anytime.accumulate_while(loss_fn, params, chunk, n_mb,
                                         n_active)
@@ -158,6 +174,102 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves))
 
 
+class MeshShard(NamedTuple):
+    """A rank's place in the step under a multi-rank mesh."""
+    ranks: Any                 # dist.collectives.Ranks
+    rows_local: int            # the arena rows it holds
+    data_group: Any            # the group its rows shard over (None: D = 1)
+    n_mb: int                  # its microbatches of its pod's chunk
+
+
+def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
+    """None off the mesh; under an active multi-rank mesh the rank's
+    shard, after refusing every knob the sharded step does not carry
+    (each names ROADMAP A.11 part 2)."""
+    ranks = arena_mod.sharded_route("the AMB-DG train step")
+    if ranks is None:
+        return None
+    from repro_torch.dist.context import active_mesh
+    if active_mesh() != rc.mesh:
+        raise ValueError(f"the active mesh {active_mesh()} is not the run's "
+                         f"rc.mesh {rc.mesh}")
+    if layout is None:
+        raise NotImplementedError(
+            "master_impl='pytree' under a multi-rank mesh: the sharded "
+            "master is the arena's (the pytree master's sharding is "
+            "ROADMAP A.11 part 2)")
+    if rc.optimizer != "dual_averaging":
+        raise NotImplementedError(
+            f"optimizer={rc.optimizer!r} under a multi-rank mesh: the "
+            "sharded master runs dual averaging; sgd and adam on row "
+            "shards are ROADMAP A.11 part 2")
+    n_data = ranks.sizes["data"]
+    if n_data > 1 and rc.ambdg.anytime_impl == "while_dynamic":
+        raise NotImplementedError(
+            "anytime_impl='while_dynamic' with data > 1: splitting the "
+            "dynamic trip over a pod's ranks is ROADMAP A.11 part 2")
+    n_mb = rc.ambdg.n_microbatches
+    if n_mb % n_data:
+        raise ValueError(f"{n_mb} microbatches a pod do not split over "
+                         f"its {n_data} data ranks")
+    rows_local, _, group = arena_mod.shard_rows(layout, ranks)
+    if n_data > 1 and group is None:
+        raise ValueError(f"the arena's {layout.rows} rows do not split "
+                         f"over {n_data} data ranks")
+    return MeshShard(ranks, rows_local, group, n_mb // n_data)
+
+
+def _shard_grads(rc, loss_fn, layout, shard: MeshShard, params, batch):
+    """The sharded twin of ``pod_chunk_grads``: ``batch`` is this rank's
+    block of the global batch (``train.loop`` cuts it by the batch's
+    spec: its share of its pod's microbatches). The rank accumulates
+    its microbatches, flattens the sum into arena form and
+    reduce-scatters it over the pod's ``data`` ranks. The pods' counts
+    and loss sums come from one gather over every rank. Returns (the
+    rank's (1, rows_local, 128) gradient rows, counts (n_pods,), loss
+    sums (n_pods,))."""
+    from repro_torch.dist.collectives import all_gather, reduce_scatter_rows
+    ranks = shard.ranks
+    batch, (n_active,) = anytime.pop_n_active(batch, 1)
+    n_data = ranks.sizes["data"]
+    grads, count, metrics = accumulate(rc, loss_fn, params, batch, n_active,
+                                       n_mb=shard.n_mb)
+    flat = arena_mod.flatten_tree(layout, grads)
+    if n_data > 1:
+        flat = reduce_scatter_rows(flat, shard.data_group, n_data)
+    stats = torch.stack([count, metrics["loss_sum"]]).to(torch.float32)
+    world = ranks.sizes["pod"] * n_data * ranks.sizes["model"]
+    stats = all_gather(stats, None, world).reshape(
+        ranks.sizes["pod"], n_data * ranks.sizes["model"], 2)
+    per_pod = stats[:, 0] if stats.shape[1] == 1 else torch.sum(stats, 1)
+    return flat[None], per_pod[:, 0], per_pod[:, 1]
+
+
+def _shard_pod_sum(shard: MeshShard, pod_grads):
+    """tau = 0 under a mesh: the rank's rows summed over every pod."""
+    from repro_torch.dist.collectives import all_reduce
+    return all_reduce(delayed.pod_sum(pod_grads).clone(),
+                      shard.ranks.group("pod"))
+
+
+def shard_specs(layout, state, mesh) -> Dict[str, Any]:
+    """The checkpoint path and spec of each leaf of ``state`` that a
+    rank holds a shard of under a multi-rank ``mesh`` (a MeshConfig):
+    z's rows (``arena_slot_specs``'s row spec) and the arena's buffers
+    (``arena.arena_shard_specs``); every other leaf is whole on every
+    rank. A ``KBatchState``'s lie under its base. ``train.loop`` writes
+    and restores the sharded state's checkpoints with them."""
+    from repro_torch.dist.sharding import arena_slot_specs
+    if hasattr(state, "base"):
+        return {f".base/{k}": s
+                for k, s in shard_specs(layout, state.base, mesh).items()}
+    out = {".opt_state/.z": arena_slot_specs(mesh, layout.rows)[2]}
+    if state.arena is not None:
+        out.update({f".arena/{k}": s for k, s in arena_mod.arena_shard_specs(
+            layout, state.arena, mesh).items()})
+    return out
+
+
 def build_step_fns(model: Model, rc: RunConfig):
     """The AMB-DG step factory, internal to the strategies (user code
     goes through ``repro_torch.api.build``)."""
@@ -186,26 +298,36 @@ def build_step_fns(model: Model, rc: RunConfig):
     else:
         opt = make_optimizer(rc)
 
+    # under a multi-rank mesh: the rank's pod and rows (None off it)
+    shard = _mesh_shard(rc, layout if use_arena else None)
+
     def init_state(generator: Optional[torch.Generator] = None) -> TrainState:
-        params = model.init(generator)
+        params = model.init(generator)   # on a mesh, every rank's alike
         if not use_arena:
             return TrainState(
                 params=params, opt_state=opt.init(params),
                 buffer=delayed.init_buffer(params, tau, n_pods, compression),
                 arena=None,
                 step=torch.zeros((), dtype=torch.int32, device=device))
+        local = None if shard is None else (1, shard.rows_local)
         return TrainState(
-            params=params, opt_state=opt.init(), buffer=None,
+            params=params,
+            opt_state=(opt.init() if shard is None else
+                       _da.init_arena(layout, device, rows=local[1])),
+            buffer=None,
             arena=arena_mod.init_arena(layout, ring_tau, n_pods,
                                        compression, device=device,
-                                       variable=variable_delay),
+                                       variable=variable_delay,
+                                       local=local),
             step=torch.zeros((), dtype=torch.int32, device=device))
 
     def pod_chunk_grads(params, batch):
         """Pod-stacked (grads {k: (n_pods, ...)}, counts (n_pods,), loss
         sums (n_pods,)): each pod's chunk of the batch on its own (the
         first ``batch["n_active"]`` microbatches of it under
-        "while_dynamic")."""
+        "while_dynamic"). On a mesh, ``_shard_grads``."""
+        if shard is not None:
+            return _shard_grads(rc, loss_fn, layout, shard, params, batch)
         batch, n_active = anytime.pop_n_active(batch, n_pods)
         chunks = [batch] if n_pods == 1 else [
             {k: v.reshape((n_pods, v.shape[0] // n_pods)
@@ -277,6 +399,14 @@ def build_step_fns(model: Model, rc: RunConfig):
                      tau_obs) = variable_master_update(state, pod_grads,
                                                        pod_counts, delay,
                                                        b_sched)
+                elif shard is not None and state.arena is None:
+                    # tau = 0: the rank's rows summed over the pods now
+                    grad_sum = _shard_pod_sum(shard, pod_grads)
+                    count = torch.sum(pod_counts)
+                    params, opt_state = opt.update(
+                        state.opt_state, state.params, grad_sum, count,
+                        b_sched=b_sched)
+                    arena_state = None
                 else:
                     params, opt_state, arena_state, grad_sum, count = \
                         arena_master_update(layout, opt, state.params,
@@ -284,8 +414,11 @@ def build_step_fns(model: Model, rc: RunConfig):
                                             pod_grads, pod_counts,
                                             compression, b_sched=b_sched)
                 # scalar divide after the reduce: the value of norm(g / c)
-                g_norm = (torch.sqrt(torch.sum(torch.square(grad_sum)))
-                          / torch.clamp(count, min=1e-12))
+                sq = torch.sum(torch.square(grad_sum))
+                if shard is not None and shard.data_group is not None:
+                    from repro_torch.dist.collectives import all_reduce
+                    sq = all_reduce(sq, shard.data_group)
+                g_norm = torch.sqrt(sq) / torch.clamp(count, min=1e-12)
             local = torch.sum(pod_counts)
             metrics = {
                 "loss": torch.sum(pod_loss) / torch.clamp(local, min=1e-12),

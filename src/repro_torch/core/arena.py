@@ -24,6 +24,16 @@ v3 is the delay-tolerant ring of a stochastic delay process, stacked
 like v1 and pushed at v2's phase schedule, with per-slot ``due`` and
 ``stale`` tags driving a masked pop (``push_pop_variable``).
 
+Under a multi-rank mesh (an active ``dist.context`` profile of more
+than one device, ``launch.mesh``: pods over ranks, rows over the
+``data`` ranks of a pod) each rank holds its ``(local_pods, rows_local,
+128)`` shard of every ring buffer (``init_arena(..., local=...)``) and
+the counts whole, and ``push_pop`` / ``push_pop_variable`` take the
+sharded wrappers of ``kernels.delay_ring.ops``; their gradient is then
+the rank's row shard in arena form, already summed over the pod's
+``data`` ranks. An active multi-rank mesh with no process group raises;
+the stacked off-mesh route runs only when no such mesh is active.
+
 Where the JAX package donates buffers to ``jit``
 (``input_output_aliases`` in the kernels, ``donate_argnums`` in the
 loop), the port writes in place: the push slot, its scales, the staging
@@ -244,13 +254,17 @@ class GradArena:
 
 def init_arena(layout: ArenaLayout, tau: int, n_pods: int,
                compression: str = "none", device="cuda",
-               ring_version: int = 2, variable: bool = False
+               ring_version: int = 2, variable: bool = False,
+               local: Optional[Tuple[int, int]] = None
                ) -> Optional[GradArena]:
     """Allocate the delay state on ``device`` (None for tau = 0). With
     ``variable=True``, ``tau`` is the cap ``tau_max`` of a stochastic
     delay process and the ring is the delay-tolerant v3 layout:
     ``tau + 1`` stacked slots with ``due``/``stale`` tags.
-    ``ring_version=1`` gives the stacked fixed ring of ``tau`` slots."""
+    ``ring_version=1`` gives the stacked fixed ring of ``tau`` slots.
+    ``local=(local_pods, rows_local)``: a rank's shard under a
+    multi-rank mesh (ring, scales, residual and staging hold that many
+    pods and rows; the counts stay (n_slots, n_pods))."""
     if tau == 0:
         return None
     if ring_version not in (1, 2):
@@ -263,7 +277,8 @@ def init_arena(layout: ArenaLayout, tau: int, n_pods: int,
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
     device = resolve_device(device)
-    shape = (n_pods, layout.rows, LANES)
+    shape = (n_pods, layout.rows, LANES) if local is None else \
+        (*local, LANES)
     f32 = dict(dtype=torch.float32, device=device)
     v2 = ring_version == 2
     n_slots = tau + 1 if v2 else tau
@@ -365,18 +380,72 @@ def convert_ring(arena: GradArena, version: int) -> GradArena:
     raise ValueError(f"unknown ring_version {version!r}")
 
 
-def row_scales(layout: ArenaLayout, fed) -> torch.Tensor:
+def arena_logical_axes(arena: GradArena) -> GradArena:
+    """Logical axes per arena field, the JAX package's table (None
+    fields stay None): rows over the intra-pod slice ("flat"), slots
+    replicated, pods on 'pod'; a v2 ring one entry per slot buffer, the
+    stacked layouts one entry with a replicated slot dim. Under a mesh
+    the port keeps ``counts`` whole on every rank, where this table
+    shards its pod dim: each rank knows every pod's count from the
+    step's one gather of the pods' counts."""
+    if ring_version(arena) == 2:
+        ring_ax = tuple(("pod", "flat", None) for _ in arena.ring)
+        scales_ax = (None if arena.scales is None
+                     else tuple(("pod", "flat") for _ in arena.scales))
+    else:
+        ring_ax = (None, "pod", "flat", None)
+        scales_ax = None if arena.scales is None else (None, "pod", "flat")
+    return GradArena(
+        ring=ring_ax, scales=scales_ax,
+        residual=None if arena.residual is None else ("pod", "flat", None),
+        staging=None if arena.staging is None else ("pod", "flat", None),
+        counts=(None, "pod"), head=(),
+        due=None if arena.due is None else (None,),
+        stale=None if arena.stale is None else (None,),
+        phase=arena.phase)
+
+
+def arena_specs(arena: GradArena, mesh) -> GradArena:
+    """``arena_logical_axes`` resolved against ``mesh`` (a MeshConfig),
+    field by field."""
+    from repro_torch.dist.sharding import spec_for
+    axes = arena_logical_axes(arena)
+
+    def resolve(ax, t):
+        if ax is None:
+            return None
+        if isinstance(t, tuple):     # a v2 ring's per-slot buffers
+            return tuple(resolve(a, x) for a, x in zip(ax, t))
+        return spec_for(tuple(ax), tuple(t.shape), mesh)
+
+    return GradArena(**{f: resolve(getattr(axes, f), getattr(arena, f))
+                        for f in _ARENA_FIELDS}, phase=arena.phase)
+
+
+def row_scales(layout: ArenaLayout, fed, row0: int = 0,
+               group=None) -> torch.Tensor:
     """Per-row int8 scales reproducing the per-(pod, leaf) symmetric
     scales bitwise: a row max, a segment max over the static
     row -> leaf map, max(amax, 1e-12) / 127. fed: (n_pods, rows, 128)
-    f32. Returns (n_pods, rows) f32."""
+    f32. Returns (n_pods, rows) f32. On a row shard (rows ``row0`` on
+    of the arena) ``group`` is the ``data`` group the rows shard over:
+    the per-leaf maxima are all-reduced (MAX) across it, still bitwise
+    (a max is a max whatever the order)."""
     r2l = layout.row_to_leaf_on(fed.device)
+    if fed.shape[1] != layout.rows:
+        r2l = r2l[row0:row0 + fed.shape[1]]
     rowmax = torch.amax(torch.abs(fed), dim=-1)                # (P, rows)
     n_pods = fed.shape[0]
+    # a leaf with no row here keeps 0, below any |fed| of another shard
     amax = torch.zeros((n_pods, layout.n_leaves + 1), dtype=torch.float32,
                        device=fed.device)
     amax.scatter_reduce_(1, r2l.expand(n_pods, -1), rowmax, reduce="amax",
                          include_self=False)
+    if group is not None:
+        import torch.distributed as dist
+
+        from repro_torch.dist.collectives import all_reduce
+        all_reduce(amax, group, op=dist.ReduceOp.MAX)
     # sentinel segment (tail pad rows) -> scale 1: pads are zero
     amax[:, layout.n_leaves] = 127.0
     c127 = torch.full((), 127.0, dtype=torch.float32, device=fed.device)
@@ -398,14 +467,31 @@ def _slot_pod_sum(slot, scales_slot=None):
     return acc
 
 
-def _int8_quantize(layout: ArenaLayout, arena: GradArena, pod_grads):
+def _fed(layout: ArenaLayout, arena: GradArena, pod_grads, ranks=None):
+    """The int8 push's first half: fed = g + residual in arena form,
+    written into the staging buffer, and its per-row scales. Off the
+    mesh ``pod_grads`` is the pod-stacked tree (``scatter_fed``); under
+    a multi-rank mesh (``ranks``) it is the rank's (local_pods,
+    rows_local, 128) arena-form shard, whose pads are zero already, and
+    the scales' per-leaf maxima are reduced over the group its rows
+    shard over. Returns (fed, scale_new)."""
+    if ranks is None:
+        fed = scatter_fed(layout, pod_grads, arena.residual,
+                          out=arena.staging)
+        return fed, row_scales(layout, fed)
+    fed = torch.add(pod_grads, arena.residual, out=arena.staging)
+    _, row0, group = shard_rows(layout, ranks)
+    return fed, row_scales(layout, fed, row0=row0, group=group)
+
+
+def _int8_quantize(layout: ArenaLayout, arena: GradArena, pod_grads,
+                   ranks=None):
     """The int8 push arithmetic of the stacked rings (v1 on the CPU, v3):
-    fed = g + residual scattered into ``staging``, per-row scales,
-    q = clip(round(fed / s), -127, 127), and the error-feedback residual
-    fed - q * s written over the old residual's buffer (its contents
-    are spent once fed is formed). Returns (q f32, scale_new)."""
-    fed = scatter_fed(layout, pod_grads, arena.residual, out=arena.staging)
-    scale_new = row_scales(layout, fed)
+    fed and its scales (``_fed``), q = clip(round(fed / s), -127, 127),
+    and the error-feedback residual fed - q * s written over the old
+    residual's buffer (its contents are spent once fed is formed).
+    Returns (q f32, scale_new)."""
+    fed, scale_new = _fed(layout, arena, pod_grads, ranks)
     s = scale_new[..., None]
     q = torch.clamp(torch.round(fed / s), -127, 127)
     torch.sub(fed, q * s, out=arena.residual)
@@ -422,49 +508,144 @@ def push_pop(layout: ArenaLayout, arena: GradArena, pod_grads, pod_counts,
     pod_grads: dict of (n_pods, *shape) tensors; pod_counts: (n_pods,)
     f32. Returns (grad_sum (rows, 128) f32, count () f32, new_arena).
     On a v2 ring the returned grad_sum may be a view of the popped
-    slot: read it before the next rotation."""
+    slot: read it before the next rotation. Under a multi-rank mesh
+    (``sharded_route``) ``pod_grads`` is the rank's (local_pods,
+    rows_local, 128) arena-form shard and grad_sum its rows, summed over
+    every pod; a v1 ring raises there."""
     if is_variable(arena):
         raise ValueError("delay-tolerant arenas rotate via "
                          "push_pop_variable (per-step tau_t), not the "
                          "fixed-tau push_pop")
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
+    ranks = sharded_route("push_pop")
     if ring_version(arena) == 2:
         return _push_pop_v2(layout, arena, pod_grads, pod_counts,
-                            compression)
+                            compression, ranks)
+    if ranks is not None:
+        raise ValueError(
+            "a v1 (stacked fixed) ring has no sharded rotate (nor has the "
+            "JAX package's); under a multi-rank mesh use the default v2 "
+            "ring (convert_ring(arena, 2))")
     return _push_pop_v1(layout, arena, pod_grads, pod_counts, compression)
 
 
-def _push_pop_v2(layout, arena, pod_grads, pod_counts, compression):
+def sharded_route(what: str):
+    """The ambient mesh's ``dist.collectives.Ranks`` when a multi-rank
+    mesh is active (a ``dist.context`` profile of more than one device),
+    else None. Raises when that mesh has no ``DeviceMesh`` or process
+    group behind it: the sharded route never falls back to the stacked
+    one."""
+    from repro_torch.dist.context import active_mesh
+    mesh = active_mesh()
+    if mesh is None or mesh.n_devices == 1:
+        return None
+    from repro_torch.dist.collectives import require_mesh
+    return require_mesh(what)
+
+
+def shard_rows(layout: ArenaLayout, ranks) -> Tuple[int, int, Any]:
+    """(rows_local, row0, group or None): the block of the arena's rows
+    this rank holds, where ``dist.sharding.block`` places it under
+    ``arena_slot_specs``'s row spec, and the group of the ranks that
+    share its pod's rows (all the rows, and no group, where the spec
+    does not split them)."""
+    from repro_torch.dist.context import active_mesh
+    from repro_torch.dist.sharding import arena_slot_specs, block, entry_axes
+    mesh = active_mesh()
+    _, _, row_spec = arena_slot_specs(mesh, layout.rows)
+    entry = row_spec[0] if row_spec else None
+    n, idx = block(entry, mesh, ranks.coords)
+    if n == 1:
+        return layout.rows, 0, None
+    # the axis of the row entry that splits it: 'data' ('model' is 1)
+    (axis,) = [a for a in entry_axes(entry) if ranks.sizes[a] > 1]
+    rows_local = layout.rows // n
+    return rows_local, idx * rows_local, ranks.group(axis)
+
+
+_SHARDED_FIELDS = ("ring", "scales", "residual", "staging")
+
+
+def arena_shard_specs(layout: ArenaLayout, arena: GradArena, mesh
+                      ) -> Dict[str, Any]:
+    """The spec of each arena buffer a rank holds a shard of under a
+    multi-rank ``mesh`` (a MeshConfig), keyed by its checkpoint path
+    within the arena (".ring/0", ".residual", ...): ``arena_specs`` of
+    the whole stacked arena's shapes (``mesh.n_pods`` pods,
+    ``layout.rows`` rows). The counts, head and tags are whole on every
+    rank."""
+    axes = arena_logical_axes(arena)
+
+    def whole(ax, t):
+        if isinstance(t, tuple):            # a v2 ring's slot buffers
+            return tuple(whole(a, x) for a, x in zip(ax, t))
+        return torch.empty([mesh.n_pods if a == "pod" else
+                            layout.rows if a == "flat" else n
+                            for a, n in zip(ax, t.shape)], device="meta")
+
+    full = arena._replace(**{f: whole(getattr(axes, f), getattr(arena, f))
+                             for f in _SHARDED_FIELDS
+                             if getattr(arena, f) is not None})
+    specs = arena_specs(full, mesh)
+    out = {}
+    for f in _SHARDED_FIELDS:
+        spec = getattr(specs, f)
+        if type(spec) is tuple:             # per slot (a Spec is a tuple)
+            out.update({f".{f}/{i}": s for i, s in enumerate(spec)})
+        elif spec is not None:
+            out[f".{f}"] = spec
+    return out
+
+
+def _push_pop_v2(layout, arena, pod_grads, pod_counts, compression,
+                 ranks=None):
     """One v2 rotation: push slot ``phase``, pop slot ``(phase + 1) %
     (tau + 1)``.
 
     int8: fed = g + residual is written into the staging buffer, the
-    per-row scales come from fed, and the slot rotate
+    per-row scales come from fed (``_fed``), and the slot rotate
     (``kernels.delay_ring.ops``: the CUDA kernel on the card, the plain
     version on the CPU) dequantizes the pop, quantizes fed into the
     push slot and writes the residual over fed; staging and residual
     then swap buffers. "none" needs no kernel: the pop is a read of one
-    slot and the push a copy into the other."""
-    from repro_torch.kernels.delay_ring.ops import ring_slot_rotate_int8
+    slot and the push a copy into the other.
+
+    Under a multi-rank mesh (``ranks``) ``pod_grads`` is the rank's
+    shard in arena form: int8 takes ``ring_slot_rotate_int8_sharded``
+    (the compressed pop all-gathered over the pods and folded, the push
+    by the kernel); f32 folds the pop slot's local pods and all-reduces
+    them over the pods."""
+    from repro_torch.kernels.delay_ring import ops
     n_slots = len(arena.ring)
     push_i = arena.phase
     pop_i = (push_i + 1) % n_slots
     count = torch.sum(arena.counts[pop_i])
 
     if compression == "int8":
-        fed = scatter_fed(layout, pod_grads, arena.residual,
-                          out=arena.staging)
-        scale_new = row_scales(layout, fed)
-        popped, _, _, residual = ring_slot_rotate_int8(
+        fed, scale_new = _fed(layout, arena, pod_grads, ranks)
+        rotate = (ops.ring_slot_rotate_int8 if ranks is None
+                  else ops.ring_slot_rotate_int8_sharded)
+        popped, _, _, residual = rotate(
             arena.ring[pop_i], arena.scales[pop_i], arena.ring[push_i],
             arena.scales[push_i], fed, scale_new)
-        grad_sum = pod_sum(popped)
+        # the sharded rotate returns the pods' sum already
+        grad_sum = pod_sum(popped) if ranks is None else popped
         # buffer swap: the old residual is next step's scratch
         staging = arena.residual
     else:
-        grad_sum = pod_sum(arena.ring[pop_i])
-        flatten_tree(layout, pod_grads, leading=1, out=arena.ring[push_i])
+        slot = arena.ring[pop_i]
+        grad_sum = pod_sum(slot)
+        if ranks is None:
+            flatten_tree(layout, pod_grads, leading=1,
+                         out=arena.ring[push_i])
+        else:
+            from repro_torch.dist.collectives import all_reduce
+            # one local pod: a view of the slot; the reduce must not
+            # write it
+            grad_sum = all_reduce(grad_sum.clone() if slot.shape[0] == 1
+                                  else grad_sum, ranks.group("pod"))
+            arena.ring[push_i].copy_(pod_grads)
         residual, staging = None, None
 
     arena.counts[push_i].copy_(pod_counts)
@@ -594,10 +775,12 @@ def push_pop_variable(layout: ArenaLayout, arena: GradArena, pod_grads,
     ring's cap there). Nothing is read to the host on the card: t,
     ``delay`` and every scalar stay device tensors.
 
-    pod_grads: dict of (n_pods, *shape) tensors; pod_counts: (n_pods,)
-    f32; delay: 0-dim int tensor on the arena's device (or a Python
-    int). Returns (grad_sum (rows, 128) f32, count () f32, tau_obs ()
-    f32, new_arena)."""
+    pod_grads: dict of (n_pods, *shape) tensors (under a multi-rank mesh
+    the rank's (local_pods, rows_local, 128) arena-form shard, the pop
+    then ``ring_variable_pop_sharded``); pod_counts: (n_pods,) f32;
+    delay: 0-dim int tensor on the arena's device (or a Python int).
+    Returns (grad_sum (rows, 128) f32, count () f32, tau_obs () f32,
+    new_arena)."""
     from repro_torch.kernels import resolve_impl
     from repro_torch.kernels.delay_ring.ops import ring_variable_pop
     if not is_variable(arena):
@@ -606,6 +789,7 @@ def push_pop_variable(layout: ArenaLayout, arena: GradArena, pod_grads,
                          "fixed-tau rings rotate via push_pop")
     if compression not in ("none", "int8"):
         raise ValueError(f"unknown pod_compression {compression!r}")
+    ranks = sharded_route("push_pop_variable")
     ring, scales = arena.ring, arena.scales
     n_slots = int(ring.shape[0])
     k = arena.phase
@@ -619,16 +803,23 @@ def push_pop_variable(layout: ArenaLayout, arena: GradArena, pod_grads,
     arena.counts[k].copy_(pod_counts)
 
     if compression == "int8":
-        q, scale_new = _int8_quantize(layout, arena, pod_grads)
+        q, scale_new = _int8_quantize(layout, arena, pod_grads, ranks)
         ring[k].copy_(q.to(torch.int8))
         scales[k].copy_(scale_new)
-    else:
+    elif ranks is None:
         _scatter_slot_stacked(layout, ring, pod_grads, k)
+    else:
+        ring[k].copy_(pod_grads)
 
     mask = arena.due == t
     cs = torch.stack([torch.sum(arena.counts, dim=1),
                       arena.stale.to(torch.float32)])
-    if resolve_impl("auto", ring) == "kernel":
+    if ranks is not None:
+        from repro_torch.kernels.delay_ring.ops import \
+            ring_variable_pop_sharded
+        grad_sum, meta = ring_variable_pop_sharded(ring, mask, scales=scales,
+                                                   counts_stale=cs)
+    elif resolve_impl("auto", ring) == "kernel":
         partial, meta = ring_variable_pop(ring, mask, scales=scales,
                                           counts_stale=cs)
         grad_sum = pod_sum(partial)

@@ -11,8 +11,8 @@ lower-bounds the rounds needed for a consensus error delta:
 A round is an ordered list of (neighbour index, weight) terms folded
 left to right, ``x_i' = w_0 x_{nbr_0[i]} + w_1 x_{nbr_1[i]} + ...``, on
 the stacked (n, ...) per-worker values (the dense fold; the
-one-worker-per-device fold is ROADMAP A.11). Each weighted term is its
-own multiply and the fold its own adds, in stencil order from the first
+one-worker-per-device fold is ROADMAP A.11 part 2). Each weighted term is
+its own multiply and the fold its own adds, in stencil order from the first
 term: eager PyTorch never contracts the two into an FMA, which is the
 contract JAX pins with ``optimization_barrier``. So the fold equals
 JAX's fold run op by op bit for bit, and the masked fold under the

@@ -5,8 +5,9 @@ In the JAX package the pod dimension's sum is the cross-pod (DCN)
 all-reduce that AMB-DG overlaps with compute. The port so far runs the
 pods of one process on one device (the pod axis a written-out leading
 dimension), where the reduction is the deterministic left fold that both
-JAX master pipelines share off-mesh (``repro/core/delayed.py:64``). The
-multi-GPU reduce is ROADMAP A.11.
+JAX master pipelines share off-mesh (``repro/core/delayed.py:64``). This
+pytree master has no multi-rank form; the arena master's pod reduce
+across ranks is ``core.arena``'s sharded route.
 
 ``DelayBuffer`` is the per-leaf reference of the arena's delay ring: a
 ``tau``-deep circular buffer of pod-stacked gradients. ``push_pop``
@@ -61,6 +62,21 @@ def init_buffer(params, tau: int, n_pods: int,
     return DelayBuffer(grads=grads, scales=scales, residual=residual,
                        counts=zeros((tau, n_pods), f32, like),
                        head=zeros((), torch.int32, like))
+
+
+def buffer_logical_axes(params_axes, tau: int, compression: str = "none"):
+    """Logical axes of the buffer's fields (leading (tau, pod) dims), as
+    the JAX package's ``buffer_logical_axes``; None for tau = 0."""
+    from repro_torch.core.arena import tree_map
+    if tau == 0:
+        return None
+    g_axes = tree_map(lambda ax: (None, "pod") + tuple(ax), params_axes)
+    s_axes = r_axes = None
+    if compression == "int8":
+        s_axes = tree_map(lambda ax: (None, "pod"), params_axes)
+        r_axes = tree_map(lambda ax: ("pod",) + tuple(ax), params_axes)
+    return DelayBuffer(grads=g_axes, scales=s_axes, residual=r_axes,
+                       counts=(None, "pod"), head=())
 
 
 def pod_sum(x):

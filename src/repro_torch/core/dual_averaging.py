@@ -98,9 +98,11 @@ class ArenaDualAveragingState(NamedTuple):
     t: torch.Tensor    # () int32: updates applied
 
 
-def init_arena(layout, device) -> ArenaDualAveragingState:
+def init_arena(layout, device, rows=None) -> ArenaDualAveragingState:
+    """z = 0 over the arena's rows (``rows``: a rank's row shard)."""
+    rows = layout.rows if rows is None else rows
     return ArenaDualAveragingState(
-        z=torch.zeros((layout.rows, 128), dtype=torch.float32, device=device),
+        z=torch.zeros((rows, 128), dtype=torch.float32, device=device),
         t=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -113,7 +115,10 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     and returns (params tree with f32 leaves, new state). ``tau_obs``
     (the variable-delay path) replaces the static tau in ``alpha``,
     ``b_sched`` (an adaptive batch schedule's target) the static
-    ``b_bar``.
+    ``b_bar``. Under a multi-rank mesh (``arena.sharded_route``) z and
+    g_sum are the rank's row shard: ``dual_update_arena_sharded``
+    updates them, and w is all-gathered over the ``data`` group before
+    the projection, so the parameters come back whole on every rank.
 
     ``proximal="l2"`` matches the JAX package bit for bit. Under
     ``"l2_ball"`` the ball norm is one flat reduction whose summation
@@ -121,12 +126,23 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     about one ulp (the JAX package states the same of its own two
     master paths)."""
     from repro_torch.core import arena as arena_mod
-    from repro_torch.kernels.dual_update.ops import dual_update_arena
+    from repro_torch.kernels.dual_update.ops import (
+        dual_update_arena, dual_update_arena_sharded)
     if cfg.proximal not in ("l2", "l2_ball"):
         raise ValueError(f"unknown proximal {cfg.proximal!r}")
     t_next = state.t + 1
     a = alpha(t_next.to(torch.float32) + 1.0, cfg, tau=tau_obs, b=b_sched)
-    z_next, w = dual_update_arena(state.z, g_sum, count, a)
+    ranks = arena_mod.sharded_route("update_arena")
+    if ranks is None:
+        z_next, w = dual_update_arena(state.z, g_sum, count, a)
+    else:
+        # the rank's rows; w all-gathered over 'data' rebuilds the
+        # replicated parameters (and the ball norm sees every row)
+        z_next, w = dual_update_arena_sharded(state.z, g_sum, count, a)
+        if w.shape[0] != layout.rows:
+            from repro_torch.dist.collectives import all_gather_rows
+            w = all_gather_rows(w, ranks.group("data"),
+                                layout.rows // w.shape[0])
     if cfg.proximal == "l2_ball":
         norm = torch.sqrt(torch.sum(torch.square(w)))   # arena pads are zero
         proj = torch.clamp(torch.div(_const(cfg.radius_C, norm),

@@ -11,7 +11,7 @@ through ``repro_torch.api.build(model, rc, device)`` from
 
 The port registers AMB-DG, its synchronous degenerate AMB, the K-batch
 baseline and the decentralized gossip of the paper's Sec. V (its dense
-fold; one worker per card is ROADMAP A.11).
+fold; one worker per card is ROADMAP A.11 part 2).
 ``repro_torch.api.simulate`` runs a strategy's cluster simulator engine
 (``Strategy.sim_engine``).
 """
@@ -335,8 +335,8 @@ class DecentralizedStrategy(Strategy):
 
     ``rc.consensus.gossip_impl``: "dense" runs the stencil fold on the
     stacked (n, rows, 128) messages on one device; "shard_map" (one
-    worker per card) is ROADMAP A.11 and raises, as does an "auto" that
-    resolves to it (the card count equals n_workers).
+    worker per card) is ROADMAP A.11 part 2 and raises, as does an
+    "auto" that resolves to it (the card count equals n_workers).
     ``rc.consensus.compression="int8"`` quantizes each round's message
     to int8 with per-row bf16 scales and carries the quantization error
     in ``DecentralizedState.residual``. Under a non-static ``rc.elastic``
@@ -389,8 +389,8 @@ class DecentralizedStrategy(Strategy):
             raise NotImplementedError(
                 "gossip_impl='shard_map' (one worker per card, the "
                 "neighbour exchange over torch.distributed) is not ported "
-                "yet (ROADMAP A.11); gossip_impl='dense' runs the same "
-                "stencil fold on one card")
+                "yet (ROADMAP A.11 part 2); gossip_impl='dense' runs the "
+                "same stencil fold on one card")
         if impl != "dense":
             raise ValueError(f"unknown gossip_impl {cc.gossip_impl!r}")
         return impl
@@ -411,6 +411,12 @@ class DecentralizedStrategy(Strategy):
             consensus.run_consensus_fold(m0, topology, rounds), res)
 
     def _build(self):
+        from repro_torch.dist.context import active_mesh
+        mesh = active_mesh()
+        if mesh is not None and mesh.n_devices > 1:
+            raise NotImplementedError(
+                "the decentralized gossip under a multi-rank mesh (one "
+                "worker per rank) is ROADMAP A.11 part 2")
         model, rc = self.model, self.rc
         cfg = rc.ambdg
         n = rc.consensus.n_workers

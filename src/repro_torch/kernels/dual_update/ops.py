@@ -11,6 +11,10 @@ Both implementations update ``z`` in place (the port's counterpart of
 the JAX kernel donating z through ``input_output_aliases``) and return
 a new ``w``.
 
+``dual_update_arena_sharded`` (JAX's shard_map wrapper) runs the same
+update on the rows one rank of a multi-rank mesh holds: the update is
+elementwise, so it carries no collective.
+
 ``dual_update`` is the legacy pytree wrapper (``repro.kernels.
 dual_update.ops.dual_update``): z += g; w = -alpha z over a tree,
 flattened on every call into a (rows, 128) matrix padded to a multiple
@@ -44,6 +48,19 @@ def dual_update_arena(z, g_sum, count, alpha, *, impl: str = "auto"):
     from repro_torch.kernels.dual_update.kernel import dual_update_fused_fwd
     scal = torch.stack([alpha.to(torch.float32), denom.to(torch.float32)])
     return dual_update_fused_fwd(z, g_sum, scal)
+
+
+def dual_update_arena_sharded(z, g_sum, count, alpha, *,
+                              impl: str = "auto"):
+    """``dual_update_arena`` on this rank's row shard of z and g_sum
+    ((rows_local, 128) f32, rows over the mesh's intra-pod slice as
+    ``dist.sharding.arena_slot_specs``'s row spec cuts them), under the
+    ambient mesh (``dist.context``; raises without one or without a
+    process group). No collective: count and alpha are replicated
+    scalars. Returns (z, w) on the shard, z updated in place."""
+    from repro_torch.dist.collectives import require_mesh
+    require_mesh("dual_update_arena_sharded")
+    return dual_update_arena(z, g_sum, count, alpha, impl=impl)
 
 
 def _flatten(tree):
@@ -82,5 +99,6 @@ def dual_update(z_tree, g_tree, alpha, *, impl: str = "auto"):
     return _unflatten(z_new, meta), _unflatten(w, meta)
 
 
-__all__ = ["dual_update", "dual_update_arena", "dual_update_fused_ref",
+__all__ = ["dual_update", "dual_update_arena", "dual_update_arena_sharded",
+           "dual_update_fused_ref",
            "dual_update_ref"]

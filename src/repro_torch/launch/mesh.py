@@ -2,43 +2,103 @@
 
 ``parse_mesh`` turns a ``"DxM"`` / ``"PxDxM"`` spec string into a
 ``MeshConfig`` (a leading pod factor > 1 adds the ``pod`` axis) and
-``mesh_label`` is its inverse, as in the JAX package. The port runs on
-one card: ``make_mesh`` takes a one-device mesh, and any larger mesh,
-like JAX's TPU pod mesh ``make_production_mesh``, raises until the
-multi-GPU slice lands (ROADMAP A.11).
+``mesh_label`` is its inverse, as in the JAX package.
+
+``make_mesh`` builds the port's ``Mesh``: one device needs no world; a
+``P x D x 1`` mesh of more ranks is a ``torch.distributed`` ``DeviceMesh``
+with the dims ("pod", "data", "model") over an initialised world of
+exactly ``cfg.n_devices`` ranks (``torch.distributed.run`` starts them;
+NCCL on cards, gloo for CPU processes). Entering the mesh (``with mesh:``)
+activates its sharding profile and its ``DeviceMesh``, under which the
+arena's rotations and the train step take their sharded routes. A mesh
+with ``model > 1`` raises: tensor parallelism over ``model`` is ROADMAP
+A.11 part 2. JAX's TPU pod mesh (``make_production_mesh``, 256 or 512
+chips) raises too.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import contextlib
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import MeshConfig
 from repro_torch.device import resolve_device
 
+AXES = ("pod", "data", "model")
 
-class Mesh(NamedTuple):
-    """A device mesh: its shape, axis names and devices (row-major)."""
-    shape: Tuple[int, ...]
-    axis_names: Tuple[str, ...]
-    devices: Tuple[torch.device, ...]
+
+class Mesh:
+    """A device mesh: its shape and axis names (``cfg``'s), the devices
+    of this process (one), and over more than one rank the
+    ``DeviceMesh`` and this rank's coordinates. ``with mesh:`` makes it
+    the ambient mesh (``dist.context``)."""
+
+    def __init__(self, cfg: MeshConfig, device: torch.device,
+                 device_mesh=None):
+        self.cfg = cfg
+        self.shape: Tuple[int, ...] = cfg.shape
+        self.axis_names: Tuple[str, ...] = cfg.axis_names
+        self.devices: Tuple[torch.device, ...] = (device,)
+        self.device_mesh = device_mesh
+        # this rank's index on each of "pod", "data", "model"
+        self.coords = (dict.fromkeys(AXES, 0) if device_mesh is None else
+                       {a: device_mesh.get_local_rank(a) for a in AXES})
+        self._stack: Optional[contextlib.ExitStack] = None
+
+    def __enter__(self):
+        from repro_torch.dist.context import (sharding_profile,
+                                              use_device_mesh)
+        self._stack = contextlib.ExitStack()
+        if self.device_mesh is not None:
+            self._stack.enter_context(sharding_profile(self.cfg))
+            self._stack.enter_context(use_device_mesh(self.device_mesh))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        self._stack = None
+        return False
 
 
 def make_production_mesh(*, multi_pod: bool = False):
     shape = "2x16x16" if multi_pod else "16x16"
+    n = 512 if multi_pod else 256
     raise NotImplementedError(
-        f"the production mesh ({shape}, a TPU pod) needs the multi-GPU "
-        "slice (ROADMAP A.11); the port runs on one card")
+        f"the production mesh ({shape}) is a TPU pod of {n} chips; the port "
+        f"would need {n} cards, and tensor parallelism over 'model' (ROADMAP "
+        "A.11 part 2)")
 
 
 def make_mesh(cfg: MeshConfig, device="cuda") -> Mesh:
-    """The one-device mesh of ``cfg`` on ``device``; a mesh of more
-    devices raises (ROADMAP A.11)."""
-    if cfg.n_devices != 1:
+    """The mesh of ``cfg`` on ``device``. One device: no world needed.
+    More: a ``P x D x 1`` ``DeviceMesh`` over the initialised world,
+    whose size must equal ``cfg.n_devices``."""
+    device = resolve_device(device)
+    if cfg.model != 1:
         raise NotImplementedError(
-            f"mesh {mesh_label(cfg)} spans {cfg.n_devices} devices: the "
-            "multi-GPU slice is ROADMAP A.11; the port runs on one card")
-    return Mesh(cfg.shape, cfg.axis_names, (resolve_device(device),))
+            f"mesh {mesh_label(cfg)} has model={cfg.model}: tensor "
+            "parallelism over 'model' is ROADMAP A.11 part 2; the port "
+            "runs P x D x 1 meshes")
+    if cfg.n_devices == 1:
+        return Mesh(cfg, device)
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"mesh {mesh_label(cfg)} spans {cfg.n_devices} ranks, but no "
+            "process group is initialised: start the ranks with "
+            "torch.distributed.run and call init_process_group first")
+    world = dist.get_world_size()
+    if world != cfg.n_devices:
+        raise ValueError(f"mesh {mesh_label(cfg)} needs {cfg.n_devices} "
+                         f"ranks; the world has {world}")
+    from torch.distributed.device_mesh import init_device_mesh
+    if device.type == "cuda":
+        torch.cuda.set_device(device.index if device.index is not None
+                              else torch.cuda.current_device())
+    dm = init_device_mesh(device.type, (cfg.n_pods, cfg.data, cfg.model),
+                          mesh_dim_names=AXES)
+    return Mesh(cfg, device, dm)
 
 
 def mesh_config(multi_pod: bool = False) -> MeshConfig:

@@ -1,8 +1,10 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
 
 The twin of ``repro/launch/train.py``: the same flags and the same
-``RunConfig``, run through the port's host loop (``train.loop``) for any
-registered strategy (``--strategy ambdg|amb|kbatch|decentralized``) and
+``RunConfig`` (beyond JAX's flags ``--b-bar``, ``--pod-compression``,
+``--proximal`` and ``--radius-c``, each defaulting to JAX's value), run
+through the port's host loop (``train.loop``) for any registered
+strategy (``--strategy ambdg|amb|kbatch|decentralized``) and
 optimizer (``--optimizer dual_averaging|sgd|adam``). It prints one JSON
 line per log point and a ``done:`` line. It runs on the card; only
 ``--device cpu`` runs it on the CPU (without CUDA the default raises).
@@ -13,6 +15,19 @@ line per log point and a ``done:`` line. It runs on the card; only
 
 ``main(argv)`` takes the argument list (tests and ``chip_smoke.py`` call
 it in process) and returns the loop's output.
+
+``--mesh PxDx1`` with P x D > 1 runs the sharded step over the ranks
+``torch.distributed.run`` starts (one process a rank; ``--backend``
+nccl, the default on the card, or gloo, the CPU's and the default with
+``--device cpu``); rank 0 alone prints and checkpoints:
+
+    python -m torch.distributed.run --nproc-per-node=2 \
+        -m repro_torch.launch.train --arch amb-linreg --mesh 2x1x1 ...
+
+``main`` called in a process that has joined a world already runs in
+it. The run a sharded one is held against, the same mesh's pods
+stacked in one process, is ``train.loop.train(..., mesh=None)`` on
+``run_config(parse_args(argv))``.
 """
 from __future__ import annotations
 
@@ -24,7 +39,7 @@ import repro_torch.configs as C
 from repro_torch.api import available_strategies
 from repro_torch.configs.base import (AmbdgConfig, BatchScheduleConfig,
                                       ConsensusConfig, DelayConfig,
-                                      ElasticConfig, MeshConfig, RunConfig,
+                                      ElasticConfig, RunConfig,
                                       SHAPES)
 from repro_torch.core.batch_schedule import BATCH_SCHEDULES
 from repro_torch.core.delay_process import DELAY_PROCESSES
@@ -48,6 +63,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--t-p", type=float, default=2.5)
     ap.add_argument("--t-c", type=float, default=10.0)
     ap.add_argument("--n-microbatches", type=int, default=2)
+    ap.add_argument("--b-bar", type=float, default=None,
+                    help="the step size's b_bar (default: n_workers * "
+                         "samples_per_worker)")
+    ap.add_argument("--pod-compression", default="none",
+                    choices=("none", "int8"),
+                    help="the delay ring's cross-pod payload")
+    ap.add_argument("--proximal", default="l2", choices=("l2", "l2_ball"))
+    ap.add_argument("--radius-c", type=float, default=0.0,
+                    help="the l2 ball's radius (--proximal l2_ball)")
     ap.add_argument("--delay-process", default="fixed",
                     choices=sorted(DELAY_PROCESSES),
                     help="staleness process of the master exchange: "
@@ -103,6 +127,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="decentralized: compress gossip messages to "
                          "int8 + per-row scales with error feedback")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--mesh", default="1x1x1",
+                    help="PxDxM: pods x data ranks a pod x model (M = 1); "
+                         "more than one rank runs under "
+                         "torch.distributed.run")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend of a multi-rank mesh "
+                         "(default: nccl on the card, gloo on the CPU)")
     ap.add_argument("--n-workers", type=int, default=4)
     ap.add_argument("--samples-per-worker", type=int, default=4)
     ap.add_argument("--device", default="cuda",
@@ -127,12 +158,14 @@ def run_config(args: argparse.Namespace) -> RunConfig:
     total = args.n_workers * args.samples_per_worker
     shape = dataclasses.replace(shape, global_batch=total)
 
+    from repro_torch.launch.mesh import parse_mesh
     return RunConfig(
-        model=model_cfg, shape=shape,
-        mesh=MeshConfig(n_pods=1, data=1, model=1),
+        model=model_cfg, shape=shape, mesh=parse_mesh(args.mesh),
         ambdg=AmbdgConfig(t_p=args.t_p, t_c=args.t_c, tau=args.tau,
                           n_microbatches=args.n_microbatches,
-                          b_bar=float(total)),
+                          b_bar=float(args.b_bar or total),
+                          pod_compression=args.pod_compression,
+                          proximal=args.proximal, radius_C=args.radius_c),
         strategy=args.strategy,
         consensus=ConsensusConfig(topology=args.topology,
                                   n_workers=args.n_workers,
@@ -156,21 +189,58 @@ def run_config(args: argparse.Namespace) -> RunConfig:
         optimizer=args.optimizer)
 
 
+def _init_world(args, device):
+    """Join the ``torch.distributed.run`` world (its RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT), unless this process has joined one
+    already. Returns (this rank's device, whether it joined here)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if "RANK" not in os.environ and not dist.is_initialized():
+        raise RuntimeError(
+            f"--mesh {args.mesh} spans more than one rank: start it under "
+            "python -m torch.distributed.run")
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda":
+        # ranks beyond the cards share them (gloo only: NCCL refuses
+        # two ranks on one device)
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if dist.is_initialized():
+        return device, False
+    dist.init_process_group(backend, init_method="env://")
+    return device, True
+
+
 def main(argv=None):
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import LoopConfig, train
     args = parse_args(argv)
     device = resolve_device(args.device)
     rc = run_config(args)
+    multi = rc.mesh.n_devices > 1
+    joined = False
+    if multi:
+        device, joined = _init_world(args, device)
+    mesh = make_mesh(rc.mesh, device) if multi else None
     model = build_model(rc.model, device=device)
     loop = LoopConfig(n_steps=args.steps, ckpt_dir=args.ckpt_dir,
                       n_workers=args.n_workers,
                       samples_per_worker=args.samples_per_worker)
-    out = train(model, rc, loop, log_fn=lambda m: print(json.dumps(m)),
-                device=device)
-    print(f"done: {len(out['history'])} log points, "
-          f"final loss {out['history'][-1]['loss']:.4f}")
+    try:
+        out = train(model, rc, loop, log_fn=lambda m: print(json.dumps(m)),
+                    device=device, mesh=mesh)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if not multi or not any(mesh.coords.values()):
+        print(f"done: {len(out['history'])} log points, "
+              f"final loss {out['history'][-1]['loss']:.4f}")
     return out
 
 

@@ -7,6 +7,8 @@ case architectures:
     params         = model.init(generator)
     loss_sum, aux  = model.loss(params, batch)       # SUM + counts
     shapes         = model.param_shapes()             # on "meta"
+    axes           = model.param_axes()               # logical axes
+    shapes         = model.input_shapes(batch, seq)   # LM batch shapes
     batch          = model.dummy_batch(batch_size, seq_len, generator)
     cache, caxes   = model.init_decode_state(batch, max_len)
     logits, cache  = model.decode_step(params, cache, tokens, pos)
@@ -37,6 +39,7 @@ from repro_torch.models import transformer as tf_mod
 
 # the LM families: the transformer's, and the encoder-decoder
 _LM = (DENSE, HYBRID, MOE, SSM, VLM, ENCDEC)
+_META = torch.device("meta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +49,8 @@ class Model:
     # (device, CPU generator or None) -> params on that device
     init_fn: Callable[[torch.device, Optional[torch.Generator]], Dict]
     loss_fn: Callable[[Dict, Dict], tuple]
+    # () -> the logical-axes tree of ``init``'s tree
+    axes_fn: Callable[[], Dict]
 
     def init(self, generator: Optional[torch.Generator] = None) -> Dict:
         return self.init_fn(self.device, generator)
@@ -54,6 +59,28 @@ class Model:
         """The parameter tree on the ``meta`` device: shapes and dtypes,
         no memory and no draws (JAX's ``eval_shape`` of ``init``)."""
         return self.init_fn(torch.device("meta"), None)
+
+    def param_axes(self) -> Dict:
+        """Each leaf's logical sharding axes (``models.common``), the
+        tree of JAX's ``shapes_and_axes(model.init)``."""
+        return self.axes_fn()
+
+    def input_shapes(self, batch: int, seq: int) -> Dict:
+        """The shapes of an LM batch's leaves (JAX's ``input_specs``):
+        tokens, weights, the VLM's ``patches``, the encoder-decoder's
+        ``frames``."""
+        cfg = self.cfg
+        if cfg.family not in _LM:
+            raise NotImplementedError(
+                f"input_shapes is for the LM families, not {cfg.family!r} "
+                "(as JAX's input_specs)")
+        n_text = seq - cfg.n_frontend_tokens if cfg.family == VLM else seq
+        out = {"tokens": (batch, n_text), "weights": (batch,)}
+        if cfg.family == VLM:
+            out["patches"] = (batch, cfg.n_frontend_tokens, cfg.d_model)
+        if cfg.family == ENCDEC:
+            out["frames"] = (batch, seq, cfg.d_model)
+        return out
 
     def loss(self, params: Dict, batch: Dict):
         return self.loss_fn(params, batch)
@@ -135,19 +162,26 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
                      init_fn=lambda dev, generator=None:
                          linear_mod.init(cfg, dev),
                      loss_fn=lambda p, b: torch.func.functional_call(
-                         module, p, (b,)))
+                         module, p, (b,)),
+                     axes_fn=lambda: dict(linear_mod.AXES))
     if cfg.family == ENCDEC:
         encdec_mod.check_supported(cfg)
         return Model(cfg, device, init_fn=_seeded_init(
                          lambda dev, gen: encdec_mod.init(cfg, gen, dev)),
-                     loss_fn=lambda p, b: encdec_mod.loss(p, cfg, b))
+                     loss_fn=lambda p, b: encdec_mod.loss(p, cfg, b),
+                     axes_fn=lambda: encdec_mod.init(cfg, None, _META,
+                                                     with_axes=True)[1])
     if cfg.family in _LM:
         tf_mod.check_supported(cfg)
         return Model(cfg, device, init_fn=_seeded_init(
                          lambda dev, gen: tf_mod.init(cfg, gen, dev)),
-                     loss_fn=lambda p, b: tf_mod.lm_loss(p, cfg, b))
+                     loss_fn=lambda p, b: tf_mod.lm_loss(p, cfg, b),
+                     axes_fn=lambda: tf_mod.init(cfg, None, _META,
+                                                 with_axes=True)[1])
     if cfg.family == CNN:
         return Model(cfg, device, init_fn=_seeded_init(
                          lambda dev, gen: cnn_mod.init(cfg, gen, dev)),
-                     loss_fn=lambda p, b: cnn_mod.loss(p, cfg, b))
+                     loss_fn=lambda p, b: cnn_mod.loss(p, cfg, b),
+                     axes_fn=lambda: cnn_mod.init(cfg, None, _META,
+                                                  with_axes=True)[1])
     raise ValueError(f"unknown model family {cfg.family!r}")

@@ -28,20 +28,21 @@ _CONV_CHANNELS = [3, 64, 64, 64, 128, 128, 128, 256, 256, 256]  # 9 convs
 _FC_WIDTHS = [1024, 512, 256, 128]                              # + n_classes
 
 
-def init(cfg: ModelConfig, generator, device) -> Dict:
+def init(cfg: ModelConfig, generator, device, with_axes: bool = False) -> Dict:
     """He-initialized conv weights and 1/sqrt(fan_in) fc weights, zero
-    biases, drawn in JAX's leaf order from the CPU ``generator``."""
+    biases, drawn in JAX's leaf order from the CPU ``generator``;
+    ``with_axes``: (params, their logical axes)."""
     f = ParamFactory(generator, torch.float32, device)
     for i, (cin, cout) in enumerate(zip(_CONV_CHANNELS[:-1],
                                         _CONV_CHANNELS[1:])):
-        f.param(f"conv{i}_w", (3, 3, cin, cout),
+        f.param(f"conv{i}_w", (3, 3, cin, cout), (None, None, None, "mlp"),
                 scale=(2.0 / (3 * 3 * cin)) ** 0.5)   # He init
-        f.param(f"conv{i}_b", (cout,), init="zeros")
+        f.param(f"conv{i}_b", (cout,), ("mlp",), init="zeros")
     widths = [_feature_dim(cfg)] + _FC_WIDTHS + [cfg.n_classes]
     for i, (fin, fout) in enumerate(zip(widths[:-1], widths[1:])):
-        f.param(f"fc{i}_w", (fin, fout))
-        f.param(f"fc{i}_b", (fout,), init="zeros")
-    return f.params
+        f.param(f"fc{i}_w", (fin, fout), ("embed", "mlp"))
+        f.param(f"fc{i}_b", (fout,), ("mlp",), init="zeros")
+    return (f.params, f.axes) if with_axes else f.params
 
 
 def _feature_dim(cfg: ModelConfig) -> int:

@@ -2,11 +2,14 @@
 
 Models are functions over nested dicts of tensors. Every leaf is made
 through a ``ParamFactory`` with the JAX package's init distributions
-(``normal`` scaled by 1/sqrt(fan_in), ``zeros``, ``ones``); the logical
-sharding axes the JAX factory records come with the multi-GPU slice
-(ROADMAP A.11). Stacked layers lie along a leading ``n_layers``
-dimension, as JAX's ``vmapped_children`` lays them out, so the arena's
-sorted-key flatten gives the JAX arena row for row.
+(``normal`` scaled by 1/sqrt(fan_in), ``zeros``, ``ones``), and the
+factory records each leaf's logical sharding axes beside it, as JAX's
+does (``factory.axes``, read by ``repro_torch.dist``: "embed" d_model-like
+dims, "mlp" ffn hidden dims, "heads" flattened head dims, "vocab",
+"expert", "layers" the stacked dim, None replicated). Stacked layers
+lie along a leading ``n_layers`` dimension, as JAX's
+``vmapped_children`` lays them out, so the arena's sorted-key flatten
+gives the JAX arena row for row.
 
 Draws come from a CPU ``torch.Generator`` and are then moved to the
 device, so a run on the card and one on the CPU from the same seed start
@@ -25,8 +28,9 @@ Params = Dict[str, object]
 
 
 class ParamFactory:
-    """Creates parameters in a fixed order from one generator. ``lead``
-    is the shape of the stacking dims every leaf gets in front."""
+    """Creates parameters in a fixed order from one generator and
+    records their logical axes in lockstep. ``lead`` is the shape of the
+    stacking dims every leaf gets in front (each a "layers" axis)."""
 
     def __init__(self, generator: Optional[torch.Generator], dtype,
                  device, lead: Tuple[int, ...] = ()):
@@ -40,9 +44,14 @@ class ParamFactory:
         self.device = device
         self.lead = tuple(lead)
         self.params: Params = {}
+        self.axes: Dict[str, object] = {}
 
-    def param(self, name: str, shape: Tuple[int, ...], init: str = "normal",
+    def param(self, name: str, shape: Tuple[int, ...],
+              axes: Tuple[Optional[str], ...], init: str = "normal",
               scale: Optional[float] = None) -> torch.Tensor:
+        if len(shape) != len(axes):
+            raise ValueError(f"{name}: axes {axes} do not match shape "
+                             f"{shape}")
         full = self.lead + tuple(shape)
         if self.device.type == "meta":
             value = torch.empty(full, dtype=self.dtype, device="meta")
@@ -61,11 +70,13 @@ class ParamFactory:
         else:
             raise ValueError(f"unknown init {init!r}")
         self.params[name] = value
+        self.axes[name] = ("layers",) * len(self.lead) + tuple(axes)
         return value
 
     def child(self, name: str) -> "ParamFactory":
         sub = ParamFactory(self.generator, self.dtype, self.device, self.lead)
         self.params[name] = sub.params
+        self.axes[name] = sub.axes
         return sub
 
     def stacked_children(self, name: str, n: int,
@@ -76,3 +87,4 @@ class ParamFactory:
                            self.lead + (n,))
         build(sub)
         self.params[name] = sub.params
+        self.axes[name] = sub.axes

@@ -90,20 +90,21 @@ def _dec_layer_init(f: ParamFactory, cfg: ModelConfig):
     mlp_init(f, cfg)
 
 
-def init(cfg: ModelConfig, generator, device) -> Dict:
+def init(cfg: ModelConfig, generator, device, with_axes: bool = False) -> Dict:
     """The parameter tree on ``device``, drawn from the CPU
-    ``generator`` (on ``meta``: shapes only)."""
+    ``generator`` (on ``meta``: shapes only); ``with_axes``: (params,
+    their logical axes)."""
     check_supported(cfg)
     f = ParamFactory(generator, tf._dtype(cfg.param_dtype), device)
     embedding_init(f, cfg)
-    f.param("frame_proj", (cfg.d_model, cfg.d_model))
+    f.param("frame_proj", (cfg.d_model, cfg.d_model), ("embed", None))
     f.stacked_children("encoder", cfg.n_encoder_layers,
                        lambda g: _enc_layer_init(g, cfg))
     f.stacked_children("decoder", cfg.n_layers,
                        lambda g: _dec_layer_init(g, cfg))
     rmsnorm_init(f, "ln_enc_final", cfg.d_model)
     rmsnorm_init(f, "ln_final", cfg.d_model)
-    return f.params
+    return (f.params, f.axes) if with_axes else f.params
 
 
 # ---------------------------------------------------------------------------

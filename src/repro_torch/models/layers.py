@@ -45,7 +45,7 @@ def scalar(value: float, dtype) -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 def rmsnorm_init(f: ParamFactory, name: str, dim: int):
-    f.param(name, (dim,), init="ones")
+    f.param(name, (dim,), ("embed",), init="ones")
 
 
 def rmsnorm(x, scale, eps: float):
@@ -124,17 +124,17 @@ def prefix_lm_mask(q_len: int, kv_len: int, prefix_len: int, device=None,
 def attention_init(f: ParamFactory, cfg: ModelConfig, name: str = "attn"):
     d, hd = cfg.d_model, cfg.resolved_head_dim
     a = f.child(name)
-    a.param("wq", (d, cfg.n_heads * hd))
-    a.param("wk", (d, cfg.n_kv_heads * hd))
-    a.param("wv", (d, cfg.n_kv_heads * hd))
-    a.param("wo", (cfg.n_heads * hd, d))
+    a.param("wq", (d, cfg.n_heads * hd), ("embed", "heads"))
+    a.param("wk", (d, cfg.n_kv_heads * hd), ("embed", "heads"))
+    a.param("wv", (d, cfg.n_kv_heads * hd), ("embed", "heads"))
+    a.param("wo", (cfg.n_heads * hd, d), ("heads", "embed"))
     if cfg.qkv_bias:
-        a.param("bq", (cfg.n_heads * hd,), init="zeros")
-        a.param("bk", (cfg.n_kv_heads * hd,), init="zeros")
-        a.param("bv", (cfg.n_kv_heads * hd,), init="zeros")
+        a.param("bq", (cfg.n_heads * hd,), ("heads",), init="zeros")
+        a.param("bk", (cfg.n_kv_heads * hd,), ("heads",), init="zeros")
+        a.param("bv", (cfg.n_kv_heads * hd,), ("heads",), init="zeros")
     if cfg.qk_norm:
-        a.param("q_norm", (hd,), init="ones")
-        a.param("k_norm", (hd,), init="ones")
+        a.param("q_norm", (hd,), (None,), init="ones")
+        a.param("k_norm", (hd,), (None,), init="ones")
 
 
 def _project_qkv(p, cfg: ModelConfig, x, positions):
@@ -195,8 +195,8 @@ def chunked_gqa_attend(q, k, v, mask_fn, softcap: Optional[float] = None):
     over its full row: peak score memory O(_Q_CHUNK * S) instead of
     O(S^2). ``mask_fn(q_offset, q_len)`` gives the block's (q_len, Skv)
     bool mask (the window or prefix with it). JAX pins the batch
-    sharding of q, k and v here; on one device there is nothing to pin
-    (ROADMAP A.11)."""
+    sharding of q, k and v here; eager PyTorch has nothing to pin (the
+    port's meshes keep activations whole on each rank)."""
     c = _Q_CHUNK
     return torch.cat([gqa_attend(q[:, i:i + c], k, v, mask_fn(i, c), softcap)
                       for i in range(0, q.shape[1], c)], dim=1)
@@ -328,9 +328,9 @@ def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
 def mlp_init(f: ParamFactory, cfg: ModelConfig, name: str = "mlp"):
     d, dff = cfg.d_model, cfg.d_ff
     m = f.child(name)
-    m.param("w_gate", (d, dff))
-    m.param("w_up", (d, dff))
-    m.param("w_down", (dff, d))
+    m.param("w_gate", (d, dff), ("embed", "mlp"))
+    m.param("w_up", (d, dff), ("embed", "mlp"))
+    m.param("w_down", (dff, d), ("mlp", "embed"))
 
 
 def _act(name: str):
@@ -352,9 +352,10 @@ def mlp_apply(p, cfg: ModelConfig, x):
 # ---------------------------------------------------------------------------
 def embedding_init(f: ParamFactory, cfg: ModelConfig):
     f.param("tok_emb", (cfg.padded_vocab_size, cfg.d_model),
-            scale=1.0 / math.sqrt(cfg.d_model))
+            (None, "embed"), scale=1.0 / math.sqrt(cfg.d_model))
     if not cfg.tie_embeddings:
-        f.param("out_head", (cfg.d_model, cfg.padded_vocab_size))
+        f.param("out_head", (cfg.d_model, cfg.padded_vocab_size),
+                ("embed", "vocab"))
 
 
 def embed_tokens(params, tokens, dtype):

@@ -45,3 +45,6 @@ class LinearRegression(nn.Module):
 def init(cfg: ModelConfig, device) -> Dict:
     return {"w": torch.zeros(cfg.linreg_dim, dtype=torch.float32,
                              device=device)}   # paper: w(1)=0
+
+
+AXES = {"w": ("embed",)}     # the logical axes of ``init``'s tree

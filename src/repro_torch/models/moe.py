@@ -34,10 +34,10 @@ from repro_torch.models.layers import _act
 def moe_init(f: ParamFactory, cfg: ModelConfig, name: str = "moe"):
     m = f.child(name)
     e, d, dff = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
-    m.param("w_router", (d, e))
-    m.param("w_gate", (e, d, dff))
-    m.param("w_up", (e, d, dff))
-    m.param("w_down", (e, dff, d))
+    m.param("w_router", (d, e), ("embed", None))
+    m.param("w_gate", (e, d, dff), ("expert", "embed", "mlp"))
+    m.param("w_up", (e, d, dff), ("expert", "embed", "mlp"))
+    m.param("w_down", (e, dff, d), ("expert", "mlp", "embed"))
 
 
 def _capacity(cfg: ModelConfig, group: int) -> int:

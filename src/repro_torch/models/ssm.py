@@ -40,15 +40,16 @@ def mamba2_init(f: ParamFactory, cfg: ModelConfig, name: str = "mamba"):
     d_in, nh = mamba2_dims(cfg)
     m = f.child(name)
     # fused input projection -> [z, x, B, C, dt]
-    m.param("w_in", (d, 2 * d_in + 2 * s.n_groups * s.d_state + nh))
+    m.param("w_in", (d, 2 * d_in + 2 * s.n_groups * s.d_state + nh),
+            ("embed", "mlp"))
     conv_dim = d_in + 2 * s.n_groups * s.d_state
-    m.param("w_conv", (s.d_conv, conv_dim))
-    m.param("b_conv", (conv_dim,), init="zeros")
-    m.param("a_log", (nh,), init="ones")
-    m.param("dt_bias", (nh,), init="zeros")
-    m.param("d_skip", (nh,), init="ones")
-    m.param("norm_scale", (d_in,), init="ones")
-    m.param("w_out", (d_in, d))
+    m.param("w_conv", (s.d_conv, conv_dim), (None, "mlp"))
+    m.param("b_conv", (conv_dim,), ("mlp",), init="zeros")
+    m.param("a_log", (nh,), (None,), init="ones")
+    m.param("dt_bias", (nh,), (None,), init="zeros")
+    m.param("d_skip", (nh,), (None,), init="ones")
+    m.param("norm_scale", (d_in,), ("mlp",), init="ones")
+    m.param("w_out", (d_in, d), ("mlp", "embed"))
 
 
 def _silu(x):

@@ -119,8 +119,9 @@ def check_knobs(cfg: ModelConfig) -> None:
     knobs and the dtypes must be known, and the flash kernels must
     compute the config's masks."""
     if cfg.seq_parallel:
-        raise NotImplementedError("seq_parallel=True is a sharding layout of "
-                                  "the multi-GPU slice (ROADMAP A.11)")
+        raise NotImplementedError("seq_parallel=True is a sharding layout "
+                                  "the port does not carry yet (ROADMAP "
+                                  "A.11 part 2)")
     if cfg.block_remat not in BLOCK_REMATS:
         raise ValueError(f"unknown block_remat {cfg.block_remat!r}; "
                          f"expected one of {BLOCK_REMATS}")
@@ -153,9 +154,10 @@ def _layer_init(f: ParamFactory, cfg: ModelConfig):
 
 
 def init(cfg: ModelConfig, generator: Optional[torch.Generator],
-         device) -> Dict:
+         device, with_axes: bool = False) -> Dict:
     """The parameter tree on ``device``, drawn from the CPU
-    ``generator`` (on ``meta``: shapes only, nothing drawn)."""
+    ``generator`` (on ``meta``: shapes only, nothing drawn);
+    ``with_axes``: (params, their logical axes)."""
     check_supported(cfg)
     f = ParamFactory(generator, _dtype(cfg.param_dtype), device)
     embedding_init(f, cfg)
@@ -169,7 +171,7 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
                                      xlstm_mod.slstm_init)):
             f.stacked_children(name, n, lambda g, block_init=block_init: (
                 rmsnorm_init(g, "ln1", cfg.d_model), block_init(g, cfg)))
-        return f.params
+        return (f.params, f.axes) if with_axes else f.params
     f.stacked_children("layers", cfg.n_layers, lambda g: _layer_init(g, cfg))
     if cfg.family == HYBRID:
         sh = f.child("shared_attn")
@@ -180,9 +182,11 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
     if cfg.family == VLM:
         # the stub frontend: a learned projection of the precomputed
         # patch embeddings and a positional table
-        f.param("patch_proj", (cfg.d_model, cfg.d_model))
-        f.param("patch_pos", (cfg.n_frontend_tokens, cfg.d_model))
-    return f.params
+        f.param("patch_proj", (cfg.d_model, cfg.d_model),
+                ("embed", "embed2"))
+        f.param("patch_pos", (cfg.n_frontend_tokens, cfg.d_model),
+                (None, "embed"))
+    return (f.params, f.axes) if with_axes else f.params
 
 
 # ---------------------------------------------------------------------------

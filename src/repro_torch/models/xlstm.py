@@ -62,16 +62,16 @@ def mlstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "mlstm"):
     d = cfg.d_model
     d_in, nh, _ = mlstm_dims(cfg)
     m = f.child(name)
-    m.param("w_up", (d, 2 * d_in))
-    m.param("w_q", (d_in, d_in))
-    m.param("w_k", (d_in, d_in))
-    m.param("w_v", (d_in, d_in))
-    m.param("w_i", (d_in, nh))       # input gate pre-activations
-    m.param("w_f", (d_in, nh))       # forget gate pre-activations
-    m.param("b_i", (nh,), init="zeros")
-    m.param("b_f", (nh,), init="ones")
-    m.param("norm_scale", (d_in,), init="ones")
-    m.param("w_down", (d_in, d))
+    m.param("w_up", (d, 2 * d_in), ("embed", "mlp"))
+    m.param("w_q", (d_in, d_in), ("mlp", "heads"))
+    m.param("w_k", (d_in, d_in), ("mlp", "heads"))
+    m.param("w_v", (d_in, d_in), ("mlp", "heads"))
+    m.param("w_i", (d_in, nh), ("mlp", None))   # input gate pre-activations
+    m.param("w_f", (d_in, nh), ("mlp", None))   # forget gate pre-activations
+    m.param("b_i", (nh,), (None,), init="zeros")
+    m.param("b_f", (nh,), (None,), init="ones")
+    m.param("norm_scale", (d_in,), ("mlp",), init="ones")
+    m.param("w_down", (d_in, d), ("mlp", "embed"))
 
 
 def _mlstm_chunk(q, k, v, logf, logi, carry):
@@ -238,13 +238,13 @@ def slstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "slstm"):
     nh, hd, d_ff = slstm_dims(cfg)
     m = f.child(name)
     # 4 gates (z, i, f, o): input weights (d, 4d), block-diagonal R
-    m.param("w_x", (d, 4 * d))
-    m.param("w_h", (nh, hd, 4 * hd))
-    m.param("b", (4 * d,), init="zeros")
+    m.param("w_x", (d, 4 * d), ("embed", "mlp"))
+    m.param("w_h", (nh, hd, 4 * hd), (None, None, None))
+    m.param("b", (4 * d,), ("mlp",), init="zeros")
     # the gated FFN after the recurrence
-    m.param("w_ff_gate", (d, d_ff))
-    m.param("w_ff_up", (d, d_ff))
-    m.param("w_ff_down", (d_ff, d))
+    m.param("w_ff_gate", (d, d_ff), ("embed", "mlp"))
+    m.param("w_ff_up", (d, d_ff), ("embed", "mlp"))
+    m.param("w_ff_down", (d_ff, d), ("mlp", "embed"))
 
 
 def slstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,

@@ -8,7 +8,11 @@ save/restore of a whole training state, with retention.
     processes' states and the step to ``extra``;
   * a save writes ``<dir>/tmp.<step>`` and then ``os.replace``s it into
     ``<dir>/step_<step>``, so a crash mid-save never corrupts the latest
-    checkpoint; the ``keep`` most recent are kept.
+    checkpoint; the ``keep`` most recent are kept;
+  * under a multi-rank mesh (``save_sharded``, ``restore(...,
+    shard=)``) each rank's shards of z and the arena are joined on
+    rank 0's host into the checkpoint a single process would write, and
+    a restart cuts each rank's shards from it on the host.
 
 The format is the JAX package's: one ``state.npz`` of leaves keyed by
 their path (a NamedTuple field ``.name``, a dict key, a sequence index,
@@ -124,11 +128,65 @@ def _join_extra(extra, data):
 
 def save(ckpt_dir: str, step: int, state, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
+    return _write(ckpt_dir, step,
+                  {k: _numpy(v) for k, v in _flatten_with_paths(state)},
+                  extra, keep)
+
+
+def save_sharded(ckpt_dir: str, step: int, state, specs: Dict[str, Any],
+                 mesh, ranks, extra: Optional[Dict] = None,
+                 keep: int = 3) -> str:
+    """``save`` of a state whose leaves named in ``specs`` (checkpoint
+    path -> ``dist.sharding.Spec``, ``ambdg.shard_specs``) each rank
+    holds a shard of under the multi-rank ``mesh`` (a MeshConfig;
+    ``ranks`` its ``dist.collectives.Ranks``); the other leaves are
+    whole on every rank. A collective: every rank calls it. Each rank
+    writes its shards to ``<dir>/shards.<step>/<rank>.npz``; rank 0
+    joins them in host memory, each at the block ``local_shard`` cuts,
+    and writes the checkpoint ``save`` writes of the whole state. No
+    card holds more than its own shard; rank 0's host holds the whole
+    state while it writes. Returns the checkpoint's path."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import dim_shard, local_shard
+    rank, world = dist.get_rank(), dist.get_world_size()
+    parts = os.path.join(ckpt_dir, f"shards.{step}")
+    os.makedirs(parts, exist_ok=True)
+    leaves = dict(_flatten_with_paths(state))
+    np.savez(os.path.join(parts, f"{rank}.npz"),
+             **{k: _numpy(leaves[k]) for k in specs})
+    dist.barrier()
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if rank == 0:
+        flat = {k: _numpy(v) for k, v in leaves.items() if k not in specs}
+        files = [np.load(os.path.join(parts, f"{r}.npz"))
+                 for r in range(world)]
+        for k, spec in specs.items():
+            local = leaves[k]
+            entries = tuple(spec) + (None,) * (local.dim() - len(spec))
+            whole = torch.empty([n * dim_shard(e, mesh) for n, e in
+                                 zip(local.shape, entries)],
+                                dtype=local.dtype)
+            for r, f in enumerate(files):
+                local_shard(whole, spec, mesh, ranks.coords_of(r)).copy_(
+                    torch.from_numpy(f[k]))
+            flat[k] = whole.numpy()
+        for f in files:
+            f.close()
+        final = _write(ckpt_dir, step, flat, extra, keep)
+        shutil.rmtree(parts)
+    dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, flat: Dict[str, np.ndarray],
+           extra: Optional[Dict], keep: int) -> str:
+    """Write the leaves ``flat`` (path -> array) and ``extra`` as the
+    checkpoint of ``step``, atomically, keeping the ``keep`` latest."""
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     os.makedirs(tmp, exist_ok=True)
-    flat = {k: _numpy(v) for k, v in _flatten_with_paths(state)}
     extra_arrays: Dict[str, np.ndarray] = {}
     extra = _split_extra(extra or {}, extra_arrays)
     np.savez(os.path.join(tmp, "state.npz"), **flat, **extra_arrays)
@@ -249,11 +307,16 @@ def sync_ring_phase(tree):
     return tree
 
 
-def restore(ckpt_dir: str, state_template, step: Optional[int] = None
-            ) -> Tuple[Any, Dict]:
+def restore(ckpt_dir: str, state_template, step: Optional[int] = None,
+            shard=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``state_template``: each leaf is
     checked against its template leaf's shape, cast to its dtype and
-    placed on its device. Returns (state, the manifest's ``extra``)."""
+    placed on its device. ``shard=(specs, mesh, coords)``: the template
+    is a rank's under a multi-rank mesh, and each leaf named in
+    ``specs`` (as ``save_sharded`` takes them) is cut from the whole
+    leaf in the file (``local_shard`` at ``coords``) on the host, so
+    only the rank's shard reaches its device. Returns (state, the
+    manifest's ``extra``)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -269,6 +332,11 @@ def restore(ckpt_dir: str, state_template, step: Optional[int] = None
         leaves = []
         for key, leaf in paths:
             arr = migrated[key] if key in migrated else data[key]
+            if shard is not None and key in shard[0]:
+                from repro_torch.dist.sharding import local_shard
+                specs, mesh, coords = shard
+                arr = local_shard(torch.from_numpy(arr), specs[key], mesh,
+                                  coords).numpy()
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")

@@ -34,6 +34,18 @@ elastic workers. Each iteration:
 Without an elastic process the loop builds no ``WorkerHealth``: the JAX
 loop ticks a wall-clock tracker that nothing feeds, which masks every
 worker once a run passes 30 s (ROADMAP C.2).
+
+Under a multi-rank mesh (``train(..., mesh=make_mesh(rc.mesh))`` on
+every rank of a ``torch.distributed.run`` world) the loop runs inside
+the mesh, so the strategy takes its sharded step. Every rank draws the
+global batch from the seed (each step's stream is one generator, so a
+pod's rows cannot be drawn alone) and keeps its own block of it, cut by
+the batch's spec (``dist.sharding``): the stacked run's draws, split by
+pod and then by data rank, are exactly these. The metrics are global on
+every rank; rank 0 alone logs. A checkpoint joins the ranks' shards on
+rank 0's host (``checkpoint.save_sharded``: the checkpoint the single
+process would write), and a restart cuts each rank's shards from it on
+the host.
 """
 from __future__ import annotations
 
@@ -43,6 +55,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import LM_FAMILIES, RunConfig
 from repro_torch.core.arena import tree_map
@@ -83,8 +96,36 @@ def _served_params(state, strategy_name: str):
     return params
 
 
+def _rank_batch(host: Dict[str, np.ndarray], mesh, coords,
+                total: int) -> Dict[str, np.ndarray]:
+    """This rank's block of the global batch, cut as ``dist.sharding``
+    lays a batch out: a per-sample leaf (leading dim ``total``) on its
+    "batch" axis over ('pod', 'data'), so the rank at (p, d) holds block
+    p * D + d, its share of its pod's microbatches; a per-pod
+    ``n_active`` on "pod"; the scalars whole."""
+    from repro_torch.dist.sharding import dim_shard, local_shard, spec_for
+    out = {}
+    for k, v in host.items():
+        if k == "n_active" and v.shape == (mesh.n_pods,):
+            axes, n = ("pod",), mesh.n_pods
+        elif v.ndim and v.shape[0] == total:
+            axes, n = ("batch",) + (None,) * (v.ndim - 1), \
+                mesh.n_pods * mesh.data
+        else:
+            out[k] = v
+            continue
+        spec = spec_for(axes, v.shape, mesh)
+        if dim_shard(spec[0] if spec else None, mesh) != n:
+            raise ValueError(f"the batch's {k!r} of shape {v.shape} does "
+                             f"not split into {n} blocks over the mesh")
+        out[k] = local_shard(torch.from_numpy(v), spec,
+                             mesh, coords).numpy()
+    return out
+
+
 def train(model: Model, rc: RunConfig, loop: LoopConfig,
-          log_fn: Callable[[Dict], None] = None, device="cuda") -> Dict:
+          log_fn: Callable[[Dict], None] = None, device="cuda",
+          mesh=None) -> Dict:
     """Run ``rc.strategy`` on ``device`` up to step ``loop.n_steps``
     (from the latest checkpoint in ``loop.ckpt_dir`` if it holds one).
     Returns {"state", "history", "b_history", "remesh_events",
@@ -100,7 +141,23 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
 
     Under an adaptive batch schedule the controller observes each step's
     loss (and ``tau_applied``): one read back to the host a step, the
-    same one the JAX loop makes (``float(metrics["loss"])``)."""
+    same one the JAX loop makes (``float(metrics["loss"])``).
+
+    ``mesh``, a ``launch.mesh.Mesh`` over more than one rank: the run
+    takes the sharded step on this rank's pod and rows (see the module's
+    docstring)."""
+    if mesh is None or mesh.device_mesh is None:
+        return _train(model, rc, loop, log_fn, device, None)
+    from repro_torch.dist.collectives import require_mesh
+    with mesh:
+        return _train(model, rc, loop, log_fn, device,
+                      require_mesh("train"))
+
+
+def _train(model: Model, rc: RunConfig, loop: LoopConfig,
+           log_fn: Callable[[Dict], None], device, ranks) -> Dict:
+    """The loop body of ``train``: ``ranks`` (``dist.collectives.Ranks``)
+    under a multi-rank mesh, else None."""
     from repro_torch import api
     device = resolve_device(device)
     strategy = api.build(model, rc, device=device)
@@ -146,8 +203,16 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
     generator = torch.Generator().manual_seed(rc.seed)
     state = strategy.init_state(generator)
     start_step = 0
+    lead = ranks is None or dist.get_rank() == 0
+    shard = None
+    if ranks is not None:
+        # the leaves a rank holds shards of, for the checkpoints
+        from repro_torch.core.ambdg import shard_specs
+        from repro_torch.core.arena import make_layout
+        shard = (shard_specs(make_layout(model.param_shapes()), state,
+                             rc.mesh), rc.mesh, ranks.coords)
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
-        state, extra = ckpt.restore(loop.ckpt_dir, state)
+        state, extra = ckpt.restore(loop.ckpt_dir, state, shard=shard)
         pipeline.load_state_dict(extra["pipeline"])
         if delay_proc is not None and "delay_process" in extra:
             delay_proc.load_state_dict(extra["delay_process"])
@@ -174,7 +239,11 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             extra["batch_schedule"] = batch_sched.state_dict()
         if plan is not None:
             extra["remesh_plan"] = plan
-        ckpt.save(loop.ckpt_dir, next_step, state, extra=extra)
+        if ranks is None:
+            ckpt.save(loop.ckpt_dir, next_step, state, extra=extra)
+        else:
+            ckpt.save_sharded(loop.ckpt_dir, next_step, state, shard[0],
+                              rc.mesh, ranks, extra=extra)
 
     history, remesh_events = [], []
     t_start = time.monotonic()
@@ -218,6 +287,9 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             host["delay"] = np.asarray(delay_proc.next(), np.int32)
         if b_target is not None:
             host["b_sched"] = np.asarray(b_target, np.float32)
+        if ranks is not None:
+            host = _rank_batch(host, rc.mesh, ranks.coords,
+                               loop.n_workers * loop.samples_per_worker)
         t1 = time.monotonic()
         # a copy from pageable host memory returns once it has landed
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
@@ -243,7 +315,7 @@ def train(model: Model, rc: RunConfig, loop: LoopConfig,
             if b_target is not None:
                 m["b_target"] = float(b_target)
             history.append(m)
-            if log_fn:
+            if log_fn and lead:
                 log_fn(m)
         if loop.ckpt_dir and ((step + 1) % loop.ckpt_every == 0
                               or remesh_plan is not None):

@@ -1275,3 +1275,85 @@ def test_encdec_on_cuda_matches_cpu(cuda):
         wg, wc = wg.cpu().numpy(), wc.numpy()
         np.testing.assert_allclose(wg, wc, rtol=0,
                                    atol=1e-4 * np.abs(wc).max() + step)
+
+
+# -- the sharded wrappers at world size 1 on NCCL ---------------------------
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL world and its ("pod", "data", "model") DeviceMesh:
+    every sharded wrapper's collective runs through NCCL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    init = tmp_path_factory.mktemp("nccl") / "init"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1, 1),
+                               mesh_dim_names=("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["dual_update", "slot_rotate",
+                                  "variable_pop_f32", "variable_pop_int8"])
+def test_sharded_wrappers_on_nccl_match_off_mesh_bitwise(nccl_mesh, kind):
+    """Each sharded wrapper at world size 1 (the kernel on the rank's
+    whole shard, then its NCCL collective) against the off-mesh route
+    on the same inputs, bit for bit, one kernel launch a call."""
+    from repro_torch.dist.context import use_device_mesh
+    from repro_torch.kernels.delay_ring import kernel as rk
+    from repro_torch.kernels.delay_ring.ops import (
+        ring_slot_rotate_int8_sharded, ring_variable_pop_sharded)
+    from repro_torch.kernels.dual_update import kernel as uk
+    from repro_torch.kernels.dual_update.ops import \
+        dual_update_arena_sharded
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = 1024
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    with use_device_mesh(nccl_mesh):
+        if kind == "dual_update":
+            z, g = randn(rows, 128), randn(rows, 128, scale=300)
+            c, a = torch.tensor(1500.0, device=dev), \
+                torch.tensor(0.0123, device=dev)
+            n0 = uk.KERNEL.launches
+            got = dual_update_arena_sharded(z.clone(), g, c, a)
+            assert uk.KERNEL.launches == n0 + 1
+            want = dual_update_arena(z.clone(), g, c, a)
+        elif kind == "slot_rotate":
+            args = [int8(1, rows, 128), randn(1, rows).abs() * 1e-2,
+                    int8(1, rows, 128), randn(1, rows).abs() * 1e-2,
+                    randn(1, rows, 128)]
+            args.append(args[4].abs().amax(-1) / 127)
+            n0 = rk.KERNEL.launches
+            got = ring_slot_rotate_int8_sharded(
+                *[x.clone() for x in args])
+            assert rk.KERNEL.launches == n0 + 1
+            popped, *rest = ring_slot_rotate_int8(*[x.clone() for x in args])
+            want = (popped[0], *rest)
+        else:
+            q = kind.endswith("int8")
+            ring = int8(6, 1, rows, 128) if q else randn(6, 1, rows, 128)
+            scales = randn(6, 1, rows).abs() * 1e-2 if q else None
+            mask = torch.tensor([1, 0, 1, 1, 0, 0], dtype=torch.bool,
+                                device=dev)
+            cs = torch.stack([torch.arange(6.0, device=dev),
+                              torch.ones(6, device=dev)])
+            n0 = rk.VARIABLE_POP_KERNEL.launches
+            got = ring_variable_pop_sharded(ring, mask, scales=scales,
+                                            counts_stale=cs)
+            assert rk.VARIABLE_POP_KERNEL.launches == n0 + 1
+            part, meta = ring_variable_pop(ring, mask, scales=scales,
+                                           counts_stale=cs)
+            want = (part[0], meta)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

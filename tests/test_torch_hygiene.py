@@ -65,7 +65,11 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          # the launchers and the AMB alias
          "repro_torch.core.amb", "repro_torch.launch",
          "repro_torch.launch.mesh", "repro_torch.launch.train",
-         "repro_torch.launch.serve"]
+         "repro_torch.launch.serve",
+         # the multi-process path
+         "repro_torch.dist", "repro_torch.dist.sharding",
+         "repro_torch.dist.context", "repro_torch.dist.collectives"]
+EXAMPLES = ROOT / "examples_torch"
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -89,6 +93,7 @@ def _imports(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         sorted(EXAMPLES.glob("*.py")) +
                          [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
