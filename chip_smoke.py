@@ -307,8 +307,31 @@ Phases (any failure raises and the script exits non-zero):
      scripts on the card, each within 10 s. (c) runs while (b)'s ranks
      run, (a) after both.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21`` runs the
-build and then only the phases named among 8 and 13-21 (``2``: phase
+ 22. the LMs on the mesh and the per-rank gossip, on gloo ranks sharing
+     the card, started with 21b's before phase 20: (a) qwen1.5-0.5b FULL
+     widths at 2 of its 24 layers, flash, 4096 tokens, int8 pod
+     compression, tau 1, 2 steps of 4 sequences, through ``train(...,
+     mesh=)`` on 2x1x1 and on 1x2x1 (two ranks), each held against its
+     stacked run made twice in a process of its own: the params and the
+     losses within the gap of the two stacked runs (printed), counts
+     exact; each rank's ms a step, its launches of B.1, B.2 and flash
+     (added to the kernels line with the stacked runs'), and the pod
+     exchange's census against
+     ``launch.wire_model.master_pod_exchange_bytes``; (b) decentralized
+     linreg FULL (phase 3's settings) on a ring of 4, one worker a rank
+     (four ranks, ``gossip_impl="auto"``), none, int8 and churn, 6 steps:
+     every leaf of the checkpoint the ranks join, the loss and the
+     applied count bit for bit the dense run at one BLAS thread in a
+     process of its own (C.18), grad_norm and consensus_error to 1e-4
+     (phase 3's limit; they sum whole messages in an all-reduce, C.19);
+     each rank's "gossip" census equal to ``gossip_round_bytes`` times
+     the rounds and steps; a gossip round's ms a rank; and what gloo's
+     point-to-point does with a CUDA tensor that is not staged through
+     the host (printed). NCCL across cards is not measured: one card
+     takes one NCCL rank.
+
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22`` runs
+the build and then only the phases named among 8 and 13-22 (``2``: phase
 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a short
 call while working on them; no kernels or ok line).
 
@@ -5081,16 +5104,18 @@ def dist_rank_main(out_dir):
     rec = {"probes": {}, "wrappers": {}}
     try:
         x = torch.arange(8.0, device="cuda") + rank
+        on = {"axis": "pod", "tag": "probe"}
         tries = {
             "all_gather_into_tensor int8": lambda: col.all_gather(
-                x.to(torch.int8), None, world),
+                x.to(torch.int8), None, world, **on),
             "all_gather_into_tensor f32": lambda: col.all_gather(
-                x, None, world),
-            "all_reduce f32 sum": lambda: col.all_reduce(x.clone(), None),
+                x, None, world, **on),
+            "all_reduce f32 sum": lambda: col.all_reduce(x.clone(), None,
+                                                         **on),
             "all_reduce f32 max": lambda: col.all_reduce(
-                x.clone(), None, op=dist.ReduceOp.MAX),
+                x.clone(), None, op=dist.ReduceOp.MAX, **on),
             "reduce_scatter_tensor f32": lambda: col.reduce_scatter_rows(
-                x, None, world)}
+                x, None, world, **on)}
         for name in GLOO_PROBES:
             try:
                 tries[name]()
@@ -5433,6 +5458,522 @@ def dist_phase(drive, expect, launches, phase2, big_rows, strict=True,
     return rec
 
 
+# -- phase 22: the LMs on the mesh and the per-rank gossip -----------------
+# 22a: qwen1.5-0.5b FULL widths cut to MESH_LM_LAYERS layers, flash, 4096
+# tokens, int8 pod compression, tau 1, MESH_LM_STEPS steps of 4 sequences
+# (4 workers x 1, 2 microbatches a pod) on 2x1x1 and 1x2x1: two gloo ranks
+# sharing the card (``python -m torch.distributed.run``), each mesh held
+# against its stacked run made twice in a process of its own
+MESH_LM_LAYERS = 2
+MESH_LM_STEPS = 2
+MESH_LM_SEQ = 4096
+MESH_LM_WORKERS = 4
+MESH_LM = {"2x1x1": (2, 1, 1), "1x2x1": (1, 2, 1)}
+# the mesh run's allowed gap (params, loss) over the two stacked runs'
+MESH_LM_GAP_MULT = 1
+# 22b: decentralized amb-linreg FULL, one worker a rank on 4 gloo ranks
+# sharing the card, ring-4 (eq. (24)'s 11 rounds), DEC_RANK_STEPS steps of
+# 4 x 150 samples, against the stacked dense run at one BLAS thread in a
+# process of its own (ROADMAP C.18)
+DEC_RANK_N = 4
+DEC_RANK_SPW = 150
+DEC_RANK_STEPS = 6
+DEC_RANK_RUNS = {"none": {}, "int8": {"compression": "int8"},
+                 "churn": {"elastic": ELASTIC["churn"]}}
+GOSSIP_TIMED = 20     # per-rank gossip rounds timed after 3 of warm-up
+# grad_norm and consensus_error sum whole messages in an all-reduce on the
+# per-rank route (the dense fold sums them in one tensor): phase 3's
+# card-vs-CPU limit (a consensus error is the norm of a difference of
+# nearly equal duals)
+DEC_RANK_METRIC_RTOL = DEC_RTOL
+
+
+def mesh_counters():
+    """The launch counters phase 22's processes read, by the kernels
+    line's names."""
+    from repro_torch.kernels.delay_ring import kernel as rk
+    from repro_torch.kernels.dual_update import kernel as uk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    return {"dual_update": uk.KERNEL, "slot_rotate": rk.KERNEL,
+            "variable_pop": rk.VARIABLE_POP_KERNEL, "flash_fwd": fk.FWD,
+            "flash_fwd_lse": fk.FWD_LSE, "flash_bwd_dq": fk.DQ,
+            "flash_bwd_dkv": fk.DKV}
+
+
+def mesh_lm_config(label):
+    """22a's run config on the mesh ``label``."""
+    from repro_torch.configs.base import MeshConfig
+    cfg = lm_config("flash", n_layers=MESH_LM_LAYERS)
+    rc = lm_run_config(cfg, MESH_LM_SEQ, MESH_LM_WORKERS, 2, tau=1)
+    return rc.replace(mesh=MeshConfig(*MESH_LM[label]))
+
+
+def mesh_lm_run(label, device, mesh=None):
+    """One 22a run (on ``mesh``, or stacked in this process): (history,
+    the params as one flat f32 array, launches)."""
+    from repro_torch.core.arena import flatten_tree, make_layout
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    import torch
+    counters = mesh_counters()
+    rc = mesh_lm_config(label)
+    model = build_model(rc.model, device=device)
+    loop = LoopConfig(n_steps=MESH_LM_STEPS, n_workers=MESH_LM_WORKERS,
+                      samples_per_worker=1, log_every=1)
+    for k in counters.values():
+        k.launches = 0
+    out = train(model, rc, loop, device=device, mesh=mesh)
+    launches = {n: k.launches for n, k in counters.items()}
+    hist = out["history"]
+    flat = flatten_tree(make_layout(model.param_shapes()),
+                        out["state"].params).cpu().numpy()
+    del out, model
+    torch.cuda.empty_cache()
+    return hist, flat, launches
+
+
+def mesh_lm_rank_main(out_dir):
+    """22a's ranks (``--mesh-lm-rank=DIR`` under torch.distributed.run):
+    each mesh of MESH_LM in turn on the two ranks' world; rank 0 writes
+    the params, each rank its record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import wire_census
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {}
+    try:
+        for label in MESH_LM:
+            t0 = time.perf_counter()
+            mesh = make_mesh(mesh_lm_config(label).mesh, "cuda")
+            with wire_census() as census:
+                hist, flat, launches = mesh_lm_run(label, "cuda", mesh)
+            rec[label] = dict(history=hist, launches=launches,
+                              seconds=time.perf_counter() - t0,
+                              census=[[*k, n] for k, n in
+                                      census.bytes.items()])
+            if rank == 0:
+                np.save(f"{out_dir}/mesh-{label}.npy", flat)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/lm-rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def mesh_lm_ref_main(out_dir):
+    """22a's reference (``--mesh-lm-ref=DIR``): each mesh's run stacked in
+    this process, twice; the params and a record written to DIR."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {}
+    for label in MESH_LM:
+        for i in range(2):
+            hist, flat, launches = mesh_lm_run(label, "cuda")
+            rec[f"{label}-{i}"] = dict(history=hist, launches=launches)
+            np.save(f"{out_dir}/ref-{label}-{i}.npy", flat)
+    with open(f"{out_dir}/lm-ref.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def dec_rank_config(knobs):
+    """22b's run config: linreg FULL, the decentralized strategy on a
+    ring of DEC_RANK_N, "auto" (one worker a rank in a world of
+    DEC_RANK_N ranks, the dense fold in one process)."""
+    import dataclasses
+    from repro_torch.configs.base import ConsensusConfig, ElasticConfig
+    cfg, rc = main_path_config()
+    rc = rc("none")
+    # 150 samples a worker: 2 microbatches of 75 (as phase 15b)
+    rc = rc.replace(
+        ambdg=dataclasses.replace(rc.ambdg, n_microbatches=2),
+        strategy="decentralized", consensus=ConsensusConfig(
+            topology="ring", n_workers=DEC_RANK_N,
+            compression=knobs.get("compression", "none")))
+    if "elastic" in knobs:
+        rc = rc.replace(elastic=ElasticConfig(**knobs["elastic"]))
+    return cfg, rc
+
+
+def dec_rank_run(label, ckpt_dir):
+    """One 22b run on the card through ``train``: (history, seconds)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    cfg, rc = dec_rank_config(DEC_RANK_RUNS[label])
+    loop = LoopConfig(n_steps=DEC_RANK_STEPS, n_workers=DEC_RANK_N,
+                      samples_per_worker=DEC_RANK_SPW, log_every=1,
+                      ckpt_dir=ckpt_dir, ckpt_every=DEC_RANK_STEPS)
+    t0 = time.perf_counter()
+    out = train(build_model(cfg, device="cuda"), rc, loop, device="cuda")
+    return out["history"], time.perf_counter() - t0
+
+
+def dec_rank_main(out_dir):
+    """22b's ranks (``--dec-rank=DIR`` under torch.distributed.run, one
+    worker a rank): each run of DEC_RANK_RUNS (the checkpoint joined on
+    rank 0 under DIR) with its census, then a gossip round's time on
+    this rank's message (f32 and int8; host clock around synchronised
+    rounds). Each rank writes its record."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import consensus
+    from repro_torch.core.arena import make_layout
+    from repro_torch.dist.collectives import wire_census
+    from repro_torch.models.api import build_model
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {}
+    try:
+        for label in DEC_RANK_RUNS:
+            with wire_census() as census:
+                hist, secs = dec_rank_run(label, f"{out_dir}/rank-{label}")
+            rec[label] = dict(history=hist, seconds=secs,
+                              census=[[*k, n] for k, n in
+                                      census.bytes.items()])
+        cfg, _ = dec_rank_config({})
+        rows = make_layout(build_model(cfg, device="cuda").param_shapes()
+                           ).rows
+        group = dist.new_group(list(range(DEC_RANK_N)))
+        gen = torch.Generator(device="cuda").manual_seed(22 + rank)
+        x = torch.randn((1, rows, 128), generator=gen, device="cuda")
+        res = torch.zeros_like(x)
+        for compression in ("none", "int8"):
+            def one_round():
+                if compression == "int8":
+                    return consensus.gossip_round_shard_int8(
+                        x, res, group, "ring", DEC_RANK_N)
+                return consensus.gossip_round_shard(x, group, "ring",
+                                                    DEC_RANK_N)
+            for _ in range(3):
+                one_round()
+            torch.cuda.synchronize()
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(GOSSIP_TIMED):
+                one_round()
+            torch.cuda.synchronize()
+            rec[f"round_ms_{compression}"] = \
+                1e3 * (time.perf_counter() - t0) / GOSSIP_TIMED
+        rec["rows"] = rows
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/dec-rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def p2p_probe_main(out_dir):
+    """22b's probe (``--p2p-probe=DIR``, two ranks under
+    torch.distributed.run): gloo's point-to-point send and receive of a
+    CUDA tensor as it is, unstaged (``dist.collectives.permute`` stages
+    it through host copies on a gloo group). Each rank writes what it
+    read: "ok", "wrong memory: ..." or "refused: ...". A crash shows as
+    the process's exit code."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    x = torch.arange(8.0, device="cuda") + 100 * rank
+    got = torch.full_like(x, -1.0)
+    try:
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, got, 1 - rank)]):
+            work.wait()
+        torch.cuda.synchronize()
+        want = torch.arange(8.0, device="cuda") + 100 * (1 - rank)
+        res = ("ok" if torch.equal(got, want) else
+               f"wrong memory: read {got.tolist()}")
+    except Exception as e:  # noqa: BLE001 - a refusal is the result
+        res = f"refused: {str(e).splitlines()[0]}"
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/p2p-rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dec_rank_ref_main(out_dir):
+    """22b's reference (``--dec-ref=DIR``, one BLAS thread): each run of
+    DEC_RANK_RUNS on the dense fold in this process, its checkpoint and
+    record under DIR."""
+    rec = {}
+    for label in DEC_RANK_RUNS:
+        hist, secs = dec_rank_run(label, f"{out_dir}/ref-{label}")
+        rec[label] = dict(history=hist, seconds=secs)
+    with open(f"{out_dir}/dec-ref.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def start_mesh_background():
+    """Start phase 22's processes in a temporary directory: 22a's two
+    ranks and its stacked reference, 22b's four ranks and its dense
+    reference (one BLAS thread, as ``torch.distributed.run`` gives each
+    rank). Returns (the directory, {name: (process, start time)})."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    one = dict(env, OMP_NUM_THREADS="1")
+    script = str(root / "chip_smoke.py")
+
+    def ranks(n, flag):
+        return [sys.executable, "-m", "torch.distributed.run",
+                f"--nproc-per-node={n}", f"--master-port={free_port()}",
+                "--monitor-interval=0.5", script, f"{flag}={tmp}"]
+
+    procs = {}
+    for name, cmd, e in (
+            ("22a ranks", ranks(2, "--mesh-lm-rank"), env),
+            ("22a reference", [sys.executable, script,
+                               f"--mesh-lm-ref={tmp}"], env),
+            ("22b ranks", ranks(DEC_RANK_N, "--dec-rank"), env),
+            ("22b reference", [sys.executable, script, f"--dec-ref={tmp}"],
+             one),
+            ("22b probe", ranks(2, "--p2p-probe"), env)):
+        procs[name] = (subprocess.Popen(
+            cmd, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True), time.perf_counter())
+    return tmp, procs
+
+
+def p2p_probe_result(tmp, proc):
+    """What 22b's probe read on each rank, or how its processes ended."""
+    proc.communicate(timeout=300)
+    out = []
+    for r in range(2):
+        path = Path(f"{tmp}/p2p-rank{r}.json")
+        out.append(read_json(path) if path.exists() else
+                   f"no record (the ranks' agent exited {proc.returncode})")
+    return out
+
+
+def stop_mesh_background(bg):
+    """Kill ``start_mesh_background``'s processes if they still run and
+    remove their directory."""
+    import shutil
+    tmp, procs = bg
+    for proc, _ in procs.values():
+        stop_dist_ranks(proc)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def wait_mesh_process(name, proc, t_start, timeout=600):
+    """Wait for one of phase 22's processes: its seconds from its start."""
+    stdout, stderr = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        log(f"{name} stdout: {stdout[-4000:]}")
+        log(f"{name} stderr: {stderr[-8000:]}")
+    assert proc.returncode == 0, (name, proc.returncode)
+    return time.perf_counter() - t_start
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def census_of(entries, tag):
+    """{dtype: bytes} of a record's census entries under ``tag``, and
+    the axes they crossed."""
+    out, axes = {}, set()
+    for axis, dtype, t, n in entries:
+        if t == tag:
+            out[dtype] = out.get(dtype, 0) + n
+            axes.add(axis)
+    return out, axes
+
+
+def mesh_lm_phase(tmp, procs, launches):
+    """Phase 22a: reads the ranks' and the reference's records, holds
+    each mesh's params and losses against its stacked run at
+    MESH_LM_GAP_MULT times the gap between the two stacked runs
+    (printed), the counts exact; prints each rank's ms a step, the
+    launches of B.1, B.2 and flash, and the pod exchange's census
+    against the wire model. Adds the ranks' launches to ``launches``."""
+    import numpy as np
+    from repro_torch.core.arena import make_layout
+    from repro_torch.launch.wire_model import master_pod_exchange_bytes
+    from repro_torch.models.api import build_model
+    secs = {n: wait_mesh_process(n, *procs[n])
+            for n in ("22a ranks", "22a reference")}
+    ranks = [read_json(f"{tmp}/lm-rank{r}.json") for r in range(2)]
+    ref = read_json(f"{tmp}/lm-ref.json")
+    rows = make_layout(build_model(mesh_lm_config("2x1x1").model,
+                                   device="cpu").param_shapes()).rows
+    out = {"seconds": secs}
+    for label, (pods, data, _) in MESH_LM.items():
+        got = np.load(f"{tmp}/mesh-{label}.npy")
+        r0, r1 = (np.load(f"{tmp}/ref-{label}-{i}.npy") for i in range(2))
+        gap = float(np.abs(r1 - r0).max())
+        err = float(np.abs(got - r0).max())
+        h_ref = [ref[f"{label}-{i}"]["history"] for i in range(2)]
+        h = ranks[0][label]["history"]
+        loss_gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(*h_ref))
+        loss_err = max(abs(a["loss"] - b["loss"])
+                       for a, b in zip(h, h_ref[0]))
+        for a, b in zip(h, h_ref[0]):
+            assert a["applied_count"] == b["applied_count"], (label, a, b)
+        assert err <= MESH_LM_GAP_MULT * gap, (label, err, gap)
+        assert loss_err <= MESH_LM_GAP_MULT * loss_gap, (label, loss_err,
+                                                         loss_gap)
+        n = [ranks[r][label]["launches"] for r in range(2)]
+        mb = 2 // data                    # a rank's microbatches a step
+        want = {"dual_update": MESH_LM_STEPS, "slot_rotate": MESH_LM_STEPS,
+                "variable_pop": 0, "flash_fwd": 0,
+                "flash_fwd_lse": 2 * MESH_LM_LAYERS * mb * MESH_LM_STEPS,
+                "flash_bwd_dq": MESH_LM_LAYERS * mb * MESH_LM_STEPS,
+                "flash_bwd_dkv": MESH_LM_LAYERS * mb * MESH_LM_STEPS}
+        for r in range(2):
+            assert n[r] == want, (label, r, n[r])
+            for name, k in n[r].items():
+                launches[name] += k
+        # the stacked runs: every pod's 2 microbatches in one process
+        stacked = dict(want, **{
+            k: want[k] * pods * data for k in
+            ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")})
+        for i in range(2):
+            got_ref = ref[f"{label}-{i}"]["launches"]
+            assert got_ref == stacked, (label, i, got_ref)
+            for name, k in got_ref.items():
+                launches[name] += k
+        pod_pop, axes = census_of(ranks[0][label]["census"], "pod_pop")
+        model = master_pod_exchange_bytes(rows // data, pods, "int8")
+        assert pod_pop == {dt: MESH_LM_STEPS * b for dt, b in model.items()}
+        assert axes <= {"pod"}, axes
+        tags = {}
+        for axis, dtype, tag, b in ranks[0][label]["census"]:
+            tags[f"{axis}/{tag}/{dtype}"] = b
+        step_ms = [[1e3 * s["step_s"] for s in ranks[r][label]["history"]]
+                   for r in range(2)]
+        out[label] = dict(params_err=err, params_gap=gap, loss_err=loss_err,
+                          loss_gap=loss_gap, step_ms=step_ms, launches=n[0],
+                          census=tags, loss=[s["loss"] for s in h],
+                          grad_norm=[s["grad_norm"] for s in h],
+                          grad_norm_ref=[s["grad_norm"] for s in h_ref[0]],
+                          rank_s=[ranks[r][label]["seconds"]
+                                  for r in range(2)])
+        log(f"phase 22a: qwen1.5-0.5b FULL widths {MESH_LM_LAYERS} layers "
+            f"flash int8 {MESH_LM_SEQ} tokens on {label} (2 gloo ranks on "
+            f"the card), {MESH_LM_STEPS} steps: params max |mesh - stacked| "
+            f"{err:.3e} against the two stacked runs' gap {gap:.3e}, loss "
+            f"{loss_err:.3e} against {loss_gap:.3e} (x{MESH_LM_GAP_MULT}); "
+            f"applied_count equal; ms a step, rank 0 / 1: {step_ms}; "
+            f"launches a rank: B.1 {n[0]['dual_update']}, B.2 "
+            f"{n[0]['slot_rotate']}, flash fwd_lse / dq / dkv "
+            f"{n[0]['flash_fwd_lse']} / {n[0]['flash_bwd_dq']} / "
+            f"{n[0]['flash_bwd_dkv']}; grad_norm mesh "
+            f"{out[label]['grad_norm']} stacked "
+            f"{out[label]['grad_norm_ref']}; census (bytes a rank "
+            f"over the run) {json.dumps(tags)} = the wire model's pod_pop "
+            f"{json.dumps(model)} x {MESH_LM_STEPS}")
+    return out
+
+
+def dec_rank_phase(tmp, procs):
+    """Phase 22b: reads the ranks' and the reference's records: each
+    run's joined checkpoint equals the dense run's leaf for leaf, loss
+    and applied_count bit for bit, grad_norm and consensus_error to
+    DEC_RANK_METRIC_RTOL; every rank's "gossip" census equals the wire
+    model's round times the rounds and steps; prints a round's ms a
+    rank."""
+    import numpy as np
+    from repro_torch.core import consensus
+    from repro_torch.launch.wire_model import gossip_round_bytes
+    secs = {n: wait_mesh_process(n, *procs[n])
+            for n in ("22b ranks", "22b reference")}
+    ranks = [read_json(f"{tmp}/dec-rank{r}.json") for r in range(DEC_RANK_N)]
+    ref = read_json(f"{tmp}/dec-ref.json")
+    _, rc = dec_rank_config({})
+    cc = rc.consensus
+    rounds = consensus.min_rounds(
+        cc.delta, cc.n_workers, cc.msg_norm_J,
+        consensus.lambda2(consensus.gossip_matrix(cc.topology, cc.n_workers)))
+    rows = ranks[0]["rows"]
+    out = {"seconds": secs, "rounds": rounds, "rows": rows}
+    for label, knobs in DEC_RANK_RUNS.items():
+        got = state_leaves(f"{tmp}/rank-{label}")
+        want = state_leaves(f"{tmp}/ref-{label}")
+        diff = unequal_leaves(got, want)
+        h, hr = ranks[0][label]["history"], ref[label]["history"]
+        assert not diff, (label, diff, [(a["loss"], b["loss"])
+                                        for a, b in zip(h, hr)])
+        assert len(h) == len(hr) == DEC_RANK_STEPS
+        gaps = {}
+        for a, b in zip(h, hr):
+            for key in ("loss", "applied_count", "step"):
+                assert a[key] == b[key], (label, key, a, b)
+            for key in ("grad_norm", "consensus_error"):
+                gap = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+                gaps[key] = max(gaps.get(key, 0.0), gap)
+                assert gap <= DEC_RANK_METRIC_RTOL, (label, key, a, b)
+        one = gossip_round_bytes("ring", DEC_RANK_N, rows,
+                                 knobs.get("compression", "none"))
+        model = {dt: rounds * DEC_RANK_STEPS * b for dt, b in one.items()}
+        for r in range(DEC_RANK_N):
+            census, axes = census_of(ranks[r][label]["census"], "gossip")
+            assert census == model and axes == {"worker"}, (label, r,
+                                                            census, model)
+        alive = [s.get("active_workers") for s in h]
+        out[label] = dict(metric_rel_gaps=gaps, census=model,
+                          loss=[s["loss"] for s in h], active=alive,
+                          rank_s=[ranks[r][label]["seconds"]
+                                  for r in range(DEC_RANK_N)],
+                          ref_s=ref[label]["seconds"])
+        log(f"phase 22b: decentralized linreg FULL ring-{DEC_RANK_N} "
+            f"{label}, one worker a rank (4 gloo ranks on the card), "
+            f"{DEC_RANK_STEPS} steps of {rounds} rounds: every leaf of the "
+            f"joined checkpoint, loss and applied_count bit for bit the "
+            f"dense run at one BLAS thread; grad_norm / consensus_error "
+            f"relative gaps {gaps}; gossip census a rank {json.dumps(model)}"
+            f" = gossip_round_bytes x {rounds} x {DEC_RANK_STEPS}; active "
+            f"workers {alive}; a rank's run {out[label]['rank_s'][0]:.2f} s")
+    out["p2p_probe"] = p2p_probe_result(tmp, procs["22b probe"][0])
+    log(f"phase 22b: gloo point-to-point of a CUDA tensor as it is (not "
+        f"staged), rank 0 / 1: {out['p2p_probe']}; the per-rank gossip "
+        f"stages a CUDA payload through host copies on a gloo group "
+        f"(dist.collectives.permute's rule on the group's backend)")
+    for compression in ("none", "int8"):
+        ms = [ranks[r][f"round_ms_{compression}"] for r in range(DEC_RANK_N)]
+        out[f"round_ms_{compression}"] = ms
+        wire = sum(gossip_round_bytes("ring", DEC_RANK_N, rows,
+                                      compression).values())
+        log(f"phase 22b: a gossip round, {compression}, {rows} rows a "
+            f"worker (host clock over {GOSSIP_TIMED} synchronised rounds, "
+            f"gloo through host copies): {['%.3f' % m for m in ms]} ms a "
+            f"rank; {wire} bytes a rank a round")
+    return out
+
+
+def mesh_phase(launches, bg=None):
+    """Phase 22: the LMs on the mesh (22a) and the per-rank gossip (22b),
+    from the processes ``start_mesh_background`` started (None starts
+    them here). Adds 22a's launches to ``launches``."""
+    bg = bg or start_mesh_background()
+    tmp, procs = bg
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        rec["lm_mesh"] = mesh_lm_phase(tmp, procs, launches)
+        rec["lm_mesh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["gossip_rank"] = dec_rank_phase(tmp, procs)
+        rec["gossip_rank_s"] = time.perf_counter() - t0
+    finally:
+        stop_mesh_background(bg)
+    return rec
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi`` reads them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5447,14 +5988,17 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside the repository)
-    ranked = [a.split("=", 1)[1] for a in sys.argv[1:]
-              if a.startswith("--dist-rank=")]
-    if ranked:           # one of phase 21b's ranks (dist_rank_main)
-        return dist_rank_main(ranked[0])
-    ref = [a.split("=", 1)[1] for a in sys.argv[1:]
-           if a.startswith("--stacked-ref=")]
-    if ref:              # phase 21b's reference (start_reference)
-        return stacked_ref_main(ref[0])
+    # the processes phases 21b and 22 start: 21b's ranks and reference,
+    # 22a's ranks and reference, 22b's ranks, reference and probe
+    roles = {"--dist-rank": dist_rank_main, "--stacked-ref": stacked_ref_main,
+             "--mesh-lm-rank": mesh_lm_rank_main,
+             "--mesh-lm-ref": mesh_lm_ref_main,
+             "--dec-rank": dec_rank_main, "--dec-ref": dec_rank_ref_main,
+             "--p2p-probe": p2p_probe_main}
+    for a in sys.argv[1:]:
+        flag, _, value = a.partition("=")
+        if flag in roles:
+            return roles[flag](value)
     from repro_torch.kernels import build
     from repro_torch.kernels.delay_ring import kernel as ring_kernel
     from repro_torch.kernels.dual_update import kernel as update_kernel
@@ -5530,8 +6074,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,14,15,16,17,18,19,20,21``: after the build, run only
-    # those of phases 8 and 13-21 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,14,15,16,17,18,19,20,21,22``: after the build, run
+    # only those of phases 8 and 13-22 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -5596,6 +6140,10 @@ def main():
                 drive, expect, launches, {},
                 -(-(-(-n_params // 128)) // 256) * 256, strict=False)
             phase_done("phase 21", t0)
+        if "22" in picked:
+            t0 = time.perf_counter()
+            record["mesh"] = mesh_phase(launches)
+            phase_done("phase 22", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -6046,26 +6594,39 @@ def main():
         "variable_pop_int8": next(
             r for r in results["variable_pop"] if r["int8"]
             and r["pods"] == 1 and r["rows"] == big_rows and r["due"] == 2)}
-    # phase 21b's processes start now: their start overlaps phase 20
+    # phases 21b's and 22's processes start now: their start overlaps
+    # phase 20
     dist_bg = start_dist_background()
+    mesh_bg = start_mesh_background()
     try:
         cli = cli_phase(drive, expect)
     except BaseException:
         stop_dist_background(dist_bg)
+        stop_mesh_background(mesh_bg)
         raise
     phase_done("phase 20", t0)
 
     # -- 21. the pod axis across processes ----------------------------------
     t0 = time.perf_counter()
-    dist = dist_phase(drive, expect, launches, phase2, big_rows, bg=dist_bg)
+    try:
+        dist = dist_phase(drive, expect, launches, phase2, big_rows,
+                          bg=dist_bg)
+    except BaseException:
+        stop_mesh_background(mesh_bg)
+        raise
     phase_done("phase 21", t0)
+
+    # -- 22. the LMs on the mesh, the per-rank gossip -----------------------
+    t0 = time.perf_counter()
+    mesh = mesh_phase(launches, bg=mesh_bg)
+    phase_done("phase 22", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
                     "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
-                    "phase_s": phase_s,
+                    "mesh": mesh, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -370,9 +370,10 @@ class ConsensusConfig:
     delta: float = 0.05           # consensus-error target of eq. (24)
     msg_norm_J: float = 1.0       # message-norm bound J of eq. (24)
     rounds: int = 0               # 0 = derive from eq. (24)
-    # "dense" folds the stacked messages on one device; "shard_map" (one
-    # worker per card) is ROADMAP A.11 part 2 and raises; "auto" picks it
-    # exactly when the card count equals n_workers, else "dense"
+    # "dense" folds the stacked messages in one process; "shard_map" runs
+    # one worker a rank of an initialised torch.distributed world of
+    # n_workers ranks (each term a point-to-point exchange); "auto" picks
+    # it exactly when such a world is initialised, else "dense"
     gossip_impl: str = "auto"
     # "none" exchanges f32 messages; "int8" quantizes each round's
     # message per row with bf16 scales and carries the error in

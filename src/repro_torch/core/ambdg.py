@@ -48,7 +48,7 @@ rebuild the replicated parameters (``dual_averaging.update_arena``).
 The pods' counts and losses cross in one small gather, so the metrics
 are global on every rank. amb and kbatch share this step; the pytree
 master, sgd and adam, and the dynamic trip over more than one data
-rank raise (ROADMAP A.11 part 2).
+rank raise (ROADMAP A.11 part 2, item 4).
 
 ``rc.remat="whole_loss"`` wraps the whole loss in
 ``torch.utils.checkpoint`` (``loss_with_remat``, the same for every
@@ -185,7 +185,7 @@ class MeshShard(NamedTuple):
 def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
     """None off the mesh; under an active multi-rank mesh the rank's
     shard, after refusing every knob the sharded step does not carry
-    (each names ROADMAP A.11 part 2)."""
+    (each names ROADMAP A.11 part 2, item 4)."""
     ranks = arena_mod.sharded_route("the AMB-DG train step")
     if ranks is None:
         return None
@@ -197,17 +197,18 @@ def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
         raise NotImplementedError(
             "master_impl='pytree' under a multi-rank mesh: the sharded "
             "master is the arena's (the pytree master's sharding is "
-            "ROADMAP A.11 part 2)")
+            "ROADMAP A.11 part 2, item 4)")
     if rc.optimizer != "dual_averaging":
         raise NotImplementedError(
             f"optimizer={rc.optimizer!r} under a multi-rank mesh: the "
             "sharded master runs dual averaging; sgd and adam on row "
-            "shards are ROADMAP A.11 part 2")
+            "shards are ROADMAP A.11 part 2, item 4")
     n_data = ranks.sizes["data"]
     if n_data > 1 and rc.ambdg.anytime_impl == "while_dynamic":
         raise NotImplementedError(
             "anytime_impl='while_dynamic' with data > 1: splitting the "
-            "dynamic trip over a pod's ranks is ROADMAP A.11 part 2")
+            "dynamic trip over a pod's ranks is ROADMAP A.11 part 2, "
+            "item 4")
     n_mb = rc.ambdg.n_microbatches
     if n_mb % n_data:
         raise ValueError(f"{n_mb} microbatches a pod do not split over "
@@ -236,10 +237,13 @@ def _shard_grads(rc, loss_fn, layout, shard: MeshShard, params, batch):
                                        n_mb=shard.n_mb)
     flat = arena_mod.flatten_tree(layout, grads)
     if n_data > 1:
-        flat = reduce_scatter_rows(flat, shard.data_group, n_data)
+        flat = reduce_scatter_rows(flat, shard.data_group, n_data,
+                                   axis="data", tag="grad_rows")
     stats = torch.stack([count, metrics["loss_sum"]]).to(torch.float32)
     world = ranks.sizes["pod"] * n_data * ranks.sizes["model"]
-    stats = all_gather(stats, None, world).reshape(
+    axes = "+".join(a for a in ("pod", "data") if ranks.sizes[a] > 1)
+    stats = all_gather(stats, None, world, axis=axes,
+                       tag="pod_counts").reshape(
         ranks.sizes["pod"], n_data * ranks.sizes["model"], 2)
     per_pod = stats[:, 0] if stats.shape[1] == 1 else torch.sum(stats, 1)
     return flat[None], per_pod[:, 0], per_pod[:, 1]
@@ -249,7 +253,7 @@ def _shard_pod_sum(shard: MeshShard, pod_grads):
     """tau = 0 under a mesh: the rank's rows summed over every pod."""
     from repro_torch.dist.collectives import all_reduce
     return all_reduce(delayed.pod_sum(pod_grads).clone(),
-                      shard.ranks.group("pod"))
+                      shard.ranks.group("pod"), axis="pod", tag="pod_pop")
 
 
 def shard_specs(layout, state, mesh) -> Dict[str, Any]:
@@ -417,7 +421,8 @@ def build_step_fns(model: Model, rc: RunConfig):
                 sq = torch.sum(torch.square(grad_sum))
                 if shard is not None and shard.data_group is not None:
                     from repro_torch.dist.collectives import all_reduce
-                    sq = all_reduce(sq, shard.data_group)
+                    sq = all_reduce(sq, shard.data_group, axis="data",
+                                    tag="metrics")
                 g_norm = torch.sqrt(sq) / torch.clamp(count, min=1e-12)
             local = torch.sum(pod_counts)
             metrics = {

@@ -445,7 +445,8 @@ def row_scales(layout: ArenaLayout, fed, row0: int = 0,
         import torch.distributed as dist
 
         from repro_torch.dist.collectives import all_reduce
-        all_reduce(amax, group, op=dist.ReduceOp.MAX)
+        all_reduce(amax, group, op=dist.ReduceOp.MAX, axis="data",
+                   tag="scales_max")
     # sentinel segment (tail pad rows) -> scale 1: pads are zero
     amax[:, layout.n_leaves] = 127.0
     c127 = torch.full((), 127.0, dtype=torch.float32, device=fed.device)
@@ -644,7 +645,8 @@ def _push_pop_v2(layout, arena, pod_grads, pod_counts, compression,
             # one local pod: a view of the slot; the reduce must not
             # write it
             grad_sum = all_reduce(grad_sum.clone() if slot.shape[0] == 1
-                                  else grad_sum, ranks.group("pod"))
+                                  else grad_sum, ranks.group("pod"),
+                                  axis="pod", tag="pod_pop")
             arena.ring[push_i].copy_(pod_grads)
         residual, staging = None, None
 

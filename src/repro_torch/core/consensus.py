@@ -1,5 +1,5 @@
 """Decentralized AMB-DG (paper Sec. V): gossip consensus instead of a
-master (the port of ``repro/core/consensus.py``, its dense halves).
+master (the port of ``repro/core/consensus.py``).
 
 Workers exchange ``m_i(0) = n (b_i z_i + g_i) / b(t)`` with their
 neighbours for r rounds through a doubly-stochastic matrix Q; after
@@ -9,14 +9,24 @@ lower-bounds the rounds needed for a consensus error delta:
     r >= ceil( log(2 sqrt(n) (1 + 2J/delta)) / (1 - lambda_2(Q)) )
 
 A round is an ordered list of (neighbour index, weight) terms folded
-left to right, ``x_i' = w_0 x_{nbr_0[i]} + w_1 x_{nbr_1[i]} + ...``, on
-the stacked (n, ...) per-worker values (the dense fold; the
-one-worker-per-device fold is ROADMAP A.11 part 2). Each weighted term is
-its own multiply and the fold its own adds, in stencil order from the first
+left to right, ``x_i' = w_0 x_{nbr_0[i]} + w_1 x_{nbr_1[i]} + ...``. Two
+executions share each fold's body and differ only in the gather:
+
+  dense     ``run_consensus_fold*`` on the stacked (n, ...) per-worker
+            values in one process: a term's gather indexes the stack;
+  per rank  ``gossip_rounds_shard*`` (JAX's shard_map names) on this
+            rank's (1, rows, 128) message, one worker a rank of the
+            worker group: a term's gather is ``dist.collectives.permute``
+            (receiver i takes sender nbr[i]'s value, JAX's ``ppermute``),
+            its bytes tagged "gossip" in the census.
+
+The self term gathers nothing in either. Each weighted term is its own
+multiply and the fold its own adds, in stencil order from the first
 term: eager PyTorch never contracts the two into an FMA, which is the
-contract JAX pins with ``optimization_barrier``. So the fold equals
-JAX's fold run op by op bit for bit, and the masked fold under the
-all-alive mask equals the plain fold bit for bit.
+contract JAX pins with ``optimization_barrier``. So the two executions
+agree bit for bit on the same messages, both equal JAX's fold run op by
+op bit for bit, and the masked fold under the all-alive mask equals the
+plain fold bit for bit.
 
 The neighbour index tensors are built once per (topology, n, device) and
 reused by every round (``_device_terms``): a round launches gathers,
@@ -164,13 +174,31 @@ def _gather(x: torch.Tensor, nbr) -> torch.Tensor:
     return x if nbr is None else torch.index_select(x, 0, nbr)
 
 
-def _fold_round(x, terms):
+@functools.lru_cache(maxsize=None)
+def _rank_terms(topology: str, n: int):
+    """The stencil for the per-rank route: (None for the self term, else
+    the permutation as a tuple of source ranks, weight) per term."""
+    return tuple((None if _is_self_term(nbr) else
+                  tuple(int(i) for i in nbr), w)
+                 for nbr, w in topology_stencil(topology, n))
+
+
+def _rank_gather(group):
+    """The per-rank route's gather: each term is one ``permute`` over
+    the worker group."""
+    from repro_torch.dist.collectives import permute
+    return lambda x, perm: (x if perm is None else
+                            permute(x, group, perm, axis="worker",
+                                    tag="gossip"))
+
+
+def _fold_round(x, terms, gather=_gather):
     """One fold: each term ``w * x[nbr]`` its own multiply (a Python
     float weight is rounded to f32 as JAX's weak-typed constant is),
     summed left to right from the first term."""
     acc = None
     for nbr, w in terms:
-        term = w * _gather(x, nbr)
+        term = w * gather(x, nbr)
         acc = term if acc is None else acc + term
     return acc
 
@@ -190,6 +218,23 @@ def run_consensus_fold(values: torch.Tensor, topology: str, r: int
     for _ in range(r):
         values = _fold_round(values, terms)
     return values
+
+
+def gossip_round_shard(x: torch.Tensor, group, topology: str, n: int
+                       ) -> torch.Tensor:
+    """One round for this rank's worker ``x`` (1, ...) over the worker
+    group of ``n`` ranks (rank i is worker i): the dense round's terms,
+    each neighbour's value from a ``permute``."""
+    return _fold_round(x, _rank_terms(topology, n), _rank_gather(group))
+
+
+def gossip_rounds_shard(x: torch.Tensor, group, topology: str, n: int,
+                        rounds: int) -> torch.Tensor:
+    """``rounds`` per-rank rounds; bit for bit the dense
+    ``run_consensus_fold``'s row of this worker."""
+    for _ in range(rounds):
+        x = gossip_round_shard(x, group, topology, n)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -228,12 +273,12 @@ def _masked_term_weights(terms, a):
     return w_effs
 
 
-def _masked_fold_round(x, terms, w_effs):
+def _masked_fold_round(x, terms, w_effs, gather=_gather):
     """The plain fold with each weight replaced by its per-receiver
     effective weight, broadcast over the trailing dims."""
     acc = None
     for (nbr, _), w_eff in zip(terms, w_effs):
-        v = _gather(x, nbr)
+        v = gather(x, nbr)
         w = w_eff.reshape(tuple(w_eff.shape) + (1,) * (v.dim() - w_eff.dim()))
         term = w * v
         acc = term if acc is None else acc + term
@@ -256,6 +301,33 @@ def run_consensus_fold_masked(values: torch.Tensor, topology: str, r: int,
     for _ in range(r):
         values = _masked_fold_round(values, terms, w_effs)
     return values
+
+
+def gossip_round_shard_masked(x: torch.Tensor, group, topology: str,
+                              n: int, active: torch.Tensor
+                              ) -> torch.Tensor:
+    """One masked round for this rank's worker ``x`` (1, ...):
+    ``active`` is the whole (n,) mask; the rank takes its own term
+    weights from it at its rank (JAX's ``axis_index``)."""
+    return gossip_rounds_shard_masked(x, group, topology, n, 1, active)
+
+
+def gossip_rounds_shard_masked(x: torch.Tensor, group, topology: str,
+                               n: int, rounds: int, active: torch.Tensor
+                               ) -> torch.Tensor:
+    """``rounds`` masked per-rank rounds; bit for bit the dense
+    ``run_consensus_fold_masked``'s row of this worker. The effective
+    weights are the dense fold's ((n,) each, the same ops on the same
+    mask) at this rank."""
+    import torch.distributed as dist
+    i = dist.get_rank(group)
+    w_effs = [w if w.dim() == 0 else w[i:i + 1]
+              for w in _masked_term_weights(
+                  stencil_on(topology, n, x.device), active.to(x.dtype))]
+    terms, gather = _rank_terms(topology, n), _rank_gather(group)
+    for _ in range(rounds):
+        x = _masked_fold_round(x, terms, w_effs, gather)
+    return x
 
 
 def consensus_error_masked(values: torch.Tensor, active: torch.Tensor
@@ -296,13 +368,13 @@ def _weighted_scale(w: float, scales: torch.Tensor) -> torch.Tensor:
     return ws.to(torch.bfloat16).to(torch.float32)
 
 
-def _fold_round_compressed(q, scales, terms):
+def _fold_round_compressed(q, scales, terms, gather=_gather):
     """The fold on the wire payload: each receiver gathers (q, scales)
     and adds ``q.f32 * bf16(w * s)`` term by term."""
     acc = None
     for nbr, w in terms:
-        term = (_gather(q, nbr).to(torch.float32)
-                * _weighted_scale(w, _gather(scales, nbr))[..., None])
+        term = (gather(q, nbr).to(torch.float32)
+                * _weighted_scale(w, gather(scales, nbr))[..., None])
         acc = term if acc is None else acc + term
     return acc
 
@@ -325,6 +397,26 @@ def run_consensus_fold_int8(values: torch.Tensor, residual: torch.Tensor,
         q, scales, residual = _ef_compress_round_int8(values, residual)
         values = _fold_round_compressed(q, scales, terms)
     return values, residual
+
+
+def gossip_round_shard_int8(x: torch.Tensor, res: torch.Tensor, group,
+                            topology: str, n: int):
+    """One compressed round for this rank's worker: each non-self term
+    moves the int8 message and its bf16 row scales (as their 16 bits)
+    through ``permute``. Returns (x', res')."""
+    q, scales, res_new = _ef_compress_round_int8(x, res)
+    return _fold_round_compressed(q, scales, _rank_terms(topology, n),
+                                  _rank_gather(group)), res_new
+
+
+def gossip_rounds_shard_int8(x: torch.Tensor, res: torch.Tensor, group,
+                             topology: str, n: int, rounds: int):
+    """``rounds`` compressed per-rank rounds, the residual carried
+    across them; bit for bit the dense ``run_consensus_fold_int8``'s row
+    of this worker."""
+    for _ in range(rounds):
+        x, res = gossip_round_shard_int8(x, res, group, topology, n)
+    return x, res
 
 
 # which gossip message-compression modes exist (ConsensusConfig.compression)

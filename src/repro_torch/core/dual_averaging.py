@@ -142,7 +142,8 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
         if w.shape[0] != layout.rows:
             from repro_torch.dist.collectives import all_gather_rows
             w = all_gather_rows(w, ranks.group("data"),
-                                layout.rows // w.shape[0])
+                                layout.rows // w.shape[0], axis="data",
+                                tag="w_rows")
     if cfg.proximal == "l2_ball":
         norm = torch.sqrt(torch.sum(torch.square(w)))   # arena pads are zero
         proj = torch.clamp(torch.div(_const(cfg.radius_C, norm),

@@ -10,8 +10,9 @@ through ``repro_torch.api.build(model, rc, device)`` from
     Strategy.timeline_model()       # wall-clock algebra of the simulator
 
 The port registers AMB-DG, its synchronous degenerate AMB, the K-batch
-baseline and the decentralized gossip of the paper's Sec. V (its dense
-fold; one worker per card is ROADMAP A.11 part 2).
+baseline and the decentralized gossip of the paper's Sec. V (the dense
+fold in one process, or one worker a rank of a ``torch.distributed``
+world).
 ``repro_torch.api.simulate`` runs a strategy's cluster simulator engine
 (``Strategy.sim_engine``).
 """
@@ -334,9 +335,23 @@ class DecentralizedStrategy(Strategy):
     with ``rc.consensus`` (or its explicit ``rounds``).
 
     ``rc.consensus.gossip_impl``: "dense" runs the stencil fold on the
-    stacked (n, rows, 128) messages on one device; "shard_map" (one
-    worker per card) is ROADMAP A.11 part 2 and raises, as does an
-    "auto" that resolves to it (the card count equals n_workers).
+    stacked (n, rows, 128) messages in one process; "shard_map" runs one
+    worker a rank (JAX's name for its per-device fold): worker i is rank
+    i of an initialised ``torch.distributed`` world of exactly n_workers
+    ranks, in a worker group the strategy makes over it
+    (``dist.collectives.worker_group``), and each neighbour term is a
+    point-to-point exchange (``consensus.gossip_rounds_shard*``). Each
+    rank holds worker i's params, z and residual with a leading dim of
+    1, takes block i of n of the batch (``train.loop`` cuts it), computes
+    only its worker's gradient, and runs the stacked step's arithmetic
+    on its slice: the state and ``loss`` and ``applied_count`` equal the
+    dense run's bit for bit (the workers' counts and loss sums are
+    all-gathered and folded in worker order); ``grad_norm`` and
+    ``consensus_error`` sum whole messages over the workers in an
+    all-reduce, so they agree to its summation order. "auto" picks
+    "shard_map" exactly when an initialised world has n_workers ranks
+    (JAX: the device count equals n_workers), else "dense". Neither
+    composes with a pod mesh of more than one rank (nor does JAX's).
     ``rc.consensus.compression="int8"`` quantizes each round's message
     to int8 with per-row bf16 scales and carries the quantization error
     in ``DecentralizedState.residual``. Under a non-static ``rc.elastic``
@@ -367,39 +382,65 @@ class DecentralizedStrategy(Strategy):
         if cc.compression not in consensus.COMPRESSION_MODES:
             raise ValueError(f"unknown gossip compression "
                              f"{cc.compression!r}")
+        from repro_torch.dist.context import active_mesh
+        mesh = active_mesh()
+        if mesh is not None and mesh.n_devices > 1:
+            raise NotImplementedError(
+                "the decentralized strategy does not compose with a pod "
+                f"mesh of {mesh.n_devices} ranks (nor does JAX's: its "
+                "gossip runs on a private ('worker',) mesh): train it "
+                "without mesh=, one worker a rank (gossip_impl="
+                "'shard_map') or the dense fold in one process")
         self.Q = consensus.gossip_matrix(cc.topology, cc.n_workers)
         self.lam2 = consensus.lambda2(self.Q)
         self.rounds = cc.rounds if cc.rounds > 0 else consensus.min_rounds(
             cc.delta, cc.n_workers, cc.msg_norm_J, self.lam2)
         self.layout = arena_mod.make_layout(model.param_shapes())
-        self.gossip_impl = self._resolve_gossip_impl(cc, model.device)
+        self.gossip_impl = self._resolve_gossip_impl(cc)
+        # the per-rank route's worker group (None on the dense fold)
+        self.workers = None
+        if self.gossip_impl == "shard_map":
+            from repro_torch.dist.collectives import worker_group
+            self.workers = worker_group(cc.n_workers)
         # the neighbour index tensors, once, on the strategy's device
         consensus.stencil_on(cc.topology, cc.n_workers, model.device)
         self.init_state, self.train_step = self._build()
 
     @staticmethod
-    def _resolve_gossip_impl(cc, device: torch.device) -> str:
+    def _resolve_gossip_impl(cc) -> str:
         impl = cc.gossip_impl
         if impl == "auto":
             # JAX's rule: one device per worker picks the per-device
-            # fold; the device count is the strategy's device type's
-            n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+            # fold; the run's devices are the ranks of its world (one
+            # device a rank), and without a process group the per-rank
+            # route cannot run
+            import torch.distributed as dist
+            n_dev = (dist.get_world_size() if dist.is_available()
+                     and dist.is_initialized() else 0)
             impl = "shard_map" if n_dev == cc.n_workers else "dense"
-        if impl == "shard_map":
-            raise NotImplementedError(
-                "gossip_impl='shard_map' (one worker per card, the "
-                "neighbour exchange over torch.distributed) is not ported "
-                "yet (ROADMAP A.11 part 2); gossip_impl='dense' runs the "
-                "same stencil fold on one card")
-        if impl != "dense":
+        if impl not in ("dense", "shard_map"):
             raise ValueError(f"unknown gossip_impl {cc.gossip_impl!r}")
         return impl
 
     def _gossip_fn(self):
-        """(m0, residual, active) -> (z, residual'): the dense fold,
-        int8 with error feedback, or masked under churn."""
+        """(m0, residual, active) -> (z, residual'): the fold, int8 with
+        error feedback, or masked under churn; on the stacked messages
+        or, per rank, on this worker's."""
         cc = self.rc.consensus
-        topology, rounds = cc.topology, self.rounds
+        topology, rounds, n = cc.topology, self.rounds, cc.n_workers
+        if self.workers is not None:
+            group = self.workers.group
+            if cc.compression == "int8":
+                return lambda m0, res, active: \
+                    consensus.gossip_rounds_shard_int8(
+                        m0, res, group, topology, n, rounds)
+            if self._elastic:
+                return lambda m0, res, active: (
+                    consensus.gossip_rounds_shard_masked(
+                        m0, group, topology, n, rounds, active), res)
+            return lambda m0, res, active: (
+                consensus.gossip_rounds_shard(m0, group, topology, n,
+                                              rounds), res)
         if cc.compression == "int8":
             return lambda m0, res, active: consensus.run_consensus_fold_int8(
                 m0, res, topology, rounds)
@@ -410,16 +451,29 @@ class DecentralizedStrategy(Strategy):
         return lambda m0, res, active: (
             consensus.run_consensus_fold(m0, topology, rounds), res)
 
+    def shard_specs(self, state):
+        """Per rank: the checkpoint path and spec of each leaf of
+        ``state`` that the rank holds worker i's slice of (params, z,
+        residual; ``dist.sharding.gossip_specs``), for
+        ``checkpoint.save_sharded`` and ``restore(..., shard=)`` with the
+        sizes ``{"worker": n}``; None on the dense fold."""
+        if self.workers is None:
+            return None
+        from repro_torch.dist.sharding import gossip_specs
+        from repro_torch.train.checkpoint import _flatten_with_paths
+        specs = gossip_specs()
+        return {path: specs.msg if path in (".z", ".residual")
+                else specs.scalar
+                for path, _ in _flatten_with_paths(state)
+                if path.split("/")[0] in (".params", ".z", ".residual")}
+
     def _build(self):
-        from repro_torch.dist.context import active_mesh
-        mesh = active_mesh()
-        if mesh is not None and mesh.n_devices > 1:
-            raise NotImplementedError(
-                "the decentralized gossip under a multi-rank mesh (one "
-                "worker per rank) is ROADMAP A.11 part 2")
         model, rc = self.model, self.rc
         cfg = rc.ambdg
         n = rc.consensus.n_workers
+        wg = self.workers
+        # the workers this process holds: all n, or worker i of rank i
+        n_local = n if wg is None else 1
         layout = self.layout
         device = model.device
         loss_fn = ambdg.loss_with_remat(model, rc)
@@ -432,9 +486,10 @@ class DecentralizedStrategy(Strategy):
             # every worker starts at the same point, in f32
             params = arena_mod.tree_map(
                 lambda p: p.to(torch.float32).unsqueeze(0).repeat(
-                    (n,) + (1,) * p.dim()), model.init(generator))
-            zeros = lambda: torch.zeros((n, layout.rows, arena_mod.LANES),
-                                        dtype=torch.float32, device=device)
+                    (n_local,) + (1,) * p.dim()), model.init(generator))
+            zeros = lambda: torch.zeros(
+                (n_local, layout.rows, arena_mod.LANES),
+                dtype=torch.float32, device=device)
             return DecentralizedState(
                 params=params, z=zeros(), residual=zeros(),
                 t=torch.zeros((), dtype=torch.int32, device=device),
@@ -444,19 +499,21 @@ class DecentralizedStrategy(Strategy):
             """JAX's ``vmap`` over the workers as a loop: worker i runs the
             anytime accumulation at its own slice of the stacked params on
             its chunk of the batch (the first ``batch["n_active"]``
-            microbatches of it under "while_dynamic"). Returns (flat grads
-            (n, rows, 128), counts (n,), loss sums (n,))."""
-            batch, n_active = anytime.pop_n_active(batch, n)
+            microbatches of it under "while_dynamic"). Per rank the batch
+            is this worker's chunk. Returns (flat grads (n_local, rows,
+            128), counts (n_local,), loss sums (n_local,))."""
+            batch, n_active = anytime.pop_n_active(batch, n_local)
             for k, x in batch.items():
-                if x.shape[0] % n:
+                if x.shape[0] % n_local:
                     raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows "
                                      f"does not split over {n} workers")
-            chunks = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+            chunks = {k: x.reshape((n_local, x.shape[0] // n_local)
+                                   + tuple(x.shape[1:]))
                       for k, x in batch.items()}
-            g_flat = torch.zeros((n, layout.rows, arena_mod.LANES),
+            g_flat = torch.zeros((n_local, layout.rows, arena_mod.LANES),
                                  dtype=torch.float32, device=device)
             counts, losses = [], []
-            for i in range(n):
+            for i in range(n_local):
                 g, c, m = ambdg.accumulate(
                     rc, loss_fn, arena_mod.tree_map(lambda p: p[i], params),
                     {k: x[i] for k, x in chunks.items()}, n_active[i])
@@ -465,6 +522,49 @@ class DecentralizedStrategy(Strategy):
                 losses.append(m["loss_sum"])
                 del g
             return g_flat, torch.stack(counts), torch.stack(losses)
+
+        def every_worker(b, loss):
+            """The (n,) counts and loss sums of every worker: this
+            process's own, or per rank all-gathered in worker order."""
+            if wg is None:
+                return b, loss
+            from repro_torch.dist.collectives import all_gather
+            stats = all_gather(torch.stack([b[0], loss[0]]).to(
+                torch.float32), wg.group, n, axis="worker",
+                tag="worker_counts")
+            return stats[:, 0].contiguous(), stats[:, 1].contiguous()
+
+        def mine(x):
+            """This process's rows of an (n,) per-worker vector."""
+            return x if wg is None else x[wg.rank:wg.rank + 1]
+
+        def metric_sums(g_flat, z_new, active):
+            """(the norm of the gradients' sum over the workers, the
+            consensus error of z); per rank each sums whole messages in
+            an all-reduce over the workers (tagged "metrics")."""
+            if wg is None:
+                grad_sum = torch.sum(g_flat, dim=0)
+                err = (consensus.consensus_error_masked(
+                    z_new.reshape(n, -1), active) if elastic
+                    else consensus.consensus_error(z_new.reshape(n, -1)))
+                return torch.sqrt(torch.sum(torch.square(grad_sum))), err
+            import torch.distributed as dist
+
+            from repro_torch.dist.collectives import all_reduce
+            on = {"axis": "worker", "tag": "metrics"}
+            grad_sum = all_reduce(g_flat[0].clone(), wg.group, **on)
+            v = z_new.reshape(1, -1)
+            if elastic:
+                a = active.reshape(-1, 1)
+                total = all_reduce(v * mine(a), wg.group, **on)
+                mean = torch.div(total, torch.clamp(torch.sum(a), min=1.0))
+                dev = torch.linalg.vector_norm((v - mean) * mine(a), dim=-1)
+            else:
+                mean = torch.div(all_reduce(v.clone(), wg.group, **on), n)
+                dev = torch.linalg.vector_norm(v - mean, dim=-1)
+            err = all_reduce(torch.amax(dev), wg.group,
+                             op=dist.ReduceOp.MAX, **on)
+            return torch.sqrt(torch.sum(torch.square(grad_sum))), err
 
         def train_step(state: DecentralizedState, batch: Dict):
             active = None
@@ -487,56 +587,60 @@ class DecentralizedStrategy(Strategy):
                         "from core.batch_schedule)")
                 b_sched = batch["b_sched"].to(torch.float32)
                 batch = {k: v for k, v in batch.items() if k != "b_sched"}
-            g_flat, b, loss = per_worker_grads(state.params, batch)
+            g_flat, b_own, loss_own = per_worker_grads(state.params, batch)
             with torch.no_grad():
+                b, loss = every_worker(b_own, loss_own)
                 # the effective fleet size the Sec.-V messages scale by:
                 # n, or the alive count under churn
                 scale = torch.sum(active) if elastic else n
                 total_b = torch.sum(b)
                 denom = torch.clamp(total_b, min=1e-12)
                 # m_i(0) = n (b_i z_i + g_i) / b(t)  (paper Sec. V)
-                m0 = torch.div(scale * (state.z * b[:, None, None] + g_flat),
-                               denom)
+                m0 = torch.div(
+                    scale * (state.z * mine(b)[:, None, None] + g_flat),
+                    denom)
                 z_new, res_new = gossip(m0, state.residual, active)
                 if elastic:
                     # dead workers are frozen spectators
-                    z_new = torch.where(active[:, None, None] > 0, z_new,
-                                        state.z)
+                    z_new = torch.where(mine(active)[:, None, None] > 0,
+                                        z_new, state.z)
                 t_next = state.t + 1
                 a = da.alpha(t_next.to(torch.float32) + 1.0, cfg, b=b_sched)
                 w = -a * z_new
                 if cfg.proximal == "l2_ball":
-                    # each worker projects onto its own ball
-                    norms = torch.sqrt(torch.sum(torch.square(w), dim=(1, 2)))
+                    # each worker projects onto its own ball; each norm
+                    # is reduced on its own, so the stacked and the
+                    # per-rank steps sum it alike (on the card a
+                    # reduction's split follows its number of outputs,
+                    # ROADMAP C.19)
+                    norms = torch.sqrt(torch.stack(
+                        [torch.sum(torch.square(w[i]))
+                         for i in range(n_local)]))
                     proj = torch.clamp(torch.div(
                         da._const(cfg.radius_C, norms),
                         torch.clamp(norms, min=1e-12)), max=1.0)
                     w = w * proj[:, None, None]
                 params = arena_mod.unflatten_tree(layout, w, cast=False)
                 if elastic:
-                    alive = active > 0
+                    alive = mine(active) > 0
                     params = arena_mod.tree_map(
                         lambda new, old: torch.where(
-                            alive.reshape((n,) + (1,) * (new.dim() - 1)),
+                            alive.reshape((n_local,) + (1,) * (new.dim() - 1)),
                             new, old), params, state.params)
-                grad_sum = torch.sum(g_flat, dim=0)
+                g_norm, err = metric_sums(g_flat, z_new, active)
                 metrics = {
                     "loss": torch.div(torch.sum(loss), denom),
                     "applied_count": total_b,
                     "local_count": total_b,
-                    "grad_norm": torch.div(
-                        torch.sqrt(torch.sum(torch.square(grad_sum))), denom),
-                    "consensus_error": (
-                        consensus.consensus_error_masked(
-                            z_new.reshape(n, -1), active) if elastic
-                        else consensus.consensus_error(z_new.reshape(n, -1))),
+                    "grad_norm": torch.div(g_norm, denom),
+                    "consensus_error": err,
                     "step": state.step + 1,
                 }
                 if elastic:
                     metrics["active_workers"] = scale
                 if rc.consensus.debug_messages:
-                    # the exact messages this step gossiped, for an
-                    # oracle to fold again
+                    # the exact messages this step gossiped (per rank:
+                    # this worker's), for an oracle to fold again
                     metrics["gossip_m0"] = m0
                     metrics["gossip_r0"] = state.residual
                     if elastic:

@@ -1,5 +1,6 @@
 """The collectives of the multi-process path, over the groups of the
-ambient ``DeviceMesh`` (dims "pod", "data", "model"):
+ambient ``DeviceMesh`` (dims "pod", "data", "model") and the
+decentralized gossip's worker group (one worker a rank):
 
   pod    the cross-site channel of the paper: the folded f32 rows of
          the variable pop (one ``all_reduce`` a step), the compressed
@@ -8,15 +9,38 @@ ambient ``DeviceMesh`` (dims "pod", "data", "model"):
   data   the intra-pod slice the arena's rows shard over: the pod's
          gradient rows (``reduce_scatter``), the dual update's w
          (``all_gather``), the int8 scales' per-leaf maxima and the
-         step's sums of squares (``all_reduce``).
+         step's sums of squares (``all_reduce``);
+  worker the gossip's neighbour exchange (``permute``, one point-to-point
+         send and receive a stencil term), each worker's count and loss
+         (``all_gather``), and the metrics' whole-message sums
+         (``all_reduce``).
 
 Every call goes to the group whatever its size (a group of one still
 runs through its backend). A collective that fails raises: nothing here
-falls back to another route or copies a tensor to the host.
+falls back to another route. One rule moves a tensor through the host:
+gloo's point-to-point ``send``/``recv`` reads a tensor's memory as the
+host's, so ``permute`` on a gloo group stages a CUDA tensor through host
+copies (its collectives take CUDA tensors and stage them themselves).
+
+The byte census: every call adds the bytes it puts on the wire, per
+device, to ``CENSUS`` under (axis, dtype, tag), with the ring formulas
+of ``launch.wire_model``: an all-reduce 2 (n-1)/n P, an all-gather
+(n-1)/n of the gathered bytes, a reduce-scatter (n-1)/n P, a permute
+its payload. The dtype is JAX's short name ("f32", "s8", ...; bf16
+crosses as its raw bits, "u16"); the tag names the call site
+("pod_pop", "pod_counts", "grad_rows", "w_rows", "scales_max",
+"metrics", "gossip", "worker_counts"). The census is Python integer sums
+on the host: no device sync, always on. ``wire_census()`` reads it:
+
+    with wire_census() as census:
+        ...                                  # steps, rounds
+    census.select(tag="gossip")              # {"f32": bytes, ...}
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+import collections
+import contextlib
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -70,30 +94,169 @@ def require_mesh(what: str) -> Ranks:
                  dict(zip(AXES, shape)))
 
 
-def all_gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+class WorkerGroup(NamedTuple):
+    """The decentralized gossip's 1-D ``('worker',)`` layout over the
+    world: worker i is rank i of ``group``, a group over every rank."""
+    group: object
+    n: int
+    rank: int
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"worker": self.rank}
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return {"worker": self.n}
+
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """The coordinates of the world's rank ``rank``."""
+        return {"worker": rank}
+
+
+def worker_group(n_workers: int) -> WorkerGroup:
+    """One worker a rank over the initialised world, in a group of its
+    own over every rank (JAX's private ``('worker',)`` mesh over the
+    first n devices). A collective: every rank calls it. Raises a
+    ``RuntimeError`` naming both counts when there is no process group
+    or the world has another size than ``n_workers``."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"the per-rank gossip runs one worker a rank: "
+            f"{n_workers} workers need an initialised process group of "
+            f"{n_workers} ranks, and there is none (0 ranks)")
+    world = dist.get_world_size()
+    if world != n_workers:
+        raise RuntimeError(
+            f"the per-rank gossip runs one worker a rank: "
+            f"{n_workers} workers need a world of {n_workers} ranks; the "
+            f"world has {world}")
+    group = dist.new_group(list(range(world)))
+    return WorkerGroup(group, world, dist.get_rank())
+
+
+# ---------------------------------------------------------------------------
+# The byte census
+# ---------------------------------------------------------------------------
+_WIRE_NAMES = {torch.float32: "f32", torch.float64: "f64",
+               torch.float16: "f16", torch.bfloat16: "bf16",
+               torch.int8: "s8", torch.uint8: "u8", torch.int16: "s16",
+               torch.uint16: "u16", torch.int32: "s32", torch.int64: "s64"}
+
+
+class WireCensus:
+    """Per-device wire bytes by (axis, dtype, tag)."""
+
+    def __init__(self):
+        self.bytes: Dict[tuple, int] = collections.Counter()
+
+    def add(self, axis: str, dtype: str, tag: str, n_bytes: int):
+        if n_bytes:
+            self.bytes[(axis, dtype, tag)] += n_bytes
+
+    def select(self, tag: Optional[str] = None, axis: Optional[str] = None
+               ) -> Dict[str, int]:
+        """{dtype: bytes} over the entries of ``tag`` and ``axis`` (None:
+        any), the form of ``launch.wire_model``'s functions."""
+        out: Dict[str, int] = collections.Counter()
+        for (a, dt, t), n in self.bytes.items():
+            if (tag is None or t == tag) and (axis is None or a == axis):
+                out[dt] += n
+        return dict(out)
+
+
+CENSUS = WireCensus()
+
+
+@contextlib.contextmanager
+def wire_census():
+    """Reset the census, run the block and yield what it counted: a
+    ``WireCensus`` filled when the block ends (the census is reset
+    again then)."""
+    CENSUS.bytes.clear()
+    counted = WireCensus()
+    try:
+        yield counted
+    finally:
+        counted.bytes.update(CENSUS.bytes)
+        CENSUS.bytes.clear()
+
+
+# ---------------------------------------------------------------------------
+# The collectives
+# ---------------------------------------------------------------------------
+def all_gather(x: torch.Tensor, group, n: int, *, axis: str,
+               tag: str) -> torch.Tensor:
     """(n, *x.shape): every rank's ``x`` in group-rank order."""
     out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
     _all_gather(out, x.contiguous().reshape(-1), group=group)
+    # (n - 1) / n of the n * x.nbytes gathered
+    CENSUS.add(axis, _WIRE_NAMES[x.dtype], tag, (n - 1) * x.nbytes)
     return out.reshape((n,) + tuple(x.shape))
 
 
-def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM, *, axis: str,
+               tag: str) -> torch.Tensor:
     """``x`` reduced over the group, in place; returns ``x``."""
     dist.all_reduce(x, op=op, group=group)
+    n = dist.get_world_size(group)
+    CENSUS.add(axis, _WIRE_NAMES[x.dtype], tag, 2 * (n - 1) * x.nbytes // n)
     return x
 
 
-def reduce_scatter_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def reduce_scatter_rows(x: torch.Tensor, group, n: int, *, axis: str,
+                        tag: str) -> torch.Tensor:
     """The sum over the group of ``x`` (rows, ...), this rank keeping
     its block of rows / n."""
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     _reduce_scatter(out, x.contiguous(), group=group)
+    CENSUS.add(axis, _WIRE_NAMES[x.dtype], tag, (n - 1) * x.nbytes // n)
     return out
 
 
-def all_gather_rows(x: torch.Tensor, group, n: int) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group, n: int, *, axis: str,
+                    tag: str) -> torch.Tensor:
     """The row blocks of the group's ranks, back to back: (n * rows,
     ...)."""
-    out = all_gather(x, group, n)
+    out = all_gather(x, group, n, axis=axis, tag=tag)
     return out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+
+
+def permute(x: torch.Tensor, group, perm: Sequence[int], *, axis: str,
+            tag: str) -> torch.Tensor:
+    """The twin of ``lax.ppermute`` for a true permutation of the
+    group's ranks: receiver i takes sender ``perm[i]``'s ``x``. One
+    ``batch_isend_irecv`` of a send and a receive a rank (a rank that
+    is its own source copies ``x`` and sends nothing). A bf16 tensor
+    crosses as its raw 16 bits ("u16" in the census): viewed as uint16,
+    or as it is on NCCL, which has no 16-bit integer type (a
+    point-to-point send copies bytes either way). On a gloo group a
+    CUDA tensor is staged through host copies (gloo's point-to-point
+    reads the tensor's memory as the host's). The census counts the
+    payload, whatever the staging."""
+    rank = dist.get_rank(group)
+    src = int(perm[rank])
+    if src == rank:
+        return x.clone()
+    dst = [int(p) for p in perm].index(rank)
+    backend = dist.get_backend(group)
+    wire, name = x.contiguous(), _WIRE_NAMES[x.dtype]
+    if x.dtype == torch.bfloat16:
+        name = "u16"
+        if backend != "nccl":
+            wire = wire.view(torch.uint16)
+    staged = x.is_cuda and backend == "gloo"
+    if staged:
+        wire = wire.cpu()
+    got = torch.empty_like(wire)
+    peer = (lambda r: r) if group is None else \
+        (lambda r: dist.get_global_rank(group, r))
+    for work in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, wire, peer(dst), group),
+            dist.P2POp(dist.irecv, got, peer(src), group)]):
+        work.wait()
+    CENSUS.add(axis, name, tag, x.nbytes)
+    if staged:
+        got = got.to(x.device)
+    return got.view(x.dtype) if x.dtype == torch.bfloat16 else got

@@ -29,7 +29,7 @@ embed replicated, TP dims over the whole ('data', 'model') slice). The
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 from repro_torch.configs.base import MeshConfig
 
@@ -84,9 +84,12 @@ def _is_axes_leaf(x) -> bool:
         isinstance(e, (str, type(None))) for e in x)
 
 
-def mesh_sizes(mesh: MeshConfig) -> Dict[str, int]:
+def mesh_sizes(mesh) -> Dict[str, int]:
     """The mesh's axis sizes by name ('pod' only when n_pods > 1, as
-    ``MeshConfig.axis_names``)."""
+    ``MeshConfig.axis_names``). ``mesh`` may also be the sizes
+    themselves, a mapping: the gossip's ``{"worker": n}``."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
     sizes = {"data": mesh.data, "model": mesh.model}
     if mesh.n_pods > 1:
         sizes["pod"] = mesh.n_pods
@@ -225,7 +228,8 @@ def publish_ring_specs(mesh: MeshConfig, rows: int,
 
 class GossipSpecs(NamedTuple):
     """Specs of the decentralized gossip state under the 1-D
-    ``('worker',)`` mesh (one index a worker):
+    ``('worker',)`` mesh (one index a worker; ``local_shard`` cuts a
+    rank's block with the sizes ``{"worker": n}``):
 
       msg      (n_workers, rows, 128) per-worker duals and messages, the
                int8 payload and its residual: worker dim sharded, whole

@@ -127,7 +127,8 @@ def ring_variable_pop_sharded(ring, mask, scales=None, counts_stale=None,
     acc = part[0]                       # local pods: a fixed left fold
     for p in range(1, part.shape[0]):
         acc = acc + part[p]
-    acc = all_reduce(acc.contiguous(), ranks.group("pod"))
+    acc = all_reduce(acc.contiguous(), ranks.group("pod"), axis="pod",
+                     tag="pod_pop")
     return acc if meta is None else (acc, meta)
 
 
@@ -149,8 +150,10 @@ def ring_slot_rotate_int8_sharded(slot_pop, scales_pop, slot_push,
     from repro_torch.dist.collectives import all_gather, require_mesh
     ranks = require_mesh("ring_slot_rotate_int8_sharded")
     group, n = ranks.group("pod"), ranks.sizes["pod"]
-    q_all = all_gather(slot_pop, group, n).flatten(0, 1)
-    s_all = all_gather(scales_pop, group, n).flatten(0, 1)
+    q_all = all_gather(slot_pop, group, n, axis="pod",
+                       tag="pod_pop").flatten(0, 1)
+    s_all = all_gather(scales_pop, group, n, axis="pod",
+                       tag="pod_pop").flatten(0, 1)
     acc = None
     for p in range(q_all.shape[0]):
         x = q_all[p].to(torch.float32) * s_all[p][:, None]

@@ -12,7 +12,7 @@ NCCL on cards, gloo for CPU processes). Entering the mesh (``with mesh:``)
 activates its sharding profile and its ``DeviceMesh``, under which the
 arena's rotations and the train step take their sharded routes. A mesh
 with ``model > 1`` raises: tensor parallelism over ``model`` is ROADMAP
-A.11 part 2. JAX's TPU pod mesh (``make_production_mesh``, 256 or 512
+A.11 part 2, item 6. JAX's TPU pod mesh (``make_production_mesh``, 256 or 512
 chips) raises too.
 """
 from __future__ import annotations
@@ -67,7 +67,7 @@ def make_production_mesh(*, multi_pod: bool = False):
     raise NotImplementedError(
         f"the production mesh ({shape}) is a TPU pod of {n} chips; the port "
         f"would need {n} cards, and tensor parallelism over 'model' (ROADMAP "
-        "A.11 part 2)")
+        "A.11 part 2, item 6)")
 
 
 def make_mesh(cfg: MeshConfig, device="cuda") -> Mesh:
@@ -78,8 +78,8 @@ def make_mesh(cfg: MeshConfig, device="cuda") -> Mesh:
     if cfg.model != 1:
         raise NotImplementedError(
             f"mesh {mesh_label(cfg)} has model={cfg.model}: tensor "
-            "parallelism over 'model' is ROADMAP A.11 part 2; the port "
-            "runs P x D x 1 meshes")
+            "parallelism over 'model' is ROADMAP A.11 part 2, item 6; the "
+            "port runs P x D x 1 meshes")
     if cfg.n_devices == 1:
         return Mesh(cfg, device)
     import torch.distributed as dist

@@ -24,6 +24,15 @@ nccl, the default on the card, or gloo, the CPU's and the default with
     python -m torch.distributed.run --nproc-per-node=2 \
         -m repro_torch.launch.train --arch amb-linreg --mesh 2x1x1 ...
 
+``--strategy decentralized`` under ``torch.distributed.run`` with as many
+ranks as ``--n-workers`` runs one worker a rank (the per-rank gossip,
+which ``gossip_impl="auto"`` picks in such a world); rank 0 alone
+prints and checkpoints:
+
+    python -m torch.distributed.run --nproc-per-node=4 \
+        -m repro_torch.launch.train --arch amb-linreg --smoke \
+        --strategy decentralized --n-workers 4 --device cpu ...
+
 ``main`` called in a process that has joined a world already runs in
 it. The run a sharded one is held against, the same mesh's pods
 stacked in one process, is ``train.loop.train(..., mesh=None)`` on
@@ -189,6 +198,17 @@ def run_config(args: argparse.Namespace) -> RunConfig:
         optimizer=args.optimizer)
 
 
+def _world_size() -> int:
+    """The ranks of this process's world: the initialised group's, or
+    the ``torch.distributed.run`` launch's (WORLD_SIZE), else 1."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def _init_world(args, device):
     """Join the ``torch.distributed.run`` world (its RANK, WORLD_SIZE,
     MASTER_ADDR and MASTER_PORT), unless this process has joined one
@@ -223,22 +243,31 @@ def main(argv=None):
     device = resolve_device(args.device)
     rc = run_config(args)
     multi = rc.mesh.n_devices > 1
+    # the per-rank gossip: one worker a rank of the launch's world
+    world = _world_size()
+    gossip = args.strategy == "decentralized" and not multi and world > 1
+    if gossip and world != args.n_workers:
+        raise ValueError(
+            f"--strategy decentralized under torch.distributed.run runs "
+            f"one worker a rank: --n-workers {args.n_workers} needs "
+            f"{args.n_workers} ranks; the world has {world}")
     joined = False
-    if multi:
+    if multi or gossip:
         device, joined = _init_world(args, device)
     mesh = make_mesh(rc.mesh, device) if multi else None
     model = build_model(rc.model, device=device)
     loop = LoopConfig(n_steps=args.steps, ckpt_dir=args.ckpt_dir,
                       n_workers=args.n_workers,
                       samples_per_worker=args.samples_per_worker)
+    import torch.distributed as dist
     try:
         out = train(model, rc, loop, log_fn=lambda m: print(json.dumps(m)),
                     device=device, mesh=mesh)
+        lead = not (multi or gossip) or dist.get_rank() == 0
     finally:
         if joined:
-            import torch.distributed as dist
             dist.destroy_process_group()
-    if not multi or not any(mesh.coords.values()):
+    if lead:
         print(f"done: {len(out['history'])} log points, "
               f"final loss {out['history'][-1]['loss']:.4f}")
     return out

@@ -121,7 +121,7 @@ def check_knobs(cfg: ModelConfig) -> None:
     if cfg.seq_parallel:
         raise NotImplementedError("seq_parallel=True is a sharding layout "
                                   "the port does not carry yet (ROADMAP "
-                                  "A.11 part 2)")
+                                  "A.11 part 2, item 5)")
     if cfg.block_remat not in BLOCK_REMATS:
         raise ValueError(f"unknown block_remat {cfg.block_remat!r}; "
                          f"expected one of {BLOCK_REMATS}")

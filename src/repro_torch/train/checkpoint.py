@@ -12,7 +12,9 @@ save/restore of a whole training state, with retention.
   * under a multi-rank mesh (``save_sharded``, ``restore(...,
     shard=)``) each rank's shards of z and the arena are joined on
     rank 0's host into the checkpoint a single process would write, and
-    a restart cuts each rank's shards from it on the host.
+    a restart cuts each rank's shards from it on the host; on the
+    per-rank gossip the workers' slices of params, z and residual are
+    joined along the worker axis alike, into the dense run's checkpoint.
 
 The format is the JAX package's: one ``state.npz`` of leaves keyed by
 their path (a NamedTuple field ``.name``, a dict key, a sequence index,
@@ -139,8 +141,9 @@ def save_sharded(ckpt_dir: str, step: int, state, specs: Dict[str, Any],
     """``save`` of a state whose leaves named in ``specs`` (checkpoint
     path -> ``dist.sharding.Spec``, ``ambdg.shard_specs``) each rank
     holds a shard of under the multi-rank ``mesh`` (a MeshConfig;
-    ``ranks`` its ``dist.collectives.Ranks``); the other leaves are
-    whole on every rank. A collective: every rank calls it. Each rank
+    ``ranks`` its ``dist.collectives.Ranks``; on the per-rank gossip
+    the sizes ``{"worker": n}`` and the ``WorkerGroup``); the other
+    leaves are whole on every rank. A collective: every rank calls it. Each rank
     writes its shards to ``<dir>/shards.<step>/<rank>.npz``; rank 0
     joins them in host memory, each at the block ``local_shard`` cuts,
     and writes the checkpoint ``save`` writes of the whole state. No

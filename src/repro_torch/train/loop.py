@@ -46,6 +46,16 @@ every rank; rank 0 alone logs. A checkpoint joins the ranks' shards on
 rank 0's host (``checkpoint.save_sharded``: the checkpoint the single
 process would write), and a restart cuts each rank's shards from it on
 the host.
+
+Under the decentralized strategy's per-rank gossip (one worker a rank of
+a world of n_workers ranks, ``gossip_impl`` "shard_map" or an "auto"
+that resolves to it) every rank draws the global batch likewise and
+keeps worker i's block (``dist.sharding.gossip_specs``); the elastic
+mask and the batch target arrive whole. The checkpoint joins the
+workers' slices of params, z and residual on rank 0's host along the
+worker axis: the dense run's checkpoint, in the same format. Rank 0
+alone logs. The publication channel (``rc.serve.publish_period``) is not
+carried there: the sharded publish ring is ROADMAP A.11 part 2, item 7.
 """
 from __future__ import annotations
 
@@ -123,6 +133,25 @@ def _rank_batch(host: Dict[str, np.ndarray], mesh, coords,
     return out
 
 
+def _worker_batch(host: Dict[str, np.ndarray], workers,
+                  total: int) -> Dict[str, np.ndarray]:
+    """Worker i's block of the global batch on the per-rank gossip: the
+    per-sample leaves (leading dim ``total``) and a per-worker
+    ``n_active`` cut on the worker axis (``gossip_specs``' spec); the
+    elastic mask, the batch target and the scalars whole."""
+    from repro_torch.dist.sharding import gossip_specs, local_shard
+    spec, sizes = gossip_specs().scalar, workers.sizes
+    out = {}
+    for k, v in host.items():
+        if k in ("active", "b_sched") or not v.ndim or \
+                v.shape[0] != (workers.n if k == "n_active" else total):
+            out[k] = v
+            continue
+        out[k] = local_shard(torch.from_numpy(v), spec, sizes,
+                             workers.coords).numpy()
+    return out
+
+
 def train(model: Model, rc: RunConfig, loop: LoopConfig,
           log_fn: Callable[[Dict], None] = None, device="cuda",
           mesh=None) -> Dict:
@@ -161,6 +190,12 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
     from repro_torch import api
     device = resolve_device(device)
     strategy = api.build(model, rc, device=device)
+    # the per-rank gossip's worker group (None elsewhere)
+    workers = getattr(strategy, "workers", None)
+    if workers is not None and rc.serve.publish_period > 0:
+        raise NotImplementedError(
+            "rc.serve.publish_period > 0 on the per-rank gossip: the "
+            "sharded publish ring is ROADMAP A.11 part 2, item 7")
     pipeline = AnytimePipeline(
         cfg=rc.model, n_workers=loop.n_workers,
         samples_per_worker=loop.samples_per_worker,
@@ -203,9 +238,11 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
     generator = torch.Generator().manual_seed(rc.seed)
     state = strategy.init_state(generator)
     start_step = 0
-    lead = ranks is None or dist.get_rank() == 0
+    lead = (ranks is None and workers is None) or dist.get_rank() == 0
     shard = None
-    if ranks is not None:
+    if workers is not None:
+        shard = (strategy.shard_specs(state), workers.sizes, workers.coords)
+    elif ranks is not None:
         # the leaves a rank holds shards of, for the checkpoints
         from repro_torch.core.ambdg import shard_specs
         from repro_torch.core.arena import make_layout
@@ -239,11 +276,11 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
             extra["batch_schedule"] = batch_sched.state_dict()
         if plan is not None:
             extra["remesh_plan"] = plan
-        if ranks is None:
+        if shard is None:
             ckpt.save(loop.ckpt_dir, next_step, state, extra=extra)
         else:
             ckpt.save_sharded(loop.ckpt_dir, next_step, state, shard[0],
-                              rc.mesh, ranks, extra=extra)
+                              shard[1], workers or ranks, extra=extra)
 
     history, remesh_events = [], []
     t_start = time.monotonic()
@@ -290,6 +327,9 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
         if ranks is not None:
             host = _rank_batch(host, rc.mesh, ranks.coords,
                                loop.n_workers * loop.samples_per_worker)
+        elif workers is not None:
+            host = _worker_batch(host, workers,
+                                 loop.n_workers * loop.samples_per_worker)
         t1 = time.monotonic()
         # a copy from pageable host memory returns once it has landed
         batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}

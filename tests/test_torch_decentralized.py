@@ -445,7 +445,9 @@ def test_simulate_refuses_the_decentralized_strategy():
 
 
 @pytest.mark.parametrize("knob,value,error,match", [
-    ("gossip_impl", "shard_map", NotImplementedError, "A.11"),
+    # one worker a rank needs a world of n_workers ranks: here none
+    ("gossip_impl", "shard_map", RuntimeError,
+     "4 workers need an initialised process group of 4 ranks"),
     ("gossip_impl", "ppermute", ValueError, "gossip_impl"),
     ("compression", "fp8", ValueError, "compression"),
     ("topology", "star", ValueError, "star"),

@@ -21,6 +21,22 @@ delay, whose stacked CPU pop folds the due slots slot-major (each slot's
 pods, then the slots: JAX's off-mesh ``_variable_pop_ref``) where the
 sharded pop, like the card's kernel, folds each pod's slots first; on
 a step where two slots arrive the two orders round apart.
+
+Every case also counts the bytes its collectives send (the census of
+``dist.collectives``): the "pod_pop" tag equals the ported wire model,
+``master_pod_exchange_bytes`` (fixed delay) or
+``variable_pod_exchange_bytes`` (the stochastic delay's v3 ring) of the
+rank's rows, times the steps, exactly.
+
+The LMs on the mesh (world 2): qwen1.5-0.5b SMOKE and zamba2 SMOKE, f32,
+2 steps of 8 sequences of 16 tokens with tau 1, on 2x1x1 (int8) and
+1x2x1, through ``api.build`` and ``train``, held against the stacked run
+at LM_GAP_MULT times the gap between two stacked runs, leaf by leaf and
+on each step's loss. An LM gradient need not repeat bit for bit on the
+CPU (ROADMAP C.9), and 1x2x1 sums a pod's microbatches in the
+reduce-scatter; measured here at one intra-op thread (the ranks' count,
+at which the stacked runs are made too): both gaps 0, so the multiple is
+1 and the check bit for bit.
 """
 import dataclasses
 import json
@@ -60,6 +76,14 @@ CASES = [
 ]
 BITWISE = {label for label, *_ in CASES
            if "nmb4" not in label and "heavy-tail" not in label}
+# (label, mesh, arch, pod compression): the LMs on the world-2 mesh
+LM_CASES = [("qwen-2x1x1-int8", (2, 1, 1), "qwen1.5-0.5b", "int8"),
+            ("qwen-1x2x1", (1, 2, 1), "qwen1.5-0.5b", "none"),
+            ("zamba2-2x1x1-int8", (2, 1, 1), "zamba2-2.7b", "int8"),
+            ("zamba2-1x2x1", (1, 2, 1), "zamba2-2.7b", "none")]
+LM_STEPS, LM_SPW, LM_SEQ = 2, 2, 16
+# the mesh run's allowed gap over two stacked runs' (both measured 0)
+LM_GAP_MULT = 1
 # world -> (label, mesh) of the int8 run restarted from step 2
 RESTARTS = {2: ("restart-2x1x1", (2, 1, 1)), 4: ("restart-2x2x1", (2, 2, 1))}
 
@@ -82,11 +106,24 @@ def _rc(shape, knobs) -> RunConfig:
         delay=delay, strategy=knobs.get("strategy", "ambdg"))
 
 
-def _loop(ckpt_dir=None, n_steps=STEPS, ckpt_every=50):
+def _loop(ckpt_dir=None, n_steps=STEPS, ckpt_every=50, spw=SPW):
     from repro_torch.train.loop import LoopConfig
     return LoopConfig(n_steps=n_steps, n_workers=WORKERS,
-                      samples_per_worker=SPW, log_every=1,
+                      samples_per_worker=spw, log_every=1,
                       ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)
+
+
+def _lm_rc(arch, shape, compression) -> RunConfig:
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    return RunConfig(
+        model=cfg,
+        shape=dataclasses.replace(TRAIN_4K, seq_len=LM_SEQ,
+                                  global_batch=WORKERS * LM_SPW),
+        mesh=MeshConfig(n_pods=shape[0], data=shape[1], model=shape[2]),
+        ambdg=AmbdgConfig(tau=1, n_microbatches=2,
+                          b_bar=float(WORKERS * LM_SPW), smoothness_L=8.0,
+                          pod_compression=compression))
 
 
 def _leaves(state):
@@ -106,6 +143,7 @@ def _run_rank(rank, world, init_file, out_dir):
     and (world 2) the refusals that need a process group."""
     import torch.distributed as dist
 
+    from repro_torch.dist.collectives import wire_census
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import train
@@ -121,8 +159,22 @@ def _run_rank(rank, world, init_file, out_dir):
             model = build_model(rc.model, device="cpu")
             mesh = make_mesh(rc.mesh, "cpu")
             ck = f"{out_dir}/{label}"
-            out = train(model, rc, _loop(ck, ckpt_every=STEPS),
-                        device="cpu", mesh=mesh)
+            with wire_census() as census:
+                out = train(model, rc, _loop(ck, ckpt_every=STEPS),
+                            device="cpu", mesh=mesh)
+            results[label] = {"history": out["history"],
+                              "census": dict(census.bytes),
+                              "state": _ckpt_leaves(ck) if rank == 0
+                              else None}
+        for label, shape, arch, compression in LM_CASES:
+            if world != 2:
+                continue
+            rc = _lm_rc(arch, shape, compression)
+            mesh = make_mesh(rc.mesh, "cpu")
+            ck = f"{out_dir}/{label}"
+            out = train(build_model(rc.model, device="cpu"), rc,
+                        _loop(ck, n_steps=LM_STEPS, ckpt_every=LM_STEPS,
+                              spw=LM_SPW), device="cpu", mesh=mesh)
             results[label] = {"history": out["history"],
                               "state": _ckpt_leaves(ck) if rank == 0
                               else None}
@@ -241,6 +293,68 @@ def test_multirank_run_matches_stacked(ranks, case):
              knobs.get("compression", "none"))
 
 
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_multirank_census_is_the_wire_model(ranks, case):
+    """Rank 0's "pod_pop" bytes over the run: the ported wire model of
+    the pod exchange at its rows, times the steps (a pop every step:
+    the fixed ring's slot, the v3 ring's folded rows, or under tau = 0
+    the fresh gradients' sum), on the pod axis."""
+    from repro_torch.core.arena import make_layout
+    from repro_torch.launch.wire_model import (master_pod_exchange_bytes,
+                                               variable_pod_exchange_bytes)
+    from repro_torch.models.api import build_model
+    label, _, shape, knobs = case
+    rows = make_layout(build_model(get_smoke_config("amb-linreg"),
+                                   device="cpu").param_shapes()).rows
+    rows //= shape[1]                     # the rank's rows
+    if knobs.get("delay"):
+        one = variable_pod_exchange_bytes(rows, shape[0])
+    else:
+        one = master_pod_exchange_bytes(rows, shape[0],
+                                        knobs.get("compression", "none"))
+    pod_pop = {}
+    for (axis, dtype, tag), n in ranks[label]["census"].items():
+        if tag == "pod_pop":
+            assert axis == "pod", axis
+            pod_pop[dtype] = n
+    assert pod_pop == {dt: STEPS * b for dt, b in one.items()}
+
+
+@pytest.mark.parametrize("case", LM_CASES, ids=[c[0] for c in LM_CASES])
+def test_multirank_lm_matches_stacked(ranks, case):
+    """An LM on the mesh against the stacked run: every leaf of the
+    joined checkpoint and each step's loss and counts within
+    LM_GAP_MULT times the gap between two stacked runs (see the module's
+    docstring), the stacked runs made at the ranks' one thread."""
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import train
+    label, shape, arch, compression = case
+    rc = _lm_rc(arch, shape, compression)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = []
+        for _ in range(2):
+            out = train(build_model(rc.model, device="cpu"), rc,
+                        _loop(n_steps=LM_STEPS, spw=LM_SPW), device="cpu")
+            runs.append((out["history"], _leaves(out["state"])))
+    finally:
+        torch.set_num_threads(threads)
+    (h0, s0), (h1, s1) = runs
+    got = ranks[label]
+    assert len(got["history"]) == len(h0) == LM_STEPS
+    for a, b, c in zip(got["history"], h0, h1):
+        for key in ("applied_count", "local_count", "step"):
+            assert a[key] == b[key], (key, a, b)
+        gap = abs(b["loss"] - c["loss"])
+        assert abs(a["loss"] - b["loss"]) <= LM_GAP_MULT * gap, (a, b, c)
+    assert sorted(got["state"]) == sorted(s0)
+    for key in s0:
+        gap = np.abs(s1[key].astype(np.float64) - s0[key]).max()
+        err = np.abs(got["state"][key].astype(np.float64) - s0[key]).max()
+        assert err <= LM_GAP_MULT * gap, (key, err, gap)
+
+
 def test_multirank_restart_resumes_exactly(ranks):
     """2 steps on 2x1x1, a checkpoint (the ranks' shards joined on rank
     0's host), a restart on the same directory to step 4 (each rank's
@@ -304,7 +418,9 @@ def test_active_mesh_without_a_process_group_raises():
             arena_mod.push_pop(layout, ar, grads, torch.ones(2))
         with pytest.raises(RuntimeError, match="DeviceMesh"):
             api.build(model, rc, device="cpu")
-        with pytest.raises(NotImplementedError, match="A.11 part 2"):
+        # the gossip does not compose with a pod mesh (nor does JAX's)
+        with pytest.raises(NotImplementedError,
+                           match="does not compose with a pod mesh"):
             api.build(model, rc.replace(strategy="decentralized"),
                       device="cpu")
 
