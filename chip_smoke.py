@@ -330,8 +330,26 @@ Phases (any failure raises and the script exits non-zero):
      the host (printed). NCCL across cards is not measured: one card
      takes one NCCL rank.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22`` runs
-the build and then only the phases named among 8 and 13-22 (``2``: phase
+ 23. tensor parallelism over ``model`` (``dist.tensor_parallel``), on
+     two gloo ranks sharing the card, started once 22a's processes have
+     ended (beside them and phase 20 the card's memory ran out), beside
+     22b's check: qwen1.5-0.5b
+     FULL widths at 2 of its 24 layers, f32, flash, 4096 tokens, int8 pod
+     compression, tau 1, 2 steps of 4 sequences on 1x1x2, without and
+     with ``seq_parallel``, each held against the 1x1x1 stacked run made
+     in a process of its own: each step's loss to rtol 1e-4, every
+     parameter leaf within 1e-4 of its largest element plus one int8
+     step (the leaf's largest row scale over the applied count), the
+     counts exact; each rank's ms a step, its launches of B.1 and B.2
+     (inside their sharded wrappers, on rows over ``data x model``) and
+     of flash (on its 8 of the 16 heads: as many calls as the stacked
+     run's), added to the kernels line with the stacked run's; and the
+     ``model`` axis's census against ``launch.wire_model.
+     model_axis_bytes``.
+
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23``
+runs the build and then only the phases named among 8 and 13-23 (``2``:
+phase
 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a short
 call while working on them; no kernels or ok line).
 
@@ -5955,10 +5973,11 @@ def dec_rank_phase(tmp, procs):
     return out
 
 
-def mesh_phase(launches, bg=None):
+def mesh_phase(launches, bg=None, after_lm=None):
     """Phase 22: the LMs on the mesh (22a) and the per-rank gossip (22b),
     from the processes ``start_mesh_background`` started (None starts
-    them here). Adds 22a's launches to ``launches``."""
+    them here). Adds 22a's launches to ``launches``. ``after_lm()`` runs
+    once 22a's processes have ended."""
     bg = bg or start_mesh_background()
     tmp, procs = bg
     rec = {}
@@ -5966,12 +5985,244 @@ def mesh_phase(launches, bg=None):
         t0 = time.perf_counter()
         rec["lm_mesh"] = mesh_lm_phase(tmp, procs, launches)
         rec["lm_mesh_s"] = time.perf_counter() - t0
+        if after_lm is not None:
+            after_lm()
         t0 = time.perf_counter()
         rec["gossip_rank"] = dec_rank_phase(tmp, procs)
         rec["gossip_rank_s"] = time.perf_counter() - t0
     finally:
         stop_mesh_background(bg)
     return rec
+
+
+# -- phase 23: tensor parallelism over 'model' ------------------------------
+# qwen1.5-0.5b FULL widths at MESH_LM_LAYERS layers (22a's run, in f32) on
+# 1x1x2, without and with seq_parallel, against the 1x1x1 stacked run
+TP_RUNS = {"1x1x2": False, "1x1x2-sp": True}
+TP_RTOL = 1e-4        # loss; params: of the leaf's largest element
+
+
+def tp_config(sp):
+    """Phase 23's run config (``sp``: seq_parallel) on 1x1x2, in f32: a
+    bf16 run's reductions (the norms' scale gradients over 16384 tokens)
+    round apart by more than the limit wherever the partial sums are
+    cut differently, as two bf16 implementations do (the CPU tests'
+    bf16 limits are 2e-3 on the loss and 5e-2 on a gradient)."""
+    from repro_torch.configs.base import MeshConfig
+    cfg = lm_config("flash", n_layers=MESH_LM_LAYERS, seq_parallel=sp,
+                    compute_dtype="float32")
+    rc = lm_run_config(cfg, MESH_LM_SEQ, MESH_LM_WORKERS, 2, tau=1)
+    return rc.replace(mesh=MeshConfig(1, 1, 2))
+
+
+def tp_run(sp, device, mesh=None):
+    """One phase-23 run (on ``mesh``, or stacked in this process):
+    (history, the whole params as one flat f32 array (None on a rank
+    but 0), launches, each leaf's largest int8 row scale of the ring)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.arena import (flatten_tree, make_layout,
+                                        tree_flatten, tree_unflatten)
+    from repro_torch.dist.tensor_parallel import model_dims
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import LoopConfig, train
+    counters = mesh_counters()
+    rc = tp_config(sp)
+    model = build_model(rc.model, device=device)
+    layout = make_layout(model.whole_param_shapes())
+    loop = LoopConfig(n_steps=MESH_LM_STEPS, n_workers=MESH_LM_WORKERS,
+                      samples_per_worker=1, log_every=1)
+    for k in counters.values():
+        k.launches = 0
+    out = train(model, rc, loop, device=device, mesh=mesh)
+    launches = {n: k.launches for n, k in counters.items()}
+    hist = out["history"]
+    leaves, treedef = tree_flatten(out["state"].params)
+    if mesh is not None:
+        # join the model blocks (outside the census: the check's own)
+        dims = model_dims(rc.model, layout, model.param_axes(), rc.mesh)
+        group = mesh.device_mesh.get_group("model")
+        for i, dim in enumerate(dims):
+            if dim is not None:
+                parts = [torch.empty_like(leaves[i]) for _ in range(2)]
+                dist.all_gather(parts, leaves[i].contiguous(), group=group)
+                leaves[i] = torch.cat(parts, dim=dim)
+    flat = None
+    if mesh is None or dist.get_rank() == 0:
+        flat = flatten_tree(layout, tree_unflatten(treedef, leaves)
+                            ).cpu().numpy()
+    step = None
+    if mesh is None:
+        r2l = layout.row_to_leaf_on(device)
+        smax = torch.stack([s[0] for s in out["state"].arena.scales]
+                           ).amax(0)
+        step = [float(smax[r2l == i].max()) for i in range(layout.n_leaves)]
+    del out, model
+    torch.cuda.empty_cache()
+    return hist, flat, launches, step
+
+
+def tp_rank_main(out_dir):
+    """Phase 23's ranks (``--tp-rank=DIR`` under torch.distributed.run):
+    each run of TP_RUNS on 1x1x2; rank 0 writes the params, each rank
+    its record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist.collectives import wire_census
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {}
+    try:
+        for label, sp in TP_RUNS.items():
+            t0 = time.perf_counter()
+            mesh = make_mesh(tp_config(sp).mesh, "cuda")
+            with wire_census() as census:
+                hist, flat, launches, _ = tp_run(sp, "cuda", mesh)
+            rec[label] = dict(history=hist, launches=launches,
+                              seconds=time.perf_counter() - t0,
+                              census=[[*k, n] for k, n in
+                                      census.bytes.items()])
+            if rank == 0:
+                np.save(f"{out_dir}/tp-{label}.npy", flat)
+    finally:
+        dist.destroy_process_group()
+    with open(f"{out_dir}/tp-rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def tp_ref_main(out_dir):
+    """Phase 23's reference (``--tp-ref=DIR``): the 1x1x1 stacked run in
+    this process; its params, each leaf's int8 step and its record
+    written to DIR."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    hist, flat, launches, step = tp_run(False, "cuda")
+    np.save(f"{out_dir}/tp-ref.npy", flat)
+    with open(f"{out_dir}/tp-ref.json", "w") as f:
+        json.dump(dict(history=hist, launches=launches, int8_step=step,
+                       seconds=time.perf_counter() - t0), f)
+    return 0
+
+
+def start_tp_background():
+    """Start phase 23's processes in a temporary directory: the two ranks
+    and the stacked reference. Returns (the directory, {name: (process,
+    start time)})."""
+    import os
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    script = str(root / "chip_smoke.py")
+    procs = {}
+    for name, cmd in (
+            ("23 ranks", [sys.executable, "-m", "torch.distributed.run",
+                          "--nproc-per-node=2", f"--master-port={free_port()}",
+                          "--monitor-interval=0.5", script,
+                          f"--tp-rank={tmp}"]),
+            ("23 reference", [sys.executable, script, f"--tp-ref={tmp}"])):
+        procs[name] = (subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, start_new_session=True), time.perf_counter())
+    return tmp, procs
+
+
+def tp_phase(launches, bg=None):
+    """Phase 23: reads the ranks' and the reference's records; holds each
+    run's losses, params and counts against the stacked run, each rank's
+    launches against the stacked run's and its ``model`` census against
+    ``model_axis_bytes``; prints each rank's ms a step, the launches and
+    the census. Adds the launches to ``launches``."""
+    import numpy as np
+    from repro_torch.core.arena import make_layout
+    from repro_torch.dist.tensor_parallel import model_dims
+    from repro_torch.launch.wire_model import model_axis_bytes
+    from repro_torch.models.api import build_model
+    bg = bg or start_tp_background()
+    tmp, procs = bg
+    try:
+        secs = {n: wait_mesh_process(n, *procs[n]) for n in procs}
+        ranks = [read_json(f"{tmp}/tp-rank{r}.json") for r in range(2)]
+        ref = read_json(f"{tmp}/tp-ref.json")
+        want = np.load(f"{tmp}/tp-ref.npy")
+        got_flat = {label: np.load(f"{tmp}/tp-{label}.npy")
+                    for label in TP_RUNS}
+    finally:
+        stop_mesh_background(bg)
+    rc = tp_config(False)
+    model = build_model(rc.model, device="cpu")
+    layout = make_layout(model.param_shapes())
+    dims = model_dims(rc.model, layout, model.param_axes(), rc.mesh)
+    h_ref = ref["history"]
+    counts = [h["applied_count"] for h in h_ref if h["applied_count"]]
+    for name, k in ref["launches"].items():
+        launches[name] += k
+    out = {"seconds": secs, "ref_s": ref["seconds"]}
+    for label, sp in TP_RUNS.items():
+        got = got_flat[label]
+        worst = 0.0
+        for i, (ofs, size) in enumerate(zip(layout.row_offsets,
+                                            layout.sizes)):
+            a = got.reshape(-1)[ofs * 128:ofs * 128 + size]
+            b = want.reshape(-1)[ofs * 128:ofs * 128 + size]
+            limit = TP_RTOL * float(np.abs(b).max()) + \
+                ref["int8_step"][i] / min(counts)
+            err = float(np.abs(a - b).max())
+            assert err <= limit, (label, i, err, limit)
+            worst = max(worst, err / limit)
+        h = ranks[0][label]["history"]
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(h, h_ref))
+        assert loss_rel <= TP_RTOL, (label, loss_rel)
+        for a, b in zip(h, h_ref):
+            for key in ("applied_count", "local_count"):
+                assert a[key] == b[key], (label, key, a, b)
+        n = [ranks[r][label]["launches"] for r in range(2)]
+        for r in range(2):
+            assert n[r] == ref["launches"], (label, r, n[r], ref["launches"])
+            for name, k in n[r].items():
+                launches[name] += k
+        cfg = tp_config(sp).model
+        one = model_axis_bytes(cfg, layout, dims, MESH_LM_WORKERS // 2,
+                               MESH_LM_SEQ, 2, 2, "int8")
+        census = {}
+        for r in range(2):
+            census = {f"{tag}/{dt}": b for axis, dt, tag, b in
+                      ranks[r][label]["census"] if axis == "model"}
+            model_count = {f"{t}/{dt}": MESH_LM_STEPS * b
+                           for (t, dt), b in one.items()}
+            assert census == model_count, (label, r, census, model_count)
+        step_ms = [[1e3 * s["step_s"] for s in ranks[r][label]["history"]]
+                   for r in range(2)]
+        out[label] = dict(loss_rel=loss_rel, params_err_over_limit=worst,
+                          step_ms=step_ms, launches=n[0], census=census,
+                          loss=[s["loss"] for s in h],
+                          loss_ref=[s["loss"] for s in h_ref],
+                          ref_step_ms=[1e3 * s["step_s"] for s in h_ref],
+                          rank_s=[ranks[r][label]["seconds"]
+                                  for r in range(2)])
+        log(f"phase 23: qwen1.5-0.5b FULL widths {MESH_LM_LAYERS} layers "
+            f"flash int8 {MESH_LM_SEQ} tokens on {label} (tensor parallel "
+            f"over 2 gloo ranks on the card, seq_parallel={sp}), "
+            f"{MESH_LM_STEPS} steps: loss rel gap {loss_rel:.3e} (limit "
+            f"{TP_RTOL}); params worst leaf at {worst:.3f} of its limit "
+            f"({TP_RTOL} of the leaf's largest element + one int8 step); "
+            f"counts equal; ms a step, rank 0 / 1: {step_ms} (stacked "
+            f"{out[label]['ref_step_ms']}); launches a rank (8 of 16 heads "
+            f"a flash call): B.1 {n[0]['dual_update']}, B.2 "
+            f"{n[0]['slot_rotate']}, flash fwd_lse / dq / dkv "
+            f"{n[0]['flash_fwd_lse']} / {n[0]['flash_bwd_dq']} / "
+            f"{n[0]['flash_bwd_dkv']} (the stacked run's); 'model' census "
+            f"(bytes a rank over the run) {json.dumps(census)} = "
+            f"model_axis_bytes x {MESH_LM_STEPS}")
+    return out
 
 
 def card_line():
@@ -5988,13 +6239,15 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside the repository)
-    # the processes phases 21b and 22 start: 21b's ranks and reference,
-    # 22a's ranks and reference, 22b's ranks, reference and probe
+    # the processes phases 21b, 22 and 23 start: 21b's ranks and
+    # reference, 22a's ranks and reference, 22b's ranks, reference and
+    # probe, 23's ranks and reference
     roles = {"--dist-rank": dist_rank_main, "--stacked-ref": stacked_ref_main,
              "--mesh-lm-rank": mesh_lm_rank_main,
              "--mesh-lm-ref": mesh_lm_ref_main,
              "--dec-rank": dec_rank_main, "--dec-ref": dec_rank_ref_main,
-             "--p2p-probe": p2p_probe_main}
+             "--p2p-probe": p2p_probe_main, "--tp-rank": tp_rank_main,
+             "--tp-ref": tp_ref_main}
     for a in sys.argv[1:]:
         flag, _, value = a.partition("=")
         if flag in roles:
@@ -6074,8 +6327,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,14,15,16,17,18,19,20,21,22``: after the build, run
-    # only those of phases 8 and 13-22 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,14,15,16,17,18,19,20,21,22,23``: after the build, run
+    # only those of phases 8 and 13-23 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -6144,6 +6397,10 @@ def main():
             t0 = time.perf_counter()
             record["mesh"] = mesh_phase(launches)
             phase_done("phase 22", t0)
+        if "23" in picked:
+            t0 = time.perf_counter()
+            record["tp"] = tp_phase(launches)
+            phase_done("phase 23", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -6617,16 +6874,34 @@ def main():
     phase_done("phase 21", t0)
 
     # -- 22. the LMs on the mesh, the per-rank gossip -----------------------
+    # phase 23's processes start once 22a's have ended: beside them (and
+    # phase 20) the card's 80 GB ran out; this process's cached blocks
+    # go back to the card first
     t0 = time.perf_counter()
-    mesh = mesh_phase(launches, bg=mesh_bg)
+    tp_bg = []
+
+    def start_tp():
+        torch.cuda.empty_cache()
+        tp_bg.append(start_tp_background())
+    try:
+        mesh = mesh_phase(launches, bg=mesh_bg, after_lm=start_tp)
+    except BaseException:
+        for bg in tp_bg:
+            stop_mesh_background(bg)
+        raise
     phase_done("phase 22", t0)
+
+    # -- 23. tensor parallelism over 'model' --------------------------------
+    t0 = time.perf_counter()
+    tp = tp_phase(launches, bg=tp_bg[0])
+    phase_done("phase 23", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
                     "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
-                    "mesh": mesh, "phase_s": phase_s,
+                    "mesh": mesh, "tp": tp, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -61,7 +61,12 @@ def serve(model: Model, rc: RunConfig, publisher=None, device="cuda"):
     Returns (engine, queue); pass the train loop's ``WeightPublisher``
     to attach the bounded-staleness weight channel
     (``engine.refresh_weights(now)`` pops the freshest due snapshot)."""
+    from repro_torch.models.transformer import model_size
     from repro_torch.serve import Engine, RequestQueue
+    if model_size() > 1:
+        raise NotImplementedError(
+            f"serving on a mesh with model={model_size()}: the serve "
+            "profile's layout over 'model' is ROADMAP A.11 part 2, item 6")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"the model lives on {model.device}, the engine "

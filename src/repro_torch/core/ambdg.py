@@ -37,14 +37,19 @@ draws from ``core.batch_schedule`` as a 0-dim ``batch["b_sched"]``
 tensor on the device, which replaces ``b_bar`` in alpha. It runs on
 the arena master only, as in the JAX package.
 
-Under a multi-rank ``P x D x 1`` mesh (``launch.mesh``; an active
+Under a multi-rank ``P x D x M`` mesh (``launch.mesh``; an active
 ``dist.context`` profile of more than one device) the step is the
 sharded master, ZeRO-like: each rank gets its block of the batch (its
-share of its pod's microbatches), runs it, reduce-scatters the pod's
-gradient rows over ``data``, pushes and pops its row shard through the
-ring (``arena.push_pop``'s sharded route: the pods cross in the ring's
-collectives), updates z on its rows and all-gathers w over ``data`` to
-rebuild the replicated parameters (``dual_averaging.update_arena``).
+share of its pod's microbatches, the same on every ``model`` rank),
+runs it (at ``model > 1`` on its parameter blocks, the dense
+transformers' tensor parallelism, ``dist.tensor_parallel``), turns the
+gradient into its block of the whole tree's arena rows
+(``_grad_rows``: the model blocks gathered leaf by leaf, then
+reduce-scattered over ``data``), pushes and pops its row shard through
+the ring (``arena.push_pop``'s sharded route: the pods cross in the
+ring's collectives), updates z on its rows, all-gathers w over ``data x
+model`` to rebuild the whole parameters (``dual_averaging.
+update_arena``) and keeps its model blocks of them.
 The pods' counts and losses cross in one small gather, so the metrics
 are global on every rank. amb and kbatch share this step; the pytree
 master, sgd and adam, and the dynamic trip over more than one data
@@ -178,17 +183,22 @@ class MeshShard(NamedTuple):
     """A rank's place in the step under a multi-rank mesh."""
     ranks: Any                 # dist.collectives.Ranks
     rows_local: int            # the arena rows it holds
-    data_group: Any            # the group its rows shard over (None: D = 1)
+    data_group: Any            # its pod's ranks over 'data' (None: D = 1)
+    rows_group: Any            # the group its rows shard over (None: 1)
     n_mb: int                  # its microbatches of its pod's chunk
+    ax: Any                    # tensor_parallel.ModelAxis (None: M = 1)
+    dims: Any                  # each leaf's model-cut dim (None: M = 1)
 
 
-def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
+def _mesh_shard(rc: RunConfig, layout, model) -> Optional[MeshShard]:
     """None off the mesh; under an active multi-rank mesh the rank's
     shard, after refusing every knob the sharded step does not carry
-    (each names ROADMAP A.11 part 2, item 4)."""
+    (each names ROADMAP A.11 part 2, item 4, or, for a family the model
+    axis does not carry, item 6)."""
     ranks = arena_mod.sharded_route("the AMB-DG train step")
     if ranks is None:
         return None
+    from repro_torch.dist import tensor_parallel
     from repro_torch.dist.context import active_mesh
     if active_mesh() != rc.mesh:
         raise ValueError(f"the active mesh {active_mesh()} is not the run's "
@@ -203,7 +213,8 @@ def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
             f"optimizer={rc.optimizer!r} under a multi-rank mesh: the "
             "sharded master runs dual averaging; sgd and adam on row "
             "shards are ROADMAP A.11 part 2, item 4")
-    n_data = ranks.sizes["data"]
+    n_data, n_model = ranks.sizes["data"], ranks.sizes["model"]
+    tensor_parallel.check_model_axis(rc.model, n_model)
     if n_data > 1 and rc.ambdg.anytime_impl == "while_dynamic":
         raise NotImplementedError(
             "anytime_impl='while_dynamic' with data > 1: splitting the "
@@ -214,37 +225,82 @@ def _mesh_shard(rc: RunConfig, layout) -> Optional[MeshShard]:
         raise ValueError(f"{n_mb} microbatches a pod do not split over "
                          f"its {n_data} data ranks")
     rows_local, _, group = arena_mod.shard_rows(layout, ranks)
-    if n_data > 1 and group is None:
+    if rows_local * n_data * n_model != layout.rows:
         raise ValueError(f"the arena's {layout.rows} rows do not split "
-                         f"over {n_data} data ranks")
-    return MeshShard(ranks, rows_local, group, n_mb // n_data)
+                         f"over {n_data} x {n_model} data x model ranks")
+    ax = tensor_parallel.model_axis()
+    dims = None if ax is None else tensor_parallel.model_dims(
+        rc.model, layout, model.param_axes(), rc.mesh)
+    return MeshShard(ranks, rows_local,
+                     ranks.group("data") if n_data > 1 else None, group,
+                     n_mb // n_data, ax, dims)
+
+
+def _grad_rows(layout, shard: MeshShard, grads):
+    """The gradient -> rows bridge: the rank's (rows_local, 128) block
+    of the pod's gradient in the whole tree's arena rows. Leaf by leaf,
+    a model-cut leaf's blocks are all-gathered over ``model`` (the
+    transient holds one whole leaf, never the whole gradient; the
+    leaves whose gradient each rank holds a part of were summed over
+    ``model`` in the backward, ``dist.tensor_parallel``), and the rows
+    of the data ranks' blocks this rank's model coordinate names (block
+    d M + m for every d) are copied into one buffer, which is
+    reduce-scattered over ``data``. At ``model = 1`` the buffer is
+    ``flatten_tree``'s."""
+    from repro_torch.dist.collectives import all_gather, reduce_scatter_rows
+    ranks, rl = shard.ranks, shard.rows_local
+    n_data, n_model = ranks.sizes["data"], ranks.sizes["model"]
+    m = ranks.coords["model"]
+    leaves, _ = arena_mod.tree_flatten(grads)
+    dims = shard.dims or [None] * len(leaves)
+    lanes = arena_mod.LANES
+    buf = torch.zeros((n_data, rl, lanes), dtype=torch.float32,
+                      device=leaves[0].device)
+    for leaf, dim, ofs, size, rc in zip(leaves, dims, layout.row_offsets,
+                                        layout.sizes, layout.row_counts):
+        if dim is not None:
+            leaf = torch.cat(all_gather(leaf, shard.ax.group, n_model,
+                                        axis="model", tag="grad_leaves"
+                                        ).unbind(0), dim=dim)
+        flat = leaf.reshape(-1)
+        for d in range(n_data):
+            b0 = (d * n_model + m) * rl
+            lo, hi = max(ofs, b0), min(ofs + rc, b0 + rl)
+            if lo < hi:
+                e0, e1 = (lo - ofs) * lanes, min(size, (hi - ofs) * lanes)
+                buf[d, lo - b0:hi - b0].reshape(-1)[:e1 - e0].copy_(
+                    flat[e0:e1])
+    if n_data == 1:
+        return buf[0]
+    return reduce_scatter_rows(buf.reshape(n_data * rl, lanes),
+                               shard.data_group, n_data, axis="data",
+                               tag="grad_rows")
 
 
 def _shard_grads(rc, loss_fn, layout, shard: MeshShard, params, batch):
     """The sharded twin of ``pod_chunk_grads``: ``batch`` is this rank's
     block of the global batch (``train.loop`` cuts it by the batch's
-    spec: its share of its pod's microbatches). The rank accumulates
-    its microbatches, flattens the sum into arena form and
-    reduce-scatters it over the pod's ``data`` ranks. The pods' counts
-    and loss sums come from one gather over every rank. Returns (the
-    rank's (1, rows_local, 128) gradient rows, counts (n_pods,), loss
-    sums (n_pods,))."""
-    from repro_torch.dist.collectives import all_gather, reduce_scatter_rows
+    spec: its share of its pod's microbatches, the same on every
+    ``model`` rank). The rank accumulates its microbatches (under
+    ``model > 1`` the gradient of its parameter blocks) and
+    ``_grad_rows`` turns the sum into its block of the pod's arena rows.
+    The pods' counts and loss sums come from one gather over every rank
+    (one ``model`` rank's a data rank). Returns (the rank's (1,
+    rows_local, 128) gradient rows, counts (n_pods,), loss sums
+    (n_pods,))."""
+    from repro_torch.dist.collectives import all_gather, axis_label
     ranks = shard.ranks
     batch, (n_active,) = anytime.pop_n_active(batch, 1)
-    n_data = ranks.sizes["data"]
     grads, count, metrics = accumulate(rc, loss_fn, params, batch, n_active,
                                        n_mb=shard.n_mb)
-    flat = arena_mod.flatten_tree(layout, grads)
-    if n_data > 1:
-        flat = reduce_scatter_rows(flat, shard.data_group, n_data,
-                                   axis="data", tag="grad_rows")
+    flat = _grad_rows(layout, shard, grads)
     stats = torch.stack([count, metrics["loss_sum"]]).to(torch.float32)
-    world = ranks.sizes["pod"] * n_data * ranks.sizes["model"]
-    axes = "+".join(a for a in ("pod", "data") if ranks.sizes[a] > 1)
-    stats = all_gather(stats, None, world, axis=axes,
+    sizes = ranks.sizes
+    world = sizes["pod"] * sizes["data"] * sizes["model"]
+    stats = all_gather(stats, None, world,
+                       axis=axis_label(("pod", "data", "model"), sizes),
                        tag="pod_counts").reshape(
-        ranks.sizes["pod"], n_data * ranks.sizes["model"], 2)
+        sizes["pod"], sizes["data"], sizes["model"], 2)[:, :, 0]
     per_pod = stats[:, 0] if stats.shape[1] == 1 else torch.sum(stats, 1)
     return flat[None], per_pod[:, 0], per_pod[:, 1]
 
@@ -256,18 +312,23 @@ def _shard_pod_sum(shard: MeshShard, pod_grads):
                       shard.ranks.group("pod"), axis="pod", tag="pod_pop")
 
 
-def shard_specs(layout, state, mesh) -> Dict[str, Any]:
+def shard_specs(layout, state, mesh, model=None) -> Dict[str, Any]:
     """The checkpoint path and spec of each leaf of ``state`` that a
     rank holds a shard of under a multi-rank ``mesh`` (a MeshConfig):
-    z's rows (``arena_slot_specs``'s row spec) and the arena's buffers
-    (``arena.arena_shard_specs``); every other leaf is whole on every
-    rank. A ``KBatchState``'s lie under its base. ``train.loop`` writes
+    z's rows (``arena_slot_specs``'s row spec), the arena's buffers
+    (``arena.arena_shard_specs``) and, at ``model > 1``, the parameters
+    ``model`` cuts (``tensor_parallel.param_specs`` of ``model``, which
+    that needs); every other leaf is whole on every rank. A ``KBatchState``'s lie under its base. ``train.loop`` writes
     and restores the sharded state's checkpoints with them."""
     from repro_torch.dist.sharding import arena_slot_specs
     if hasattr(state, "base"):
-        return {f".base/{k}": s
-                for k, s in shard_specs(layout, state.base, mesh).items()}
+        return {f".base/{k}": s for k, s in
+                shard_specs(layout, state.base, mesh, model).items()}
     out = {".opt_state/.z": arena_slot_specs(mesh, layout.rows)[2]}
+    if mesh.model > 1:
+        from repro_torch.dist.tensor_parallel import param_specs
+        out.update({f".params/{k}": s for k, s in param_specs(
+            model.cfg, layout, model.param_axes(), mesh).items()})
     if state.arena is not None:
         out.update({f".arena/{k}": s for k, s in arena_mod.arena_shard_specs(
             layout, state.arena, mesh).items()})
@@ -297,13 +358,14 @@ def build_step_fns(model: Model, rc: RunConfig):
     if use_arena:
         # shapes only (the meta device), as JAX builds it from eval_shape:
         # no second parameter set is allocated or drawn
-        layout = arena_mod.make_layout(model.param_shapes())
+        # the whole tree's layout, whatever 'model' cuts of the params
+        layout = arena_mod.make_layout(model.whole_param_shapes())
         opt = make_arena_optimizer(rc, layout, device)
     else:
         opt = make_optimizer(rc)
 
     # under a multi-rank mesh: the rank's pod and rows (None off it)
-    shard = _mesh_shard(rc, layout if use_arena else None)
+    shard = _mesh_shard(rc, layout if use_arena else None, model)
 
     def init_state(generator: Optional[torch.Generator] = None) -> TrainState:
         params = model.init(generator)   # on a mesh, every rank's alike
@@ -417,11 +479,16 @@ def build_step_fns(model: Model, rc: RunConfig):
                                             state.opt_state, state.arena,
                                             pod_grads, pod_counts,
                                             compression, b_sched=b_sched)
+                if shard is not None and shard.ax is not None:
+                    # the rank's model blocks of the whole tree
+                    from repro_torch.dist.tensor_parallel import cut_params
+                    params = cut_params(params, shard.dims, shard.ax)
                 # scalar divide after the reduce: the value of norm(g / c)
                 sq = torch.sum(torch.square(grad_sum))
-                if shard is not None and shard.data_group is not None:
+                if shard is not None and shard.rows_group is not None:
                     from repro_torch.dist.collectives import all_reduce
-                    sq = all_reduce(sq, shard.data_group, axis="data",
+                    sq = all_reduce(sq, shard.rows_group,
+                                    axis=arena_mod.rows_axis(shard.ranks),
                                     tag="metrics")
                 g_norm = torch.sqrt(sq) / torch.clamp(count, min=1e-12)
             local = torch.sum(pod_counts)

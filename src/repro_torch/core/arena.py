@@ -26,12 +26,16 @@ like v1 and pushed at v2's phase schedule, with per-slot ``due`` and
 
 Under a multi-rank mesh (an active ``dist.context`` profile of more
 than one device, ``launch.mesh``: pods over ranks, rows over the
-``data`` ranks of a pod) each rank holds its ``(local_pods, rows_local,
-128)`` shard of every ring buffer (``init_arena(..., local=...)``) and
-the counts whole, and ``push_pop`` / ``push_pop_variable`` take the
-sharded wrappers of ``kernels.delay_ring.ops``; their gradient is then
-the rank's row shard in arena form, already summed over the pod's
-``data`` ranks. An active multi-rank mesh with no process group raises;
+``data x model`` ranks of a pod) each rank holds its ``(local_pods,
+rows_local, 128)`` shard of every ring buffer (``init_arena(...,
+local=...)``) and the counts whole, and ``push_pop`` /
+``push_pop_variable`` take the sharded wrappers of
+``kernels.delay_ring.ops``; their gradient is then the rank's row shard
+in arena form, already summed over the pod's ``data`` ranks. The rows
+are always those of the whole parameter tree (JAX's layout), whatever
+the ``model`` axis cuts of the parameters: the int8 scales are per row,
+so the ring, the checkpoint and the stacked run quantize the same
+rows. An active multi-rank mesh with no process group raises;
 the stacked off-mesh route runs only when no such mesh is active.
 
 Where the JAX package donates buffers to ``jit``
@@ -423,14 +427,14 @@ def arena_specs(arena: GradArena, mesh) -> GradArena:
 
 
 def row_scales(layout: ArenaLayout, fed, row0: int = 0,
-               group=None) -> torch.Tensor:
+               group=None, axis: str = "data") -> torch.Tensor:
     """Per-row int8 scales reproducing the per-(pod, leaf) symmetric
     scales bitwise: a row max, a segment max over the static
     row -> leaf map, max(amax, 1e-12) / 127. fed: (n_pods, rows, 128)
     f32. Returns (n_pods, rows) f32. On a row shard (rows ``row0`` on
-    of the arena) ``group`` is the ``data`` group the rows shard over:
-    the per-leaf maxima are all-reduced (MAX) across it, still bitwise
-    (a max is a max whatever the order)."""
+    of the arena) ``group`` is the group the rows shard over (``axis``
+    its name in the census): the per-leaf maxima are all-reduced (MAX)
+    across it, still bitwise (a max is a max whatever the order)."""
     r2l = layout.row_to_leaf_on(fed.device)
     if fed.shape[1] != layout.rows:
         r2l = r2l[row0:row0 + fed.shape[1]]
@@ -445,7 +449,7 @@ def row_scales(layout: ArenaLayout, fed, row0: int = 0,
         import torch.distributed as dist
 
         from repro_torch.dist.collectives import all_reduce
-        all_reduce(amax, group, op=dist.ReduceOp.MAX, axis="data",
+        all_reduce(amax, group, op=dist.ReduceOp.MAX, axis=axis,
                    tag="scales_max")
     # sentinel segment (tail pad rows) -> scale 1: pads are zero
     amax[:, layout.n_leaves] = 127.0
@@ -482,7 +486,8 @@ def _fed(layout: ArenaLayout, arena: GradArena, pod_grads, ranks=None):
         return fed, row_scales(layout, fed)
     fed = torch.add(pod_grads, arena.residual, out=arena.staging)
     _, row0, group = shard_rows(layout, ranks)
-    return fed, row_scales(layout, fed, row0=row0, group=group)
+    return fed, row_scales(layout, fed, row0=row0, group=group,
+                           axis=rows_axis(ranks))
 
 
 def _int8_quantize(layout: ArenaLayout, arena: GradArena, pod_grads,
@@ -548,9 +553,10 @@ def sharded_route(what: str):
 def shard_rows(layout: ArenaLayout, ranks) -> Tuple[int, int, Any]:
     """(rows_local, row0, group or None): the block of the arena's rows
     this rank holds, where ``dist.sharding.block`` places it under
-    ``arena_slot_specs``'s row spec, and the group of the ranks that
-    share its pod's rows (all the rows, and no group, where the spec
-    does not split them)."""
+    ``arena_slot_specs``'s row spec (JAX's global layout of the whole
+    parameter tree, cut into ``data x model`` blocks, ``data`` the
+    slowest), and the group of the ranks that share its pod's rows (all
+    the rows, and no group, where the spec does not split them)."""
     from repro_torch.dist.context import active_mesh
     from repro_torch.dist.sharding import arena_slot_specs, block, entry_axes
     mesh = active_mesh()
@@ -559,10 +565,14 @@ def shard_rows(layout: ArenaLayout, ranks) -> Tuple[int, int, Any]:
     n, idx = block(entry, mesh, ranks.coords)
     if n == 1:
         return layout.rows, 0, None
-    # the axis of the row entry that splits it: 'data' ('model' is 1)
-    (axis,) = [a for a in entry_axes(entry) if ranks.sizes[a] > 1]
     rows_local = layout.rows // n
-    return rows_local, idx * rows_local, ranks.group(axis)
+    return rows_local, idx * rows_local, ranks.group(entry_axes(entry))
+
+
+def rows_axis(ranks) -> str:
+    """The census's name of the group the arena's rows shard over."""
+    from repro_torch.dist.collectives import axis_label
+    return axis_label(("data", "model"), ranks.sizes)
 
 
 _SHARDED_FIELDS = ("ring", "scales", "residual", "staging")

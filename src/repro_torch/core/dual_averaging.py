@@ -117,8 +117,10 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     ``b_sched`` (an adaptive batch schedule's target) the static
     ``b_bar``. Under a multi-rank mesh (``arena.sharded_route``) z and
     g_sum are the rank's row shard: ``dual_update_arena_sharded``
-    updates them, and w is all-gathered over the ``data`` group before
-    the projection, so the parameters come back whole on every rank.
+    updates them, and w is all-gathered over the group the rows shard
+    over (``data x model``) before the projection, so the whole
+    parameter tree comes back on every rank (``core.ambdg`` cuts the
+    rank's ``model`` blocks from it).
 
     ``proximal="l2"`` matches the JAX package bit for bit. Under
     ``"l2_ball"`` the ball norm is one flat reduction whose summation
@@ -136,13 +138,14 @@ def update_arena(layout, state: ArenaDualAveragingState, g_sum, count,
     if ranks is None:
         z_next, w = dual_update_arena(state.z, g_sum, count, a)
     else:
-        # the rank's rows; w all-gathered over 'data' rebuilds the
-        # replicated parameters (and the ball norm sees every row)
+        # the rank's rows; w all-gathered over the row group rebuilds
+        # the whole parameters (and the ball norm sees every row)
         z_next, w = dual_update_arena_sharded(state.z, g_sum, count, a)
         if w.shape[0] != layout.rows:
             from repro_torch.dist.collectives import all_gather_rows
-            w = all_gather_rows(w, ranks.group("data"),
-                                layout.rows // w.shape[0], axis="data",
+            w = all_gather_rows(w, ranks.group(("data", "model")),
+                                layout.rows // w.shape[0],
+                                axis=arena_mod.rows_axis(ranks),
                                 tag="w_rows")
     if cfg.proximal == "l2_ball":
         norm = torch.sqrt(torch.sum(torch.square(w)))   # arena pads are zero

@@ -8,11 +8,14 @@ state, the ambient mesh and the collectives of the multi-process path.
     state_specs(model, rc, init)    specs of the whole state
     local_shard(t, spec, mesh, c)   the block a rank holds
 
-The port runs ``P x D x 1`` meshes (``launch.mesh.make_mesh``): pods
-over ranks, the arena's rows over the ``data`` ranks of a pod, the
-parameters replicated. The specs are JAX's; where the port keeps a
-tensor whole that JAX's specs would shard (the parameters, the arena's
-counts), ``core.arena`` and ``core.ambdg`` say so.
+The port runs ``P x D x M`` meshes (``launch.mesh.make_mesh``): pods
+over ranks, the arena's rows over the ``data x model`` ranks of a pod,
+the dense transformers tensor parallel over ``model``
+(``dist.tensor_parallel``: their specs' ``model`` entries), the weights
+whole over ``data``. The specs are JAX's; where the port keeps a tensor
+whole that JAX's specs would shard (the weights over ``data``, the kv
+leaves whose heads do not split, the arena's counts),
+``dist.tensor_parallel``, ``core.arena`` and ``core.ambdg`` say so.
 """
 from __future__ import annotations
 

@@ -6,10 +6,17 @@ decentralized gossip's worker group (one worker a rank):
          the variable pop (one ``all_reduce`` a step), the compressed
          int8 payload and its row scales of the slot rotate
          (``all_gather``), each pod's count and loss (``all_gather``);
-  data   the intra-pod slice the arena's rows shard over: the pod's
-         gradient rows (``reduce_scatter``), the dual update's w
-         (``all_gather``), the int8 scales' per-leaf maxima and the
-         step's sums of squares (``all_reduce``);
+  data   the pod's gradient rows (``reduce_scatter``);
+  model  tensor parallelism (``dist.tensor_parallel``): the blocks'
+         activations and the vocab-parallel loss's reductions
+         (``all_reduce``), the sequence's gathers and scatters under
+         ``seq_parallel``, the model-sharded gradient leaves
+         (``all_gather``);
+  data+model  the intra-pod slice the arena's rows shard over (its
+         product group, or the one axis of it that is larger than 1):
+         the dual update's w (``all_gather``), the int8 scales'
+         per-leaf maxima and the step's sums of squares
+         (``all_reduce``);
   worker the gossip's neighbour exchange (``permute``, one point-to-point
          send and receive a stencil term), each worker's count and loss
          (``all_gather``), and the metrics' whole-message sums
@@ -29,7 +36,8 @@ of ``launch.wire_model``: an all-reduce 2 (n-1)/n P, an all-gather
 its payload. The dtype is JAX's short name ("f32", "s8", ...; bf16
 crosses as its raw bits, "u16"); the tag names the call site
 ("pod_pop", "pod_counts", "grad_rows", "w_rows", "scales_max",
-"metrics", "gossip", "worker_counts"). The census is Python integer sums
+"metrics", "gossip", "worker_counts", and ``dist.tensor_parallel``'s
+"tp_act", "tp_seq", "tp_loss", "tp_param", "grad_leaves"). The census is Python integer sums
 on the host: no device sync, always on. ``wire_census()`` reads it:
 
     with wire_census() as census:
@@ -40,7 +48,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -56,6 +64,24 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+# (id of a DeviceMesh, its axes) -> this rank's group over the product
+# of those axes (``launch.mesh.make_mesh`` makes the ("data", "model")
+# one of every pod and registers this rank's)
+_PRODUCT_GROUPS: Dict[tuple, object] = {}
+
+
+def register_product_group(device_mesh, axes: Tuple[str, ...], group):
+    """Record ``group`` as this rank's group over the product of
+    ``axes`` of ``device_mesh`` (``Ranks.group(axes)`` returns it)."""
+    _PRODUCT_GROUPS[(id(device_mesh), tuple(axes))] = group
+
+
+def axis_label(axes, sizes: Dict[str, int]) -> str:
+    """The census's name of a group over ``axes``: those larger than 1,
+    joined by "+" ("data+model", "model", ...)."""
+    return "+".join(a for a in axes if sizes[a] > 1)
+
+
 class Ranks(NamedTuple):
     """Where this rank sits in the ambient mesh: its coordinates and
     the axis sizes, by axis name."""
@@ -63,8 +89,24 @@ class Ranks(NamedTuple):
     coords: Dict[str, int]
     sizes: Dict[str, int]
 
-    def group(self, axis: str):
-        return self.device_mesh.get_group(axis)
+    def group(self, axis):
+        """The group over mesh axis ``axis``, or over the product of a
+        tuple of axes: of those larger than 1, the one axis's group, or
+        the product group ``make_mesh`` registered (None where every
+        axis is 1)."""
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(axis)
+        big = tuple(a for a in axis if self.sizes[a] > 1)
+        if not big:
+            return None
+        if len(big) == 1:
+            return self.device_mesh.get_group(big[0])
+        key = (id(self.device_mesh), tuple(axis))
+        if key not in _PRODUCT_GROUPS:
+            raise RuntimeError(
+                f"no group over the product of {axis} is registered for "
+                "the active DeviceMesh (launch.mesh.make_mesh makes it)")
+        return _PRODUCT_GROUPS[key]
 
     def coords_of(self, rank: int) -> Dict[str, int]:
         """The coordinates of the world's rank ``rank``."""
@@ -187,12 +229,18 @@ def wire_census():
 # ---------------------------------------------------------------------------
 def all_gather(x: torch.Tensor, group, n: int, *, axis: str,
                tag: str) -> torch.Tensor:
-    """(n, *x.shape): every rank's ``x`` in group-rank order."""
-    out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
-    _all_gather(out, x.contiguous().reshape(-1), group=group)
+    """(n, *x.shape): every rank's ``x`` in group-rank order. A bf16
+    tensor crosses as its raw bytes (a gather moves bits; not every
+    backend takes bf16)."""
+    wire = x.contiguous().reshape(-1)
+    if x.dtype == torch.bfloat16:
+        wire = wire.view(torch.uint8)
+    out = torch.empty((n * wire.numel(),), dtype=wire.dtype,
+                      device=x.device)
+    _all_gather(out, wire, group=group)
     # (n - 1) / n of the n * x.nbytes gathered
     CENSUS.add(axis, _WIRE_NAMES[x.dtype], tag, (n - 1) * x.nbytes)
-    return out.reshape((n,) + tuple(x.shape))
+    return out.view(x.dtype).reshape((n,) + tuple(x.shape))
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM, *, axis: str,

@@ -1,0 +1,391 @@
+"""Tensor parallelism over the mesh's ``model`` axis for the dense
+transformers: the collectives GSPMD inserts for the JAX package's train
+profile (``dist.sharding``: "heads", "mlp" and "vocab" on ``model``),
+written out, and the rule that cuts each rank's parameters.
+
+The layout (Megatron's, on JAX's specs):
+
+  * ``wq``, ``wk``, ``wv`` and their biases are column-parallel, cut by
+    whole heads: rank m runs query heads [m H/M, (m+1) H/M) and the kv
+    heads they group with; ``wo`` is row-parallel. Where ``n_kv_heads
+    % M != 0`` (chatglm3's 2 kv heads at M = 4) each rank keeps ``wk``,
+    ``wv``, ``bk`` and ``bv`` whole and slices the kv head it needs
+    (JAX's resolver would cut such a head in half, which a hand-written
+    split cannot);
+  * ``w_gate`` and ``w_up`` are column-parallel over "mlp", ``w_down``
+    row-parallel;
+  * ``tok_emb`` keeps its vocab dim whole (``(None, "embed")``); an
+    untied ``out_head`` is vocab-parallel; a tied head multiplies by the
+    rank's vocab rows of the table (``vocab_slice``, JAX's reshard at
+    the use site);
+  * the loss is the vocab-parallel cross entropy over the padded vocab
+    (``cross_entropy``);
+  * the weights stay whole over ``data`` (JAX's train profile puts
+    "embed" there, FSDP; the port does not).
+
+The autograd ops, each a ``torch.autograd.Function``:
+
+  copy        identity forward, all-reduce backward: before a
+              column-parallel product, and on a whole parameter whose
+              gradient each rank holds a part of (the whole kv leaves,
+              ``q_norm``/``k_norm``, the norms' scales under
+              ``seq_parallel``), so every replicated leaf's gradient is
+              the same on every rank;
+  reduce      all-reduce forward, identity backward: after a
+              row-parallel product;
+  gather_seq  under ``seq_parallel``: the sequence's all-gather before
+              a block (backward: its reduce-scatter);
+  scatter_seq the reduce-scatter of the sequence after it (backward:
+              the all-gather);
+  split_seq   the rank's sequence block of the embedding (backward: the
+              all-gather);
+  vocab_slice the rank's vocab rows of the tied table (backward: the
+              all-gather of the rows' gradients over the vocab).
+
+Reductions run in f32 (a bf16 partial is widened first and the sum
+rounded back once), gathers in the tensor's own dtype. Every call adds
+its bytes to the census (``dist.collectives``) under axis "model":
+"tp_act" (copy and reduce on activations), "tp_seq" (the sequence's
+gathers and scatters), "tp_param" (copy on parameters, the tied
+table's gather), "tp_loss" (the loss's three reductions);
+``core.ambdg``'s gradient bridge adds "grad_leaves".
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import DENSE, ModelConfig
+
+# the attention leaves kept whole where the kv heads do not split
+_KV_LEAVES = ("wk", "wv", "bk", "bv")
+
+
+class ModelAxis(NamedTuple):
+    """This rank on the ``model`` axis: the group, its size and rank."""
+    group: object
+    n: int
+    rank: int
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The ``model`` axis of the active mesh when it is larger than 1,
+    else None; raises when such a mesh has no process group behind it
+    (tensor parallelism never drops back to the whole weights)."""
+    from repro_torch.dist.context import active_mesh
+    mesh = active_mesh()
+    if mesh is None or mesh.model == 1:
+        return None
+    from repro_torch.dist.collectives import require_mesh
+    ranks = require_mesh("tensor parallelism over 'model'")
+    return ModelAxis(ranks.group("model"), ranks.sizes["model"],
+                     ranks.coords["model"])
+
+
+def check_model_axis(cfg: ModelConfig, n: int) -> None:
+    """Raise for a config the ``model`` axis of size ``n`` does not
+    carry: a family but DENSE (``NotImplementedError``, ROADMAP A.11
+    part 2, item 6), or widths that do not split over ``n`` ranks by
+    whole heads, whole kv groups, "mlp" columns and vocab rows
+    (``ValueError``)."""
+    if n == 1:
+        return
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} on a mesh with model={n}: tensor "
+            "parallelism over 'model' carries the dense transformers; the "
+            "other families are ROADMAP A.11 part 2, item 6")
+    if cfg.n_heads % n:
+        raise ValueError(f"{cfg.n_heads} attention heads do not split over "
+                         f"model={n} ranks by whole heads")
+    q_local = cfg.n_heads // n
+    group = cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % n and group % q_local:
+        raise ValueError(
+            f"the {q_local} query heads of a rank (model={n}) straddle the "
+            f"kv groups of {group} heads: each rank must hold whole kv "
+            "groups or lie inside one")
+    for what, dim in (("d_ff", cfg.d_ff),
+                      ("padded_vocab_size", cfg.padded_vocab_size)):
+        if dim % n:
+            raise ValueError(f"{what}={dim} does not split over model={n} "
+                             "ranks")
+
+
+def local_heads(cfg: ModelConfig, ax: ModelAxis) -> Tuple[int, int, int,
+                                                         bool]:
+    """(query heads a rank, its first kv head, kv heads it runs, whether
+    it slices them from the whole kv leaves)."""
+    q_local = cfg.n_heads // ax.n
+    if cfg.n_kv_heads % ax.n == 0:
+        return q_local, 0, cfg.n_kv_heads // ax.n, False
+    group = cfg.n_heads // cfg.n_kv_heads
+    return q_local, ax.rank * q_local // group, 1, True
+
+
+def leaf_spec(cfg: ModelConfig, name: str, shape, axes, mesh):
+    """The spec a rank cuts leaf ``name`` (its logical ``axes`` and
+    whole ``shape``) by: JAX's train-profile spec restricted to its
+    ``model`` entry (the weights stay whole over ``data``), and no cut
+    for the kv leaves where the kv heads do not split."""
+    from repro_torch.dist.sharding import Spec, entry_axes, spec_for
+    if name in _KV_LEAVES and cfg.n_kv_heads % mesh.model:
+        return Spec()
+    entries = [e if "model" in entry_axes(e) else None
+               for e in spec_for(tuple(axes), tuple(shape), mesh)]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return Spec(*entries)
+
+
+def param_cutter(cfg: ModelConfig):
+    """Under an active mesh with ``model > 1``: the hook
+    ``models.common.ParamFactory`` cuts each drawn leaf with (this
+    rank's block by ``leaf_spec``, a copy of its own); else None."""
+    ax = model_axis()
+    if ax is None:
+        return None
+    check_model_axis(cfg, ax.n)
+    from repro_torch.dist.context import active_mesh
+    from repro_torch.dist.sharding import local_shard
+    mesh, coords = active_mesh(), {"model": ax.rank}
+
+    def cut(name, value, axes):
+        spec = leaf_spec(cfg, name, value.shape, axes, mesh)
+        return local_shard(value, spec, mesh, coords).clone() if spec \
+            else value
+    return cut
+
+
+def model_dims(cfg: ModelConfig, layout, axes_tree, mesh):
+    """For each leaf of the whole tree's ``layout`` (sorted-key order):
+    the dim its ``model`` block is cut on, or None for a whole leaf."""
+    specs = _leaf_specs(cfg, layout, axes_tree, mesh)
+    return [next((d for d, e in enumerate(spec) if e is not None), None)
+            for _, spec in specs]
+
+
+def param_specs(cfg: ModelConfig, layout, axes_tree, mesh):
+    """{path in the parameter tree ("layers/attn/wq"): its ``leaf_spec``}
+    of each leaf a rank holds a ``model`` block of (the checkpoints join
+    and cut them)."""
+    return {path: spec for path, spec in
+            _leaf_specs(cfg, layout, axes_tree, mesh) if spec}
+
+
+def _leaf_specs(cfg, layout, axes_tree, mesh):
+    from repro_torch.core.arena import tree_flatten
+    axes, _ = tree_flatten(axes_tree)
+    paths = _leaf_paths(layout.treedef)
+    return [(path, leaf_spec(cfg, path.rsplit("/", 1)[-1], shape, ax, mesh))
+            for path, ax, shape in zip(paths, axes, layout.shapes)]
+
+
+def _leaf_paths(treedef, prefix: str = ""):
+    """Each leaf's path ("a/b/c"), in ``tree_flatten`` order."""
+    out = []
+    for k, d, _ in treedef:
+        path = f"{prefix}{k}"
+        out += [path] if d is None else _leaf_paths(d, path + "/")
+    return out
+
+
+def cut_params(params, dims, ax: ModelAxis):
+    """The rank's model blocks of a whole parameter tree (``dims`` from
+    ``model_dims``), each leaf a tensor of its own (none keeps the
+    whole tree's storage alive)."""
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(params)
+    out = []
+    for leaf, dim in zip(leaves, dims):
+        if dim is not None:
+            size = leaf.shape[dim] // ax.n
+            leaf = leaf.narrow(dim, ax.rank * size, size)
+        out.append(leaf.clone())
+    return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# The autograd ops
+# ---------------------------------------------------------------------------
+def _reduce(x: torch.Tensor, ax: ModelAxis, tag: str,
+            op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` all-reduced over ``model`` in f32, back in x's dtype."""
+    from repro_torch.dist.collectives import all_reduce
+    y = x.to(torch.float32, copy=True).contiguous()
+    all_reduce(y, ax.group, op, axis="model", tag=tag)
+    return y.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, ax: ModelAxis, dim: int, tag: str):
+    """Every rank's ``x`` joined along ``dim`` in rank order."""
+    from repro_torch.dist.collectives import all_gather
+    parts = all_gather(x, ax.group, ax.n, axis="model", tag=tag)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, ax: ModelAxis, dim: int, tag: str):
+    """The sum over ``model`` of ``x``, this rank keeping its block of
+    ``dim`` (reduced in f32, back in x's dtype)."""
+    from repro_torch.dist.collectives import reduce_scatter_rows
+    blocks = torch.stack(x.chunk(ax.n, dim=dim)).to(torch.float32)
+    out = reduce_scatter_rows(blocks, ax.group, ax.n, axis="model", tag=tag)
+    return out[0].to(x.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, tag):
+        ctx.ax, ctx.tag = ax, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.ax, ctx.tag), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, tag):
+        return _reduce(x, ax, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _gather(x, ax, 1, "tp_seq")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.ax, 1, "tp_seq"), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _reduce_scatter(x, ax, 1, "tp_seq")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.ax, 1, "tp_seq"), None
+
+
+class _Split(torch.autograd.Function):
+    """The rank's block of ``dim`` forward; the blocks' gradients
+    gathered backward, so the whole tensor's is the same on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, tag):
+        ctx.ax, ctx.dim, ctx.tag = ax, dim, tag
+        size = x.shape[dim] // ax.n
+        return x.narrow(dim, ax.rank * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.ax, ctx.dim, ctx.tag), None, \
+            None, None
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """log p(target) over the padded vocab from each rank's vocab block
+    of the logits: the row max (all-reduce MAX), the sum of exps
+    (all-reduce SUM) and the target's logit, from the rank that holds it
+    (all-reduce SUM). log p = (z_t - max) - log(sum exp(z - max)), as
+    ``log_softmax`` forms it."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, ax):
+        n_local = logits.shape[-1]
+        v0 = ax.rank * n_local
+        mx = _reduce(torch.amax(logits, dim=-1), ax, "tp_loss",
+                     dist.ReduceOp.MAX)
+        shifted = logits - mx[..., None]
+        e = torch.exp(shifted)
+        se = _reduce(torch.sum(e, dim=-1), ax, "tp_loss")
+        mine = (targets >= v0) & (targets < v0 + n_local)
+        idx = torch.where(mine, targets - v0, torch.zeros_like(targets))
+        zt = torch.gather(shifted, -1, idx[..., None])[..., 0]
+        zt = _reduce(torch.where(mine, zt, torch.zeros_like(zt)), ax,
+                     "tp_loss")
+        ctx.save_for_backward(e, se, idx, mine)
+        return zt - torch.log(se)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, idx, mine = ctx.saved_tensors
+        grad = -(e / se[..., None]) * g[..., None]
+        hit = torch.where(mine, g, torch.zeros_like(g))
+        grad.scatter_add_(-1, idx[..., None], hit[..., None])
+        return grad, None, None
+
+
+class TensorParallel:
+    """A forward's tensor parallelism: the ``model`` axis and whether
+    the residual stream is split over the sequence between blocks
+    (``seq_parallel`` at a length of more than one token)."""
+
+    def __init__(self, ax: ModelAxis, seq_parallel: bool):
+        self.ax = ax
+        self.sp = seq_parallel
+
+    def enter(self, x):
+        """Into a column-parallel product: the whole sequence (under
+        ``seq_parallel`` gathered), its gradient summed over ranks."""
+        if self.sp:
+            return _GatherSeq.apply(x, self.ax)
+        return _Copy.apply(x, self.ax, "tp_act")
+
+    def exit(self, x):
+        """Out of a row-parallel product: the ranks' partial sums added
+        (under ``seq_parallel`` each rank keeping its sequence block)."""
+        if self.sp:
+            return _ScatterSeq.apply(x, self.ax)
+        return _Reduce.apply(x, self.ax, "tp_act")
+
+    def whole_param(self, p):
+        """A whole parameter each rank uses a part of: its gradient is
+        summed over ranks, so it is the same on every rank."""
+        return _Copy.apply(p, self.ax, "tp_param")
+
+    def norm_scale(self, scale):
+        """An RMSNorm scale of the residual stream: under
+        ``seq_parallel`` each rank normalizes its own tokens."""
+        return self.whole_param(scale) if self.sp else scale
+
+    def split_seq(self, h):
+        """The embedding's sequence block of this rank (under
+        ``seq_parallel``)."""
+        return _Split.apply(h, self.ax, 1, "tp_seq") if self.sp else h
+
+    def vocab_slice(self, table):
+        """The rank's vocab rows of the tied (V, d) table."""
+        return _Split.apply(table, self.ax, 0, "tp_param")
+
+    def cross_entropy(self, logits, targets):
+        """log p(target) of each row of the rank's vocab block of the
+        logits (f32), over the whole padded vocab."""
+        return _CrossEntropy.apply(logits, targets, self.ax)
+
+
+def active(cfg: ModelConfig, seq_len: int) -> Optional[TensorParallel]:
+    """The forward's tensor parallelism under the active mesh (None at
+    ``model = 1``); ``seq_parallel`` needs the length to split over the
+    ranks (``ValueError``), and is the identity at one token."""
+    ax = model_axis()
+    if ax is None:
+        return None
+    check_model_axis(cfg, ax.n)
+    sp = cfg.seq_parallel and seq_len > 1
+    if sp and seq_len % ax.n:
+        raise ValueError(f"seq_parallel: {seq_len} tokens do not split over "
+                         f"model={ax.n} ranks")
+    return TensorParallel(ax, sp)

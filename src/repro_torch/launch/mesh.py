@@ -5,15 +5,17 @@
 ``mesh_label`` is its inverse, as in the JAX package.
 
 ``make_mesh`` builds the port's ``Mesh``: one device needs no world; a
-``P x D x 1`` mesh of more ranks is a ``torch.distributed`` ``DeviceMesh``
+``P x D x M`` mesh of more ranks is a ``torch.distributed`` ``DeviceMesh``
 with the dims ("pod", "data", "model") over an initialised world of
 exactly ``cfg.n_devices`` ranks (``torch.distributed.run`` starts them;
-NCCL on cards, gloo for CPU processes). Entering the mesh (``with mesh:``)
-activates its sharding profile and its ``DeviceMesh``, under which the
-arena's rotations and the train step take their sharded routes. A mesh
-with ``model > 1`` raises: tensor parallelism over ``model`` is ROADMAP
-A.11 part 2, item 6. JAX's TPU pod mesh (``make_production_mesh``, 256 or 512
-chips) raises too.
+NCCL on cards, gloo for CPU processes), rank p D M + d M + m at (p, d,
+m). Where both ``data`` and ``model`` exceed 1 it also makes each pod's
+group over their product, the group the arena's rows shard over.
+Entering the mesh (``with mesh:``) activates its sharding profile and
+its ``DeviceMesh``, under which the arena's rotations, the train step
+and, at ``model > 1``, the dense transformers' tensor parallelism
+(``dist.tensor_parallel``) take their sharded routes. JAX's TPU pod
+mesh (``make_production_mesh``, 256 or 512 chips) raises.
 """
 from __future__ import annotations
 
@@ -66,20 +68,16 @@ def make_production_mesh(*, multi_pod: bool = False):
     n = 512 if multi_pod else 256
     raise NotImplementedError(
         f"the production mesh ({shape}) is a TPU pod of {n} chips; the port "
-        f"would need {n} cards, and tensor parallelism over 'model' (ROADMAP "
-        "A.11 part 2, item 6)")
+        f"runs it only over a world of {n} ranks: build it with "
+        f"make_mesh(parse_mesh({shape!r})) there")
 
 
 def make_mesh(cfg: MeshConfig, device="cuda") -> Mesh:
     """The mesh of ``cfg`` on ``device``. One device: no world needed.
-    More: a ``P x D x 1`` ``DeviceMesh`` over the initialised world,
-    whose size must equal ``cfg.n_devices``."""
+    More: a ``P x D x M`` ``DeviceMesh`` over the initialised world,
+    whose size must equal ``cfg.n_devices`` (a collective: every rank
+    calls it)."""
     device = resolve_device(device)
-    if cfg.model != 1:
-        raise NotImplementedError(
-            f"mesh {mesh_label(cfg)} has model={cfg.model}: tensor "
-            "parallelism over 'model' is ROADMAP A.11 part 2, item 6; the "
-            "port runs P x D x 1 meshes")
     if cfg.n_devices == 1:
         return Mesh(cfg, device)
     import torch.distributed as dist
@@ -98,6 +96,15 @@ def make_mesh(cfg: MeshConfig, device="cuda") -> Mesh:
                               else torch.cuda.current_device())
     dm = init_device_mesh(device.type, (cfg.n_pods, cfg.data, cfg.model),
                           mesh_dim_names=AXES)
+    if cfg.data > 1 and cfg.model > 1:
+        from repro_torch.dist.collectives import register_product_group
+        # every rank makes every pod's group, in pod order
+        slice_ = cfg.data * cfg.model
+        pod = dist.get_rank() // slice_
+        for p in range(cfg.n_pods):
+            group = dist.new_group(list(range(p * slice_, (p + 1) * slice_)))
+            if p == pod:
+                register_product_group(dm, ("data", "model"), group)
     return Mesh(cfg, device, dm)
 
 

@@ -16,13 +16,17 @@ line per log point and a ``done:`` line. It runs on the card; only
 ``main(argv)`` takes the argument list (tests and ``chip_smoke.py`` call
 it in process) and returns the loop's output.
 
-``--mesh PxDx1`` with P x D > 1 runs the sharded step over the ranks
-``torch.distributed.run`` starts (one process a rank; ``--backend``
+``--mesh PxDxM`` with P x D x M > 1 runs the sharded step over the
+ranks ``torch.distributed.run`` starts (one process a rank; ``--backend``
 nccl, the default on the card, or gloo, the CPU's and the default with
-``--device cpu``); rank 0 alone prints and checkpoints:
+``--device cpu``); M > 1 runs the dense transformers tensor parallel
+over ``model``; rank 0 alone prints and checkpoints:
 
     python -m torch.distributed.run --nproc-per-node=2 \
         -m repro_torch.launch.train --arch amb-linreg --mesh 2x1x1 ...
+    python -m torch.distributed.run --nproc-per-node=2 \
+        -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke \
+        --mesh 1x1x2 --device cpu ...
 
 ``--strategy decentralized`` under ``torch.distributed.run`` with as many
 ranks as ``--n-workers`` runs one worker a rank (the per-rank gossip,
@@ -137,8 +141,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "int8 + per-row scales with error feedback")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--mesh", default="1x1x1",
-                    help="PxDxM: pods x data ranks a pod x model (M = 1); "
-                         "more than one rank runs under "
+                    help="PxDxM: pods x data ranks a pod x model ranks "
+                         "(M > 1: tensor parallelism, the dense "
+                         "transformers); more than one rank runs under "
                          "torch.distributed.run")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="process-group backend of a multi-rank mesh "

@@ -26,10 +26,14 @@ formulas, so a run holds census == model with ``==``, no tolerance.
 
 ``publish_pop_bytes``  the weight publication's pop: the s8 snapshot
     and its bf16 scales (as u16 bits) all-gathered over the shards.
+
+``model_axis_bytes``  one AMB-DG step of a dense transformer under
+    tensor parallelism, on the ``model`` axis (``dist.tensor_parallel``
+    and ``core.ambdg``'s bridges), keyed by (census tag, dtype).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.core import consensus
 
@@ -100,3 +104,97 @@ def publish_pop_bytes(rows: int, n_shards: int,
         "s8": _allgather(n_shards, rows * lanes),
         "u16": _allgather(n_shards, rows * 2),
     }
+
+
+_BYTES = {"float32": 4, "bfloat16": 2}
+_SHORT = {"float32": "f32", "bfloat16": "bf16"}
+
+
+def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
+                     n_micro: int, n_model: int, compression: str = "none",
+                     n_data: int = 1, n_pods: int = 1
+                     ) -> Dict[Tuple[str, str], int]:
+    """One AMB-DG step of the dense transformer ``cfg`` a rank, on the
+    ``model`` axis of ``n_model`` ranks: {(census tag, dtype): bytes}.
+    ``layout`` is the whole tree's arena layout and ``dims`` each leaf's
+    model-cut dim (``tensor_parallel.model_dims``); the rank runs
+    ``n_micro`` microbatches of ``micro_batch`` sequences of ``seq``
+    tokens. Counted from the shapes, per microbatch (X = b S d):
+
+      tp_act    no ``seq_parallel``: two f32 all-reduces of X a layer
+                forward (after the row-parallel products), two backward
+                (before the column-parallel ones), one before the head,
+                and under ``block_remat="full"`` one a layer again (the
+                recomputed forward stops at the last tensor the
+                backward needs, before the MLP's reduce);
+      tp_seq    ``seq_parallel``: the sequence's gathers (X in the
+                compute dtype: two a layer forward, two backward, two
+                more recomputed, one before the head, one backward of
+                the embedding's split) and f32 reduce-scatters of X (two
+                a layer forward, two backward, one recomputed, one
+                backward of the head's gather);
+      tp_loss   the cross entropy's three f32 all-reduces of b (S - 1);
+      tp_param  the backward of each whole parameter a rank uses a part
+                of (an f32 all-reduce): q_norm and k_norm, the whole kv
+                leaves, the norms' scales under ``seq_parallel``; a tied
+                table's vocab rows (all-gather);
+
+    and a step: "grad_leaves" (each model-cut leaf's f32 gradient
+    all-gathered), and, where the arena's rows split over ``model``
+    alone, "w_rows", "metrics", "scales_max" (int8) and, in a world of
+    ``n_model`` ranks, "pod_counts"."""
+    m = n_model
+    if m <= 1:
+        return {}
+    act, pdt = cfg.compute_dtype, cfg.param_dtype
+    L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
+    x = micro_batch * seq * d
+    full = cfg.block_remat == "full"
+    if cfg.block_remat not in ("full", "none"):
+        raise ValueError("model_axis_bytes counts block_remat 'full' and "
+                         f"'none', not {cfg.block_remat!r}")
+    out: Dict[Tuple[str, str], int] = {}
+
+    def add(tag, dtype, n):
+        if n:
+            out[(tag, _SHORT.get(dtype, dtype))] = \
+                out.get((tag, _SHORT.get(dtype, dtype)), 0) + n
+
+    sp = cfg.seq_parallel and seq > 1
+    for _ in range(n_micro):
+        if sp:
+            gathers = 6 * L + 2 if full else 4 * L + 2
+            scatters = 5 * L + 1 if full else 4 * L + 1
+            add("tp_seq", act, gathers * _allgather(m, x * _BYTES[act]))
+            add("tp_seq", "float32", scatters * (m - 1) * x * 4 // m)
+        else:
+            n_red = 4 * L + 1 + (L if full else 0)
+            add("tp_act", "float32", n_red * _allreduce(m, x * 4))
+        add("tp_loss", "float32",
+            3 * _allreduce(m, micro_batch * (seq - 1) * 4))
+        whole = []
+        if cfg.qk_norm:
+            whole += [hd, hd]
+        if cfg.n_kv_heads % m:
+            kv = cfg.n_kv_heads * hd
+            whole += [d * kv, d * kv] + ([kv, kv] if cfg.qkv_bias else [])
+        if sp:
+            whole += [d, d]
+        add("tp_param", "float32",
+            L * sum(_allreduce(m, n * 4) for n in whole)
+            + (_allreduce(m, d * 4) if sp else 0))
+        if cfg.tie_embeddings:
+            add("tp_param", pdt,
+                _allgather(m, cfg.padded_vocab_size * d * _BYTES[pdt]))
+    add("grad_leaves", pdt, sum(
+        _allgather(m, size * _BYTES[pdt])
+        for size, dim in zip(layout.sizes, dims) if dim is not None))
+    if n_data == 1:
+        add("w_rows", "float32", _allgather(m, layout.rows * LANES * 4))
+        add("metrics", "float32", _allreduce(m, 4))
+        if compression == "int8":
+            add("scales_max", "float32",
+                _allreduce(m, (layout.n_leaves + 1) * 4))
+        if n_pods == 1:
+            add("pod_counts", "float32", (m - 1) * 8)
+    return out

@@ -7,6 +7,7 @@ case architectures:
     params         = model.init(generator)
     loss_sum, aux  = model.loss(params, batch)       # SUM + counts
     shapes         = model.param_shapes()             # on "meta"
+    shapes         = model.whole_param_shapes()       # whatever the mesh
     axes           = model.param_axes()               # logical axes
     shapes         = model.input_shapes(batch, seq)   # LM batch shapes
     batch          = model.dummy_batch(batch_size, seq_len, generator)
@@ -20,6 +21,11 @@ the DENSE transformers, the MOE mixtrals, the SSM xLSTM, the HYBRID
 zamba2 and the VLM paligemma (``models.transformer``, functions over
 the tree), and the ENCDEC seamless-m4t (``models.encdec``). The decode
 path (``init_decode_state``, ``decode_step``) serves the LM families.
+
+Under an active mesh with ``model > 1`` (``launch.mesh``; the dense
+family only) ``init``, ``param_shapes`` and ``loss`` work on the rank's
+blocks of the parameters (``dist.tensor_parallel``); ``dummy_batch``
+stays the global batch.
 """
 from __future__ import annotations
 
@@ -57,12 +63,21 @@ class Model:
 
     def param_shapes(self) -> Dict:
         """The parameter tree on the ``meta`` device: shapes and dtypes,
-        no memory and no draws (JAX's ``eval_shape`` of ``init``)."""
+        no memory and no draws (JAX's ``eval_shape`` of ``init``); the
+        rank's blocks under an active mesh with ``model > 1``."""
         return self.init_fn(torch.device("meta"), None)
+
+    def whole_param_shapes(self) -> Dict:
+        """``param_shapes`` of the whole tree, whatever mesh is active:
+        the arena's rows are laid out from it."""
+        from repro_torch.dist.context import sharding_profile
+        with sharding_profile(None):
+            return self.param_shapes()
 
     def param_axes(self) -> Dict:
         """Each leaf's logical sharding axes (``models.common``), the
-        tree of JAX's ``shapes_and_axes(model.init)``."""
+        tree of JAX's ``shapes_and_axes(model.init)``; the same names for
+        a rank's blocks under tensor parallelism."""
         return self.axes_fn()
 
     def input_shapes(self, batch: int, seq: int) -> Dict:

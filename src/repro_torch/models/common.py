@@ -15,7 +15,11 @@ Draws come from a CPU ``torch.Generator`` and are then moved to the
 device, so a run on the card and one on the CPU from the same seed start
 from the same weights. On the ``meta`` device nothing is drawn: the
 tree carries shapes and dtypes only (the arena layout is built from it,
-as JAX builds it from ``eval_shape``).
+as JAX builds it from ``eval_shape``). A ``cut`` hook (tensor
+parallelism, ``dist.tensor_parallel.param_cutter``) takes each leaf
+after its whole draw and before it moves to the device, so the same
+seed gives the same whole tree at every mesh shape and a rank's device
+receives only its block.
 """
 from __future__ import annotations
 
@@ -30,10 +34,12 @@ Params = Dict[str, object]
 class ParamFactory:
     """Creates parameters in a fixed order from one generator and
     records their logical axes in lockstep. ``lead`` is the shape of the
-    stacking dims every leaf gets in front (each a "layers" axis)."""
+    stacking dims every leaf gets in front (each a "layers" axis);
+    ``cut(name, whole leaf, its axes)`` returns the leaf to keep."""
 
     def __init__(self, generator: Optional[torch.Generator], dtype,
-                 device, lead: Tuple[int, ...] = ()):
+                 device, lead: Tuple[int, ...] = (),
+                 cut: Optional[Callable] = None):
         device = torch.device(device)
         if device.type != "meta" and (generator is None or
                                       generator.device.type != "cpu"):
@@ -43,6 +49,7 @@ class ParamFactory:
         self.dtype = dtype
         self.device = device
         self.lead = tuple(lead)
+        self.cut = cut
         self.params: Params = {}
         self.axes: Dict[str, object] = {}
 
@@ -53,28 +60,32 @@ class ParamFactory:
             raise ValueError(f"{name}: axes {axes} do not match shape "
                              f"{shape}")
         full = self.lead + tuple(shape)
+        axes = ("layers",) * len(self.lead) + tuple(axes)
         if self.device.type == "meta":
             value = torch.empty(full, dtype=self.dtype, device="meta")
         elif init == "zeros":
-            value = torch.zeros(full, dtype=self.dtype, device=self.device)
+            value = torch.zeros(full)
         elif init == "ones":
-            value = torch.ones(full, dtype=self.dtype, device=self.device)
+            value = torch.ones(full)
         elif init == "normal":
             if scale is None:
                 # fan_in of the per-layer shape, never of the stacked one
                 fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
-            draw = torch.randn(full, generator=self.generator,
-                               dtype=torch.float32)
-            value = (scale * draw).to(dtype=self.dtype, device=self.device)
+            value = scale * torch.randn(full, generator=self.generator,
+                                        dtype=torch.float32)
         else:
             raise ValueError(f"unknown init {init!r}")
+        if self.cut is not None:
+            value = self.cut(name, value, axes)
+        value = value.to(dtype=self.dtype, device=self.device)
         self.params[name] = value
-        self.axes[name] = ("layers",) * len(self.lead) + tuple(axes)
+        self.axes[name] = axes
         return value
 
     def child(self, name: str) -> "ParamFactory":
-        sub = ParamFactory(self.generator, self.dtype, self.device, self.lead)
+        sub = ParamFactory(self.generator, self.dtype, self.device, self.lead,
+                           self.cut)
         self.params[name] = sub.params
         self.axes[name] = sub.axes
         return sub
@@ -84,7 +95,7 @@ class ParamFactory:
         """``n`` identically-structured children stacked along a leading
         "layers" dim (JAX's ``vmapped_children``)."""
         sub = ParamFactory(self.generator, self.dtype, self.device,
-                           self.lead + (n,))
+                           self.lead + (n,), self.cut)
         build(sub)
         self.params[name] = sub.params
         self.axes[name] = sub.axes

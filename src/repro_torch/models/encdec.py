@@ -59,10 +59,16 @@ def check_supported(cfg: ModelConfig) -> None:
     (never ignore one silently): the transformer's shared checks, and
     the masks JAX's encoder-decoder leaves out of training (its encoder
     attends everywhere and its decoder is causal, whatever
-    ``sliding_window`` or ``prefix_lm`` say)."""
+    ``sliding_window`` or ``prefix_lm`` say), and ``seq_parallel``,
+    whose layout comes with the family's tensor parallelism."""
     if cfg.family != ENCDEC:
         raise ValueError(f"models/encdec.py builds the encdec family, not "
                          f"{cfg.family!r}")
+    if cfg.seq_parallel:
+        raise NotImplementedError(
+            "seq_parallel=True on the encoder-decoder: its sequence-parallel "
+            "layout comes with its tensor parallelism over 'model' (ROADMAP "
+            "A.11 part 2, item 6)")
     for knob in ("sliding_window", "prefix_lm"):
         if getattr(cfg, knob):
             raise NotImplementedError(

@@ -21,6 +21,14 @@ as JAX's decode does. JAX's
 ``_CHUNK_THRESHOLD`` tokens the plain path runs ``gqa_attend`` in exact
 q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
 whole (S, S) score tensor there.
+
+Under tensor parallelism (``tp``, a ``dist.tensor_parallel.
+TensorParallel``; the dense family on a mesh with ``model > 1``) the
+parameters are the rank's blocks: attention runs the rank's query heads
+and the kv heads they group with (sliced from whole kv leaves where the
+kv heads do not split), the MLP its "mlp" columns, the head its vocab
+block; ``tp.enter`` / ``tp.exit`` carry the activations in and out of
+the column- and row-parallel products.
 """
 from __future__ import annotations
 
@@ -137,9 +145,25 @@ def attention_init(f: ParamFactory, cfg: ModelConfig, name: str = "attn"):
         a.param("k_norm", (hd,), (None,), init="ones")
 
 
-def _project_qkv(p, cfg: ModelConfig, x, positions):
+def _project_qkv(p, cfg: ModelConfig, x, positions, tp=None):
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if tp is not None:
+        from repro_torch.dist.tensor_parallel import local_heads
+        p = dict(p)
+        n_q, kv0, n_kv, whole = local_heads(cfg, tp.ax)
+        if whole:
+            # the rank's kv heads of the whole leaves (their gradient
+            # summed over the ranks)
+            for name in ("wk", "wv", "bk", "bv"):
+                if name in p:
+                    p[name] = tp.whole_param(p[name]).narrow(
+                        -1, kv0 * hd, n_kv * hd)
+        if cfg.qk_norm:
+            # each rank normalises its own heads
+            for name in ("q_norm", "k_norm"):
+                p[name] = tp.whole_param(p[name])
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -147,9 +171,9 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = q.reshape(B, S, n_q, hd)
+    k = k.reshape(B, S, n_kv, hd)
+    v = v.reshape(B, S, n_kv, hd)
     if cfg.qk_norm:
         q = head_rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = head_rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -238,15 +262,19 @@ def flash_attend(q, k, v, window: Optional[int] = None,
 
 
 def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None,
-                    causal: bool = True):
+                    causal: bool = True, tp=None):
     """Full-sequence (training) attention, ``cfg.attn_impl`` choosing
     the core. For S beyond the chunk threshold, pass ``mask_fn`` to run
     the plain core in exact q-blocks (``chunked_gqa_attend``); ``mask``
     may then be None. The flash core takes the window from the config
     and needs neither: it is causal, or with ``causal=False`` (the
     encoder's bidirectional attention, whose plain mask is all ones)
-    runs without a mask."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    runs without a mask. Under ``tp`` the rank's heads (see the
+    module's docstring); ``x`` is then the rank's sequence block under
+    ``seq_parallel``, and so is the output."""
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v = _project_qkv(p, cfg, x, positions, tp)
     B, S = x.shape[:2]
     if cfg.attn_impl == "flash":
         check_flash_masks(cfg)
@@ -255,7 +283,8 @@ def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None,
         out = chunked_gqa_attend(q, k, v, mask_fn, cfg.logit_softcap)
     else:
         out = gqa_attend(q, k, v, mask, cfg.logit_softcap)
-    return out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    out = out.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return out if tp is None else tp.exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +370,14 @@ def _act(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
-def mlp_apply(p, cfg: ModelConfig, x):
+def mlp_apply(p, cfg: ModelConfig, x, tp=None):
+    """The gated MLP; under ``tp`` on the rank's "mlp" columns."""
     act = _act(cfg.act)
+    if tp is not None:
+        x = tp.enter(x)
     h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_up"].to(x.dtype))
-    return h @ p["w_down"].to(x.dtype)
+    out = h @ p["w_down"].to(x.dtype)
+    return out if tp is None else tp.exit(out)
 
 
 # ---------------------------------------------------------------------------
@@ -362,9 +395,16 @@ def embed_tokens(params, tokens, dtype):
     return params["tok_emb"][tokens.to(torch.int64)].to(dtype)
 
 
-def output_logits(params, cfg: ModelConfig, h):
+def output_logits(params, cfg: ModelConfig, h, tp=None):
     """Logits over the padded vocab (the softmax includes the pad
-    columns, as in JAX)."""
+    columns, as in JAX); under ``tp`` the rank's vocab block of them,
+    for the whole sequence (a tied table's rows by ``tp.vocab_slice``,
+    an untied head's block as the rank holds it)."""
+    if tp is not None:
+        h = tp.enter(h)
     if cfg.tie_embeddings:
-        return h @ params["tok_emb"].to(h.dtype).T
+        table = params["tok_emb"]
+        if tp is not None:
+            table = tp.vocab_slice(table)
+        return h @ table.to(h.dtype).T
     return h @ params["out_head"].to(h.dtype)

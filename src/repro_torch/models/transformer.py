@@ -43,6 +43,15 @@ token through every layer against a stacked cache (KV entries, or the
 Mamba2 and xLSTM recurrent states) it updates in place, slice by slice
 (JAX scans the layers and donates the cache).
 
+Under an active mesh with ``model > 1`` the dense family is tensor
+parallel (``dist.tensor_parallel``): ``init`` keeps the rank's blocks of
+the whole tree the seed draws, the blocks run the rank's heads and
+"mlp" columns, ``forward`` returns the rank's vocab block of the logits
+and ``lm_loss`` takes the vocab-parallel cross entropy. ``seq_parallel``
+then splits the residual stream over the sequence between blocks (the
+identity at ``model = 1`` or at one token, as JAX's ``_sp``). The other
+families, and decoding, raise there (ROADMAP A.11 part 2, item 6).
+
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
 """
@@ -59,6 +68,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM,
                                       VLM, ModelConfig)
 from repro_torch.core.arena import tree_flatten, tree_unflatten
+from repro_torch.dist import tensor_parallel
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
@@ -113,15 +123,20 @@ def check_supported(cfg: ModelConfig) -> None:
     check_knobs(cfg)
 
 
+def model_size() -> int:
+    """The ``model`` axis of the active mesh (1 without one)."""
+    from repro_torch.dist.context import active_mesh
+    mesh = active_mesh()
+    return 1 if mesh is None else mesh.model
+
+
 def check_knobs(cfg: ModelConfig) -> None:
     """The checks every LM family shares (``models/encdec.py`` runs them
-    too): sequence parallelism raises, the remat, attention and scan
-    knobs and the dtypes must be known, and the flash kernels must
-    compute the config's masks."""
-    if cfg.seq_parallel:
-        raise NotImplementedError("seq_parallel=True is a sharding layout "
-                                  "the port does not carry yet (ROADMAP "
-                                  "A.11 part 2, item 5)")
+    too): the active mesh's ``model`` axis must carry the family and its
+    widths (``tensor_parallel.check_model_axis``), the remat, attention
+    and scan knobs and the dtypes must be known, and the flash kernels
+    must compute the config's masks."""
+    tensor_parallel.check_model_axis(cfg, model_size())
     if cfg.block_remat not in BLOCK_REMATS:
         raise ValueError(f"unknown block_remat {cfg.block_remat!r}; "
                          f"expected one of {BLOCK_REMATS}")
@@ -157,9 +172,11 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
          device, with_axes: bool = False) -> Dict:
     """The parameter tree on ``device``, drawn from the CPU
     ``generator`` (on ``meta``: shapes only, nothing drawn);
-    ``with_axes``: (params, their logical axes)."""
+    ``with_axes``: (params, their logical axes). Under an active mesh
+    with ``model > 1``: the rank's blocks of the whole tree."""
     check_supported(cfg)
-    f = ParamFactory(generator, _dtype(cfg.param_dtype), device)
+    f = ParamFactory(generator, _dtype(cfg.param_dtype), device,
+                     cut=tensor_parallel.param_cutter(cfg))
     embedding_init(f, cfg)
     rmsnorm_init(f, "ln_final", cfg.d_model)
     if cfg.family == SSM:
@@ -193,17 +210,21 @@ def init(cfg: ModelConfig, generator: Optional[torch.Generator],
 # Forward
 # ---------------------------------------------------------------------------
 def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask,
-                 mask_fn=None):
+                 mask_fn=None, tp=None):
     """One attention + FFN layer: (h, the layer's MoE aux loss, a 0-dim
-    f32, 0 for a dense layer)."""
+    f32, 0 for a dense layer). Under ``tp`` the rank's heads and "mlp"
+    columns (and under ``seq_parallel`` its sequence block of h)."""
+    ln1, ln2 = layer_p["ln1"], layer_p["ln2"]
+    if tp is not None:
+        ln1, ln2 = tp.norm_scale(ln1), tp.norm_scale(ln2)
     h = h + attention_apply(layer_p["attn"], cfg,
-                            rmsnorm(h, layer_p["ln1"], cfg.norm_eps),
-                            positions, mask, mask_fn)
-    hn = rmsnorm(h, layer_p["ln2"], cfg.norm_eps)
+                            rmsnorm(h, ln1, cfg.norm_eps),
+                            positions, mask, mask_fn, tp=tp)
+    hn = rmsnorm(h, ln2, cfg.norm_eps)
     if cfg.family == MOE:
         y, aux = moe_mod.moe_apply(layer_p["moe"], cfg, hn)
         return h + y, aux
-    return h + mlp_apply(layer_p["mlp"], cfg, hn), _zero(h.device)
+    return h + mlp_apply(layer_p["mlp"], cfg, hn, tp), _zero(h.device)
 
 
 def _zero(device) -> torch.Tensor:
@@ -298,7 +319,14 @@ def forward(params, cfg: ModelConfig, tokens, *, extra: Optional[Dict] = None,
     ``extra["patches"]`` (B, P, d) goes in front of the text (S = P +
     S_text). Under ``prefix_lm`` the first ``prefix_len`` positions
     (default n_frontend_tokens for the VLM, 0 otherwise, as in JAX)
-    attend to each other both ways."""
+    attend to each other both ways. Under tensor parallelism the logits
+    are the rank's vocab block (B, S, padded vocab / model)."""
+    return _forward(params, cfg, tokens, extra, prefix_len,
+                    tensor_parallel.active(cfg, tokens.shape[1]))
+
+
+def _forward(params, cfg: ModelConfig, tokens, extra, prefix_len, tp):
+    """``forward`` under the tensor parallelism ``tp`` (None: none)."""
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
@@ -321,6 +349,10 @@ def forward(params, cfg: ModelConfig, tokens, *, extra: Optional[Dict] = None,
             or chunks_queries(S) else mask_fn(0, S))
     remat = cfg.block_remat if torch.is_grad_enabled() else "none"
     aux_total = _zero(h.device)
+    ln_final = params["ln_final"]
+    if tp is not None:
+        h = tp.split_seq(h)
+        ln_final = tp.norm_scale(ln_final)
     if cfg.family == SSM:
         h = _xlstm_forward(params, cfg, h, remat)
     elif cfg.family == HYBRID:
@@ -328,10 +360,10 @@ def forward(params, cfg: ModelConfig, tokens, *, extra: Optional[Dict] = None,
     else:
         for layer_p in unbind_layers(params["layers"]):
             h, aux = _apply(remat, _block_apply, layer_p, cfg, h, positions,
-                            mask, mask_fn)
+                            mask, mask_fn, tp)
             aux_total = aux_total + aux
-    h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
-    return output_logits(params, cfg, h), aux_total
+    h = rmsnorm(h, ln_final, cfg.norm_eps)
+    return output_logits(params, cfg, h, tp), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -354,20 +386,26 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
                              device=tokens.device)
     extra = {k: v for k, v in batch.items()
              if k not in ("tokens", "weights", "targets")}
-    logits, aux = forward(params, cfg, tokens, extra=extra or None)
+    tp = tensor_parallel.active(cfg, tokens.shape[1])
+    logits, aux = _forward(params, cfg, tokens, extra or None, None, tp)
     if cfg.family == VLM and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
-    loss_sum, count = next_token_loss(logits, tokens, weights)
+    loss_sum, count = next_token_loss(logits, tokens, weights, tp)
     return loss_sum + aux * count, {"count": count, "loss_sum": loss_sum}
 
 
-def next_token_loss(logits, tokens, weights):
+def next_token_loss(logits, tokens, weights, tp=None):
     """(the weighted sum of the next-token cross entropy of ``logits``
     (B, S, V) at positions 0..S-2 against ``tokens`` (B, S) at 1..S-1, in
-    f32; the weighted token count)."""
+    f32; the weighted token count). Under ``tp`` the logits are the
+    rank's vocab block and the softmax spans every rank's
+    (``TensorParallel.cross_entropy``)."""
     targets = tokens[:, 1:].to(torch.int64)
-    logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    if tp is not None:
+        ll = tp.cross_entropy(logits[:, :-1].to(torch.float32), targets)
+    else:
+        logp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None])[..., 0]
     per_sample = -torch.sum(ll, dim=-1)                       # (B,)
     loss_sum = torch.sum(per_sample * weights)
     count = torch.sum(weights) * targets.shape[1]
@@ -388,7 +426,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     "slstm": {"h", "c", "n", "m"}}, the f32 recurrent states of each
     stack (``dtype`` and ``max_len`` unused, as in JAX; each ``m`` starts
     at its block's own floor, NEG_INF and SLSTM_M0)."""
-    check_supported(cfg)
+    check_decode(cfg)
     if cfg.family == SSM:
         n_ml, n_sl = xlstm_mod.n_blocks(cfg)
         cache = {"mlstm": xlstm_mod.mlstm_state_init(cfg, n_ml, batch,
@@ -409,13 +447,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             cache_axes(cfg))
 
 
+def check_decode(cfg: ModelConfig) -> None:
+    """``check_supported``, and no decoding under ``model > 1``: JAX
+    serves on its serve profile, another layout than the train
+    profile's tensor parallelism (ROADMAP A.11 part 2, item 6)."""
+    check_supported(cfg)
+    if model_size() > 1:
+        raise NotImplementedError(
+            f"decoding on a mesh with model={model_size()}: the serve "
+            "profile's layout over 'model' is ROADMAP A.11 part 2, item 6")
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One-token decode. tokens (B, 1) int; pos a scalar (lockstep) or
     (B,) per-slot positions (continuous batching; see
     ``layers.decode_attention``). The cache is updated in place, layer
     by layer (the xLSTM's recurrence reads no position). Returns
     (logits (B, 1, padded vocab), cache)."""
-    check_supported(cfg)
+    check_decode(cfg)
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)

@@ -40,12 +40,14 @@ every rank of a ``torch.distributed.run`` world) the loop runs inside
 the mesh, so the strategy takes its sharded step. Every rank draws the
 global batch from the seed (each step's stream is one generator, so a
 pod's rows cannot be drawn alone) and keeps its own block of it, cut by
-the batch's spec (``dist.sharding``): the stacked run's draws, split by
-pod and then by data rank, are exactly these. The metrics are global on
+the batch's spec (``dist.sharding``, over ('pod', 'data'): every
+``model`` rank of a data rank holds the same block): the stacked run's
+draws, split by pod and then by data rank, are exactly these. The metrics are global on
 every rank; rank 0 alone logs. A checkpoint joins the ranks' shards on
 rank 0's host (``checkpoint.save_sharded``: the checkpoint the single
-process would write), and a restart cuts each rank's shards from it on
-the host.
+process would write; at ``model > 1`` the parameters' model blocks too),
+and a restart cuts each rank's shards from it on the host, so a
+checkpoint restores at any mesh shape.
 
 Under the decentralized strategy's per-rank gossip (one worker a rank of
 a world of n_workers ranks, ``gossip_impl`` "shard_map" or an "auto"
@@ -192,6 +194,12 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
     strategy = api.build(model, rc, device=device)
     # the per-rank gossip's worker group (None elsewhere)
     workers = getattr(strategy, "workers", None)
+    if ranks is not None and rc.mesh.model > 1 and \
+            rc.serve.publish_period > 0:
+        raise NotImplementedError(
+            "rc.serve.publish_period > 0 on a mesh with model > 1: the "
+            "publication of model-sharded weights is the sharded publish "
+            "ring, ROADMAP A.11 part 2, item 7")
     if workers is not None and rc.serve.publish_period > 0:
         raise NotImplementedError(
             "rc.serve.publish_period > 0 on the per-rank gossip: the "
@@ -246,8 +254,8 @@ def _train(model: Model, rc: RunConfig, loop: LoopConfig,
         # the leaves a rank holds shards of, for the checkpoints
         from repro_torch.core.ambdg import shard_specs
         from repro_torch.core.arena import make_layout
-        shard = (shard_specs(make_layout(model.param_shapes()), state,
-                             rc.mesh), rc.mesh, ranks.coords)
+        shard = (shard_specs(make_layout(model.whole_param_shapes()), state,
+                             rc.mesh, model), rc.mesh, ranks.coords)
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
         state, extra = ckpt.restore(loop.ckpt_dir, state, shard=shard)
         pipeline.load_state_dict(extra["pipeline"])

@@ -1357,3 +1357,151 @@ def test_sharded_wrappers_on_nccl_match_off_mesh_bitwise(nccl_mesh, kind):
             want = (part[0], meta)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# -- the sharded wrappers on rows over data x model (1x2x2) ------------------
+_MESH_ROWS = 1024
+
+
+def _mesh_wrapper_inputs():
+    """Every wrapper's whole inputs (one pod), from a seed, on the CPU."""
+    gen = torch.Generator().manual_seed(27)
+    rows = _MESH_ROWS
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8)
+
+    fed = torch.randn((1, rows, 128), generator=gen)
+    return {
+        "z": torch.randn((rows, 128), generator=gen),
+        "g": torch.randn((rows, 128), generator=gen) * 300,
+        "count": torch.tensor(1500.0), "alpha": torch.tensor(0.0123),
+        "slot_pop": int8(1, rows, 128), "slot_push": int8(1, rows, 128),
+        "scales_pop": torch.rand((1, rows), generator=gen) * 1e-2 + 1e-3,
+        "scales_push": torch.rand((1, rows), generator=gen) * 1e-2 + 1e-3,
+        "fed": fed, "scale_new": fed.abs().amax(-1) / 127,
+        "ring_f32": torch.randn((6, 1, rows, 128), generator=gen),
+        "ring_int8": int8(6, 1, rows, 128),
+        "ring_scales": torch.rand((6, 1, rows), generator=gen) * 1e-2,
+        "mask": torch.tensor([1, 0, 1, 1, 0, 0], dtype=torch.bool),
+        "counts_stale": torch.stack([torch.arange(6.0), torch.ones(6)]),
+    }
+
+
+def _mesh_wrapper_rank(rank, init, out_dir):
+    """One of four gloo ranks sharing the card on 1x2x2: each wrapper on
+    the rank's rows (its kernel on the card); saves the outputs, the
+    coordinates and the launches."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.dist.sharding import (arena_ring_specs,
+                                           arena_slot_specs, local_shard)
+    from repro_torch.kernels.delay_ring import kernel as rk
+    from repro_torch.kernels.delay_ring.ops import (
+        ring_slot_rotate_int8_sharded, ring_variable_pop_sharded)
+    from repro_torch.kernels.dual_update import kernel as uk
+    from repro_torch.kernels.dual_update.ops import \
+        dual_update_arena_sharded
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=4)
+    try:
+        cfg = MeshConfig(1, 2, 2)
+        mesh = make_mesh(cfg, "cuda")
+        x = _mesh_wrapper_inputs()
+        slot, scales, row = arena_slot_specs(cfg, _MESH_ROWS)
+        ring, rscales, _ = arena_ring_specs(cfg, _MESH_ROWS)
+
+        def cut(name, spec):
+            return local_shard(x[name], spec, cfg, mesh.coords).to("cuda")
+
+        def whole(name):
+            return x[name].to("cuda")
+        out = {"coords": mesh.coords}
+        n0 = (uk.KERNEL.launches, rk.KERNEL.launches,
+              rk.VARIABLE_POP_KERNEL.launches)
+        with mesh:
+            out["dual_update"] = dual_update_arena_sharded(
+                cut("z", row), cut("g", row), whole("count"),
+                whole("alpha"))
+            out["slot_rotate"] = ring_slot_rotate_int8_sharded(
+                cut("slot_pop", slot), cut("scales_pop", scales),
+                cut("slot_push", slot), cut("scales_push", scales),
+                cut("fed", slot), cut("scale_new", scales))
+            for kind in ("f32", "int8"):
+                out[f"variable_pop_{kind}"] = ring_variable_pop_sharded(
+                    cut(f"ring_{kind}", ring), whole("mask"),
+                    scales=(cut("ring_scales", rscales) if kind == "int8"
+                            else None), counts_stale=whole("counts_stale"))
+        out["launches"] = (uk.KERNEL.launches - n0[0],
+                           rk.KERNEL.launches - n0[1],
+                           rk.VARIABLE_POP_KERNEL.launches - n0[2])
+        out = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                   and torch.is_tensor(v[0]) else v) for k, v in out.items()}
+        with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_wrapper_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import pickle
+
+    import torch.multiprocessing as mp
+    tmp = tmp_path_factory.mktemp("mesh1x2x2")
+    mp.spawn(_mesh_wrapper_rank, args=(str(tmp / "init"), str(tmp)),
+             nprocs=4)
+    runs = []
+    for r in range(4):
+        with open(tmp / f"rank{r}.pkl", "rb") as f:
+            runs.append(pickle.load(f))
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["dual_update", "slot_rotate",
+                                  "variable_pop_f32", "variable_pop_int8"])
+def test_sharded_wrappers_on_data_x_model_rows_on_cuda(mesh_wrapper_ranks,
+                                                       kind):
+    """The three sharded wrappers on 1x2x2 (four gloo ranks sharing the
+    card, the rows of one pod over data x model): each rank's outputs
+    are its block of the off-mesh route's on the card, bit for bit, and
+    each wrapper launched its kernel once a rank."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.dist.sharding import arena_slot_specs, local_shard
+    cfg = MeshConfig(1, 2, 2)
+    x = {k: v.to("cuda") for k, v in _mesh_wrapper_inputs().items()}
+    slot, scales, row = arena_slot_specs(cfg, _MESH_ROWS)
+    if kind == "dual_update":
+        want = dual_update_arena(x["z"].clone(), x["g"], x["count"],
+                                 x["alpha"])
+        specs = (row, row)
+    elif kind == "slot_rotate":
+        popped, *rest = ring_slot_rotate_int8(
+            x["slot_pop"], x["scales_pop"], x["slot_push"].clone(),
+            x["scales_push"].clone(), x["fed"].clone(), x["scale_new"])
+        want = (popped[0], *rest)
+        specs = (row, slot, scales, slot)
+    else:
+        q = kind.endswith("int8")
+        part, meta = ring_variable_pop(
+            x["ring_int8"] if q else x["ring_f32"], x["mask"],
+            scales=x["ring_scales"] if q else None,
+            counts_stale=x["counts_stale"])
+        want = (part[0], meta)
+        specs = (row, ())
+    coords = set()
+    for out in mesh_wrapper_ranks:
+        assert out["launches"] == (1, 1, 2)
+        for got, full, spec in zip(out[kind], want, specs):
+            block = local_shard(full.cpu(), spec, cfg, out["coords"])
+            assert torch.equal(got, block)
+        coords.add((out["coords"]["data"], out["coords"]["model"]))
+    assert coords == {(0, 0), (0, 1), (1, 0), (1, 1)}

@@ -69,6 +69,8 @@ SLICE = ["repro_torch", "repro_torch.api", "repro_torch.convert",
          # the multi-process path
          "repro_torch.dist", "repro_torch.dist.sharding",
          "repro_torch.dist.context", "repro_torch.dist.collectives",
+         # tensor parallelism over 'model'
+         "repro_torch.dist.tensor_parallel",
          # the per-rank gossip and the wire models
          "repro_torch.launch.wire_model"]
 EXAMPLES = ROOT / "examples_torch"
@@ -378,7 +380,8 @@ def _dense(**kw):
     (dict(prefix_lm=True), None),
     (dict(logit_softcap=30.0), None),
     (dict(sliding_window=16), None),
-    (dict(seq_parallel=True), "A.11"),
+    # ported (A.11 part 2, item 5): the identity without a model axis
+    pytest.param(dict(seq_parallel=True), None, id="kw9-A.11"),
     (dict(block_remat="dots"), None),
     (dict(block_remat="selective"), "block_remat"),
 ])
@@ -386,8 +389,9 @@ def test_unported_model_knobs_raise(kw, item):
     """Each knob the port does not carry raises naming its ROADMAP item;
     the MOE family (given its moe config), the SSM family (given its
     xlstm config), the ENCDEC family (given its encoder layers),
-    prefix_lm, logit_softcap, sliding_window and ``block_remat="dots"``
-    are ported and build and take a loss on the CPU (a MOE or SSM family
+    prefix_lm, logit_softcap, sliding_window, ``seq_parallel`` (the
+    identity off a model axis) and ``block_remat="dots"`` are ported and
+    build and take a loss on the CPU (a MOE or SSM family
     without its config, a VLM without its frontend stub, and an unknown
     block_remat, raise a ValueError, as JAX's model fails on them)."""
     from repro_torch.models.api import build_model
@@ -679,15 +683,16 @@ def test_full_width_attention_head_dims_are_kernel_head_dims():
 
 def test_no_module_names_a_ported_part_of_a11_as_missing():
     """A.11 part 2's items 1-3 (the LMs on the mesh, the wire models and
-    the byte census, the per-rank gossip) are ported: every mention of
-    A.11 part 2 in the port names one of the items still open (4-8), and
-    no module calls the per-rank fold unported."""
+    the byte census, the per-rank gossip) and 5 (``seq_parallel``) are
+    ported: every mention of A.11 part 2 in the port names one of the
+    items still open (4, 6-8), and no module calls the per-rank fold
+    unported."""
     import re
     for path in sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py")):
         text = " ".join(path.read_text().split())
         text = re.sub(r'" "|"\s*f?"', "", text)   # joined string pieces
         for m in re.finditer(r"A\.11 part 2", text):
-            assert re.match(r"A\.11 part 2, item [4-8]\b",
+            assert re.match(r"A\.11 part 2, item [4678]\b",
                             text[m.start():]), (path, text[m.start() - 80:
                                                           m.end() + 40])
         for stale in ("not ported yet (ROADMAP A.11", "is ROADMAP A.11 part 2 "

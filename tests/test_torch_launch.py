@@ -42,16 +42,16 @@ def test_parse_mesh_and_label_match_jax(spec):
 
 def test_only_a_one_device_mesh_is_made():
     """Without a process group only a one-device mesh is made: a larger
-    one raises, naming the missing world; ``model > 1`` and JAX's TPU
-    pod mesh raise whatever the world (ROADMAP A.11 part 2)."""
+    one raises, naming the missing world, ``model > 1`` included; JAX's
+    TPU pod mesh raises whatever the world (512 chips)."""
     one = mesh.make_mesh(mesh.parse_mesh("1x1"), device="cpu")
     assert one.shape == (1, 1) and one.devices == (torch.device("cpu"),)
     assert one.device_mesh is None
     with pytest.raises(RuntimeError, match="no process group"):
         mesh.make_mesh(mesh.parse_mesh("2x1x1"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(RuntimeError, match="no process group"):
         mesh.make_mesh(mesh.parse_mesh("1x2x2"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="512 chips"):
         mesh.make_production_mesh(multi_pod=True)
 
 

@@ -393,11 +393,16 @@ def test_multirank_mesh_refuses(ranks, what, exc, text):
 
 
 def test_make_mesh_refuses_model_axis_and_a_missing_world():
-    from repro_torch.launch.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match="A.11 part 2"):
+    """A mesh over more than one rank needs a world, a model axis as
+    any other (tensor parallelism over 'model' is ported; JAX's TPU pod
+    mesh stays refused)."""
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+    with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(MeshConfig(1, 2, 2), "cpu")
     with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(MeshConfig(2, 1, 1), "cpu")
+    with pytest.raises(NotImplementedError, match="256 chips"):
+        make_production_mesh()
 
 
 def test_active_mesh_without_a_process_group_raises():
