@@ -102,7 +102,9 @@ Phases (any failure raises and the script exits non-zero):
      the script's time limit), f32,
      the card (the scan kernel) against the CPU
      (the plain recurrence), with phase 3's checks and the init-weight
-     gradient;
+     gradient; the CPU's side runs in a process of its own started
+     after the build, beside phases 2-8 (the card busy, the host's
+     cores idle);
  10. the cluster simulator (``repro_torch.sim``) with its gradients on
      the card, TF32 off: the golden traces of ``tests/golden/``
      (``sim_trace.json``, both halves of ``stochastic_trace.json``;
@@ -346,12 +348,24 @@ Phases (any failure raises and the script exits non-zero):
      run's), added to the kernels line with the stacked run's; and the
      ``model`` axis's census against ``launch.wire_model.
      model_axis_bytes``.
+ 24. tensor parallelism for the MoE and the hybrid, on two gloo ranks
+     sharing the card, f32, tau 1, int8, 2 steps of 2 sequences on
+     1x1x2, each held against its 1x1x1 stacked run (a process of its
+     own) to phase 23's limits: mixtral-8x7b FULL widths, 1 layer, the
+     gather dispatch, flash, 4096 tokens; zamba2 FULL widths, 6 layers,
+     the scan kernel on a rank's 40 of 80 heads, flash at D = 80,
+     ``seq_parallel``. Each rank holds its parameter blocks against its
+     blocks of the stacked run's and prints its peak memory, its ms a
+     step and its launches (B.1, B.2, flash and, for zamba2, B.8 forward
+     and backward: as many as the stacked run's), and its census against
+     ``model_axis_bytes``. The zamba2 processes run beside phase 9 and
+     on, the mixtral reference after them beside phases 10-14, the
+     mixtral ranks ready themselves beside phase 23 and run alone.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23``
-runs the build and then only the phases named among 8 and 13-23 (``2``:
-phase
-2's mixtral, non-causal and head-dim 80/256 flash rows alone; a short
-call while working on them; no kernels or ok line).
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23,24``
+runs the build and then only the phases named among 8 and 13-24 (``2``:
+phase 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a
+short call while working on them; no kernels or ok line).
 
 Phase 2 also holds the flash-attention kernels (the forward with and
 without lse, dq, dk/dv) against their plain versions on the card, in
@@ -2001,16 +2015,10 @@ def hybrid_phase(drive, expect, n_mb, n_workers, seq):
     return zb
 
 
-def hybrid_device_phase(drive, expect):
-    """Phase 9: zamba2 at full width with one group of 6 layers, seq 512,
-    Z9_WORKERS worker(s) x 1 sequence, tau 1, 2 steps (the second applies the first
-    delayed update), f32: the card (the scan kernel) against the CPU
-    (the plain recurrence), with phase 3's checks and the init-weight
-    gradient on one sequence. The CPU's plain recurrence (512
-    sequential steps a layer) sets the phase's time: about 12 s a
-    worker's step. Returns the record."""
+def z9_inputs():
+    """Phase 9's config, run config, init weights (on the host) and
+    batch."""
     import torch
-    from repro_torch.core.arena import tree_flatten, tree_unflatten
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models.api import build_model
     cfg9 = z_config("kernel", n_layers=6, compute_dtype="float32")
@@ -2018,8 +2026,70 @@ def hybrid_device_phase(drive, expect):
     params9 = build_model(cfg9, device="cpu").init(
         torch.Generator().manual_seed(rc9.seed))
     host9 = TokenStream(cfg9, seed=1).next_batch(1, 512)
-    batch9 = {k: torch.from_numpy(v) for k, v in host9.items()}
-    g9_cpu, loss9_cpu = model_grads(cfg9, params9, batch9)
+    return cfg9, rc9, params9, {k: torch.from_numpy(v)
+                                for k, v in host9.items()}
+
+
+def z9_cpu_main(out_dir):
+    """Phase 9's CPU side (``--z9-cpu=DIR``): the init-weight gradient
+    and the 2-step run on the CPU, saved to DIR/z9.pt. The script starts
+    it after the build, so the CPU's plain recurrence runs beside phases
+    2-8, which keep the card busy and the host's cores mostly idle."""
+    import torch
+    cfg9, rc9, params9, batch9 = z9_inputs()
+    grads, loss = model_grads(cfg9, params9, batch9)
+    cpu9, secs = run_lm(cfg9, rc9, 2, Z9_WORKERS, "cpu", 1)
+    torch.save(dict(grads=grads, loss=loss, history=cpu9["history"],
+                    params=cpu9["state"].params,
+                    scales=list(cpu9["state"].arena.scales), secs=secs),
+               f"{out_dir}/z9.tmp")
+    Path(f"{out_dir}/z9.tmp").rename(f"{out_dir}/z9.pt")
+    return 0
+
+
+def start_z9_cpu():
+    """Start phase 9's CPU side in a process of its own (6 of the host's
+    threads; killed at exit if it still runs): (its directory, the
+    process, its start time)."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="6")
+    proc = subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), f"--z9-cpu={tmp}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    atexit.register(lambda: (stop_dist_ranks(proc),
+                             shutil.rmtree(tmp, ignore_errors=True)))
+    return tmp, proc, time.perf_counter()
+
+
+def hybrid_device_phase(drive, expect, cpu_side):
+    """Phase 9: zamba2 at full width with one group of 6 layers, seq 512,
+    Z9_WORKERS worker(s) x 1 sequence, tau 1, 2 steps (the second
+    applies the first delayed update), f32: the card (the scan kernel)
+    against the CPU (the plain recurrence, ``cpu_side``:
+    ``start_z9_cpu``'s process), with phase 3's checks and the
+    init-weight gradient on one sequence.
+    The CPU's plain recurrence (512 sequential steps a layer) takes
+    about 12 s a worker's step. Returns the record."""
+    import shutil
+    import types
+
+    import torch
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    cfg9, rc9, params9, batch9 = z9_inputs()
+    tmp, proc, t_start = cpu_side
+    try:
+        wait_mesh_process("phase 9 CPU side", proc, t_start)
+        cpu = torch.load(f"{tmp}/z9.pt", weights_only=False)
+    finally:
+        stop_dist_ranks(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    g9_cpu, loss9_cpu = cpu["grads"], cpu["loss"]
     leaves9, def9 = tree_flatten(params9)
     g9_gpu, loss9_gpu = model_grads(
         cfg9, tree_unflatten(def9, [x.cuda() for x in leaves9]),
@@ -2038,14 +2108,18 @@ def hybrid_device_phase(drive, expect):
     assert n == expect(dual_update=2, slot_rotate=2,
                        linear_scan_fwd=2 * 6 * 1 * 2,
                        linear_scan_bwd=3 * 6 * 1 * 2), n
-    cpu9, cpu_secs9 = run_lm(cfg9, rc9, 2, Z9_WORKERS, "cpu", 1)
+    cpu9 = {"history": cpu["history"], "state": types.SimpleNamespace(
+        params=cpu["params"],
+        arena=types.SimpleNamespace(scales=cpu["scales"]))}
+    cpu_secs9 = cpu["secs"]
     diff9, tol9 = compare_lm_devices(gpu9, cpu9, tau=1)
     out = dict(gpu_s=secs9, cpu_s=cpu_secs9, launches=n, init_grad_gap=gap9,
                loss=[h["loss"] for h in gpu9["history"]], w_max_diff=diff9,
                w_tol=tol9)
     log(f"phase 9: zamba2 6 layers f32, {Z9_WORKERS} worker(s), 2 steps on "
         f"cuda in {secs9:.2f} s, "
-        f"on cpu in {cpu_secs9:.2f} s; loss {out['loss']}"
+        f"on cpu in {cpu_secs9:.2f} s (a process of its own, beside "
+        f"phases 2-8); loss {out['loss']}"
         f"; max |w_gpu - w_cpu| = {diff9:.3e} <= {tol9:.3e}; launches {n}")
     del gpu9, cpu9
     return out
@@ -6015,22 +6089,25 @@ def tp_config(sp):
     return rc.replace(mesh=MeshConfig(1, 1, 2))
 
 
-def tp_run(sp, device, mesh=None):
-    """One phase-23 run (on ``mesh``, or stacked in this process):
-    (history, the whole params as one flat f32 array (None on a rank
-    but 0), launches, each leaf's largest int8 row scale of the ring)."""
+def tp_run(rc, device, mesh=None, n_steps=MESH_LM_STEPS,
+           n_workers=MESH_LM_WORKERS, counters=None, join=True):
+    """One run of phase 23 or 24 (on ``mesh``, or stacked in this
+    process): (history, the whole params as one flat f32 array (None on
+    a rank but 0; without ``join``, on a rank, its parameter leaves on
+    the host instead), launches (of ``counters``, by default
+    ``mesh_counters()``), each leaf's largest int8 row scale of the
+    ring)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.arena import (flatten_tree, make_layout,
                                         tree_flatten, tree_unflatten)
-    from repro_torch.dist.tensor_parallel import model_dims
+    from repro_torch.dist.tensor_parallel import join_leaf, model_dims
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import LoopConfig, train
-    counters = mesh_counters()
-    rc = tp_config(sp)
+    counters = counters or mesh_counters()
     model = build_model(rc.model, device=device)
     layout = make_layout(model.whole_param_shapes())
-    loop = LoopConfig(n_steps=MESH_LM_STEPS, n_workers=MESH_LM_WORKERS,
+    loop = LoopConfig(n_steps=n_steps, n_workers=n_workers,
                       samples_per_worker=1, log_every=1)
     for k in counters.values():
         k.launches = 0
@@ -6038,15 +6115,21 @@ def tp_run(sp, device, mesh=None):
     launches = {n: k.launches for n, k in counters.items()}
     hist = out["history"]
     leaves, treedef = tree_flatten(out["state"].params)
+    if mesh is not None and not join:
+        leaves = [x.cpu() for x in leaves]
+        del out, model
+        torch.cuda.empty_cache()
+        return hist, leaves, launches, None
     if mesh is not None:
         # join the model blocks (outside the census: the check's own)
         dims = model_dims(rc.model, layout, model.param_axes(), rc.mesh)
         group = mesh.device_mesh.get_group("model")
         for i, dim in enumerate(dims):
             if dim is not None:
-                parts = [torch.empty_like(leaves[i]) for _ in range(2)]
+                parts = [torch.empty_like(leaves[i])
+                         for _ in range(rc.mesh.model)]
                 dist.all_gather(parts, leaves[i].contiguous(), group=group)
-                leaves[i] = torch.cat(parts, dim=dim)
+                leaves[i] = join_leaf(parts, dim)
     flat = None
     if mesh is None or dist.get_rank() == 0:
         flat = flatten_tree(layout, tree_unflatten(treedef, leaves)
@@ -6081,7 +6164,8 @@ def tp_rank_main(out_dir):
             t0 = time.perf_counter()
             mesh = make_mesh(tp_config(sp).mesh, "cuda")
             with wire_census() as census:
-                hist, flat, launches, _ = tp_run(sp, "cuda", mesh)
+                hist, flat, launches, _ = tp_run(tp_config(sp), "cuda",
+                                                 mesh)
             rec[label] = dict(history=hist, launches=launches,
                               seconds=time.perf_counter() - t0,
                               census=[[*k, n] for k, n in
@@ -6103,7 +6187,7 @@ def tp_ref_main(out_dir):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    hist, flat, launches, step = tp_run(False, "cuda")
+    hist, flat, launches, step = tp_run(tp_config(False), "cuda")
     np.save(f"{out_dir}/tp-ref.npy", flat)
     with open(f"{out_dir}/tp-ref.json", "w") as f:
         json.dump(dict(history=hist, launches=launches, int8_step=step,
@@ -6225,6 +6309,332 @@ def tp_phase(launches, bg=None):
     return out
 
 
+# -- phase 24: tensor parallelism for the MoE and the hybrid ------------------
+# Each run f32, tau 1, TP24_STEPS steps on 1x1x2 (two gloo ranks sharing
+# the card), int8, held against its 1x1x1 stacked run on the same route
+# (made in a process of its own) to phase 23's limits:
+#   mixtral: mixtral-8x7b FULL widths (8 experts, top 2), TP24_MIX_LAYERS
+#            layer, the gather dispatch, flash (16 of 32 query heads and 4
+#            of 8 kv heads a rank), TP24_MIX_SEQ tokens a sequence;
+#   zamba2:  zamba2-2.7b FULL widths, TP24_Z_LAYERS layers (one shared-block
+#            application), the scan kernel on 40 of 80 heads a rank,
+#            flash at D = 80 (16 of 32 heads), seq_parallel.
+# A rank of the mixtral run holds ~0.92B f32 parameters and as many
+# gradients, half the rows of the arena (z, the int8 ring and its
+# residual, the gradient rows) and, in the w bridge, the whole f32 w a
+# moment (6.9 GB): each process's peak is printed (on an H100 80GB: 37.2
+# GiB a rank, 54.5 the stacked run; zamba2 11.2 a rank, 16.2 stacked). So
+# the phase runs in TP24_STAGES, each once the one before has ended; in
+# the whole script the first two run beside phases 9-14, whose card
+# memory is small, and the mixtral ranks start (imports, the card, the
+# process group) beside phase 23 and run alone at phase 24. Each rank holds its
+# parameter blocks against its blocks of the stacked run's parameters
+# (written by then), so no process gathers or writes the whole tree.
+TP24_STEPS = 2
+TP24_WORKERS = 2          # one sequence each, one microbatch each
+TP24_MIX_LAYERS = 1
+TP24_MIX_SEQ = 4096
+TP24_Z_LAYERS = 6
+TP24_Z_SEQ = 4096
+TP24_RUNS = ("mixtral", "zamba2")
+TP24_STAGES = (("zamba2 ranks", "zamba2 reference"), ("mixtral reference",),
+               ("mixtral ranks",))
+TP24_KINDS = {"ranks": "rank", "reference": "ref"}   # a process's --tp24
+
+
+def tp24_config(label):
+    """Phase 24's run config of ``label`` on 1x1x2."""
+    from repro_torch.configs.base import MeshConfig
+    if label == "mixtral":
+        cfg = mix_config("flash", moe_impl="gather",
+                         n_layers=TP24_MIX_LAYERS, compute_dtype="float32")
+        seq = TP24_MIX_SEQ
+    else:
+        cfg = z_route("kernel", n_layers=TP24_Z_LAYERS,
+                      compute_dtype="float32", seq_parallel=True)
+        seq = TP24_Z_SEQ
+    rc = lm_run_config(cfg, seq, TP24_WORKERS, TP24_WORKERS, tau=1)
+    return rc.replace(mesh=MeshConfig(1, 1, 2))
+
+
+def tp24_counters():
+    """Phase 24's launch counters: phase 22's and the scan's."""
+    from repro_torch.kernels.linear_scan import kernel as sk
+    return dict(mesh_counters(), linear_scan_fwd=sk.FWD,
+                linear_scan_bwd=sk.BWD)
+
+
+def wait_file(path, what, timeout=900):
+    """Wait for ``path`` to exist (another process writes it last)."""
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        assert time.perf_counter() - t0 < timeout, f"no {what} at {path}"
+        time.sleep(0.2)
+
+
+def tp24_record(label, rc, mesh, out_dir, rank, device="cuda"):
+    """Run ``label`` (stacked without ``mesh``) and write its record:
+    history, launches, seconds, the peak of the card's memory this
+    process allocated and, on the mesh, the census and each leaf's (gap
+    to the stacked run's block, limit); the stacked run writes its whole
+    params (flat f32) and each leaf's int8 step."""
+    import numpy as np
+    import torch
+    from repro_torch.dist.collectives import wire_census
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with wire_census() as census:
+        hist, flat, launches, step = tp_run(
+            rc, device, mesh, n_steps=TP24_STEPS, n_workers=TP24_WORKERS,
+            counters=tp24_counters(), join=False)
+    rec = dict(history=hist, launches=launches, int8_step=step,
+               seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               census=[[*k, n] for k, n in census.bytes.items()])
+    name = "ref" if mesh is None else f"rank{rank}"
+    if mesh is None:
+        np.save(f"{out_dir}/tp24-{label}-ref.npy", flat)
+    else:
+        rec["leaves"] = tp24_leaf_gaps(label, rc, flat, hist, out_dir,
+                                       mesh.coords["model"])
+    with open(f"{out_dir}/tp24-{label}-{name}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def tp24_leaf_gaps(label, rc, local, hist, out_dir, m):
+    """[gap, limit] of each parameter leaf of model rank ``m`` (``local``,
+    on the host): max |leaf - its block of the stacked run's|, and phase
+    23's limit (TP_RTOL of the stacked leaf's largest element plus one
+    int8 step of the leaf over the smallest applied count)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.arena import make_layout
+    from repro_torch.dist.tensor_parallel import (ModelAxis, cut_leaf,
+                                                  model_dims)
+    from repro_torch.models.api import build_model
+    wait_file(f"{out_dir}/tp24-{label}-ref.json", "stacked record")
+    ref = read_json(f"{out_dir}/tp24-{label}-ref.json")
+    flat = np.load(f"{out_dir}/tp24-{label}-ref.npy",
+                   mmap_mode="r").reshape(-1)
+    model = build_model(rc.model, device="cpu")
+    layout = make_layout(model.whole_param_shapes())
+    dims = model_dims(rc.model, layout, model.param_axes(), rc.mesh)
+    ax = ModelAxis(None, rc.mesh.model, m)
+    counts = [h["applied_count"] for h in ref["history"]
+              if h["applied_count"]]
+    assert [h["applied_count"] for h in hist] == \
+        [h["applied_count"] for h in ref["history"]]
+    out = []
+    for i, (ofs, size, shape) in enumerate(zip(
+            layout.row_offsets, layout.sizes, layout.shapes)):
+        whole = torch.from_numpy(np.array(
+            flat[ofs * 128:ofs * 128 + size])).reshape(shape)
+        want = whole if dims[i] is None else cut_leaf(whole, dims[i], ax)
+        gap = float((local[i] - want).abs().max())
+        out.append([gap, TP_RTOL * float(whole.abs().max())
+                    + ref["int8_step"][i] / min(counts)])
+    return out
+
+
+def tp24_main(arg):
+    """A phase-24 process (``--tp24=DIR:LABEL:KIND``, KIND "rank" under
+    torch.distributed.run or "ref"): readies itself (under "rank" the
+    card, the process group and the mesh), waits for DIR/go.LABEL.KIND,
+    then runs and writes its record."""
+    import torch
+    out_dir, label, kind = arg.rsplit(":", 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    rc = tp24_config(label)
+    if kind == "ref":
+        from repro_torch.configs.base import MeshConfig
+        wait_file(f"{out_dir}/go.{label}.{kind}", "go")
+        tp24_record(label, rc.replace(mesh=MeshConfig(1, 1, 1)), None,
+                    out_dir, 0)
+        return 0
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        mesh = make_mesh(rc.mesh, "cuda")
+        wait_file(f"{out_dir}/go.{label}.{kind}", "go")
+        tp24_record(label, rc, mesh, out_dir, dist.get_rank())
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+class TP24Stages:
+    """Phase 24's processes, stage by stage (TP24_STAGES), in a
+    temporary directory. ``spawn`` starts a stage's processes, which
+    ready themselves and wait; ``go`` lets them run. ``stop`` (also at
+    exit) kills what still runs and removes the directory."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+        self.tmp = tempfile.mkdtemp()
+        self.procs, self.secs, self.started = {}, {}, set()
+        atexit.register(self.stop)
+
+    def spawn(self, i):
+        """Start stage ``i``'s processes (waiting for their go)."""
+        import os
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        script = str(root / "chip_smoke.py")
+        for name in TP24_STAGES[i]:
+            if name in self.procs or name in self.secs:
+                continue
+            label, kind = name.split()
+            flag = f"--tp24={self.tmp}:{label}:{TP24_KINDS[kind]}"
+            if kind == "ranks":
+                cmd = [sys.executable, "-m", "torch.distributed.run",
+                       "--nproc-per-node=2", f"--master-port={free_port()}",
+                       "--monitor-interval=0.5", script, flag]
+            else:
+                cmd = [sys.executable, script, flag]
+            self.procs[name] = (subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, start_new_session=True), time.perf_counter())
+
+    def go(self, i):
+        """Spawn stage ``i`` if it is not, and let it run."""
+        self.spawn(i)
+        for name in TP24_STAGES[i]:
+            label, kind = name.split()
+            Path(f"{self.tmp}/go.{label}.{TP24_KINDS[kind]}").touch()
+        self.started.add(i)
+
+    def finished(self, i):
+        """Whether every process of stage ``i`` has exited."""
+        return all(self.procs[n][0].poll() is not None
+                   for n in TP24_STAGES[i] if n in self.procs)
+
+    def wait(self, i):
+        """Wait for stage ``i``'s processes: each one's seconds."""
+        for name in TP24_STAGES[i]:
+            if name in self.procs:
+                proc, t0 = self.procs.pop(name)
+                self.secs[name] = wait_mesh_process(name, proc, t0)
+
+    def advance(self, last):
+        """Start the next stage up to ``last`` once the one before has
+        ended (waited for); no waiting otherwise."""
+        i = max(self.started, default=-1)
+        if i < last and (i < 0 or self.finished(i)):
+            if i >= 0:
+                self.wait(i)
+            self.go(i + 1)
+
+    def finish(self, last):
+        """Run the stages up to ``last`` to their end, each after the
+        one before."""
+        for i in range(last + 1):
+            if i not in self.started:
+                self.go(i)
+            self.wait(i)
+
+    def stop(self):
+        import shutil
+        for proc, _ in self.procs.values():
+            stop_dist_ranks(proc)
+        self.procs = {}
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def tp24_phase(launches, stages=None):
+    """Phase 24: every stage ``stages`` (a ``TP24Stages``) has not run,
+    each after the one before; then each run held against its stacked
+    run as phase 23 holds its own (losses, params, counts, launches a
+    rank equal to the stacked run's, the ``model`` census equal to
+    ``model_axis_bytes``); prints each process's peak, each rank's ms a
+    step and the launches. Adds the launches to ``launches``."""
+    stages = stages or TP24Stages()
+    try:
+        stages.finish(len(TP24_STAGES) - 1)
+        return tp24_check(stages.tmp, launches, stages.secs)
+    finally:
+        stages.stop()
+
+
+def tp24_check(tmp, launches, secs):
+    """Phase 24's checks on the records in ``tmp`` (``tp24_phase``)."""
+    from repro_torch.core.arena import make_layout
+    from repro_torch.dist.tensor_parallel import model_dims
+    from repro_torch.launch.wire_model import model_axis_bytes
+    from repro_torch.models.api import build_model
+    out = {"seconds": secs}
+    for label in TP24_RUNS:
+        rc = tp24_config(label)
+        model = build_model(rc.model, device="cpu")
+        layout = make_layout(model.whole_param_shapes())
+        dims = model_dims(rc.model, layout, model.param_axes(), rc.mesh)
+        ref = read_json(f"{tmp}/tp24-{label}-ref.json")
+        ranks = [read_json(f"{tmp}/tp24-{label}-rank{r}.json")
+                 for r in range(2)]
+        h_ref = ref["history"]
+        worst = 0.0
+        for r in range(2):
+            assert len(ranks[r]["leaves"]) == layout.n_leaves
+            for i, (gap, limit) in enumerate(ranks[r]["leaves"]):
+                assert gap <= limit, (label, r, i, gap, limit)
+                worst = max(worst, gap / limit)
+        h = ranks[0]["history"]
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(h, h_ref))
+        assert loss_rel <= TP_RTOL, (label, loss_rel)
+        for a, b in zip(h, h_ref):
+            for key in ("applied_count", "local_count"):
+                assert a[key] == b[key], (label, key, a, b)
+        path = (("linear_scan_fwd", "linear_scan_bwd") if label == "zamba2"
+                else ()) + ("dual_update", "slot_rotate", "flash_fwd_lse",
+                            "flash_bwd_dq", "flash_bwd_dkv")
+        for name in path:
+            assert ref["launches"][name] > 0, (label, name, ref["launches"])
+        for name, k in ref["launches"].items():
+            launches[name] += k
+        n = [r["launches"] for r in ranks]
+        for r in range(2):
+            assert n[r] == ref["launches"], (label, r, n[r], ref["launches"])
+            for name, k in n[r].items():
+                launches[name] += k
+        one = model_axis_bytes(rc.model, layout, dims, 1, rc.shape.seq_len,
+                               TP24_WORKERS, 2, "int8")
+        model_count = {f"{t}/{dt}": TP24_STEPS * b for (t, dt), b in
+                       one.items()}
+        for r in range(2):
+            census = {f"{tag}/{dt}": b for axis, dt, tag, b in
+                      ranks[r]["census"] if axis == "model"}
+            assert census == model_count, (label, r, census, model_count)
+        step_ms = [[1e3 * s["step_s"] for s in r["history"]] for r in ranks]
+        peaks = [r["peak_gib"] for r in ranks]
+        out[label] = dict(loss_rel=loss_rel, params_err_over_limit=worst,
+                          step_ms=step_ms, launches=n[0],
+                          census=model_count, peak_gib=peaks,
+                          ref_peak_gib=ref["peak_gib"],
+                          loss=[s["loss"] for s in h],
+                          loss_ref=[s["loss"] for s in h_ref],
+                          ref_step_ms=[1e3 * s["step_s"] for s in h_ref],
+                          rank_s=[r["seconds"] for r in ranks],
+                          ref_s=ref["seconds"])
+        log(f"phase 24 {label}: FULL widths {rc.model.n_layers} layer(s) "
+            f"f32 int8 {rc.shape.seq_len} tokens x {TP24_WORKERS} on 1x1x2 "
+            f"(2 gloo ranks on the card, seq_parallel="
+            f"{rc.model.seq_parallel}), {TP24_STEPS} steps: loss rel gap "
+            f"{loss_rel:.3e} (limit {TP_RTOL}); params worst leaf at "
+            f"{worst:.3f} of its limit; counts equal; peak GiB a rank "
+            f"{[round(p, 2) for p in peaks]} (stacked "
+            f"{ref['peak_gib']:.2f}); ms a step, rank 0 / 1: {step_ms} "
+            f"(stacked {out[label]['ref_step_ms']}); launches a rank "
+            f"(the stacked run's): {json.dumps(n[0])}; 'model' census "
+            f"{json.dumps(model_count)} = model_axis_bytes x {TP24_STEPS}; "
+            f"process seconds "
+            f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+    return out
+
+
 def card_line():
     """The card's name and power limit, as ``nvidia-smi`` reads them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6247,7 +6657,8 @@ def main():
              "--mesh-lm-ref": mesh_lm_ref_main,
              "--dec-rank": dec_rank_main, "--dec-ref": dec_rank_ref_main,
              "--p2p-probe": p2p_probe_main, "--tp-rank": tp_rank_main,
-             "--tp-ref": tp_ref_main}
+             "--tp-ref": tp_ref_main, "--tp24": tp24_main,
+             "--z9-cpu": z9_cpu_main}
     for a in sys.argv[1:]:
         flag, _, value = a.partition("=")
         if flag in roles:
@@ -6327,8 +6738,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,14,15,16,17,18,19,20,21,22,23``: after the build, run
-    # only those of phases 8 and 13-23 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,...,24``: after the build, run only those of phases
+    # 8 and 13-24 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -6401,10 +6812,17 @@ def main():
             t0 = time.perf_counter()
             record["tp"] = tp_phase(launches)
             phase_done("phase 23", t0)
+        if "24" in picked:
+            t0 = time.perf_counter()
+            record["tp_families"] = tp24_phase(launches)
+            phase_done("phase 24", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
         return 0
+
+    # phase 9's CPU side runs beside phases 2-8
+    z9_cpu = start_z9_cpu()
 
     # -- 2. kernels against their plain versions ---------------------------
     t0 = time.perf_counter()
@@ -6770,8 +7188,14 @@ def main():
 
     # -- 9. zamba2 at full width, one group of 6 layers: card against CPU ----
     t0 = time.perf_counter()
-    lm["zamba2_6_layers"] = hybrid_device_phase(drive, expect)
+    # phase 24's zamba2 processes run beside phase 9, its mixtral reference
+    # beside phases 10-14 (their card memory is small)
+    torch.cuda.empty_cache()
+    tp24_stages = TP24Stages()
+    tp24_stages.go(0)
+    lm["zamba2_6_layers"] = hybrid_device_phase(drive, expect, z9_cpu)
     phase_done("phase 9", t0)
+    tp24_stages.advance(1)
 
     # -- 10. the cluster simulator on the card ------------------------------
     t0 = time.perf_counter()
@@ -6790,6 +7214,7 @@ def main():
     for name, r in simulator["paper"].items():
         log(f"phase 10: Sec. VI-A d=10^4 {name}: {json.dumps(r)}")
     phase_done("phase 10", t0)
+    tp24_stages.advance(1)
 
     # -- 11. the pytree master against the arena master ---------------------
     t0 = time.perf_counter()
@@ -6797,6 +7222,7 @@ def main():
     for label, r in masters.items():
         log(f"phase 11: {label}: {json.dumps(r)}")
     phase_done("phase 11", t0)
+    tp24_stages.advance(1)
 
     # -- 12. the K-batch strategy's device step -----------------------------
     t0 = time.perf_counter()
@@ -6808,6 +7234,7 @@ def main():
     t0 = time.perf_counter()
     cnn = cnn_phase(drive, expect)
     phase_done("phase 13", t0)
+    tp24_stages.advance(1)
 
     # -- 14. batch schedules, elastic workers, checkpoint/restart -----------
     t0 = time.perf_counter()
@@ -6816,6 +7243,7 @@ def main():
 
     # -- 15. the decentralized gossip ---------------------------------------
     t0 = time.perf_counter()
+    tp24_stages.finish(1)
     decentralized = decentralized_phase(drive, expect)
     phase_done("phase 15", t0)
 
@@ -6893,15 +7321,23 @@ def main():
 
     # -- 23. tensor parallelism over 'model' --------------------------------
     t0 = time.perf_counter()
+    tp24_stages.spawn(2)     # phase 24's mixtral ranks ready themselves
     tp = tp_phase(launches, bg=tp_bg[0])
     phase_done("phase 23", t0)
+
+    # -- 24. tensor parallelism for the MoE and the hybrid ------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp_families = tp24_phase(launches, tp24_stages)
+    phase_done("phase 24", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
                     "scenarios": scenarios, "decentralized": decentralized,
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
                     "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
-                    "mesh": mesh, "tp": tp, "phase_s": phase_s,
+                    "mesh": mesh, "tp": tp, "tp_families": tp_families,
+                    "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

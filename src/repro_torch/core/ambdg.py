@@ -41,9 +41,9 @@ Under a multi-rank ``P x D x M`` mesh (``launch.mesh``; an active
 ``dist.context`` profile of more than one device) the step is the
 sharded master, ZeRO-like: each rank gets its block of the batch (its
 share of its pod's microbatches, the same on every ``model`` rank),
-runs it (at ``model > 1`` on its parameter blocks, the dense
-transformers' tensor parallelism, ``dist.tensor_parallel``), turns the
-gradient into its block of the whole tree's arena rows
+runs it (at ``model > 1`` on its parameter blocks, the tensor
+parallelism of the dense, MoE and hybrid LMs, ``dist.tensor_parallel``),
+turns the gradient into its block of the whole tree's arena rows
 (``_grad_rows``: the model blocks gathered leaf by leaf, then
 reduce-scattered over ``data``), pushes and pops its row shard through
 the ring (``arena.push_pop``'s sharded route: the pods cross in the
@@ -248,6 +248,7 @@ def _grad_rows(layout, shard: MeshShard, grads):
     reduce-scattered over ``data``. At ``model = 1`` the buffer is
     ``flatten_tree``'s."""
     from repro_torch.dist.collectives import all_gather, reduce_scatter_rows
+    from repro_torch.dist.tensor_parallel import join_leaf
     ranks, rl = shard.ranks, shard.rows_local
     n_data, n_model = ranks.sizes["data"], ranks.sizes["model"]
     m = ranks.coords["model"]
@@ -259,9 +260,9 @@ def _grad_rows(layout, shard: MeshShard, grads):
     for leaf, dim, ofs, size, rc in zip(leaves, dims, layout.row_offsets,
                                         layout.sizes, layout.row_counts):
         if dim is not None:
-            leaf = torch.cat(all_gather(leaf, shard.ax.group, n_model,
+            leaf = join_leaf(all_gather(leaf, shard.ax.group, n_model,
                                         axis="model", tag="grad_leaves"
-                                        ).unbind(0), dim=dim)
+                                        ).unbind(0), dim)
         flat = leaf.reshape(-1)
         for d in range(n_data):
             b0 = (d * n_model + m) * rl

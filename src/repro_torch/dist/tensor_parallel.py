@@ -1,7 +1,8 @@
 """Tensor parallelism over the mesh's ``model`` axis for the dense
-transformers: the collectives GSPMD inserts for the JAX package's train
-profile (``dist.sharding``: "heads", "mlp" and "vocab" on ``model``),
-written out, and the rule that cuts each rank's parameters.
+transformers, the mixtrals (MOE) and zamba2 (HYBRID): the collectives
+GSPMD inserts for the JAX package's train profile (``dist.sharding``:
+"heads", "mlp" and "vocab" on ``model``), written out, and the rule
+that cuts each rank's parameters.
 
 The layout (Megatron's, on JAX's specs):
 
@@ -20,6 +21,22 @@ The layout (Megatron's, on JAX's specs):
     the use site);
   * the loss is the vocab-parallel cross entropy over the padded vocab
     (``cross_entropy``);
+  * MoE: every expert's ``w_gate`` and ``w_up`` are column-parallel
+    over "mlp", ``w_down`` row-parallel; the expert dim stays whole
+    (JAX's profile has no entry for "expert"), and so does
+    ``w_router``: every rank routes every token alike, from the
+    residual input before ``enter`` (under ``seq_parallel`` from
+    ``router_input``'s gather), and one ``exit`` follows the combine;
+  * Mamba2: a rank runs the heads [m nh/M, (m+1) nh/M). JAX's "mlp" cut
+    of the fused ``w_in`` columns [z | x | B | C | dt] (and of
+    ``w_conv`` / ``b_conv``'s [x | B | C]) is one contiguous block,
+    which straddles the parts; here each rank holds its heads' z, x and
+    dt columns and the B and C columns whole (n_groups = 1: every head
+    reads them), a ``Segments`` cut. ``a_log``, ``dt_bias`` and
+    ``d_skip`` stay whole and are sliced to the rank's heads;
+    ``norm_scale`` and ``w_out`` keep JAX's contiguous block (y is laid
+    out head-major), and the gated norm's mean over the whole inner dim
+    sums the ranks' parts (``sum``);
   * the weights stay whole over ``data`` (JAX's train profile puts
     "embed" there, FSDP; the port does not).
 
@@ -40,15 +57,24 @@ The autograd ops, each a ``torch.autograd.Function``:
   split_seq   the rank's sequence block of the embedding (backward: the
               all-gather);
   vocab_slice the rank's vocab rows of the tied table (backward: the
-              all-gather of the rows' gradients over the vocab).
+              all-gather of the rows' gradients over the vocab);
+  sum         all-reduce forward and backward: the gated norm's sum of
+              squares, which every rank's columns feed and read;
+  router_input under ``seq_parallel``: the sequence's all-gather whose
+              backward keeps the rank's own block (the router, which
+              every rank computes whole);
+  gates       a ``copy`` on the MoE's gates: each rank's combine sees
+              its partial expert outputs, so the gates' gradient is
+              summed before it reaches the softmax.
 
 Reductions run in f32 (a bf16 partial is widened first and the sum
 rounded back once), gathers in the tensor's own dtype. Every call adds
 its bytes to the census (``dist.collectives``) under axis "model":
 "tp_act" (copy and reduce on activations), "tp_seq" (the sequence's
 gathers and scatters), "tp_param" (copy on parameters, the tied
-table's gather), "tp_loss" (the loss's three reductions);
-``core.ambdg``'s gradient bridge adds "grad_leaves".
+table's gather), "tp_loss" (the loss's three reductions), "tp_router"
+(``gates`` and ``router_input``), "tp_norm" (``sum``); ``core.ambdg``'s
+gradient bridge adds "grad_leaves".
 """
 from __future__ import annotations
 
@@ -57,10 +83,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, ModelConfig
 
 # the attention leaves kept whole where the kv heads do not split
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
+# the families the axis carries
+_FAMILIES = (DENSE, MOE, HYBRID)
+# the fused Mamba2 leaves (``models.ssm.mamba2_segments``)
+_SEGMENTED = ("w_in", "w_conv", "b_conv")
 
 
 class ModelAxis(NamedTuple):
@@ -86,17 +116,30 @@ def model_axis() -> Optional[ModelAxis]:
 
 def check_model_axis(cfg: ModelConfig, n: int) -> None:
     """Raise for a config the ``model`` axis of size ``n`` does not
-    carry: a family but DENSE (``NotImplementedError``, ROADMAP A.11
-    part 2, item 6), or widths that do not split over ``n`` ranks by
-    whole heads, whole kv groups, "mlp" columns and vocab rows
-    (``ValueError``)."""
+    carry: a family but DENSE, MOE and HYBRID (``NotImplementedError``,
+    ROADMAP A.11 part 2, item 6), or widths that do not split over ``n``
+    ranks by whole heads, whole kv groups, "mlp" columns, vocab rows
+    and (HYBRID) whole Mamba2 heads (``ValueError``). The MoE's expert
+    count is not cut."""
     if n == 1:
         return
-    if cfg.family != DENSE:
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} on a mesh with model={n}: tensor "
-            "parallelism over 'model' carries the dense transformers; the "
-            "other families are ROADMAP A.11 part 2, item 6")
+            "parallelism over 'model' carries the dense transformers, the "
+            "mixtrals and zamba2; the other families are ROADMAP A.11 "
+            "part 2, item 6")
+    if cfg.family == HYBRID:
+        from repro_torch.models.ssm import mamba2_dims
+        if cfg.ssm.n_groups != 1:
+            raise NotImplementedError(
+                f"Mamba2 with n_groups={cfg.ssm.n_groups} on model={n}: "
+                "the rank's heads read the one B/C group whole; grouped "
+                "B/C columns are ROADMAP A.11 part 2, item 6")
+        nh = mamba2_dims(cfg)[1]
+        if nh % n:
+            raise ValueError(f"{nh} Mamba2 heads do not split over "
+                             f"model={n} ranks by whole heads")
     if cfg.n_heads % n:
         raise ValueError(f"{cfg.n_heads} attention heads do not split over "
                          f"model={n} ranks by whole heads")
@@ -125,19 +168,67 @@ def local_heads(cfg: ModelConfig, ax: ModelAxis) -> Tuple[int, int, int,
     return q_local, ax.rank * q_local // group, 1, True
 
 
+class Segments(NamedTuple):
+    """A leaf whose ``model`` blocks are not one contiguous block of a
+    dim: along ``dim`` the whole leaf is ``parts``, each (start, size,
+    split); rank m of M holds block m of each split part (size / M
+    columns) and each other part whole, in that order. The whole parts
+    are the same on every rank: a join takes them from rank 0."""
+    dim: int
+    parts: Tuple[Tuple[int, int, bool], ...]
+
+    def local_parts(self, n: int):
+        """(offset, width, split) of each part in a rank's block."""
+        out, ofs = [], 0
+        for _, size, split in self.parts:
+            width = size // n if split else size
+            out.append((ofs, width, split))
+            ofs += width
+        return out
+
+    def cut(self, whole: torch.Tensor, n: int, m: int) -> torch.Tensor:
+        """Rank ``m``'s block of ``whole`` (a tensor of its own)."""
+        cols = torch.cat([
+            torch.arange(start + m * (size // n), start + (m + 1) *
+                         (size // n)) if split
+            else torch.arange(start, start + size)
+            for start, size, split in self.parts])
+        return whole.index_select(self.dim, cols.to(whole.device))
+
+    def join(self, blocks) -> torch.Tensor:
+        """The whole leaf from every rank's block (rank order)."""
+        return torch.cat([
+            b.narrow(self.dim, ofs, width)
+            for ofs, width, split in self.local_parts(len(blocks))
+            for b in (blocks if split else blocks[:1])], dim=self.dim)
+
+
 def leaf_spec(cfg: ModelConfig, name: str, shape, axes, mesh):
-    """The spec a rank cuts leaf ``name`` (its logical ``axes`` and
-    whole ``shape``) by: JAX's train-profile spec restricted to its
-    ``model`` entry (the weights stay whole over ``data``), and no cut
-    for the kv leaves where the kv heads do not split."""
+    """The cut a rank takes of leaf ``name`` (its logical ``axes`` and
+    whole ``shape``): JAX's train-profile spec restricted to its
+    ``model`` entry (the weights stay whole over ``data``); no cut for
+    the kv leaves where the kv heads do not split; a ``Segments`` for
+    the Mamba2 leaves JAX's contiguous block would straddle."""
     from repro_torch.dist.sharding import Spec, entry_axes, spec_for
     if name in _KV_LEAVES and cfg.n_kv_heads % mesh.model:
         return Spec()
+    if cfg.family == HYBRID and name in _SEGMENTED:
+        from repro_torch.models.ssm import mamba2_segments
+        return mamba2_segments(cfg, name, len(shape))
     entries = [e if "model" in entry_axes(e) else None
                for e in spec_for(tuple(axes), tuple(shape), mesh)]
     while entries and entries[-1] is None:
         entries.pop()
     return Spec(*entries)
+
+
+def shard_leaf(value, spec, mesh, coords):
+    """The block of the whole leaf ``value`` the rank at ``coords``
+    holds under ``leaf_spec``'s ``spec`` (a view for a ``Spec``)."""
+    if isinstance(spec, Segments):
+        return spec.cut(value, mesh.model, coords.get("model", 0))
+    from repro_torch.dist.sharding import local_shard
+    return local_shard(value, spec, mesh, coords)
 
 
 def param_cutter(cfg: ModelConfig):
@@ -149,28 +240,29 @@ def param_cutter(cfg: ModelConfig):
         return None
     check_model_axis(cfg, ax.n)
     from repro_torch.dist.context import active_mesh
-    from repro_torch.dist.sharding import local_shard
     mesh, coords = active_mesh(), {"model": ax.rank}
 
     def cut(name, value, axes):
         spec = leaf_spec(cfg, name, value.shape, axes, mesh)
-        return local_shard(value, spec, mesh, coords).clone() if spec \
+        return shard_leaf(value, spec, mesh, coords).clone() if spec \
             else value
     return cut
 
 
 def model_dims(cfg: ModelConfig, layout, axes_tree, mesh):
     """For each leaf of the whole tree's ``layout`` (sorted-key order):
-    the dim its ``model`` block is cut on, or None for a whole leaf."""
+    how its ``model`` block is cut, the dim of a contiguous block, a
+    ``Segments``, or None for a whole leaf."""
     specs = _leaf_specs(cfg, layout, axes_tree, mesh)
-    return [next((d for d, e in enumerate(spec) if e is not None), None)
+    return [spec if isinstance(spec, Segments) else
+            next((d for d, e in enumerate(spec) if e is not None), None)
             for _, spec in specs]
 
 
 def param_specs(cfg: ModelConfig, layout, axes_tree, mesh):
     """{path in the parameter tree ("layers/attn/wq"): its ``leaf_spec``}
     of each leaf a rank holds a ``model`` block of (the checkpoints join
-    and cut them)."""
+    and cut them, ``shard_leaf``)."""
     return {path: spec for path, spec in
             _leaf_specs(cfg, layout, axes_tree, mesh) if spec}
 
@@ -192,19 +284,33 @@ def _leaf_paths(treedef, prefix: str = ""):
     return out
 
 
+def cut_leaf(leaf, dim, ax: ModelAxis):
+    """The rank's model block of one whole leaf (``dim`` a
+    ``model_dims`` entry), a tensor of its own."""
+    if isinstance(dim, Segments):
+        return dim.cut(leaf, ax.n, ax.rank)
+    if dim is not None:
+        size = leaf.shape[dim] // ax.n
+        leaf = leaf.narrow(dim, ax.rank * size, size)
+    return leaf.clone()
+
+
+def join_leaf(blocks, dim):
+    """The whole leaf from every ``model`` rank's block of it (rank
+    order; ``dim`` a ``model_dims`` entry, not None)."""
+    if isinstance(dim, Segments):
+        return dim.join(blocks)
+    return torch.cat(list(blocks), dim=dim)
+
+
 def cut_params(params, dims, ax: ModelAxis):
     """The rank's model blocks of a whole parameter tree (``dims`` from
     ``model_dims``), each leaf a tensor of its own (none keeps the
     whole tree's storage alive)."""
     from repro_torch.core.arena import tree_flatten, tree_unflatten
     leaves, treedef = tree_flatten(params)
-    out = []
-    for leaf, dim in zip(leaves, dims):
-        if dim is not None:
-            size = leaf.shape[dim] // ax.n
-            leaf = leaf.narrow(dim, ax.rank * size, size)
-        out.append(leaf.clone())
-    return tree_unflatten(treedef, out)
+    return tree_unflatten(treedef, [cut_leaf(leaf, dim, ax)
+                                    for leaf, dim in zip(leaves, dims)])
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +360,38 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce forward and backward: a sum every rank's part feeds
+    and every rank reads, so each rank's gradient of its part is the sum
+    of every rank's gradient of the total."""
+
+    @staticmethod
+    def forward(ctx, x, ax, tag):
+        ctx.ax, ctx.tag = ax, tag
+        return _reduce(x, ax, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.ax, ctx.tag), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """The sequence's all-gather for a computation every rank runs
+    whole (its gradient is the same on every rank): backward keeps the
+    rank's own block, no communication."""
+
+    @staticmethod
+    def forward(ctx, x, ax, tag):
+        ctx.ax = ax
+        return _gather(x, ax, 1, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        size = g.shape[1] // ctx.ax.n
+        return g.narrow(1, ctx.ax.rank * size, size).contiguous(), None, \
+            None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -355,6 +493,25 @@ class TensorParallel:
         """A whole parameter each rank uses a part of: its gradient is
         summed over ranks, so it is the same on every rank."""
         return _Copy.apply(p, self.ax, "tp_param")
+
+    def gates(self, gates):
+        """The MoE's gates before the combine: each rank combines its
+        partial expert outputs, so their gradient is summed over
+        ranks."""
+        return _Copy.apply(gates, self.ax, "tp_router")
+
+    def router_input(self, x):
+        """What the MoE's router reads: the residual input itself (its
+        gradient whole on every rank, so it bypasses ``enter``), under
+        ``seq_parallel`` the whole sequence, gathered (its backward
+        keeps the rank's own block)."""
+        return _GatherWhole.apply(x, self.ax, "tp_router") if self.sp \
+            else x
+
+    def sum(self, x):
+        """``x`` summed over the ranks, the gradient as well (the gated
+        norm's sum of squares)."""
+        return _Sum.apply(x, self.ax, "tp_norm")
 
     def norm_scale(self, scale):
         """An RMSNorm scale of the residual stream: under

@@ -13,7 +13,7 @@ m). Where both ``data`` and ``model`` exceed 1 it also makes each pod's
 group over their product, the group the arena's rows shard over.
 Entering the mesh (``with mesh:``) activates its sharding profile and
 its ``DeviceMesh``, under which the arena's rotations, the train step
-and, at ``model > 1``, the dense transformers' tensor parallelism
+and, at ``model > 1``, the dense, MoE and hybrid LMs' tensor parallelism
 (``dist.tensor_parallel``) take their sharded routes. JAX's TPU pod
 mesh (``make_production_mesh``, 256 or 512 chips) raises.
 """

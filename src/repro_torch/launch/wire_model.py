@@ -27,9 +27,10 @@ formulas, so a run holds census == model with ``==``, no tolerance.
 ``publish_pop_bytes``  the weight publication's pop: the s8 snapshot
     and its bf16 scales (as u16 bits) all-gathered over the shards.
 
-``model_axis_bytes``  one AMB-DG step of a dense transformer under
-    tensor parallelism, on the ``model`` axis (``dist.tensor_parallel``
-    and ``core.ambdg``'s bridges), keyed by (census tag, dtype).
+``model_axis_bytes``  one AMB-DG step of a dense, MoE or hybrid
+    transformer under tensor parallelism, on the ``model`` axis
+    (``dist.tensor_parallel`` and ``core.ambdg``'s bridges), keyed by
+    (census tag, dtype).
 """
 from __future__ import annotations
 
@@ -114,45 +115,61 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
                      n_micro: int, n_model: int, compression: str = "none",
                      n_data: int = 1, n_pods: int = 1
                      ) -> Dict[Tuple[str, str], int]:
-    """One AMB-DG step of the dense transformer ``cfg`` a rank, on the
-    ``model`` axis of ``n_model`` ranks: {(census tag, dtype): bytes}.
-    ``layout`` is the whole tree's arena layout and ``dims`` each leaf's
-    model-cut dim (``tensor_parallel.model_dims``); the rank runs
-    ``n_micro`` microbatches of ``micro_batch`` sequences of ``seq``
-    tokens. Counted from the shapes, per microbatch (X = b S d):
+    """One AMB-DG step of the dense, MoE or hybrid transformer ``cfg`` a
+    rank, on the ``model`` axis of ``n_model`` ranks: {(census tag,
+    dtype): bytes}. ``layout`` is the whole tree's arena layout and
+    ``dims`` each leaf's model cut (``tensor_parallel.model_dims``); the
+    rank runs ``n_micro`` microbatches of ``micro_batch`` sequences of
+    ``seq`` tokens. Counted from the shapes, per microbatch (X = b S d).
 
-      tp_act    no ``seq_parallel``: two f32 all-reduces of X a layer
-                forward (after the row-parallel products), two backward
-                (before the column-parallel ones), one before the head,
-                and under ``block_remat="full"`` one a layer again (the
-                recomputed forward stops at the last tensor the
-                backward needs, before the MLP's reduce);
-      tp_seq    ``seq_parallel``: the sequence's gathers (X in the
-                compute dtype: two a layer forward, two backward, two
-                more recomputed, one before the head, one backward of
-                the embedding's split) and f32 reduce-scatters of X (two
-                a layer forward, two backward, one recomputed, one
-                backward of the head's gather);
+    Each tensor-parallel block (``enter`` ... ``exit``) costs, without
+    ``seq_parallel``, an f32 all-reduce of X forward (its exit) and one
+    backward (its enter); with it, a gather of X in the compute dtype
+    and an f32 reduce-scatter of X each way. Under ``block_remat=
+    "full"`` the recomputed forward adds a block's enter (a gather
+    under ``seq_parallel``) and, where the checkpoint's recomputation
+    runs on past it, its exit (torch stops at the last tensor the
+    backward needs): a dense / MoE layer is attention (both
+    recomputed) then the FFN (enter only); zamba2's Mamba2 layers and
+    shared attention are checkpoints of their own (enter only), its
+    shared MLP none. The head's enter adds one block half (backward;
+    under ``seq_parallel`` a gather forward, a reduce-scatter back) and
+    the embedding's split one gather back. The tags:
+
+      tp_act    the blocks' all-reduces (no ``seq_parallel``);
+      tp_seq    the blocks' gathers and reduce-scatters
+                (``seq_parallel``);
       tp_loss   the cross entropy's three f32 all-reduces of b (S - 1);
+      tp_router the MoE gates' f32 all-reduce of (b S, top_k) backward
+                a layer, and under ``seq_parallel`` the router's gather
+                of X forward (again when recomputed);
+      tp_norm   the Mamba2 gated norm's f32 all-reduce of (b, S), forward
+                and backward (and recomputed);
       tp_param  the backward of each whole parameter a rank uses a part
                 of (an f32 all-reduce): q_norm and k_norm, the whole kv
-                leaves, the norms' scales under ``seq_parallel``; a tied
-                table's vocab rows (all-gather);
+                leaves, the norms' scales under ``seq_parallel`` (per
+                application of zamba2's shared block), Mamba2's
+                ``a_log``, ``dt_bias``, ``d_skip`` and the B / C columns
+                of ``w_in``, ``w_conv`` and ``b_conv``; a tied table's
+                vocab rows (all-gather);
 
     and a step: "grad_leaves" (each model-cut leaf's f32 gradient
-    all-gathered), and, where the arena's rows split over ``model``
-    alone, "w_rows", "metrics", "scales_max" (int8) and, in a world of
-    ``n_model`` ranks, "pod_counts"."""
+    blocks all-gathered), and, where the arena's rows split over
+    ``model`` alone, "w_rows", "metrics", "scales_max" (int8) and, in a
+    world of ``n_model`` ranks, "pod_counts"."""
+    from repro_torch.configs.base import HYBRID, MOE
+    from repro_torch.dist.tensor_parallel import Segments
     m = n_model
     if m <= 1:
         return {}
     act, pdt = cfg.compute_dtype, cfg.param_dtype
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
-    x = micro_batch * seq * d
-    full = cfg.block_remat == "full"
+    b = micro_batch
+    x = b * seq * d
     if cfg.block_remat not in ("full", "none"):
         raise ValueError("model_axis_bytes counts block_remat 'full' and "
                          f"'none', not {cfg.block_remat!r}")
+    full = cfg.block_remat == "full"
     out: Dict[Tuple[str, str], int] = {}
 
     def add(tag, dtype, n):
@@ -161,33 +178,64 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
                 out.get((tag, _SHORT.get(dtype, dtype)), 0) + n
 
     sp = cfg.seq_parallel and seq > 1
+    # the blocks of a forward: (enter recomputed, exit recomputed)
+    if cfg.family == HYBRID:
+        n_apps = L // cfg.shared_attn_every
+        blocks = [(full, False)] * (L + n_apps) + [(False, False)] * n_apps
+    else:
+        n_apps = 0
+        blocks = [(full, full), (full, False)] * L
+    # the whole attention leaves a rank uses a part of, per application
+    attn_whole = []
+    if cfg.qk_norm:
+        attn_whole += [hd, hd]
+    if cfg.n_kv_heads % m:
+        kv = cfg.n_kv_heads * hd
+        attn_whole += [d * kv, d * kv] + ([kv, kv] if cfg.qkv_bias else [])
+    whole = []
+    if cfg.family == HYBRID:
+        from repro_torch.models.ssm import mamba2_dims
+        nh = mamba2_dims(cfg)[1]
+        bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        whole += L * ([nh, nh, nh, d * bc, cfg.ssm.d_conv * bc, bc]
+                      + ([d] if sp else []))
+        whole += n_apps * (attn_whole + ([d, d] if sp else []))
+    else:
+        whole += L * (attn_whole + ([d, d] if sp else []))
+    if sp:
+        whole.append(d)                                   # ln_final
     for _ in range(n_micro):
         if sp:
-            gathers = 6 * L + 2 if full else 4 * L + 2
-            scatters = 5 * L + 1 if full else 4 * L + 1
+            gathers = sum(2 + e for e, _ in blocks) + 2
+            scatters = sum(2 + x_ for _, x_ in blocks) + 1
             add("tp_seq", act, gathers * _allgather(m, x * _BYTES[act]))
             add("tp_seq", "float32", scatters * (m - 1) * x * 4 // m)
         else:
-            n_red = 4 * L + 1 + (L if full else 0)
+            n_red = sum(2 + x_ for _, x_ in blocks) + 1
             add("tp_act", "float32", n_red * _allreduce(m, x * 4))
-        add("tp_loss", "float32",
-            3 * _allreduce(m, micro_batch * (seq - 1) * 4))
-        whole = []
-        if cfg.qk_norm:
-            whole += [hd, hd]
-        if cfg.n_kv_heads % m:
-            kv = cfg.n_kv_heads * hd
-            whole += [d * kv, d * kv] + ([kv, kv] if cfg.qkv_bias else [])
-        if sp:
-            whole += [d, d]
-        add("tp_param", "float32",
-            L * sum(_allreduce(m, n * 4) for n in whole)
-            + (_allreduce(m, d * 4) if sp else 0))
+        add("tp_loss", "float32", 3 * _allreduce(m, b * (seq - 1) * 4))
+        if cfg.family == MOE:
+            gates = _allreduce(m, b * seq * cfg.moe.top_k * 4)
+            route = (1 + full) * _allgather(m, x * _BYTES[act]) if sp else 0
+            add("tp_router", "float32", L * gates)
+            add("tp_router", act, L * route)
+        if cfg.family == HYBRID:
+            add("tp_norm", "float32",
+                L * (2 + full) * _allreduce(m, b * seq * 4))
+        add("tp_param", "float32", sum(_allreduce(m, n * 4) for n in whole))
         if cfg.tie_embeddings:
             add("tp_param", pdt,
                 _allgather(m, cfg.padded_vocab_size * d * _BYTES[pdt]))
+
+    def gathered(size, dim):
+        """A cut leaf's elements all-gathered: every rank's block."""
+        if not isinstance(dim, Segments):
+            return size
+        cols = sum(s for _, s, _ in dim.parts)
+        return m * (size // cols) * sum(w for _, w, _ in dim.local_parts(m))
+
     add("grad_leaves", pdt, sum(
-        _allgather(m, size * _BYTES[pdt])
+        _allgather(m, gathered(size, dim) * _BYTES[pdt])
         for size, dim in zip(layout.sizes, dims) if dim is not None))
     if n_data == 1:
         add("w_rows", "float32", _allgather(m, layout.rows * LANES * 4))

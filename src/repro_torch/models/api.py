@@ -22,10 +22,10 @@ zamba2 and the VLM paligemma (``models.transformer``, functions over
 the tree), and the ENCDEC seamless-m4t (``models.encdec``). The decode
 path (``init_decode_state``, ``decode_step``) serves the LM families.
 
-Under an active mesh with ``model > 1`` (``launch.mesh``; the dense
-family only) ``init``, ``param_shapes`` and ``loss`` work on the rank's
-blocks of the parameters (``dist.tensor_parallel``); ``dummy_batch``
-stays the global batch.
+Under an active mesh with ``model > 1`` (``launch.mesh``; the dense,
+MoE and hybrid families) ``init``, ``param_shapes`` and ``loss`` work
+on the rank's blocks of the parameters (``dist.tensor_parallel``);
+``dummy_batch`` stays the global batch.
 """
 from __future__ import annotations
 

@@ -23,12 +23,12 @@ q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
 whole (S, S) score tensor there.
 
 Under tensor parallelism (``tp``, a ``dist.tensor_parallel.
-TensorParallel``; the dense family on a mesh with ``model > 1``) the
-parameters are the rank's blocks: attention runs the rank's query heads
-and the kv heads they group with (sliced from whole kv leaves where the
-kv heads do not split), the MLP its "mlp" columns, the head its vocab
-block; ``tp.enter`` / ``tp.exit`` carry the activations in and out of
-the column- and row-parallel products.
+TensorParallel``; the dense, MoE and hybrid families on a mesh with
+``model > 1``) the parameters are the rank's blocks: attention runs the
+rank's query heads and the kv heads they group with (sliced from whole
+kv leaves where the kv heads do not split), the MLP its "mlp" columns,
+the head its vocab block; ``tp.enter`` / ``tp.exit`` carry the
+activations in and out of the column- and row-parallel products.
 """
 from __future__ import annotations
 

@@ -19,6 +19,14 @@ of this with einsums, gathers and scatters outside any Pallas kernel,
 and so does the port (cuBLAS and PyTorch's index kernels on the card).
 JAX runs the einsum route for any ``moe_impl`` it does not know; the
 port raises.
+
+Under tensor parallelism (``tp``, ``dist.tensor_parallel``) each rank
+runs every expert on its "mlp" columns: the router reads the residual
+input whole (before ``tp.enter``, whose backward sums the experts'
+partial input gradients; under ``seq_parallel`` the whole sequence
+through ``tp.router_input``), so every rank routes, drops and weighs
+alike; the gates' gradient is summed over ranks (``tp.gates``), and one
+``tp.exit`` adds the ranks' partial outputs after the combine.
 """
 from __future__ import annotations
 
@@ -92,15 +100,34 @@ def _expert_ffn(p, cfg: ModelConfig, xe):
     return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(xe.dtype))
 
 
-def moe_apply_einsum(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+def _route(p, cfg: ModelConfig, x, tp):
+    """(the dispatch's groups (G, g, d) of x, g, gates, expert ids, aux,
+    the (B, S) the groups were cut from); under ``tp`` the groups of
+    ``tp.enter(x)`` and the router on ``tp.router_input(x)``."""
+    xr = x
+    if tp is not None:
+        xr, x = tp.router_input(x), tp.enter(x)
+    xg, g = _group(cfg, x)
+    gates, idx, aux = _router(p, cfg, _group(cfg, xr)[0])
+    if tp is not None:
+        gates = tp.gates(gates)
+    return xg, g, gates, idx, aux, x.shape[:2]
+
+
+def _out(y, shape, tp):
+    """The combined (G, g, d) output as (B, S, d) (under ``tp`` the
+    ranks' partial sums added by ``tp.exit``)."""
+    y = y.reshape(*shape, -1)
+    return y if tp is None else tp.exit(y)
+
+
+def moe_apply_einsum(p, cfg: ModelConfig, x, tp=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense grouped capacity dispatch. x (B, S, d) -> (y, aux)."""
     mc = cfg.moe
-    B, S, d = x.shape
-    xg, g = _group(cfg, x)
-    G = xg.shape[0]
+    xg, g, gates, idx, aux, shape = _route(p, cfg, x, tp)
+    G, d = xg.shape[0], xg.shape[2]
     C = _capacity(cfg, g)
-    gates, idx, aux = _router(p, cfg, xg)
     E, k = mc.n_experts, mc.top_k
     experts = torch.arange(E, device=x.device)
     onehot = (idx[..., None] == experts).to(torch.float32)   # (G, g, k, E)
@@ -122,11 +149,11 @@ def moe_apply_einsum(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     xe = torch.einsum("Gtec,Gtd->Gecd", dispatch.to(x.dtype), xg)
     ye = _expert_ffn(p, cfg, xe)
     y = torch.einsum("Gtec,Gecd->Gtd", combine.to(x.dtype), ye)
-    return y.reshape(B, S, d), aux
+    return _out(y, shape, tp), aux
 
 
-def moe_apply_gather(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
+def moe_apply_gather(p, cfg: ModelConfig, x, tp=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter/gather routing, no dispatch products. x (B, S, d) ->
     (y, aux).
 
@@ -139,11 +166,9 @@ def moe_apply_gather(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     k = 2 two addends from zero, whose sum does not depend on their
     order."""
     mc = cfg.moe
-    B, S, d = x.shape
-    xg, g = _group(cfg, x)
-    G = xg.shape[0]
+    xg, g, gates, idx, aux, shape = _route(p, cfg, x, tp)
+    G, d = xg.shape[0], xg.shape[2]
     C = _capacity(cfg, g)
-    gates, idx, aux = _router(p, cfg, xg)
     E, k = mc.n_experts, mc.top_k
     dev = x.device
     flat_e = idx.reshape(G, g * k)                  # expert per assignment
@@ -166,7 +191,7 @@ def moe_apply_gather(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     rows = (torch.arange(G, device=dev)[:, None] * g + flat_t).reshape(-1)
     y = torch.zeros((G * g, d), dtype=ye.dtype, device=dev).index_add_(
         0, rows, contrib.reshape(G * g * k, d))
-    return y.reshape(B, S, d), aux
+    return _out(y, shape, tp), aux
 
 
 def check_moe_impl(cfg: ModelConfig) -> None:
@@ -175,8 +200,10 @@ def check_moe_impl(cfg: ModelConfig) -> None:
                          f"of {MOE_IMPLS}")
 
 
-def moe_apply(p, cfg: ModelConfig, x):
+def moe_apply(p, cfg: ModelConfig, x, tp=None):
+    """x (B, S, d) -> (y, aux) by ``cfg.moe_impl``'s route; under ``tp``
+    x and y are the rank's sequence block under ``seq_parallel``."""
     check_moe_impl(cfg)
     if cfg.moe_impl == "gather":
-        return moe_apply_gather(p, cfg, x)
-    return moe_apply_einsum(p, cfg, x)
+        return moe_apply_gather(p, cfg, x, tp)
+    return moe_apply_einsum(p, cfg, x, tp)

@@ -15,6 +15,14 @@ state it updates in place.
 Shapes follow the Mamba2 paper: input (B, S, d_model), inner dim
 d_in = expand * d, nh = d_in / head_dim heads, n_groups shared B/C
 groups.
+
+Under tensor parallelism (``tp``, ``dist.tensor_parallel``) a rank runs
+its nh / M heads: its blocks of the z, x and dt columns of ``w_in`` and
+of the x channels of the conv, with the B and C columns whole
+(``tensor_parallel.Segments``; their gradient, like that of ``a_log``,
+``dt_bias`` and ``d_skip``, which it slices to its heads, summed over
+the ranks), the scan on its heads, the gated norm's sum of squares
+summed over the ranks (``tp.sum``), and ``w_out`` row-parallel.
 """
 from __future__ import annotations
 
@@ -63,10 +71,11 @@ def _softplus(x):
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def _split_proj(p, cfg: ModelConfig, u):
-    """u (B, S, d) -> z (B, S, d_in), xBC (B, S, conv_dim), dt (B, S, nh)."""
+def _split_proj(p, cfg: ModelConfig, u, dims=None):
+    """u (B, S, d) -> z (B, S, d_in), xBC (B, S, conv_dim), dt (B, S, nh)
+    (``dims``: a rank's (d_in, nh), default the whole block's)."""
     s = cfg.ssm
-    d_in, nh = mamba2_dims(cfg)
+    d_in, nh = dims or mamba2_dims(cfg)
     proj = u @ p["w_in"].to(u.dtype)
     z = proj[..., :d_in]
     xBC = proj[..., d_in:d_in + d_in + 2 * s.n_groups * s.d_state]
@@ -90,11 +99,17 @@ def _causal_conv(p, xBC, conv_state=None):
     return _silu(out + p["b_conv"].to(xBC.dtype)), xpad[:, -(W - 1):, :]
 
 
-def _gated_norm(p, y, z, eps):
+def _gated_norm(p, y, z, eps, tp=None, d_in=None):
+    """RMSNorm of y * silu(z) over the inner dim; under ``tp`` over the
+    whole ``d_in`` of every rank's columns."""
     y = y * _silu(z)
     dtype = y.dtype
     y32 = y.to(torch.float32)
-    var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(torch.square(y32), dim=-1, keepdim=True)
+    else:
+        var = tp.sum(torch.sum(torch.square(y32), dim=-1,
+                               keepdim=True)) / d_in
     y32 = y32 * torch.rsqrt(var + eps)
     return (y32 * p["norm_scale"].to(torch.float32)).to(dtype)
 
@@ -159,11 +174,54 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, h
 
 
-def mamba2_apply(p, cfg: ModelConfig, u):
-    """Full sequence (training). u (B, S, d) -> (B, S, d)."""
+def mamba2_segments(cfg: ModelConfig, name: str, ndim: int):
+    """The tensor-parallel cut (``tensor_parallel.Segments``, on the
+    last of ``ndim`` dims) of the fused leaf ``name``: ``w_in``'s
+    columns [z | x | B | C | dt], ``w_conv`` / ``b_conv``'s channels
+    [x | B | C]; a rank holds its heads' block of z, x and dt and the B
+    and C columns whole."""
+    from repro_torch.dist.tensor_parallel import Segments
+    d_in, nh = mamba2_dims(cfg)
+    bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    if name == "w_in":
+        return Segments(ndim - 1, ((0, d_in, True), (d_in, d_in, True),
+                                   (2 * d_in, bc, False),
+                                   (2 * d_in + bc, nh, True)))
+    return Segments(ndim - 1, ((0, d_in, True), (d_in, bc, False)))
+
+
+def _rank_params(p, cfg: ModelConfig, tp):
+    """The block's leaves as a rank computes with them: the whole parts
+    of the fused leaves (the B and C columns) and the per-head leaves
+    through ``tp.whole_param`` (their gradient summed over the ranks),
+    the per-head ones sliced to the rank's heads."""
+    n, m = tp.ax.n, tp.ax.rank
+    nh_l = mamba2_dims(cfg)[1] // n
+    p = dict(p)
+    for name in ("w_in", "w_conv", "b_conv"):
+        w = p[name]
+        parts = mamba2_segments(cfg, name, w.dim()).local_parts(n)
+        p[name] = torch.cat([
+            w.narrow(-1, ofs, width) if split
+            else tp.whole_param(w.narrow(-1, ofs, width))
+            for ofs, width, split in parts], dim=-1)
+    for name in ("a_log", "dt_bias", "d_skip"):
+        p[name] = tp.whole_param(p[name]).narrow(0, m * nh_l, nh_l)
+    return p
+
+
+def mamba2_apply(p, cfg: ModelConfig, u, tp=None):
+    """Full sequence (training). u (B, S, d) -> (B, S, d); under ``tp``
+    on the rank's heads (u and the output the rank's sequence block
+    under ``seq_parallel``)."""
     s = cfg.ssm
     d_in, nh = mamba2_dims(cfg)
-    z, xBC, dt = _split_proj(p, cfg, u)
+    d_whole = d_in
+    if tp is not None:
+        p = _rank_params(p, cfg, tp)
+        d_in, nh = d_in // tp.ax.n, nh // tp.ax.n
+        u = tp.enter(u)
+    z, xBC, dt = _split_proj(p, cfg, u, (d_in, nh))
     xBC, _ = _causal_conv(p, xBC)
     x = xBC[..., :d_in]
     Bmat = xBC[..., d_in:d_in + s.n_groups * s.d_state]
@@ -196,8 +254,9 @@ def mamba2_apply(p, cfg: ModelConfig, u):
     if pad:
         y = y[:, :S]
     y = y.reshape(Bt, S, d_in)
-    y = _gated_norm(p, y, z, cfg.norm_eps)
-    return y @ p["w_out"].to(u.dtype)
+    y = _gated_norm(p, y, z, cfg.norm_eps, tp, d_whole)
+    out = y @ p["w_out"].to(u.dtype)
+    return out if tp is None else tp.exit(out)
 
 
 # ---------------------------------------------------------------------------

@@ -43,14 +43,16 @@ token through every layer against a stacked cache (KV entries, or the
 Mamba2 and xLSTM recurrent states) it updates in place, slice by slice
 (JAX scans the layers and donates the cache).
 
-Under an active mesh with ``model > 1`` the dense family is tensor
-parallel (``dist.tensor_parallel``): ``init`` keeps the rank's blocks of
-the whole tree the seed draws, the blocks run the rank's heads and
-"mlp" columns, ``forward`` returns the rank's vocab block of the logits
-and ``lm_loss`` takes the vocab-parallel cross entropy. ``seq_parallel``
-then splits the residual stream over the sequence between blocks (the
-identity at ``model = 1`` or at one token, as JAX's ``_sp``). The other
-families, and decoding, raise there (ROADMAP A.11 part 2, item 6).
+Under an active mesh with ``model > 1`` the dense, MoE and hybrid
+families are tensor parallel (``dist.tensor_parallel``): ``init`` keeps
+the rank's blocks of the whole tree the seed draws, the blocks run the
+rank's heads and "mlp" columns (the MoE every expert's, the Mamba2
+blocks their heads), ``forward`` returns the rank's vocab block of the
+logits and ``lm_loss`` takes the vocab-parallel cross entropy.
+``seq_parallel`` then splits the residual stream over the sequence
+between blocks (the identity at ``model = 1`` or at one token, as JAX's
+``_sp``). The other families, and decoding, raise there (ROADMAP A.11
+part 2, item 6).
 
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -214,33 +216,36 @@ def _block_apply(layer_p, cfg: ModelConfig, h, positions, mask,
     """One attention + FFN layer: (h, the layer's MoE aux loss, a 0-dim
     f32, 0 for a dense layer). Under ``tp`` the rank's heads and "mlp"
     columns (and under ``seq_parallel`` its sequence block of h)."""
-    ln1, ln2 = layer_p["ln1"], layer_p["ln2"]
-    if tp is not None:
-        ln1, ln2 = tp.norm_scale(ln1), tp.norm_scale(ln2)
-    h = h + attention_apply(layer_p["attn"], cfg,
-                            rmsnorm(h, ln1, cfg.norm_eps),
-                            positions, mask, mask_fn, tp=tp)
-    hn = rmsnorm(h, ln2, cfg.norm_eps)
+    h = h + attention_apply(
+        layer_p["attn"], cfg,
+        rmsnorm(h, _norm_scale(layer_p["ln1"], tp), cfg.norm_eps),
+        positions, mask, mask_fn, tp=tp)
+    hn = rmsnorm(h, _norm_scale(layer_p["ln2"], tp), cfg.norm_eps)
     if cfg.family == MOE:
-        y, aux = moe_mod.moe_apply(layer_p["moe"], cfg, hn)
+        y, aux = moe_mod.moe_apply(layer_p["moe"], cfg, hn, tp)
         return h + y, aux
     return h + mlp_apply(layer_p["mlp"], cfg, hn, tp), _zero(h.device)
+
+
+def _norm_scale(scale, tp):
+    """An RMSNorm scale as a block uses it (``tp.norm_scale``)."""
+    return scale if tp is None else tp.norm_scale(scale)
 
 
 def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
-def _mamba_block_apply(layer_p, cfg: ModelConfig, h):
-    return h + ssm_mod.mamba2_apply(layer_p["mamba"], cfg,
-                                    rmsnorm(h, layer_p["ln1"], cfg.norm_eps))
+def _mamba_block_apply(layer_p, cfg: ModelConfig, h, tp=None):
+    hn = rmsnorm(h, _norm_scale(layer_p["ln1"], tp), cfg.norm_eps)
+    return h + ssm_mod.mamba2_apply(layer_p["mamba"], cfg, hn, tp)
 
 
 def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask,
-                       mask_fn=None):
-    return h + attention_apply(sh["attn"], cfg,
-                               rmsnorm(h, sh["ln1"], cfg.norm_eps),
-                               positions, mask, mask_fn)
+                       mask_fn=None, tp=None):
+    hn = rmsnorm(h, _norm_scale(sh["ln1"], tp), cfg.norm_eps)
+    return h + attention_apply(sh["attn"], cfg, hn, positions, mask,
+                               mask_fn, tp=tp)
 
 
 def _mlstm_layer(lp, cfg: ModelConfig, h):
@@ -267,19 +272,20 @@ def _xlstm_forward(params, cfg: ModelConfig, h, remat):
 
 
 def _hybrid_forward(params, cfg: ModelConfig, h, positions, mask, remat,
-                    mask_fn=None):
+                    mask_fn=None, tp=None):
     """zamba2: groups of ``shared_attn_every`` Mamba2 layers, the one
-    shared attention + MLP block after each group."""
+    shared attention + MLP block after each group (its leaves' gradients
+    add up over the applications)."""
     k = cfg.shared_attn_every
     sh = params["shared_attn"]
     layers = unbind_layers(params["layers"])
     for g0 in range(0, cfg.n_layers, k):
         for layer_p in layers[g0:g0 + k]:
-            h = _apply(remat, _mamba_block_apply, layer_p, cfg, h)
+            h = _apply(remat, _mamba_block_apply, layer_p, cfg, h, tp)
         h = _apply(remat, _shared_attn_apply, sh, cfg, h, positions, mask,
-                   mask_fn)
-        h = h + mlp_apply(sh["mlp"], cfg, rmsnorm(h, sh["ln2"],
-                                                  cfg.norm_eps))
+                   mask_fn, tp)
+        hn = rmsnorm(h, _norm_scale(sh["ln2"], tp), cfg.norm_eps)
+        h = h + mlp_apply(sh["mlp"], cfg, hn, tp)
     return h
 
 
@@ -356,7 +362,8 @@ def _forward(params, cfg: ModelConfig, tokens, extra, prefix_len, tp):
     if cfg.family == SSM:
         h = _xlstm_forward(params, cfg, h, remat)
     elif cfg.family == HYBRID:
-        h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn)
+        h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn,
+                            tp)
     else:
         for layer_p in unbind_layers(params["layers"]):
             h, aux = _apply(remat, _block_apply, layer_p, cfg, h, positions,

@@ -139,8 +139,9 @@ def save_sharded(ckpt_dir: str, step: int, state, specs: Dict[str, Any],
                  mesh, ranks, extra: Optional[Dict] = None,
                  keep: int = 3) -> str:
     """``save`` of a state whose leaves named in ``specs`` (checkpoint
-    path -> ``dist.sharding.Spec``, ``ambdg.shard_specs``) each rank
-    holds a shard of under the multi-rank ``mesh`` (a MeshConfig;
+    path -> ``dist.sharding.Spec`` or ``tensor_parallel.Segments``,
+    ``ambdg.shard_specs``) each rank holds a shard of under the
+    multi-rank ``mesh`` (a MeshConfig;
     ``ranks`` its ``dist.collectives.Ranks``; on the per-rank gossip
     the sizes ``{"worker": n}`` and the ``WorkerGroup``); the other
     leaves are whole on every rank. A collective: every rank calls it. Each rank
@@ -152,6 +153,7 @@ def save_sharded(ckpt_dir: str, step: int, state, specs: Dict[str, Any],
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import dim_shard, local_shard
+    from repro_torch.dist.tensor_parallel import Segments
     rank, world = dist.get_rank(), dist.get_world_size()
     parts = os.path.join(ckpt_dir, f"shards.{step}")
     os.makedirs(parts, exist_ok=True)
@@ -166,6 +168,14 @@ def save_sharded(ckpt_dir: str, step: int, state, specs: Dict[str, Any],
                  for r in range(world)]
         for k, spec in specs.items():
             local = leaves[k]
+            if isinstance(spec, Segments):
+                # one block of each model coordinate, in its order
+                by_m = {}
+                for r, f in enumerate(files):
+                    by_m.setdefault(ranks.coords_of(r)["model"], f)
+                flat[k] = spec.join([torch.from_numpy(by_m[m][k]) for m
+                                     in range(len(by_m))]).numpy()
+                continue
             entries = tuple(spec) + (None,) * (local.dim() - len(spec))
             whole = torch.empty([n * dim_shard(e, mesh) for n, e in
                                  zip(local.shape, entries)],
@@ -336,10 +346,10 @@ def restore(ckpt_dir: str, state_template, step: Optional[int] = None,
         for key, leaf in paths:
             arr = migrated[key] if key in migrated else data[key]
             if shard is not None and key in shard[0]:
-                from repro_torch.dist.sharding import local_shard
+                from repro_torch.dist.tensor_parallel import shard_leaf
                 specs, mesh, coords = shard
-                arr = local_shard(torch.from_numpy(arr), specs[key], mesh,
-                                  coords).numpy()
+                arr = shard_leaf(torch.from_numpy(arr), specs[key], mesh,
+                                 coords).numpy()
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")

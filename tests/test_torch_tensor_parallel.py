@@ -25,7 +25,8 @@ World 2, ``1x1x2``, f32 SMOKE, qwen1.5-0.5b (MHA, tied head), qwen3-1.7b
     model_axis_bytes`` times the steps;
   * a 1x1x2 checkpoint restores on 1x1x1, and a 1x1x1 one on 1x1x2;
   * the refusals: ``n_heads % model``, ``S % model`` under
-    ``seq_parallel``, a family but DENSE, decoding and serving.
+    ``seq_parallel``, a family the axis does not carry (the xLSTM),
+    decoding and serving.
 World 4: chatglm3-6b on ``1x1x4`` (2 kv heads: the whole-kv route),
 qwen1.5-0.5b on ``1x2x2`` (the rows over data x model), each against
 JAX and the 1x1x1 run as above, and the three sharded wrappers on
@@ -199,13 +200,13 @@ def _refusals():
     odd = dataclasses.replace(_cfg("qwen1.5-0.5b"), n_heads=3, n_kv_heads=3,
                               head_dim=16)
     model = build_model(_cfg("qwen1.5-0.5b", sp=True), device="cpu")
-    zamba = build_model(get_smoke_config("zamba2-2.7b"), device="cpu")
+    xlstm = build_model(get_smoke_config("xlstm-125m"), device="cpu")
     with mesh:
         catch("heads", lambda: build_model(odd, device="cpu").init())
         params = model.init()
         catch("seq", lambda: model.loss(params, model.dummy_batch(
             2, 15, torch.Generator().manual_seed(0))))
-        catch("family", lambda: zamba.init())
+        catch("family", lambda: xlstm.init())
         catch("decode", lambda: model.init_decode_state(2, 8))
         catch("serve", lambda: api.serve(model, rc, device="cpu"))
     return errors
