@@ -113,7 +113,8 @@ Phases (any failure raises and the script exits non-zero):
      ``api.simulate``: AMB-DG, AMB and K-batch over 200 simulated
      seconds (250 until phase 17 came; more than 3x AMB's updates for
      AMB-DG, finite errors, no
-     clamped batch), with each scheme's host / device time split; the
+     clamped batch), with each scheme's host / device time split, each
+     scheme in a process of its own started beside phase 9; the
      simulator's pytree master launches no kernel;
  11. ``master_impl="pytree"`` against ``"arena"``: amb-linreg FULL,
      12 steps, none and int8, through ``train`` with ``proximal="l2"``
@@ -361,9 +362,21 @@ Phases (any failure raises and the script exits non-zero):
      ``model_axis_bytes``. The zamba2 processes run beside phase 9 and
      on, the mixtral reference after them beside phases 10-14, the
      mixtral ranks ready themselves beside phase 23 and run alone.
+ 25. tensor parallelism for the encoder-decoder, the VLM and the xLSTM,
+     as phase 24 (f32, tau 1, int8, 2 steps of 2 sequences on 1x1x2,
+     each against its 1x1x1 stacked run, to phase 23's limits):
+     seamless-m4t-large-v2 FULL widths, 2 + 2 layers, flash (8 of 16
+     heads a rank; the encoder and the cross-attention non-causal),
+     ``seq_parallel``, 2048 frames and 2048 tokens; paligemma-3b FULL
+     widths, 1 layer, 256 patches + 1792 text tokens, ``seq_parallel``;
+     xlstm-125m FULL widths, 2 layers (an mLSTM and an sLSTM block),
+     ``w_h`` rescaled (C.16), 512 tokens. Each rank prints its peak, ms a
+     step, launches (B.1, B.2 and, for seamless, flash: as many as the
+     stacked run's) and census against ``model_axis_bytes``. The stages
+     run beside phases 3-7, 15 and 16; the checks follow phase 24.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23,24``
-runs the build and then only the phases named among 8 and 13-24 (``2``:
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23,24,25``
+runs the build and then only the phases named among 8 and 13-25 (``2``:
 phase 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a
 short call while working on them; no kernels or ok line).
 
@@ -2216,7 +2229,74 @@ def time_to(trace, target):
                  if e <= target), None)
 
 
-def sim_paper_phase():
+# phase 10b's schemes: AMB-DG and AMB at T_p 2.5, K-batch (b_per_msg 60, K 10)
+SIM_SCHEMES = {"ambdg": dict(t_p=2.5), "amb": dict(t_p=2.5),
+               "kbatch": dict(b_per_msg=60, K=10)}
+
+
+def sim_paper_run(name):
+    """One scheme of phase 10b (``sim_paper_phase``) on the card: its
+    record, with finite errors and no clamped batch checked."""
+    from repro_torch.data.timing import ShiftedExponential
+    from repro_torch.sim import SimProblem
+    cfg, rc = main_path_config()
+    kw = dict(t_c=10.0, total_time=SIM_TOTAL_S, timing=ShiftedExponential(),
+              opt_cfg=rc("none").ambdg)
+    problem = SimProblem(cfg, n_workers=10, b_max=SIM_B_MAX, device="cuda")
+    tr, rec = simulate_split(name, problem, **kw, **SIM_SCHEMES[name])
+    assert all(math.isfinite(e) for e in tr.errors), name
+    assert sum(tr.clamps) == 0, (name, tr.clamps)
+    out = dict(rec, final_error=tr.errors[-1],
+               time_to={str(e): time_to(tr, e) for e in SIM_TARGETS})
+    if name == "kbatch":
+        out["staleness_histogram"] = {
+            str(k): v for k, v in sorted(
+                collections.Counter(tr.staleness).items())}
+    return out
+
+
+def sim_paper_main(arg):
+    """One scheme of phase 10b in a process of its own
+    (``--sim-paper=DIR:SCHEME``): its record, and the launches of every
+    kernel counter (none: the simulator's pytree master launches no
+    kernel), to DIR/SCHEME.json."""
+    import torch
+    out_dir, name = arg.rsplit(":", 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = kernel_counters()
+    rec = sim_paper_run(name)
+    rec["launches"] = {n: k.launches for n, k in counters.items()}
+    with open(f"{out_dir}/{name}.tmp", "w") as f:
+        json.dump(rec, f)
+    Path(f"{out_dir}/{name}.tmp").rename(f"{out_dir}/{name}.json")
+    return 0
+
+
+def start_sim_paper():
+    """Start phase 10b's schemes, each in a process of its own with one
+    host thread (killed at exit if it still runs; each is the host's
+    numpy draws, one core; with the default threads the three processes'
+    BLAS pools oversubscribed the host and each ran twice as long):
+    (the directory, {scheme: (process, start time)})."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = {name: (subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"),
+         f"--sim-paper={tmp}:{name}"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True),
+        time.perf_counter()) for name in SIM_SCHEMES}
+    atexit.register(lambda: ([stop_dist_ranks(p) for p, _ in procs.values()],
+                             shutil.rmtree(tmp, ignore_errors=True)))
+    return tmp, procs
+
+
+def sim_paper_phase(bg):
     """Phase 10b: the paper's Sec. VI-A comparison (Fig. 2 and 3) through
     ``repro_torch.api.simulate`` at the full width d = 10^4 (amb-linreg
     FULL): n = 10 workers (seed 0, rng_seed 0, as
@@ -2227,31 +2307,27 @@ def sim_paper_phase():
     anytime draw is b T_p / xi = 150 and a K-batch job 60, so 160 clamps
     nothing (``trace.clamps`` reads 0) and the 864 extra rows of zero
     weight would only add host draws and device work. Checks the Fig. 2
-    contract (AMB-DG's updates more than 3x AMB's) and finite errors.
-    The split of each run: the host's numpy batch draws and its per
-    update error (the read of w to the host, which waits for the card),
-    against the card's kernel and copy time (profiler) and the wall
-    time. Returns {scheme: record}."""
-    from repro_torch.data.timing import ShiftedExponential
-    from repro_torch.sim import SimProblem
-    cfg, rc = main_path_config()
-    opt = rc("none").ambdg
-    kw = dict(t_c=10.0, total_time=SIM_TOTAL_S, timing=ShiftedExponential(),
-              opt_cfg=opt)
+    contract (AMB-DG's updates more than 3x AMB's), finite errors and no
+    kernel launched. The split of each run: the host's numpy batch draws
+    and its per update error (the read of w to the host, which waits for
+    the card), against the card's kernel and copy time (profiler) and
+    the wall time. The three schemes are independent and bound by the
+    host's draws: each runs in a process of its own (``bg``, from
+    ``start_sim_paper``, started a phase ahead). Returns {scheme:
+    record}."""
+    import shutil
+    tmp, procs = bg
     out = {}
-    for name, extra in (("ambdg", dict(t_p=2.5)), ("amb", dict(t_p=2.5)),
-                        ("kbatch", dict(b_per_msg=60, K=10))):
-        problem = SimProblem(cfg, n_workers=10, b_max=SIM_B_MAX,
-                             device="cuda")
-        tr, rec = simulate_split(name, problem, **kw, **extra)
-        assert all(math.isfinite(e) for e in tr.errors), name
-        assert sum(tr.clamps) == 0, (name, tr.clamps)
-        out[name] = dict(
-            rec, final_error=tr.errors[-1],
-            time_to={str(e): time_to(tr, e) for e in SIM_TARGETS})
-        if name == "kbatch":
-            out[name]["staleness_histogram"] = dict(sorted(
-                collections.Counter(tr.staleness).items()))
+    try:
+        for name, (proc, t0) in procs.items():
+            wait_mesh_process(f"10b {name}", proc, t0)
+            out[name] = read_json(f"{tmp}/{name}.json")
+    finally:
+        for proc, _ in procs.values():
+            stop_dist_ranks(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, rec in out.items():
+        assert not any(rec.pop("launches").values()), (name, rec)
     assert out["ambdg"]["updates"] > 3 * out["amb"]["updates"], out
     return out
 
@@ -6105,7 +6181,8 @@ def tp_run(rc, device, mesh=None, n_steps=MESH_LM_STEPS,
     from repro_torch.models.api import build_model
     from repro_torch.train.loop import LoopConfig, train
     counters = counters or mesh_counters()
-    model = build_model(rc.model, device=device)
+    model = (xl_model(rc.model, device) if rc.model.xlstm is not None
+             else build_model(rc.model, device=device))
     layout = make_layout(model.whole_param_shapes())
     loop = LoopConfig(n_steps=n_steps, n_workers=n_workers,
                       samples_per_worker=1, log_every=1)
@@ -6341,18 +6418,67 @@ TP24_STAGES = (("zamba2 ranks", "zamba2 reference"), ("mixtral reference",),
                ("mixtral ranks",))
 TP24_KINDS = {"ranks": "rank", "reference": "ref"}   # a process's --tp24
 
+# -- phase 25: tensor parallelism for the encoder-decoder, the VLM and the
+# xLSTM ------------------------------------------------------------------------
+# Phase 24's machinery (processes, records, checks and limits) on three more
+# runs, each f32, tau 1, int8, TP24_STEPS steps of TP24_WORKERS sequences on
+# 1x1x2 against its 1x1x1 stacked run:
+#   seamless:  seamless-m4t-large-v2 FULL widths, TP25_ED_LAYERS encoder and
+#              as many decoder layers (~0.65B parameters), flash (8 of 16
+#              heads a rank; the encoder and the cross-attention
+#              non-causal), seq_parallel, TP25_ED_SEQ frames and tokens;
+#   paligemma: paligemma-3b FULL widths, TP25_VLM_LAYERS layer (~0.64B
+#              parameters), 256 patches + 1792 text tokens, seq_parallel
+#              (the prefix-LM mask on the plain core; the whole-kv route);
+#   xlstm:     xlstm-125m FULL widths, TP25_XL_LAYERS layers (an mLSTM and an
+#              sLSTM block, ~55M parameters), the sLSTM's w_h rescaled
+#              (xl_rescale_), TP25_XL_SEQ tokens.
+TP25_RUNS = ("seamless", "paligemma", "xlstm")
+TP25_ED_LAYERS = 2
+TP25_ED_SEQ = 2048
+TP25_VLM_LAYERS = 1
+TP25_VLM_SEQ = 2048
+TP25_XL_LAYERS = 2
+TP25_XL_SEQ = 512
+# Alone (``--only=25``) the stages run one after the other. In the whole
+# script the first (the references and the xLSTM ranks) runs beside phases
+# 3-7 (the host's cores idle there), phase 8 waiting for it; the seamless
+# ranks beside phase 15 and the paligemma ranks beside 16, each readied
+# (imports, the card, the process group) a phase ahead, phases 16 and 17
+# waiting for the stage before them. Their peaks (on an H100 80GB): the
+# references 20.8 (seamless) / 21.6 (paligemma) / 1.8 GiB (xlstm), the
+# ranks 14.6 / 15.6 / 1.3 each; beside them phases 6 and 15 peak at 21.6
+# and 30.6, phase 8 at 28.6, phase 17 at 56.2, phase 24's mixtral reference
+# (beside 10-14) at 54.5.
+TP25_STAGES = (("xlstm ranks", "xlstm reference", "seamless reference",
+                "paligemma reference"),
+               ("seamless ranks",),
+               ("paligemma ranks",))
+
 
 def tp24_config(label):
-    """Phase 24's run config of ``label`` on 1x1x2."""
+    """Phase 24's or 25's run config of ``label`` on 1x1x2."""
     from repro_torch.configs.base import MeshConfig
     if label == "mixtral":
         cfg = mix_config("flash", moe_impl="gather",
                          n_layers=TP24_MIX_LAYERS, compute_dtype="float32")
         seq = TP24_MIX_SEQ
-    else:
+    elif label == "zamba2":
         cfg = z_route("kernel", n_layers=TP24_Z_LAYERS,
                       compute_dtype="float32", seq_parallel=True)
         seq = TP24_Z_SEQ
+    elif label == "seamless":
+        cfg = ed_config("seamless-m4t-large-v2", TP25_ED_LAYERS,
+                        attn_impl="flash", block_remat="full",
+                        compute_dtype="float32", seq_parallel=True)
+        seq = TP25_ED_SEQ
+    elif label == "paligemma":
+        cfg = ed_config("paligemma-3b", TP25_VLM_LAYERS, block_remat="full",
+                        compute_dtype="float32", seq_parallel=True)
+        seq = TP25_VLM_SEQ
+    else:
+        cfg = xl_config(n_layers=TP25_XL_LAYERS, compute_dtype="float32")
+        seq = TP25_XL_SEQ
     rc = lm_run_config(cfg, seq, TP24_WORKERS, TP24_WORKERS, tau=1)
     return rc.replace(mesh=MeshConfig(1, 1, 2))
 
@@ -6466,14 +6592,16 @@ def tp24_main(arg):
 
 
 class TP24Stages:
-    """Phase 24's processes, stage by stage (TP24_STAGES), in a
-    temporary directory. ``spawn`` starts a stage's processes, which
-    ready themselves and wait; ``go`` lets them run. ``stop`` (also at
-    exit) kills what still runs and removes the directory."""
+    """Phase 24's (or 25's) processes, stage by stage (``stages``, by
+    default TP24_STAGES), in a temporary directory. ``spawn`` starts a
+    stage's processes, which ready themselves and wait; ``go`` lets them
+    run. ``stop`` (also at exit) kills what still runs and removes the
+    directory."""
 
-    def __init__(self):
+    def __init__(self, stages=TP24_STAGES):
         import atexit
         import tempfile
+        self.stages = stages
         self.tmp = tempfile.mkdtemp()
         self.procs, self.secs, self.started = {}, {}, set()
         atexit.register(self.stop)
@@ -6482,9 +6610,12 @@ class TP24Stages:
         """Start stage ``i``'s processes (waiting for their go)."""
         import os
         root = Path(__file__).resolve().parent
-        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        # expandable segments: the mixtral ranks' peaks leave little of
+        # the card, where a fragmented cache ran out
+        env = dict(os.environ, PYTHONPATH=str(root / "src"),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
         script = str(root / "chip_smoke.py")
-        for name in TP24_STAGES[i]:
+        for name in self.stages[i]:
             if name in self.procs or name in self.secs:
                 continue
             label, kind = name.split()
@@ -6502,7 +6633,7 @@ class TP24Stages:
     def go(self, i):
         """Spawn stage ``i`` if it is not, and let it run."""
         self.spawn(i)
-        for name in TP24_STAGES[i]:
+        for name in self.stages[i]:
             label, kind = name.split()
             Path(f"{self.tmp}/go.{label}.{TP24_KINDS[kind]}").touch()
         self.started.add(i)
@@ -6510,11 +6641,11 @@ class TP24Stages:
     def finished(self, i):
         """Whether every process of stage ``i`` has exited."""
         return all(self.procs[n][0].poll() is not None
-                   for n in TP24_STAGES[i] if n in self.procs)
+                   for n in self.stages[i] if n in self.procs)
 
     def wait(self, i):
         """Wait for stage ``i``'s processes: each one's seconds."""
-        for name in TP24_STAGES[i]:
+        for name in self.stages[i]:
             if name in self.procs:
                 proc, t0 = self.procs.pop(name)
                 self.secs[name] = wait_mesh_process(name, proc, t0)
@@ -6559,14 +6690,27 @@ def tp24_phase(launches, stages=None):
         stages.stop()
 
 
-def tp24_check(tmp, launches, secs):
-    """Phase 24's checks on the records in ``tmp`` (``tp24_phase``)."""
+def tp25_phase(launches, stages=None):
+    """Phase 25: ``tp24_phase`` on TP25_RUNS (every stage of ``stages``,
+    a ``TP24Stages`` of TP25_STAGES, that has not run)."""
+    stages = stages or TP24Stages(TP25_STAGES)
+    try:
+        stages.finish(len(TP25_STAGES) - 1)
+        return tp24_check(stages.tmp, launches, stages.secs, TP25_RUNS,
+                          "25")
+    finally:
+        stages.stop()
+
+
+def tp24_check(tmp, launches, secs, labels=TP24_RUNS, phase="24"):
+    """Phase 24's (or 25's) checks on the records in ``tmp``
+    (``tp24_phase``)."""
     from repro_torch.core.arena import make_layout
     from repro_torch.dist.tensor_parallel import model_dims
     from repro_torch.launch.wire_model import model_axis_bytes
     from repro_torch.models.api import build_model
     out = {"seconds": secs}
-    for label in TP24_RUNS:
+    for label in labels:
         rc = tp24_config(label)
         model = build_model(rc.model, device="cpu")
         layout = make_layout(model.whole_param_shapes())
@@ -6588,9 +6732,10 @@ def tp24_check(tmp, launches, secs):
         for a, b in zip(h, h_ref):
             for key in ("applied_count", "local_count"):
                 assert a[key] == b[key], (label, key, a, b)
-        path = (("linear_scan_fwd", "linear_scan_bwd") if label == "zamba2"
-                else ()) + ("dual_update", "slot_rotate", "flash_fwd_lse",
-                            "flash_bwd_dq", "flash_bwd_dkv")
+        path = ((("linear_scan_fwd", "linear_scan_bwd") if label == "zamba2"
+                 else ()) + ("dual_update", "slot_rotate")
+                + (("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+                   if rc.model.attn_impl == "flash" else ()))
         for name in path:
             assert ref["launches"][name] > 0, (label, name, ref["launches"])
         for name, k in ref["launches"].items():
@@ -6619,7 +6764,9 @@ def tp24_check(tmp, launches, secs):
                           ref_step_ms=[1e3 * s["step_s"] for s in h_ref],
                           rank_s=[r["seconds"] for r in ranks],
                           ref_s=ref["seconds"])
-        log(f"phase 24 {label}: FULL widths {rc.model.n_layers} layer(s) "
+        depth = (f"{rc.model.n_encoder_layers} + {rc.model.n_layers}"
+                 if rc.model.family == "encdec" else f"{rc.model.n_layers}")
+        log(f"phase {phase} {label}: FULL widths {depth} layer(s) "
             f"f32 int8 {rc.shape.seq_len} tokens x {TP24_WORKERS} on 1x1x2 "
             f"(2 gloo ranks on the card, seq_parallel="
             f"{rc.model.seq_parallel}), {TP24_STEPS} steps: loss rel gap "
@@ -6633,6 +6780,26 @@ def tp24_check(tmp, launches, secs):
             f"process seconds "
             f"{json.dumps({k: round(v, 1) for k, v in secs.items()})}")
     return out
+
+
+def kernel_counters():
+    """{name: the launch counter of each kernel wrapper} (each wrapper
+    adds one where it launches its kernel)."""
+    from repro_torch.kernels.delay_ring import kernel as ring_kernel
+    from repro_torch.kernels.dual_update import kernel as update_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.linear_scan import kernel as scan_kernel
+    return {"dual_update": update_kernel.KERNEL,
+            "slot_rotate": ring_kernel.KERNEL,
+            "variable_pop": ring_kernel.VARIABLE_POP_KERNEL,
+            "ring_rotate": ring_kernel.RING_KERNEL,
+            "flash_fwd": flash_kernel.FWD,
+            "flash_fwd_lse": flash_kernel.FWD_LSE,
+            "flash_bwd_dq": flash_kernel.DQ,
+            "flash_bwd_dkv": flash_kernel.DKV,
+            "dual_update_pytree": update_kernel.UPDATE,
+            "linear_scan_fwd": scan_kernel.FWD,
+            "linear_scan_bwd": scan_kernel.BWD}
 
 
 def card_line():
@@ -6658,16 +6825,13 @@ def main():
              "--dec-rank": dec_rank_main, "--dec-ref": dec_rank_ref_main,
              "--p2p-probe": p2p_probe_main, "--tp-rank": tp_rank_main,
              "--tp-ref": tp_ref_main, "--tp24": tp24_main,
-             "--z9-cpu": z9_cpu_main}
+             "--z9-cpu": z9_cpu_main, "--sim-paper": sim_paper_main}
     for a in sys.argv[1:]:
         flag, _, value = a.partition("=")
         if flag in roles:
             return roles[flag](value)
     from repro_torch.kernels import build
-    from repro_torch.kernels.delay_ring import kernel as ring_kernel
-    from repro_torch.kernels.dual_update import kernel as update_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.linear_scan import kernel as scan_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6709,17 +6873,7 @@ def main():
         assert (n > 0) == ("linear_scan_pass" not in name), (name, n)
     phase_done("phase 1", t0)
 
-    counters = {"dual_update": update_kernel.KERNEL,
-                "slot_rotate": ring_kernel.KERNEL,
-                "variable_pop": ring_kernel.VARIABLE_POP_KERNEL,
-                "ring_rotate": ring_kernel.RING_KERNEL,
-                "flash_fwd": flash_kernel.FWD,
-                "flash_fwd_lse": flash_kernel.FWD_LSE,
-                "flash_bwd_dq": flash_kernel.DQ,
-                "flash_bwd_dkv": flash_kernel.DKV,
-                "dual_update_pytree": update_kernel.UPDATE,
-                "linear_scan_fwd": scan_kernel.FWD,
-                "linear_scan_bwd": scan_kernel.BWD}
+    counters = kernel_counters()
     launches = dict.fromkeys(counters, 0)
 
     def drive(fn):
@@ -6738,8 +6892,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,...,24``: after the build, run only those of phases
-    # 8 and 13-24 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,...,25``: after the build, run only those of phases
+    # 8 and 13-25 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -6816,6 +6970,10 @@ def main():
             t0 = time.perf_counter()
             record["tp_families"] = tp24_phase(launches)
             phase_done("phase 24", t0)
+        if "25" in picked:
+            t0 = time.perf_counter()
+            record["tp_zoo"] = tp25_phase(launches)
+            phase_done("phase 25", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -6913,6 +7071,9 @@ def main():
 
     # -- 3. the main path: fixed tau ----------------------------------------
     t0 = time.perf_counter()
+    # phase 25's references and xLSTM ranks run beside phases 3-7
+    tp25_stages = TP24Stages(TP25_STAGES)
+    tp25_stages.go(0)
     tau = 4
     radius = main_path_config()[1]("none").ambdg.radius_C
     main = {}
@@ -7183,6 +7344,7 @@ def main():
 
     # -- 8. the hybrid slice at full width: zamba2, 6 layers, 4096 ----------
     t0 = time.perf_counter()
+    tp25_stages.finish(0)
     lm["zamba2"] = hybrid_phase(drive, expect, n_mb, n_workers, seq)
     phase_done("phase 8", t0)
 
@@ -7193,6 +7355,7 @@ def main():
     torch.cuda.empty_cache()
     tp24_stages = TP24Stages()
     tp24_stages.go(0)
+    sim_bg = start_sim_paper()      # phase 10b's schemes, beside 9-10a
     lm["zamba2_6_layers"] = hybrid_device_phase(drive, expect, z9_cpu)
     phase_done("phase 9", t0)
     tp24_stages.advance(1)
@@ -7209,8 +7372,7 @@ def main():
     for label, (updates, rel) in simulator["golden"].items():
         log(f"phase 10: golden {label}: {updates} updates, exact columns "
             f"equal, errors within rtol {rel:.3e} <= 1e-4")
-    simulator["paper"], n = drive(sim_paper_phase)
-    assert n == expect(), n
+    simulator["paper"] = sim_paper_phase(sim_bg)
     for name, r in simulator["paper"].items():
         log(f"phase 10: Sec. VI-A d=10^4 {name}: {json.dumps(r)}")
     phase_done("phase 10", t0)
@@ -7238,22 +7400,32 @@ def main():
 
     # -- 14. batch schedules, elastic workers, checkpoint/restart -----------
     t0 = time.perf_counter()
+    tp25_stages.spawn(1)       # phase 25's seamless ranks ready themselves
     scenarios = scenario_phase(drive, expect)
     phase_done("phase 14", t0)
 
     # -- 15. the decentralized gossip ---------------------------------------
     t0 = time.perf_counter()
     tp24_stages.finish(1)
+    # phase 25's seamless ranks run beside phase 15, its paligemma ranks
+    # beside 16
+    torch.cuda.empty_cache()
+    tp25_stages.go(1)
+    tp25_stages.spawn(2)
     decentralized = decentralized_phase(drive, expect)
     phase_done("phase 15", t0)
 
     # -- 16. train-while-serve ----------------------------------------------
     t0 = time.perf_counter()
+    tp25_stages.finish(1)
+    tp25_stages.go(2)
     serve = serve_phase(drive, expect)
     phase_done("phase 16", t0)
 
     # -- 17. the MoE slice: mixtral ------------------------------------------
     t0 = time.perf_counter()
+    tp25_stages.finish(2)
+    torch.cuda.empty_cache()
     mixtral = mixtral_phase(drive, expect)
     phase_done("phase 17", t0)
 
@@ -7328,8 +7500,17 @@ def main():
     # -- 24. tensor parallelism for the MoE and the hybrid ------------------
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 24: the card's memory free before the mixtral ranks run: "
+        f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB (this process "
+        f"reserves {torch.cuda.memory_reserved() / 2 ** 30:.2f})")
     tp_families = tp24_phase(launches, tp24_stages)
     phase_done("phase 24", t0)
+
+    # -- 25. tensor parallelism for the encoder-decoder, VLM, xLSTM ---------
+    t0 = time.perf_counter()
+    tp_zoo = tp25_phase(launches, tp25_stages)
+    phase_done("phase 25", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
@@ -7337,7 +7518,7 @@ def main():
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
                     "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
                     "mesh": mesh, "tp": tp, "tp_families": tp_families,
-                    "phase_s": phase_s,
+                    "tp_zoo": tp_zoo, "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -231,13 +231,19 @@ def all_gather(x: torch.Tensor, group, n: int, *, axis: str,
                tag: str) -> torch.Tensor:
     """(n, *x.shape): every rank's ``x`` in group-rank order. A bf16
     tensor crosses as its raw bytes (a gather moves bits; not every
-    backend takes bf16)."""
+    backend takes bf16). On a gloo group a CUDA tensor is gathered
+    through host copies here: gloo's own staging of a CUDA gather holds
+    a second device buffer of the output's size (6.4 GiB of a mixtral
+    rank's w rows, where the card has none to spare)."""
     wire = x.contiguous().reshape(-1)
     if x.dtype == torch.bfloat16:
         wire = wire.view(torch.uint8)
+    staged = x.is_cuda and dist.get_backend(group) == "gloo"
     out = torch.empty((n * wire.numel(),), dtype=wire.dtype,
-                      device=x.device)
-    _all_gather(out, wire, group=group)
+                      device="cpu" if staged else x.device)
+    _all_gather(out, wire.cpu() if staged else wire, group=group)
+    if staged:
+        out = out.to(x.device)
     # (n - 1) / n of the n * x.nbytes gathered
     CENSUS.add(axis, _WIRE_NAMES[x.dtype], tag, (n - 1) * x.nbytes)
     return out.view(x.dtype).reshape((n,) + tuple(x.shape))

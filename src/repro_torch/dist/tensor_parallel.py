@@ -1,18 +1,17 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the dense
-transformers, the mixtrals (MOE) and zamba2 (HYBRID): the collectives
-GSPMD inserts for the JAX package's train profile (``dist.sharding``:
-"heads", "mlp" and "vocab" on ``model``), written out, and the rule
-that cuts each rank's parameters.
+"""Tensor parallelism over the mesh's ``model`` axis for every LM
+family: the collectives GSPMD inserts for the JAX package's train
+profile (``dist.sharding``: "heads", "mlp" and "vocab" on ``model``),
+written out, and the rule that cuts each rank's parameters.
 
 The layout (Megatron's, on JAX's specs):
 
   * ``wq``, ``wk``, ``wv`` and their biases are column-parallel, cut by
     whole heads: rank m runs query heads [m H/M, (m+1) H/M) and the kv
     heads they group with; ``wo`` is row-parallel. Where ``n_kv_heads
-    % M != 0`` (chatglm3's 2 kv heads at M = 4) each rank keeps ``wk``,
-    ``wv``, ``bk`` and ``bv`` whole and slices the kv head it needs
-    (JAX's resolver would cut such a head in half, which a hand-written
-    split cannot);
+    % M != 0`` (chatglm3's 2 kv heads at M = 4, paligemma's one) each
+    rank keeps ``wk``, ``wv``, ``bk`` and ``bv`` whole and slices the kv
+    head it needs (JAX's resolver would cut such a head in half, which a
+    hand-written split cannot);
   * ``w_gate`` and ``w_up`` are column-parallel over "mlp", ``w_down``
     row-parallel;
   * ``tok_emb`` keeps its vocab dim whole (``(None, "embed")``); an
@@ -37,6 +36,22 @@ The layout (Megatron's, on JAX's specs):
     ``norm_scale`` and ``w_out`` keep JAX's contiguous block (y is laid
     out head-major), and the gated norm's mean over the whole inner dim
     sums the ranks' parts (``sum``);
+  * the encoder-decoder (``models.encdec``): the encoder's and the
+    decoder's blocks as the dense ones; the cross-attention's q is
+    column-parallel over the decoder stream, its K/V column-parallel
+    over the encoder's output (the memory) on the rank's kv heads, its
+    ``wo`` row-parallel. The memory is entered once, after the encoder,
+    so its gradient, which autograd sums over the decoder layers first,
+    is reduced once; ``frame_proj`` and ``ln_enc_final`` stay whole;
+  * the VLM: the dense layers; the frontend stub's ``patch_proj`` and
+    ``patch_pos`` stay whole (JAX's profile gives them no ``model``
+    entry), every rank projecting every patch alike;
+  * the xLSTM (``models.xlstm``): heads-parallel, a rank running nh/M of
+    the mLSTM's heads and nh/M of the sLSTM's (``xlstm.xlstm_spec``
+    says where the cut departs from JAX's contiguous blocks); the
+    mLSTM's up-projection ``a`` is gathered along the features
+    (``gather_features``), the sLSTM's output gathered whole before its
+    FFN (``whole_features``), which every rank computes alike;
   * the weights stay whole over ``data`` (JAX's train profile puts
     "embed" there, FSDP; the port does not).
 
@@ -65,7 +80,13 @@ The autograd ops, each a ``torch.autograd.Function``:
               every rank computes whole);
   gates       a ``copy`` on the MoE's gates: each rank's combine sees
               its partial expert outputs, so the gates' gradient is
-              summed before it reaches the softmax.
+              summed before it reaches the softmax;
+  gather_features the all-gather of the last (feature) dim, backward
+              its reduce-scatter: the mLSTM's ``a``, whose whole every
+              rank's heads read;
+  whole_features  the all-gather of the feature dim whose backward
+              keeps the rank's own block: the sLSTM's output before the
+              FFN every rank computes whole.
 
 Reductions run in f32 (a bf16 partial is widened first and the sum
 rounded back once), gathers in the tensor's own dtype. Every call adds
@@ -73,8 +94,9 @@ its bytes to the census (``dist.collectives``) under axis "model":
 "tp_act" (copy and reduce on activations), "tp_seq" (the sequence's
 gathers and scatters), "tp_param" (copy on parameters, the tied
 table's gather), "tp_loss" (the loss's three reductions), "tp_router"
-(``gates`` and ``router_input``), "tp_norm" (``sum``); ``core.ambdg``'s
-gradient bridge adds "grad_leaves".
+(``gates`` and ``router_input``), "tp_norm" (``sum``), "tp_feat"
+(``gather_features`` and ``whole_features``); ``core.ambdg``'s gradient
+bridge adds "grad_leaves".
 """
 from __future__ import annotations
 
@@ -83,12 +105,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import DENSE, HYBRID, MOE, ModelConfig
+from repro_torch.configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 
 # the attention leaves kept whole where the kv heads do not split
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
-# the families the axis carries
-_FAMILIES = (DENSE, MOE, HYBRID)
+# the families the axis carries: every LM family
+_FAMILIES = (DENSE, MOE, HYBRID, ENCDEC, VLM, SSM)
 # the fused Mamba2 leaves (``models.ssm.mamba2_segments``)
 _SEGMENTED = ("w_in", "w_conv", "b_conv")
 
@@ -116,19 +139,30 @@ def model_axis() -> Optional[ModelAxis]:
 
 def check_model_axis(cfg: ModelConfig, n: int) -> None:
     """Raise for a config the ``model`` axis of size ``n`` does not
-    carry: a family but DENSE, MOE and HYBRID (``NotImplementedError``,
-    ROADMAP A.11 part 2, item 6), or widths that do not split over ``n``
-    ranks by whole heads, whole kv groups, "mlp" columns, vocab rows
-    and (HYBRID) whole Mamba2 heads (``ValueError``). The MoE's expert
-    count is not cut."""
+    carry: a family but the LM families (``NotImplementedError``), the
+    xLSTM under ``seq_parallel`` (``NotImplementedError``: JAX's xLSTM
+    places no sequence-parallel boundary, and the sLSTM is a strict
+    recurrence over the whole sequence), Mamba2's grouped B/C
+    (``NotImplementedError``, ROADMAP A.11 part 2, item 6), or widths
+    that do not split over ``n`` ranks by whole heads, whole kv groups,
+    "mlp" columns, vocab rows, whole Mamba2 heads (HYBRID) and whole
+    mLSTM / sLSTM heads (SSM) (``ValueError``). The MoE's expert count
+    is not cut, nor is the sLSTM's FFN, which stays whole (its width,
+    int(4/3 d), is odd in both xLSTM configs, so JAX's resolver keeps it
+    whole too)."""
     if n == 1:
         return
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} on a mesh with model={n}: tensor "
-            "parallelism over 'model' carries the dense transformers, the "
-            "mixtrals and zamba2; the other families are ROADMAP A.11 "
-            "part 2, item 6")
+            "parallelism over 'model' carries the LM families (dense, MoE, "
+            "hybrid, encoder-decoder, VLM and xLSTM)")
+    if cfg.family == SSM and cfg.seq_parallel:
+        raise NotImplementedError(
+            f"seq_parallel=True on the xLSTM with model={n}: JAX's xLSTM "
+            "forward places no sequence-parallel boundary, and the sLSTM "
+            "is a strict recurrence over the whole sequence, so its "
+            "blocks cannot run on a rank's sequence block")
     if cfg.family == HYBRID:
         from repro_torch.models.ssm import mamba2_dims
         if cfg.ssm.n_groups != 1:
@@ -208,13 +242,20 @@ def leaf_spec(cfg: ModelConfig, name: str, shape, axes, mesh):
     whole ``shape``): JAX's train-profile spec restricted to its
     ``model`` entry (the weights stay whole over ``data``); no cut for
     the kv leaves where the kv heads do not split; a ``Segments`` for
-    the Mamba2 leaves JAX's contiguous block would straddle."""
+    the Mamba2 leaves JAX's contiguous block would straddle; the
+    xLSTM's heads-parallel cut (``xlstm.xlstm_spec``) where it departs
+    from JAX's."""
     from repro_torch.dist.sharding import Spec, entry_axes, spec_for
     if name in _KV_LEAVES and cfg.n_kv_heads % mesh.model:
         return Spec()
     if cfg.family == HYBRID and name in _SEGMENTED:
         from repro_torch.models.ssm import mamba2_segments
         return mamba2_segments(cfg, name, len(shape))
+    if cfg.family == SSM:
+        from repro_torch.models.xlstm import xlstm_spec
+        spec = xlstm_spec(cfg, name, len(shape))
+        if spec is not None:
+            return spec
     entries = [e if "model" in entry_axes(e) else None
                for e in spec_for(tuple(axes), tuple(shape), mesh)]
     while entries and entries[-1] is None:
@@ -378,31 +419,35 @@ class _Sum(torch.autograd.Function):
 
 
 class _GatherWhole(torch.autograd.Function):
-    """The sequence's all-gather for a computation every rank runs
+    """An all-gather along ``dim`` for a computation every rank runs
     whole (its gradient is the same on every rank): backward keeps the
     rank's own block, no communication."""
 
     @staticmethod
-    def forward(ctx, x, ax, tag):
-        ctx.ax = ax
-        return _gather(x, ax, 1, tag)
+    def forward(ctx, x, ax, dim, tag):
+        ctx.ax, ctx.dim = ax, dim
+        return _gather(x, ax, dim, tag)
 
     @staticmethod
     def backward(ctx, g):
-        size = g.shape[1] // ctx.ax.n
-        return g.narrow(1, ctx.ax.rank * size, size).contiguous(), None, \
+        size = g.shape[ctx.dim] // ctx.ax.n
+        return g.narrow(ctx.dim, ctx.ax.rank * size, size).contiguous(), \
+            None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """An all-gather along ``dim`` whose backward reduce-scatters: each
+    rank's part feeds a computation split over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, tag):
+        ctx.ax, ctx.dim, ctx.tag = ax, dim, tag
+        return _gather(x, ax, dim, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.ax, ctx.dim, ctx.tag), None, None, \
             None
-
-
-class _GatherSeq(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, ax):
-        ctx.ax = ax
-        return _gather(x, ax, 1, "tp_seq")
-
-    @staticmethod
-    def backward(ctx, g):
-        return _reduce_scatter(g, ctx.ax, 1, "tp_seq"), None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -479,7 +524,7 @@ class TensorParallel:
         """Into a column-parallel product: the whole sequence (under
         ``seq_parallel`` gathered), its gradient summed over ranks."""
         if self.sp:
-            return _GatherSeq.apply(x, self.ax)
+            return _Gather.apply(x, self.ax, 1, "tp_seq")
         return _Copy.apply(x, self.ax, "tp_act")
 
     def exit(self, x):
@@ -494,6 +539,12 @@ class TensorParallel:
         summed over ranks, so it is the same on every rank."""
         return _Copy.apply(p, self.ax, "tp_param")
 
+    def rank_heads(self, leaf):
+        """A whole per-head leaf (heads on its first dim) sliced to the
+        rank's block of heads, its gradient summed over the ranks."""
+        n = leaf.shape[0] // self.ax.n
+        return self.whole_param(leaf).narrow(0, self.ax.rank * n, n)
+
     def gates(self, gates):
         """The MoE's gates before the combine: each rank combines its
         partial expert outputs, so their gradient is summed over
@@ -505,13 +556,25 @@ class TensorParallel:
         gradient whole on every rank, so it bypasses ``enter``), under
         ``seq_parallel`` the whole sequence, gathered (its backward
         keeps the rank's own block)."""
-        return _GatherWhole.apply(x, self.ax, "tp_router") if self.sp \
+        return _GatherWhole.apply(x, self.ax, 1, "tp_router") if self.sp \
             else x
 
     def sum(self, x):
         """``x`` summed over the ranks, the gradient as well (the gated
         norm's sum of squares)."""
         return _Sum.apply(x, self.ax, "tp_norm")
+
+    def gather_features(self, x):
+        """The ranks' blocks of the last dim joined in rank order (the
+        mLSTM's ``a``): backward, the sum of every rank's gradient, each
+        rank keeping its block."""
+        return _Gather.apply(x, self.ax, x.dim() - 1, "tp_feat")
+
+    def whole_features(self, x):
+        """The ranks' blocks of the last dim joined in rank order, for a
+        computation every rank then runs alike (the sLSTM's output before
+        its FFN): backward keeps the rank's own block."""
+        return _GatherWhole.apply(x, self.ax, x.dim() - 1, "tp_feat")
 
     def norm_scale(self, scale):
         """An RMSNorm scale of the residual stream: under
@@ -533,16 +596,19 @@ class TensorParallel:
         return _CrossEntropy.apply(logits, targets, self.ax)
 
 
-def active(cfg: ModelConfig, seq_len: int) -> Optional[TensorParallel]:
+def active(cfg: ModelConfig, *lengths: int) -> Optional[TensorParallel]:
     """The forward's tensor parallelism under the active mesh (None at
-    ``model = 1``); ``seq_parallel`` needs the length to split over the
-    ranks (``ValueError``), and is the identity at one token."""
+    ``model = 1``). ``lengths`` are the sequences ``seq_parallel`` would
+    split (the encoder-decoder's source and target, the VLM's patches
+    and text together): each must split over the ranks (``ValueError``
+    naming it); at one token ``seq_parallel`` is the identity."""
     ax = model_axis()
     if ax is None:
         return None
     check_model_axis(cfg, ax.n)
-    sp = cfg.seq_parallel and seq_len > 1
-    if sp and seq_len % ax.n:
-        raise ValueError(f"seq_parallel: {seq_len} tokens do not split over "
-                         f"model={ax.n} ranks")
+    sp = cfg.seq_parallel and all(n > 1 for n in lengths)
+    for n in lengths if sp else ():
+        if n % ax.n:
+            raise ValueError(f"seq_parallel: {n} tokens do not split over "
+                             f"model={ax.n} ranks")
     return TensorParallel(ax, sp)

@@ -27,14 +27,13 @@ formulas, so a run holds census == model with ``==``, no tolerance.
 ``publish_pop_bytes``  the weight publication's pop: the s8 snapshot
     and its bf16 scales (as u16 bits) all-gathered over the shards.
 
-``model_axis_bytes``  one AMB-DG step of a dense, MoE or hybrid
-    transformer under tensor parallelism, on the ``model`` axis
-    (``dist.tensor_parallel`` and ``core.ambdg``'s bridges), keyed by
-    (census tag, dtype).
+``model_axis_bytes``  one AMB-DG step of an LM under tensor
+    parallelism, on the ``model`` axis (``dist.tensor_parallel`` and
+    ``core.ambdg``'s bridges), keyed by (census tag, dtype).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import consensus
 
@@ -113,14 +112,17 @@ _SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
                      n_micro: int, n_model: int, compression: str = "none",
-                     n_data: int = 1, n_pods: int = 1
+                     n_data: int = 1, n_pods: int = 1,
+                     src_seq: Optional[int] = None
                      ) -> Dict[Tuple[str, str], int]:
-    """One AMB-DG step of the dense, MoE or hybrid transformer ``cfg`` a
-    rank, on the ``model`` axis of ``n_model`` ranks: {(census tag,
-    dtype): bytes}. ``layout`` is the whole tree's arena layout and
-    ``dims`` each leaf's model cut (``tensor_parallel.model_dims``); the
-    rank runs ``n_micro`` microbatches of ``micro_batch`` sequences of
-    ``seq`` tokens. Counted from the shapes, per microbatch (X = b S d).
+    """One AMB-DG step of the LM ``cfg`` a rank, on the ``model`` axis of
+    ``n_model`` ranks: {(census tag, dtype): bytes}. ``layout`` is the
+    whole tree's arena layout and ``dims`` each leaf's model cut
+    (``tensor_parallel.model_dims``); the rank runs ``n_micro``
+    microbatches of ``micro_batch`` sequences of ``seq`` positions (the
+    VLM's patches and text together; the encoder-decoder's target, its
+    source ``src_seq``, by default ``seq``). Counted from the shapes, per
+    microbatch (X = b T d for a stream of T positions).
 
     Each tensor-parallel block (``enter`` ... ``exit``) costs, without
     ``seq_parallel``, an f32 all-reduce of X forward (its exit) and one
@@ -129,35 +131,48 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
     "full"`` the recomputed forward adds a block's enter (a gather
     under ``seq_parallel``) and, where the checkpoint's recomputation
     runs on past it, its exit (torch stops at the last tensor the
-    backward needs): a dense / MoE layer is attention (both
-    recomputed) then the FFN (enter only); zamba2's Mamba2 layers and
-    shared attention are checkpoints of their own (enter only), its
-    shared MLP none. The head's enter adds one block half (backward;
-    under ``seq_parallel`` a gather forward, a reduce-scatter back) and
-    the embedding's split one gather back. The tags:
+    backward needs): a dense / MoE / VLM layer is attention (both
+    recomputed) then the FFN (enter only); an encoder layer likewise, a
+    decoder layer self-attention and cross-attention (both) then the FFN
+    (enter only); zamba2's Mamba2 layers and shared attention are
+    checkpoints of their own (enter only), its shared MLP none; an
+    mLSTM block is one block (enter only), an sLSTM block an enter
+    without an exit (its FFN runs whole on every rank). The head's enter
+    adds one block half (backward; under ``seq_parallel`` a gather
+    forward, a reduce-scatter back), and so does the encoder-decoder's
+    memory, entered once for every decoder layer; each split stream's
+    embedding adds one gather back. The tags:
 
       tp_act    the blocks' all-reduces (no ``seq_parallel``);
       tp_seq    the blocks' gathers and reduce-scatters
                 (``seq_parallel``);
-      tp_loss   the cross entropy's three f32 all-reduces of b (S - 1);
+      tp_loss   the cross entropy's three f32 all-reduces of b (S - 1),
+                S the text (the VLM's loss skips its patches);
       tp_router the MoE gates' f32 all-reduce of (b S, top_k) backward
                 a layer, and under ``seq_parallel`` the router's gather
                 of X forward (again when recomputed);
-      tp_norm   the Mamba2 gated norm's f32 all-reduce of (b, S), forward
-                and backward (and recomputed);
+      tp_norm   the Mamba2 gated norm's and the mLSTM norm's f32
+                all-reduce of (b, S), forward and backward (and
+                recomputed);
+      tp_feat   the xLSTM's feature gathers: an mLSTM's ``a`` (b, S,
+                d_in) forward (and recomputed), its f32 reduce-scatter
+                backward; an sLSTM's output (b, S, d) forward (and
+                recomputed);
       tp_param  the backward of each whole parameter a rank uses a part
                 of (an f32 all-reduce): q_norm and k_norm, the whole kv
-                leaves, the norms' scales under ``seq_parallel`` (per
-                application of zamba2's shared block), Mamba2's
-                ``a_log``, ``dt_bias``, ``d_skip`` and the B / C columns
-                of ``w_in``, ``w_conv`` and ``b_conv``; a tied table's
-                vocab rows (all-gather);
+                leaves (the cross-attention's too), the norms' scales
+                under ``seq_parallel`` (per application of zamba2's
+                shared block; the encoder-decoder's ``ln_enc_final``),
+                Mamba2's ``a_log``, ``dt_bias``, ``d_skip`` and the B / C
+                columns of ``w_in``, ``w_conv`` and ``b_conv``, the
+                mLSTM's ``b_i`` and ``b_f``, the sLSTM's ``w_h``; a tied
+                table's vocab rows (all-gather);
 
     and a step: "grad_leaves" (each model-cut leaf's f32 gradient
     blocks all-gathered), and, where the arena's rows split over
     ``model`` alone, "w_rows", "metrics", "scales_max" (int8) and, in a
     world of ``n_model`` ranks, "pod_counts"."""
-    from repro_torch.configs.base import HYBRID, MOE
+    from repro_torch.configs.base import ENCDEC, HYBRID, MOE, SSM, VLM
     from repro_torch.dist.tensor_parallel import Segments
     m = n_model
     if m <= 1:
@@ -165,7 +180,6 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
     act, pdt = cfg.compute_dtype, cfg.param_dtype
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
     b = micro_batch
-    x = b * seq * d
     if cfg.block_remat not in ("full", "none"):
         raise ValueError("model_axis_bytes counts block_remat 'full' and "
                          f"'none', not {cfg.block_remat!r}")
@@ -177,21 +191,41 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
             out[(tag, _SHORT.get(dtype, dtype))] = \
                 out.get((tag, _SHORT.get(dtype, dtype)), 0) + n
 
-    sp = cfg.seq_parallel and seq > 1
-    # the blocks of a forward: (enter recomputed, exit recomputed)
+    src = seq if src_seq is None else src_seq
+    text = seq - cfg.n_frontend_tokens if cfg.family == VLM else seq
+    sp = cfg.seq_parallel and seq > 1 and src > 1
+    x, x_src = b * seq * d, b * src * d
+    # the blocks of a forward: (X, enter recomputed, exit recomputed,
+    # has an exit)
     if cfg.family == HYBRID:
         n_apps = L // cfg.shared_attn_every
-        blocks = [(full, False)] * (L + n_apps) + [(False, False)] * n_apps
+        blocks = ([(x, full, False, True)] * (L + n_apps)
+                  + [(x, False, False, True)] * n_apps)
+    elif cfg.family == ENCDEC:
+        blocks = ([(x_src, full, full, True), (x_src, full, False, True)]
+                  * cfg.n_encoder_layers
+                  + [(x, full, full, True)] * 2 * L
+                  + [(x, full, False, True)] * L)
+    elif cfg.family == SSM:
+        from repro_torch.models.xlstm import is_slstm
+        slstm = [is_slstm(cfg, i) for i in range(L)]
+        blocks = [(x, full, False, not s) for s in slstm]
     else:
-        n_apps = 0
-        blocks = [(full, full), (full, False)] * L
+        blocks = [(x, full, full, True), (x, full, False, True)] * L
+    # the blocks' extra halves (the head's enter, the memory's) and the
+    # split streams
+    halves = [x] + ([x_src] if cfg.family == ENCDEC else [])
+    splits = [x] + ([x_src] if cfg.family == ENCDEC else [])
     # the whole attention leaves a rank uses a part of, per application
     attn_whole = []
-    if cfg.qk_norm:
-        attn_whole += [hd, hd]
+    kv_whole = []
     if cfg.n_kv_heads % m:
         kv = cfg.n_kv_heads * hd
-        attn_whole += [d * kv, d * kv] + ([kv, kv] if cfg.qkv_bias else [])
+        kv_whole = [d * kv, d * kv] + ([kv, kv] if cfg.qkv_bias else [])
+    if cfg.qk_norm:
+        attn_whole += [hd, hd]
+    attn_whole += kv_whole
+    norms = [d, d] if sp else []
     whole = []
     if cfg.family == HYBRID:
         from repro_torch.models.ssm import mamba2_dims
@@ -199,21 +233,37 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
         bc = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
         whole += L * ([nh, nh, nh, d * bc, cfg.ssm.d_conv * bc, bc]
                       + ([d] if sp else []))
-        whole += n_apps * (attn_whole + ([d, d] if sp else []))
+        whole += n_apps * (attn_whole + norms)
+    elif cfg.family == ENCDEC:
+        whole += cfg.n_encoder_layers * (attn_whole + norms)
+        whole += L * (attn_whole + kv_whole + norms + ([d] if sp else []))
+        if sp:
+            whole.append(d)                               # ln_enc_final
+    elif cfg.family == SSM:
+        from repro_torch.models.xlstm import mlstm_dims, slstm_dims
+        d_in, nh, _ = mlstm_dims(cfg)
+        s_hd = slstm_dims(cfg)[1]
+        whole += [nh * s_hd * 4 * s_hd for s in slstm if s]    # w_h
+        whole += [nh] * 2 * slstm.count(False)              # b_i, b_f
     else:
-        whole += L * (attn_whole + ([d, d] if sp else []))
+        whole += L * (attn_whole + norms)
     if sp:
         whole.append(d)                                   # ln_final
     for _ in range(n_micro):
         if sp:
-            gathers = sum(2 + e for e, _ in blocks) + 2
-            scatters = sum(2 + x_ for _, x_ in blocks) + 1
-            add("tp_seq", act, gathers * _allgather(m, x * _BYTES[act]))
-            add("tp_seq", "float32", scatters * (m - 1) * x * 4 // m)
+            gathers = [(2 + e) * bx for bx, e, _, _ in blocks] + halves \
+                + splits
+            scatters = [(2 + x_) * bx for bx, _, x_, _ in blocks] + halves
+            add("tp_seq", act, sum(_allgather(m, g * _BYTES[act])
+                                   for g in gathers))
+            add("tp_seq", "float32", sum((m - 1) * n * 4 // m
+                                         for n in scatters))
         else:
-            n_red = sum(2 + x_ for _, x_ in blocks) + 1
-            add("tp_act", "float32", n_red * _allreduce(m, x * 4))
-        add("tp_loss", "float32", 3 * _allreduce(m, b * (seq - 1) * 4))
+            reds = [(2 + x_ if ex else 1) * bx
+                    for bx, _, x_, ex in blocks] + halves
+            add("tp_act", "float32", sum(_allreduce(m, r * 4)
+                                         for r in reds))
+        add("tp_loss", "float32", 3 * _allreduce(m, b * (text - 1) * 4))
         if cfg.family == MOE:
             gates = _allreduce(m, b * seq * cfg.moe.top_k * 4)
             route = (1 + full) * _allgather(m, x * _BYTES[act]) if sp else 0
@@ -222,6 +272,15 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
         if cfg.family == HYBRID:
             add("tp_norm", "float32",
                 L * (2 + full) * _allreduce(m, b * seq * 4))
+        if cfg.family == SSM:
+            n_ml = slstm.count(False)
+            add("tp_norm", "float32",
+                n_ml * (2 + full) * _allreduce(m, b * seq * 4))
+            add("tp_feat", act, (1 + full) * (
+                n_ml * _allgather(m, b * seq * d_in * _BYTES[act])
+                + (L - n_ml) * _allgather(m, x * _BYTES[act])))
+            add("tp_feat", "float32",
+                n_ml * (m - 1) * b * seq * d_in * 4 // m)
         add("tp_param", "float32", sum(_allreduce(m, n * 4) for n in whole))
         if cfg.tie_embeddings:
             add("tp_param", pdt,

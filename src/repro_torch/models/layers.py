@@ -145,21 +145,30 @@ def attention_init(f: ParamFactory, cfg: ModelConfig, name: str = "attn"):
         a.param("k_norm", (hd,), (None,), init="ones")
 
 
+def rank_kv(p, cfg: ModelConfig, tp):
+    """(the attention leaves ``p`` as the rank under ``tp`` computes
+    with them, the rank's query heads, its kv heads). Where the kv heads
+    do not split over the ranks, its kv head's columns are sliced from
+    the whole kv leaves (their gradient summed over the ranks)."""
+    from repro_torch.dist.tensor_parallel import local_heads
+    hd = cfg.resolved_head_dim
+    n_q, kv0, n_kv, whole = local_heads(cfg, tp.ax)
+    if whole:
+        p = dict(p)
+        for name in ("wk", "wv", "bk", "bv"):
+            if name in p:
+                p[name] = tp.whole_param(p[name]).narrow(-1, kv0 * hd,
+                                                         n_kv * hd)
+    return p, n_q, n_kv
+
+
 def _project_qkv(p, cfg: ModelConfig, x, positions, tp=None):
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
     if tp is not None:
-        from repro_torch.dist.tensor_parallel import local_heads
+        p, n_q, n_kv = rank_kv(p, cfg, tp)
         p = dict(p)
-        n_q, kv0, n_kv, whole = local_heads(cfg, tp.ax)
-        if whole:
-            # the rank's kv heads of the whole leaves (their gradient
-            # summed over the ranks)
-            for name in ("wk", "wv", "bk", "bv"):
-                if name in p:
-                    p[name] = tp.whole_param(p[name]).narrow(
-                        -1, kv0 * hd, n_kv * hd)
         if cfg.qk_norm:
             # each rank normalises its own heads
             for name in ("q_norm", "k_norm"):

@@ -195,18 +195,16 @@ def _rank_params(p, cfg: ModelConfig, tp):
     of the fused leaves (the B and C columns) and the per-head leaves
     through ``tp.whole_param`` (their gradient summed over the ranks),
     the per-head ones sliced to the rank's heads."""
-    n, m = tp.ax.n, tp.ax.rank
-    nh_l = mamba2_dims(cfg)[1] // n
     p = dict(p)
     for name in ("w_in", "w_conv", "b_conv"):
         w = p[name]
-        parts = mamba2_segments(cfg, name, w.dim()).local_parts(n)
+        parts = mamba2_segments(cfg, name, w.dim()).local_parts(tp.ax.n)
         p[name] = torch.cat([
             w.narrow(-1, ofs, width) if split
             else tp.whole_param(w.narrow(-1, ofs, width))
             for ofs, width, split in parts], dim=-1)
     for name in ("a_log", "dt_bias", "d_skip"):
-        p[name] = tp.whole_param(p[name]).narrow(0, m * nh_l, nh_l)
+        p[name] = tp.rank_heads(p[name])
     return p
 
 

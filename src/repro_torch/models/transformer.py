@@ -43,16 +43,17 @@ token through every layer against a stacked cache (KV entries, or the
 Mamba2 and xLSTM recurrent states) it updates in place, slice by slice
 (JAX scans the layers and donates the cache).
 
-Under an active mesh with ``model > 1`` the dense, MoE and hybrid
-families are tensor parallel (``dist.tensor_parallel``): ``init`` keeps
-the rank's blocks of the whole tree the seed draws, the blocks run the
-rank's heads and "mlp" columns (the MoE every expert's, the Mamba2
-blocks their heads), ``forward`` returns the rank's vocab block of the
-logits and ``lm_loss`` takes the vocab-parallel cross entropy.
+Under an active mesh with ``model > 1`` every family is tensor
+parallel (``dist.tensor_parallel``): ``init`` keeps the rank's blocks of
+the whole tree the seed draws, the blocks run the rank's heads and
+"mlp" columns (the MoE every expert's, the Mamba2 and xLSTM blocks
+their heads), ``forward`` returns the rank's vocab block of the logits
+and ``lm_loss`` takes the vocab-parallel cross entropy.
 ``seq_parallel`` then splits the residual stream over the sequence
 between blocks (the identity at ``model = 1`` or at one token, as JAX's
-``_sp``). The other families, and decoding, raise there (ROADMAP A.11
-part 2, item 6).
+``_sp``; the VLM's split covers the patches and the text together; the
+xLSTM refuses it at ``model > 1``, as JAX places no boundary in its
+forward). Decoding raises there (ROADMAP A.11 part 2, item 6).
 
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -248,26 +249,27 @@ def _shared_attn_apply(sh, cfg: ModelConfig, h, positions, mask,
                                mask_fn, tp=tp)
 
 
-def _mlstm_layer(lp, cfg: ModelConfig, h):
-    return xlstm_mod.mlstm_block_apply(lp["mlstm"], cfg,
-                                       rmsnorm(h, lp["ln1"], cfg.norm_eps))
+def _mlstm_layer(lp, cfg: ModelConfig, h, tp=None):
+    return xlstm_mod.mlstm_block_apply(
+        lp["mlstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps), tp)
 
 
-def _slstm_layer(lp, cfg: ModelConfig, h):
-    return xlstm_mod.slstm_block_apply(lp["slstm"], cfg,
-                                       rmsnorm(h, lp["ln1"], cfg.norm_eps))[0]
+def _slstm_layer(lp, cfg: ModelConfig, h, tp=None):
+    return xlstm_mod.slstm_block_apply(
+        lp["slstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps), tp=tp)[0]
 
 
-def _xlstm_forward(params, cfg: ModelConfig, h, remat):
+def _xlstm_forward(params, cfg: ModelConfig, h, remat, tp=None):
     """The mLSTM and sLSTM blocks in their true layer order, each a
-    residual block under ``remat``."""
+    residual block under ``remat`` (under ``tp`` on the rank's
+    heads)."""
     ml = iter(unbind_layers(params["mlstm_layers"]))
     sl = iter(unbind_layers(params["slstm_layers"]))
     for i in range(cfg.n_layers):
         if xlstm_mod.is_slstm(cfg, i):
-            h = h + _apply(remat, _slstm_layer, next(sl), cfg, h)
+            h = h + _apply(remat, _slstm_layer, next(sl), cfg, h, tp)
         else:
-            h = h + _apply(remat, _mlstm_layer, next(ml), cfg, h)
+            h = h + _apply(remat, _mlstm_layer, next(ml), cfg, h, tp)
     return h
 
 
@@ -328,7 +330,15 @@ def forward(params, cfg: ModelConfig, tokens, *, extra: Optional[Dict] = None,
     attend to each other both ways. Under tensor parallelism the logits
     are the rank's vocab block (B, S, padded vocab / model)."""
     return _forward(params, cfg, tokens, extra, prefix_len,
-                    tensor_parallel.active(cfg, tokens.shape[1]))
+                    tensor_parallel.active(cfg, _length(cfg, tokens, extra)))
+
+
+def _length(cfg: ModelConfig, tokens, extra) -> int:
+    """The positions the forward runs (and ``seq_parallel`` splits): the
+    VLM's patches in front of its text."""
+    if cfg.family == VLM and extra is not None and "patches" in extra:
+        return extra["patches"].shape[1] + tokens.shape[1]
+    return tokens.shape[1]
 
 
 def _forward(params, cfg: ModelConfig, tokens, extra, prefix_len, tp):
@@ -360,7 +370,7 @@ def _forward(params, cfg: ModelConfig, tokens, extra, prefix_len, tp):
         h = tp.split_seq(h)
         ln_final = tp.norm_scale(ln_final)
     if cfg.family == SSM:
-        h = _xlstm_forward(params, cfg, h, remat)
+        h = _xlstm_forward(params, cfg, h, remat, tp)
     elif cfg.family == HYBRID:
         h = _hybrid_forward(params, cfg, h, positions, mask, remat, mask_fn,
                             tp)
@@ -393,8 +403,9 @@ def lm_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
                              device=tokens.device)
     extra = {k: v for k, v in batch.items()
              if k not in ("tokens", "weights", "targets")}
-    tp = tensor_parallel.active(cfg, tokens.shape[1])
-    logits, aux = _forward(params, cfg, tokens, extra or None, None, tp)
+    extra = extra or None
+    tp = tensor_parallel.active(cfg, _length(cfg, tokens, extra))
+    logits, aux = _forward(params, cfg, tokens, extra, None, tp)
     if cfg.family == VLM and "patches" in batch:
         logits = logits[:, batch["patches"].shape[1]:]
     loss_sum, count = next_token_loss(logits, tokens, weights, tp)
@@ -455,10 +466,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def check_decode(cfg: ModelConfig) -> None:
-    """``check_supported``, and no decoding under ``model > 1``: JAX
-    serves on its serve profile, another layout than the train
-    profile's tensor parallelism (ROADMAP A.11 part 2, item 6)."""
+    """``check_supported``, and no decoding under ``model > 1``
+    (``refuse_model_axis_decode``)."""
     check_supported(cfg)
+    refuse_model_axis_decode()
+
+
+def refuse_model_axis_decode() -> None:
+    """No decoding under ``model > 1``: JAX serves on its serve profile,
+    another layout than the train profile's tensor parallelism (ROADMAP
+    A.11 part 2, item 6)."""
     if model_size() > 1:
         raise NotImplementedError(
             f"decoding on a mesh with model={model_size()}: the serve "

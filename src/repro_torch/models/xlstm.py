@@ -23,6 +23,44 @@ only.
 Two head dims: the mLSTM's is ``d_in // n_heads`` (``mlstm_dims``), the
 sLSTM's ``d_model // n_heads`` (``slstm_dims``); neither is the
 config's ``head_dim``.
+
+Under tensor parallelism (``tp``, ``dist.tensor_parallel``) a rank of M
+runs nh/M of the mLSTM's heads and nh/M of the sLSTM's. ``xlstm_spec``
+is the one description of the cut, which the init hook, both of
+``core.ambdg``'s bridges, the checkpoints and ``launch.wire_model``
+read; it departs from JAX's train-profile specs, whose contiguous
+``model`` blocks straddle what a head needs:
+
+  * mLSTM ``w_up`` (d, 2 d_in) is [a | gate] on "mlp": JAX's block gives
+    rank 0 of 2 all of ``a`` and rank 1 all of ``gate``; here a rank
+    holds its block of each (a ``Segments``). Every head's q, k, v and
+    gates read all of ``a``, so the rank's block of ``a`` is gathered
+    along the features (``tp.gather_features``: forward an all-gather,
+    backward a reduce-scatter), rather than every rank computing ``a``
+    whole and summing ``w_up``'s gradient;
+  * mLSTM ``w_q``, ``w_k``, ``w_v`` (d_in, d_in; "mlp", "heads") and
+    ``w_i``, ``w_f`` (d_in, nh; "mlp", None): JAX's resolver gives
+    ``model`` to the input dim; here the output dim (the rank's head
+    columns) is cut;
+  * sLSTM ``w_x`` (d, 4d) and ``b`` (4d) are laid out gate-major, (4,
+    nh, hd): a rank holds its heads' block of each gate (four split
+    parts of a ``Segments``) where JAX's block would hold whole gates;
+  * sLSTM ``w_ff_gate``, ``w_ff_up``, ``w_ff_down`` stay whole: the FFN
+    width int(4/3 d) is odd in both configs (1023, 85), where JAX's
+    resolver keeps them whole too (for an even width JAX would cut
+    "mlp"; the port still keeps them whole);
+  * JAX's whole ``b_i``, ``b_f`` and ``w_h`` are sliced to the rank's
+    heads (their gradient summed over the ranks, ``tp.whole_param``);
+    ``norm_scale`` and ``w_down`` keep JAX's contiguous block (y is
+    head-major), the norm's sum of squares over the whole d_in summed
+    over the ranks (``tp.sum``).
+
+The sLSTM's recurrence leaves its output in head blocks; its FFN reads
+the whole width, so the output is gathered whole
+(``tp.whole_features``; every rank then computes the FFN alike and its
+output needs no reduce, and the gather's backward keeps the rank's own
+block). ``seq_parallel`` is refused at ``model > 1``
+(``tensor_parallel.check_model_axis``).
 """
 from __future__ import annotations
 
@@ -56,6 +94,25 @@ def mlstm_dims(cfg: ModelConfig):
     d_in = int(cfg.xlstm.proj_factor_mlstm * cfg.d_model)
     nh = cfg.n_heads
     return d_in, nh, d_in // nh
+
+
+def xlstm_spec(cfg: ModelConfig, name: str, ndim: int):
+    """The tensor-parallel cut of the xLSTM leaf ``name`` (``ndim`` dims)
+    where it departs from JAX's train-profile spec (the module's
+    docstring): a ``tensor_parallel.Segments`` of the last dim, a
+    ``Spec`` (the last dim cut, or whole), or None for JAX's own."""
+    from repro_torch.dist.sharding import Spec
+    from repro_torch.dist.tensor_parallel import Segments
+    d, d_in = cfg.d_model, mlstm_dims(cfg)[0]
+    if name == "w_up":
+        return Segments(ndim - 1, ((0, d_in, True), (d_in, d_in, True)))
+    if name in ("w_q", "w_k", "w_v", "w_i", "w_f"):
+        return Spec(*(None,) * (ndim - 1), "model")
+    if name in ("w_x", "b"):
+        return Segments(ndim - 1, tuple((g * d, d, True) for g in range(4)))
+    if name in ("b_i", "b_f", "w_h", "w_ff_gate", "w_ff_up", "w_ff_down"):
+        return Spec()
+    return None
 
 
 def mlstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "mlstm"):
@@ -146,14 +203,20 @@ def mlstm_sequence(q, k, v, logf, logi, chunk: int):
     return torch.cat(ys, dim=2).transpose(1, 2)
 
 
-def _mlstm_proj(p, cfg: ModelConfig, x):
+def _mlstm_proj(p, cfg: ModelConfig, x, tp=None):
     """x (B, S, d) -> q, k, v (B, S, nh, hd) in x's dtype, logi and logf
     (B, S, nh) f32 (logf the log-sigmoid of the forget pre-activation),
-    and the output gate's pre-activation (B, S, d_in)."""
+    and the output gate's pre-activation (B, S, d_in); under ``tp`` the
+    rank's heads and its block of the gate."""
     d_in, nh, hd = mlstm_dims(cfg)
     B, S, _ = x.shape
+    if tp is not None:
+        p = dict(p, b_i=tp.rank_heads(p["b_i"]), b_f=tp.rank_heads(p["b_f"]))
+        d_in, nh = d_in // tp.ax.n, nh // tp.ax.n
     up = x @ p["w_up"].to(x.dtype)
     a, gate = up[..., :d_in], up[..., d_in:]
+    if tp is not None:
+        a = tp.gather_features(a)
     q = (a @ p["w_q"].to(x.dtype)).reshape(B, S, nh, hd)
     k = (a @ p["w_k"].to(x.dtype)).reshape(B, S, nh, hd)
     v = (a @ p["w_v"].to(x.dtype)).reshape(B, S, nh, hd)
@@ -163,21 +226,33 @@ def _mlstm_proj(p, cfg: ModelConfig, x):
     return q, k, v, logi, logf, gate
 
 
-def _mlstm_out(p, cfg: ModelConfig, y, gate, x):
-    """The normed, gated read-out y (B, S, d_in) -> (B, S, d)."""
-    y = rmsnorm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
+def _mlstm_out(p, cfg: ModelConfig, y, gate, x, tp=None):
+    """The normed, gated read-out y (B, S, d_in) -> (B, S, d); under
+    ``tp`` y is the rank's block, the norm spans every rank's and the
+    rank's partial product is summed (``tp.exit``)."""
+    y = y.to(x.dtype)
+    if tp is None:
+        y = rmsnorm(y, p["norm_scale"], cfg.norm_eps)
+    else:
+        # rmsnorm over the whole d_in: the ranks' sums of squares added
+        var = tp.sum(torch.sum(torch.square(y).to(torch.float32), dim=-1,
+                               keepdim=True)) / mlstm_dims(cfg)[0]
+        y = y * torch.rsqrt(var + cfg.norm_eps).to(y.dtype) \
+            * p["norm_scale"].to(y.dtype)
     y = y * _silu(gate)
-    return y @ p["w_down"].to(x.dtype)
+    out = y @ p["w_down"].to(x.dtype)
+    return out if tp is None else tp.exit(out)
 
 
-def mlstm_block_apply(p, cfg: ModelConfig, x):
+def mlstm_block_apply(p, cfg: ModelConfig, x, tp=None):
     """x (B, S, d) -> (B, S, d): the up-projection, the mLSTM path and
-    the gate path."""
-    d_in = mlstm_dims(cfg)[0]
+    the gate path; under ``tp`` on the rank's heads."""
     B, S, _ = x.shape
-    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x)
+    if tp is not None:
+        x = tp.enter(x)
+    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x, tp)
     y = mlstm_sequence(q, k, v, logf, logi, cfg.xlstm.conv_width * 64)
-    return _mlstm_out(p, cfg, y.reshape(B, S, d_in), gate, x)
+    return _mlstm_out(p, cfg, y.reshape(B, S, -1), gate, x, tp)
 
 
 def mlstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
@@ -275,18 +350,23 @@ def state_axes():
             "slstm": {k: laxes for k in ("h", "c", "n", "m")}}
 
 
-def slstm_scan(p, cfg: ModelConfig, x, init_state=None):
+def slstm_scan(p, cfg: ModelConfig, x, init_state=None, tp=None):
     """The strict recurrence over time. x (B, S, d). The input gates are
     laid out gate-major over the whole width, (B, S, 4, nh, hd); the
     recurrent ones head-major, (B, nh, 4, hd), as in JAX. Returns (y
-    (B, S, d) in x's dtype, the final (h, c, n, m))."""
-    B, S, d = x.shape
+    (B, S, d) in x's dtype, the final (h, c, n, m)). Under ``tp`` the
+    rank's nh/M heads: y (B, S, d/M), the state (B, nh/M, hd)."""
+    B, S, _ = x.shape
     nh, hd, _ = slstm_dims(cfg)
+    if tp is not None:
+        p = dict(p, w_h=tp.rank_heads(p["w_h"]))
+        nh //= tp.ax.n
     # the bias is added in the compute dtype, as in JAX
     xg = (x @ p["w_x"].to(x.dtype) + p["b"].to(x.dtype)).reshape(
         B, S, 4, nh, hd)
     if init_state is None:
-        init_state = slstm_zero_state(cfg, B, x.device)
+        init_state = tuple(v[:, :nh] for v in
+                           slstm_zero_state(cfg, B, x.device))
     h, c, n, m = init_state
     w_h = p["w_h"].to(torch.float32)                     # (nh, hd, 4 hd)
     # JAX casts each step's slice to f32: the same values, cast at once
@@ -307,14 +387,20 @@ def slstm_scan(p, cfg: ModelConfig, x, init_state=None):
         h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    y = torch.stack(hs, dim=1).reshape(B, S, nh * hd).to(x.dtype)
     return y, (h, c, n, m)
 
 
-def slstm_block_apply(p, cfg: ModelConfig, x, init_state=None):
+def slstm_block_apply(p, cfg: ModelConfig, x, init_state=None, tp=None):
     """The recurrence, then the gated FFN (tanh GELU whatever ``cfg.act``
-    says: JAX's ``jax.nn.gelu`` default). Returns (y, the final state)."""
-    y, state = slstm_scan(p, cfg, x, init_state)
+    says: JAX's ``jax.nn.gelu`` default). Returns (y, the final state).
+    Under ``tp`` the recurrence runs the rank's heads and its output is
+    gathered whole for the FFN, which every rank computes alike."""
+    if tp is not None:
+        x = tp.enter(x)
+    y, state = slstm_scan(p, cfg, x, init_state, tp)
+    if tp is not None:
+        y = tp.whole_features(y)
     act = F.gelu(y @ p["w_ff_gate"].to(x.dtype), approximate="tanh")
     h = act * (y @ p["w_ff_up"].to(x.dtype))
     return h @ p["w_ff_down"].to(x.dtype), state

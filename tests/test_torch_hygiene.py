@@ -575,7 +575,7 @@ def _seamless(**kw):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(seq_parallel=True), NotImplementedError, "A.11"),
+    (dict(seq_parallel=True), None, "seq_parallel"),
     (dict(sliding_window=16), NotImplementedError, "sliding_window"),
     (dict(prefix_lm=True), NotImplementedError, "prefix_lm"),
     (dict(block_remat="selective"), ValueError, "block_remat"),
@@ -585,13 +585,24 @@ def _seamless(**kw):
     (dict(family="dense"), None, None),
 ])
 def test_encdec_model_knobs_raise(kw, error, match):
-    """The encoder-decoder's knobs that raise: sequence parallelism
-    (A.11), the masks JAX's encoder-decoder leaves out of training, an
-    unknown remat or attention knob, a cap under the flash kernels; and
-    the transformer sends the family to ``models/encdec.py`` (a dense
-    config built as an encoder-decoder through ``encdec.init`` raises)."""
+    """The encoder-decoder's knobs that raise: the masks JAX's
+    encoder-decoder leaves out of training, an unknown remat or
+    attention knob, a cap under the flash kernels; and the transformer
+    sends the family to ``models/encdec.py`` (a dense config built as an
+    encoder-decoder through ``encdec.init`` raises). ``seq_parallel``
+    builds, and off a mesh with ``model > 1`` it is the identity: the
+    loss equals the one without it, bit for bit (its split is
+    ``test_torch_tensor_parallel_zoo``'s)."""
     from repro_torch.models import encdec, transformer
     from repro_torch.models.api import build_model
+    if match == "seq_parallel":
+        on, off = (build_model(_seamless(**k), device="cpu")
+                   for k in (kw, {}))
+        batch = off.dummy_batch(2, 8, torch.Generator().manual_seed(0))
+        params = off.init()
+        assert torch.equal(on.loss(params, batch)[0],
+                           off.loss(params, batch)[0])
+        return
     if error is None:
         with pytest.raises(ValueError, match="encdec"):
             encdec.init(_seamless(**kw), None, "meta")

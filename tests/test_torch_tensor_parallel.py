@@ -25,7 +25,8 @@ World 2, ``1x1x2``, f32 SMOKE, qwen1.5-0.5b (MHA, tied head), qwen3-1.7b
     model_axis_bytes`` times the steps;
   * a 1x1x2 checkpoint restores on 1x1x1, and a 1x1x1 one on 1x1x2;
   * the refusals: ``n_heads % model``, ``S % model`` under
-    ``seq_parallel``, a family the axis does not carry (the xLSTM),
+    ``seq_parallel``, a layout the axis does not carry (Mamba2's
+    grouped B/C columns, zamba2 with n_groups = 2),
     decoding and serving.
 World 4: chatglm3-6b on ``1x1x4`` (2 kv heads: the whole-kv route),
 qwen1.5-0.5b on ``1x2x2`` (the rows over data x model), each against
@@ -200,13 +201,15 @@ def _refusals():
     odd = dataclasses.replace(_cfg("qwen1.5-0.5b"), n_heads=3, n_kv_heads=3,
                               head_dim=16)
     model = build_model(_cfg("qwen1.5-0.5b", sp=True), device="cpu")
-    xlstm = build_model(get_smoke_config("xlstm-125m"), device="cpu")
+    zamba = get_smoke_config("zamba2-2.7b")
+    grouped = build_model(dataclasses.replace(
+        zamba, ssm=dataclasses.replace(zamba.ssm, n_groups=2)), device="cpu")
     with mesh:
         catch("heads", lambda: build_model(odd, device="cpu").init())
         params = model.init()
         catch("seq", lambda: model.loss(params, model.dummy_batch(
             2, 15, torch.Generator().manual_seed(0))))
-        catch("family", lambda: xlstm.init())
+        catch("family", lambda: grouped.init())
         catch("decode", lambda: model.init_decode_state(2, 8))
         catch("serve", lambda: api.serve(model, rc, device="cpu"))
     return errors
