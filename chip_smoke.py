@@ -374,9 +374,25 @@ Phases (any failure raises and the script exits non-zero):
      step, launches (B.1, B.2 and, for seamless, flash: as many as the
      stacked run's) and census against ``model_axis_bytes``. The stages
      run beside phases 3-7, 15 and 16; the checks follow phase 24.
+ 26. serving over ``model`` (``api.serve`` on the serve profile's
+     layout, ``dist.tensor_parallel``'s decode), on two gloo ranks
+     sharing the card, 1x1x2, FULL widths, f32 with an f32 cache, at
+     phases 23-25's depths: qwen1.5-0.5b 2 layers, mixtral-8x7b 1
+     layer (gather), zamba2-2.7b 6, seamless-m4t-large-v2 2 + 2,
+     paligemma-3b 1, xlstm-125m 2 (``w_h`` rescaled). Each serves 8
+     slots for 24 engine steps under the seeded Poisson queue against
+     the stacked 1x1x1 engine on the card (a process of its own): every
+     emitted token and the trace equal, each step's joined logits within
+     1e-4 of the largest element, the census equal to ``launch.
+     wire_model.decode_axis_bytes`` to the byte, no kernel of the port
+     launched (the decode runs ``gqa_attend`` and Mamba2's one-step
+     recurrence, as JAX's does). One line a family: the median step a
+     rank (gloo's host staging: no speed), the peak a process and the
+     kernels a step. Its processes ready themselves beside phase 17 and
+     run beside phases 18 and on; the checks follow phase 25.
 
-``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23,24,25``
-runs the build and then only the phases named among 8 and 13-25 (``2``:
+``python3 chip_smoke.py --only=2,8,13,14,15,16,17,18,19,20,21,22,23,24,25,26``
+runs the build and then only the phases named among 8 and 13-26 (``2``:
 phase 2's mixtral, non-causal and head-dim 80/256 flash rows alone; a
 short call while working on them; no kernels or ok line).
 
@@ -6592,16 +6608,17 @@ def tp24_main(arg):
 
 
 class TP24Stages:
-    """Phase 24's (or 25's) processes, stage by stage (``stages``, by
-    default TP24_STAGES), in a temporary directory. ``spawn`` starts a
+    """Phase 24's (or 25's, 26's) processes, stage by stage (``stages``,
+    by default TP24_STAGES; each process runs this script with ``flag``),
+    in a temporary directory. ``spawn`` starts a
     stage's processes, which ready themselves and wait; ``go`` lets them
     run. ``stop`` (also at exit) kills what still runs and removes the
     directory."""
 
-    def __init__(self, stages=TP24_STAGES):
+    def __init__(self, stages=TP24_STAGES, flag="--tp24"):
         import atexit
         import tempfile
-        self.stages = stages
+        self.stages, self.flag = stages, flag
         self.tmp = tempfile.mkdtemp()
         self.procs, self.secs, self.started = {}, {}, set()
         atexit.register(self.stop)
@@ -6619,7 +6636,7 @@ class TP24Stages:
             if name in self.procs or name in self.secs:
                 continue
             label, kind = name.split()
-            flag = f"--tp24={self.tmp}:{label}:{TP24_KINDS[kind]}"
+            flag = f"{self.flag}={self.tmp}:{label}:{TP24_KINDS[kind]}"
             if kind == "ranks":
                 cmd = [sys.executable, "-m", "torch.distributed.run",
                        "--nproc-per-node=2", f"--master-port={free_port()}",
@@ -6782,6 +6799,249 @@ def tp24_check(tmp, launches, secs, labels=TP24_RUNS, phase="24"):
     return out
 
 
+# -- phase 26: serving over 'model' ------------------------------------------
+# ``api.serve`` on 1x1x2 (two gloo ranks sharing the card) for each of
+# TP26_RUNS at FULL widths and phases 23-25's depths, f32 with an f32
+# cache, TP26_SLOTS slots for TP26_STEPS engine steps of the seeded Poisson
+# queue, against the stacked 1x1x1 engine (a process of its own): tokens and
+# trace equal, each step's joined logits within TP26_RTOL of the largest
+# element, the census equal to ``decode_axis_bytes``. The processes ready
+# themselves beside phase 17 and run beside phases 18 and on; each draws
+# every family's whole tree on the host (~3.8B normal draws at ~100M/s), so
+# the stacked process peaks at mixtral's whole 6.9 GB of f32 weights, a rank
+# at half of it.
+TP26_RUNS = ("qwen", "mixtral", "zamba2", "seamless", "paligemma", "xlstm")
+TP26_SLOTS, TP26_STEPS, TP26_MAX_LEN = 8, 24, 64
+TP26_PROFILED = 4        # the last steps, profiled: kernels a step
+TP26_RTOL = 1e-4
+TP26_STAGES = (("serve ranks", "serve reference"),)
+
+
+def tp26_config(label):
+    """Phase 26's run config of ``label`` (f32 compute; the mesh field is
+    the ranks' 1x1x2)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (MeshConfig, RunConfig, ServeConfig,
+                                          TRAIN_4K)
+    if label == "qwen":
+        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                                  n_layers=MESH_LM_LAYERS)
+    elif label == "mixtral":
+        cfg = mix_config("xla", moe_impl="gather", n_layers=TP24_MIX_LAYERS)
+    elif label == "zamba2":
+        cfg = z_config("xla", n_layers=TP24_Z_LAYERS)
+    elif label == "seamless":
+        cfg = ed_config("seamless-m4t-large-v2", TP25_ED_LAYERS)
+    elif label == "paligemma":
+        cfg = ed_config("paligemma-3b", TP25_VLM_LAYERS)
+    else:
+        cfg = xl_config(n_layers=TP25_XL_LAYERS)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    return RunConfig(model=cfg, shape=TRAIN_4K, mesh=MeshConfig(1, 1, 2),
+                     serve=ServeConfig(
+                         slots=TP26_SLOTS, max_len=TP26_MAX_LEN, max_new=8,
+                         arrival="poisson", arrival_rate=1.0,
+                         prompt_len_min=4, prompt_len_max=16, seed=26))
+
+
+class LogitsTap:
+    """``model`` (a ``models.api.Model``) whose ``decode_step`` keeps each
+    step's last-position logits on the device (``logits``)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def decode_step(self, params, cache, tokens, pos):
+        logits, cache = self.model.decode_step(params, cache, tokens, pos)
+        self.logits.append(logits[:, -1])
+        return logits, cache
+
+
+def tp26_serve(label, out_dir, name):
+    """Serve ``label`` (under the active mesh, or stacked without one) and
+    write its record and its logits (``name``: "ref" or "rankR"); the
+    stacked engine and rank 0 profile the last TP26_PROFILED steps
+    (kernels a step)."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.arena import tree_flatten
+    from repro_torch.dist.collectives import wire_census
+    from repro_torch.models.api import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rc = tp26_config(label)
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    model = LogitsTap(xl_model(rc.model, "cuda") if rc.model.xlstm
+                      else build_model(rc.model, device="cuda"))
+    engine, queue = api.serve(model, rc, device="cuda")
+    slots, max_len = rc.serve.slots, rc.serve.max_len
+    engine.cache, _ = model.init_decode_state(slots, max_len, torch.float32)
+    engine._cache0, _ = model.init_decode_state(slots, max_len,
+                                                torch.float32)
+    init_s = time.perf_counter() - t0
+    trace, times = [], []
+
+    def step():
+        arrived = queue.step()
+        t1 = time.perf_counter()
+        ev = engine.step(queue)
+        times.append(time.perf_counter() - t1)
+        trace.append(dict(ev, arrived=arrived))
+
+    with wire_census() as census:
+        for _ in range(TP26_STEPS - TP26_PROFILED):
+            step()
+        if name in ("ref", "rank0"):
+            _, kernels = profiled(lambda: [step() for _ in
+                                           range(TP26_PROFILED)])
+        else:
+            kernels = None
+            for _ in range(TP26_PROFILED):
+                step()
+    logits = torch.stack(model.logits).cpu().numpy()
+    np.save(f"{out_dir}/tp26-{label}-{name}.npy", logits)
+    rec = dict(trace=trace, outs=[list(o) for o in engine._out],
+               completions=engine.completions, init_s=init_s,
+               step_ms=[1e3 * t for t in times],
+               kernels_per_step=(len(kernels) / TP26_PROFILED if kernels
+                                 else None),
+               launches={n: k.launches for n, k in counters.items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               census=[[*k, n] for k, n in census.bytes.items()],
+               n_params=sum(x.numel() for x in
+                            tree_flatten(engine.params)[0]))
+    with open(f"{out_dir}/tp26-{label}-{name}.json", "w") as f:
+        json.dump(rec, f)
+    del engine, model, logits
+    torch.cuda.empty_cache()
+
+
+def tp26_main(arg):
+    """A phase-26 process (``--tp26=DIR:LABEL:KIND``, KIND "rank" under
+    torch.distributed.run or "ref"): readies itself (under "rank" the
+    card, the process group and the 1x1x2 mesh), waits for
+    DIR/go.LABEL.KIND, then serves every run of TP26_RUNS and writes its
+    records."""
+    import torch
+    out_dir, label, kind = arg.rsplit(":", 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    if kind == "ref":
+        wait_file(f"{out_dir}/go.{label}.{kind}", "go")
+        for run in TP26_RUNS:
+            tp26_serve(run, out_dir, "ref")
+        return 0
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        mesh = make_mesh(tp26_config(TP26_RUNS[0]).mesh, "cuda")
+        wait_file(f"{out_dir}/go.{label}.{kind}", "go")
+        for run in TP26_RUNS:
+            with mesh:
+                tp26_serve(run, out_dir, f"rank{dist.get_rank()}")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp26_phase(launches, stages=None):
+    """Phase 26: the stage of ``stages`` (a ``TP24Stages`` of TP26_STAGES)
+    run to its end if it has not; then each run's ranks held against the
+    stacked engine: the trace, every slot's tokens and the completions
+    equal, each step's joined logits within TP26_RTOL of the step's
+    largest element, the census equal to ``decode_axis_bytes`` times the
+    decode steps, no kernel of the port launched (none is on the decode
+    path). Prints a line a run. Returns the record."""
+    import numpy as np
+    from repro_torch.launch.wire_model import decode_axis_bytes
+    stages = stages or TP24Stages(TP26_STAGES, flag="--tp26")
+    try:
+        stages.finish(0)
+        tmp = stages.tmp
+        out = {"seconds": stages.secs}
+        for label in TP26_RUNS:
+            rc = tp26_config(label)
+            ref = read_json(f"{tmp}/tp26-{label}-ref.json")
+            ranks = [read_json(f"{tmp}/tp26-{label}-rank{r}.json")
+                     for r in range(2)]
+            want = np.load(f"{tmp}/tp26-{label}-ref.npy")
+            got = np.concatenate([np.load(f"{tmp}/tp26-{label}-rank{r}.npy")
+                                  for r in range(2)], axis=-1)
+            assert got.shape == want.shape, (label, got.shape, want.shape)
+            worst = 0.0
+            for t in range(want.shape[0]):
+                limit = TP26_RTOL * float(np.abs(want[t]).max())
+                gap = float(np.abs(got[t] - want[t]).max())
+                assert gap <= limit, (label, t, gap, limit)
+                worst = max(worst, gap / limit)
+            n_dec = sum(ev["active"] > 0 for ev in ref["trace"])
+            assert n_dec == want.shape[0], (label, n_dec, want.shape)
+            assert ref["completions"], label
+            one = decode_axis_bytes(rc.model, rc.serve.slots, 2, 1)
+            model_count = {f"{t}/{dt}": n_dec * b for (t, dt), b in
+                           one.items()}
+            for r in ranks:
+                for key in ("trace", "outs", "completions"):
+                    assert r[key] == ref[key], (label, key)
+                census = {f"{tag}/{dt}": b for _, dt, tag, b in r["census"]}
+                assert census == model_count, (label, census, model_count)
+            for rec in [ref] + ranks:
+                assert not any(rec["launches"].values()), (label,
+                                                           rec["launches"])
+            med = [statistics.median(r["step_ms"][1:TP26_STEPS
+                                                  - TP26_PROFILED])
+                   for r in ranks]
+            out[label] = dict(
+                logits_err_over_limit=worst, decode_steps=n_dec,
+                tokens=sum(len(o) for _, o in ref["completions"]),
+                median_step_ms=med,
+                ref_median_step_ms=statistics.median(
+                    ref["step_ms"][1:TP26_STEPS - TP26_PROFILED]),
+                peak_gib=[r["peak_gib"] for r in ranks],
+                ref_peak_gib=ref["peak_gib"],
+                kernels_per_step=[r["kernels_per_step"] for r in ranks],
+                ref_kernels_per_step=ref["kernels_per_step"],
+                init_s=[r["init_s"] for r in ranks], ref_init_s=ref["init_s"],
+                census=model_count, n_params=ranks[0]["n_params"],
+                ref_n_params=ref["n_params"])
+            o = out[label]
+            depth = (f"{rc.model.n_encoder_layers} + {rc.model.n_layers}"
+                     if rc.model.family == "encdec"
+                     else f"{rc.model.n_layers}")
+            kps = ("not measured" if o["kernels_per_step"][0] is None
+                   else f"{o['kernels_per_step'][0]:.1f}")
+            log(f"phase 26 {label}: FULL widths {depth} layer(s) f32, "
+                f"api.serve {rc.serve.slots} slots x {TP26_STEPS} steps on "
+                f"1x1x2 (2 gloo ranks on the card; {o['n_params']:,} of "
+                f"{o['ref_n_params']:,} parameters a rank): tokens, trace "
+                f"and completions equal the stacked engine's "
+                f"({o['tokens']} tokens completed); logits worst step at "
+                f"{worst:.3f} of {TP26_RTOL} of its largest element; "
+                f"census {json.dumps(model_count)} = decode_axis_bytes x "
+                f"{n_dec}; median step a rank {med[0]:.2f} / {med[1]:.2f} ms "
+                f"(stacked {o['ref_median_step_ms']:.2f}); peak GiB a rank "
+                f"{[round(p, 2) for p in o['peak_gib']]} (stacked "
+                f"{o['ref_peak_gib']:.2f}); kernels a step rank 0 {kps} "
+                f"(stacked {o['ref_kernels_per_step']}); init s a rank "
+                f"{[round(x, 1) for x in o['init_s']]} (stacked "
+                f"{o['ref_init_s']:.1f})")
+        log(f"phase 26: process seconds "
+            f"{json.dumps({k: round(v, 1) for k, v in stages.secs.items()})}")
+        return out
+    finally:
+        stages.stop()
+
+
 def kernel_counters():
     """{name: the launch counter of each kernel wrapper} (each wrapper
     adds one where it launches its kernel)."""
@@ -6825,6 +7085,7 @@ def main():
              "--dec-rank": dec_rank_main, "--dec-ref": dec_rank_ref_main,
              "--p2p-probe": p2p_probe_main, "--tp-rank": tp_rank_main,
              "--tp-ref": tp_ref_main, "--tp24": tp24_main,
+             "--tp26": tp26_main,
              "--z9-cpu": z9_cpu_main, "--sim-paper": sim_paper_main}
     for a in sys.argv[1:]:
         flag, _, value = a.partition("=")
@@ -6892,8 +7153,8 @@ def main():
         """The counts of a run: those named, 0 for every other kernel."""
         return dict(dict.fromkeys(counters, 0), **nonzero)
 
-    # ``--only=2,8,13,...,25``: after the build, run only those of phases
-    # 8 and 13-25 (2: phase 2's mixtral, non-causal and
+    # ``--only=2,8,13,...,26``: after the build, run only those of phases
+    # 8 and 13-26 (2: phase 2's mixtral, non-causal and
     # head-dim 80/256 flash rows alone; a short call while working on
     # them); prints no kernels or ok line
     only = [a.split("=", 1)[1] for a in sys.argv[1:]
@@ -6974,6 +7235,10 @@ def main():
             t0 = time.perf_counter()
             record["tp_zoo"] = tp25_phase(launches)
             phase_done("phase 25", t0)
+        if "26" in picked:
+            t0 = time.perf_counter()
+            record["tp_serve"] = tp26_phase(launches)
+            phase_done("phase 26", t0)
         log(json.dumps({"partial": record, "launches": launches,
                         "phase_s": phase_s}))
         log(card_line())
@@ -7426,11 +7691,17 @@ def main():
     t0 = time.perf_counter()
     tp25_stages.finish(2)
     torch.cuda.empty_cache()
+    # phase 26's processes ready themselves beside phase 17 and run beside
+    # phases 18 and on
+    tp26_stages = TP24Stages(TP26_STAGES, flag="--tp26")
+    tp26_stages.spawn(0)
     mixtral = mixtral_phase(drive, expect)
     phase_done("phase 17", t0)
 
     # -- 18. the xLSTM slice --------------------------------------------------
     t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp26_stages.go(0)
     xlstm = xlstm_phase(drive, expect)
     phase_done("phase 18", t0)
 
@@ -7511,6 +7782,11 @@ def main():
     t0 = time.perf_counter()
     tp_zoo = tp25_phase(launches, tp25_stages)
     phase_done("phase 25", t0)
+
+    # -- 26. serving over 'model' ------------------------------------------
+    t0 = time.perf_counter()
+    tp_serve = tp26_phase(launches, tp26_stages)
+    phase_done("phase 26", t0)
     log(json.dumps({"main_path": main, "stochastic_path": stochastic,
                     "v1": v1, "lm": lm, "simulator": simulator,
                     "masters": masters, "kbatch": kbatch, "cnn": cnn,
@@ -7518,7 +7794,8 @@ def main():
                     "serve": serve, "mixtral": mixtral, "xlstm": xlstm,
                     "encdec_vlm": encdec_vlm, "cli": cli, "dist": dist,
                     "mesh": mesh, "tp": tp, "tp_families": tp_families,
-                    "tp_zoo": tp_zoo, "phase_s": phase_s,
+                    "tp_zoo": tp_zoo, "tp_serve": tp_serve,
+                    "phase_s": phase_s,
                     "total_s": time.perf_counter() - t_script}))
 
     def entry(name, source, replaces, rs, n_launch):

@@ -27,10 +27,14 @@ simulator (``repro_torch.sim``) through the same registry:
 
 ``api.serve(model, rc, publisher=None)`` builds the continuous-
 batching engine and the seeded request queue of ``rc.serve``
-(``repro_torch.serve``):
+(``repro_torch.serve``), on a mesh too (every rank of the world):
 
     engine, queue = api.serve(model, rc, publisher=out["publisher"])
     trace         = engine.serve(queue, n_steps)
+
+    with make_mesh(parse_mesh("1x2x2"), "cuda"):   # in each rank
+        engine, queue = api.serve(model, rc)
+    trace = engine.serve(queue, n_steps)
 
 ``device`` defaults to "cuda" and raises when CUDA is absent; only a
 caller that asks for the CPU runs there.
@@ -60,13 +64,14 @@ def serve(model: Model, rc: RunConfig, publisher=None, device="cuda"):
     ``rc.serve``, on ``device`` (the device ``model`` was built for).
     Returns (engine, queue); pass the train loop's ``WeightPublisher``
     to attach the bounded-staleness weight channel
-    (``engine.refresh_weights(now)`` pops the freshest due snapshot)."""
-    from repro_torch.models.transformer import model_size
+    (``engine.refresh_weights(now)`` pops the freshest due snapshot).
+
+    Under an active mesh (the ``launch.mesh.make_mesh`` the caller made
+    and entered, every rank of its world calling ``serve`` alike) the
+    engine serves on the serve profile's layout: the slots over
+    ``data`` where it divides them, the weights' and the cache's heads
+    over ``model``, pods replicated (``serve.engine``)."""
     from repro_torch.serve import Engine, RequestQueue
-    if model_size() > 1:
-        raise NotImplementedError(
-            f"serving on a mesh with model={model_size()}: the serve "
-            "profile's layout over 'model' is ROADMAP A.11 part 2, item 6")
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"the model lives on {model.device}, the engine "

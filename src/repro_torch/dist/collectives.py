@@ -6,7 +6,8 @@ decentralized gossip's worker group (one worker a rank):
          the variable pop (one ``all_reduce`` a step), the compressed
          int8 payload and its row scales of the slot rotate
          (``all_gather``), each pod's count and loss (``all_gather``);
-  data   the pod's gradient rows (``reduce_scatter``);
+  data   the pod's gradient rows (``reduce_scatter``); a decode step's
+         next tokens (``all_gather``);
   model  tensor parallelism (``dist.tensor_parallel``): the blocks'
          activations and the vocab-parallel loss's reductions
          (``all_reduce``), the sequence's gathers and scatters under
@@ -37,7 +38,9 @@ its payload. The dtype is JAX's short name ("f32", "s8", ...; bf16
 crosses as its raw bits, "u16"); the tag names the call site
 ("pod_pop", "pod_counts", "grad_rows", "w_rows", "scales_max",
 "metrics", "gossip", "worker_counts", and ``dist.tensor_parallel``'s
-"tp_act", "tp_seq", "tp_loss", "tp_param", "grad_leaves"). The census is Python integer sums
+"tp_act", "tp_seq", "tp_loss", "tp_param", "tp_router", "tp_norm",
+"tp_feat", "grad_leaves", and a decode step's "tp_logits" and "slots").
+The census is Python integer sums
 on the host: no device sync, always on. ``wire_census()`` reads it:
 
     with wire_census() as census:

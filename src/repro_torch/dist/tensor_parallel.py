@@ -55,6 +55,40 @@ The layout (Megatron's, on JAX's specs):
   * the weights stay whole over ``data`` (JAX's train profile puts
     "embed" there, FSDP; the port does not).
 
+Decoding and serving (``active_decode``) take the same weight blocks,
+on the serve profile's layout of JAX's ``continuous_decode_step``
+(``sharding_profile(mesh, "serve")``, ``dist.sharding``):
+
+  * the weights: each rank holds the blocks of the train layout above
+    (``leaf_spec`` / ``param_cutter``, at init): whole heads of ``wq``,
+    ``wk``, ``wv`` and the whole kv leaves where ``n_kv_heads % M`` is
+    not 0, every expert's "mlp" columns, the Mamba2 ``Segments``, the
+    xLSTM's cut (``xlstm.xlstm_spec``), the vocab blocks of
+    ``out_head`` and of a tied table (``vocab_slice``). They stay whole
+    over ``data``: JAX's serve profile stores the TP dims over the
+    whole ``data x model`` slice, which the port leaves to ROADMAP
+    A.11 part 2, item 9;
+  * the decode cache (``cache_dims``): the slots over ``data`` where
+    ``data`` divides them (``slot_rows``; otherwise every rank holds
+    every slot, as JAX's resolver falls back), the KV cache and the
+    encoder-decoder's ``mem_k`` / ``mem_v`` on the rank's kv heads (on
+    the whole-kv route the one kv head its query heads read), the
+    Mamba2 ``ssm`` state on its heads and the ``conv`` state cut by the
+    ``Segments`` of ``w_conv`` (its x columns, B and C whole), the
+    xLSTM's mLSTM ``C``, ``n``, ``m`` and sLSTM ``h``, ``c``, ``n``,
+    ``m`` on its heads. Where JAX's resolver moves "heads" onto ``data
+    x model`` because the slots fall back, the port keeps them on
+    ``model`` (the weights' storage of item 9);
+  * one token a step, so no ``seq_parallel`` (the serve profile
+    resolves "seq_sp" to nothing): ``enter`` is a copy, ``exit`` an
+    all-reduce; the logits are the rank's vocab block, and the next
+    token is their distributed argmax (``vocab_argmax``: each rank's
+    max and first index, exchanged over ``model``, ties to the lowest
+    index as ``jnp.argmax``, the padded columns included), all-gathered
+    over ``data`` (``gather_slots``) where the slots split there;
+  * pods replicate: no serve axis names ``pod``, every pod runs the
+    same slots and nothing crosses it.
+
 The autograd ops, each a ``torch.autograd.Function``:
 
   copy        identity forward, all-reduce backward: before a
@@ -95,8 +129,10 @@ its bytes to the census (``dist.collectives``) under axis "model":
 gathers and scatters), "tp_param" (copy on parameters, the tied
 table's gather), "tp_loss" (the loss's three reductions), "tp_router"
 (``gates`` and ``router_input``), "tp_norm" (``sum``), "tp_feat"
-(``gather_features`` and ``whole_features``); ``core.ambdg``'s gradient
-bridge adds "grad_leaves".
+(``gather_features`` and ``whole_features``), "tp_logits" (the decode
+argmax's exchange); ``core.ambdg``'s gradient bridge adds
+"grad_leaves", and the decode's next tokens cross ``data`` under
+"slots".
 """
 from __future__ import annotations
 
@@ -139,10 +175,25 @@ def model_axis() -> Optional[ModelAxis]:
 
 def check_model_axis(cfg: ModelConfig, n: int) -> None:
     """Raise for a config the ``model`` axis of size ``n`` does not
-    carry: a family but the LM families (``NotImplementedError``), the
-    xLSTM under ``seq_parallel`` (``NotImplementedError``: JAX's xLSTM
-    places no sequence-parallel boundary, and the sLSTM is a strict
-    recurrence over the whole sequence), Mamba2's grouped B/C
+    train: what ``check_model_blocks`` refuses, and the xLSTM under
+    ``seq_parallel`` (``NotImplementedError``: JAX's xLSTM places no
+    sequence-parallel boundary, and the sLSTM is a strict recurrence
+    over the whole sequence). The training forward (``active``) checks
+    it; building, init and decoding check ``check_model_blocks`` only,
+    so such a config still serves."""
+    check_model_blocks(cfg, n)
+    if n > 1 and cfg.family == SSM and cfg.seq_parallel:
+        raise NotImplementedError(
+            f"seq_parallel=True on the xLSTM with model={n}: JAX's xLSTM "
+            "forward places no sequence-parallel boundary, and the sLSTM "
+            "is a strict recurrence over the whole sequence, so its "
+            "blocks cannot run on a rank's sequence block")
+
+
+def check_model_blocks(cfg: ModelConfig, n: int) -> None:
+    """Raise for a config whose blocks the ``model`` axis of size ``n``
+    does not cut: a family but the LM families
+    (``NotImplementedError``), Mamba2's grouped B/C
     (``NotImplementedError``, ROADMAP A.11 part 2, item 6), or widths
     that do not split over ``n`` ranks by whole heads, whole kv groups,
     "mlp" columns, vocab rows, whole Mamba2 heads (HYBRID) and whole
@@ -157,12 +208,6 @@ def check_model_axis(cfg: ModelConfig, n: int) -> None:
             f"model family {cfg.family!r} on a mesh with model={n}: tensor "
             "parallelism over 'model' carries the LM families (dense, MoE, "
             "hybrid, encoder-decoder, VLM and xLSTM)")
-    if cfg.family == SSM and cfg.seq_parallel:
-        raise NotImplementedError(
-            f"seq_parallel=True on the xLSTM with model={n}: JAX's xLSTM "
-            "forward places no sequence-parallel boundary, and the sLSTM "
-            "is a strict recurrence over the whole sequence, so its "
-            "blocks cannot run on a rank's sequence block")
     if cfg.family == HYBRID:
         from repro_torch.models.ssm import mamba2_dims
         if cfg.ssm.n_groups != 1:
@@ -279,7 +324,7 @@ def param_cutter(cfg: ModelConfig):
     ax = model_axis()
     if ax is None:
         return None
-    check_model_axis(cfg, ax.n)
+    check_model_blocks(cfg, ax.n)
     from repro_torch.dist.context import active_mesh
     mesh, coords = active_mesh(), {"model": ax.rank}
 
@@ -612,3 +657,160 @@ def active(cfg: ModelConfig, *lengths: int) -> Optional[TensorParallel]:
             raise ValueError(f"seq_parallel: {n} tokens do not split over "
                              f"model={ax.n} ranks")
     return TensorParallel(ax, sp)
+
+
+# ---------------------------------------------------------------------------
+# Decoding and serving (the serve profile's layout, see the docstring)
+# ---------------------------------------------------------------------------
+# the cache leaves that hold kv heads (the KV cache, the encoder-decoder's
+# memory K/V): cut as the rank's attention reads them
+_KV_CACHE = ("k", "v", "mem_k", "mem_v")
+
+
+def active_decode(cfg: ModelConfig) -> Optional[TensorParallel]:
+    """A decode step's tensor parallelism under the active mesh (None at
+    ``model = 1``): the blocks of ``active`` without ``seq_parallel``
+    (one token a step, and the serve profile resolves "seq_sp" to
+    nothing). It checks ``check_model_blocks`` only: the xLSTM's
+    refusal of ``seq_parallel`` is the training forward's, so such a
+    config serves."""
+    ax = model_axis()
+    if ax is None:
+        return None
+    check_model_blocks(cfg, ax.n)
+    return TensorParallel(ax, False)
+
+
+class SlotRows(NamedTuple):
+    """The decode batch's rows this rank holds: [start, start + size) of
+    the ``batch`` slots, split over ``n`` data ranks (1: every rank holds
+    every slot), ``group`` the ``data`` group (None where n is 1)."""
+    start: int
+    size: int
+    n: int
+    group: object
+
+    def of(self, x):
+        """This rank's rows of a whole (batch, ...) array."""
+        return x[self.start:self.start + self.size]
+
+
+def slot_rows(batch: int) -> SlotRows:
+    """The rows of a decode batch of ``batch`` slots this rank holds
+    under the active mesh: the serve profile's "batch" entry (JAX's
+    ``spec_for(("batch",), (batch,), mesh, "serve")``), a block of
+    batch / D rows where ``data`` (D) divides the slots, else every
+    row (JAX's resolver falls back to replication)."""
+    from repro_torch.dist.context import active_mesh
+    mesh = active_mesh()
+    if mesh is None or not _splits_slots(batch, mesh):
+        return SlotRows(0, batch, 1, None)
+    from repro_torch.dist.collectives import require_mesh
+    ranks = require_mesh("the decode batch over 'data'")
+    size = batch // mesh.data
+    return SlotRows(ranks.coords["data"] * size, size, mesh.data,
+                    ranks.group("data"))
+
+
+def _splits_slots(batch: int, mesh) -> bool:
+    """Whether the serve profile splits ``batch`` slots over ``data``."""
+    from repro_torch.dist.sharding import Spec, spec_for
+    return mesh.data > 1 and spec_for(("batch",), (batch,), mesh,
+                                      profile="serve") != Spec()
+
+
+class CacheCut(NamedTuple):
+    """How a rank's block of one decode-cache leaf is cut from the
+    whole: ``batch`` the dim the slots split over ``data`` (None: every
+    slot), ``model`` None (whole), ("kv", dim) (the rank's kv heads, as
+    its attention reads them, ``local_heads``), ("heads", dim) (a
+    contiguous block of heads) or a ``Segments`` (the Mamba2 ``conv``
+    state's [x | B | C] channels, as ``w_conv``)."""
+    batch: Optional[int]
+    model: object
+
+
+def cache_dims(cfg: ModelConfig, caxes, batch: int, mesh):
+    """For each leaf of a decode cache of ``batch`` slots (its logical
+    axes ``caxes``, in ``tree_flatten`` order) on ``mesh``: its
+    ``CacheCut``."""
+    from repro_torch.core.arena import tree_flatten
+    axes, treedef = tree_flatten(caxes)
+    split = _splits_slots(batch, mesh)
+    out = []
+    for path, ax in zip(_leaf_paths(treedef), axes):
+        b = ax.index("batch") if split and "batch" in ax else None
+        m = None
+        if mesh.model > 1 and "mlp" in ax:
+            from repro_torch.models.ssm import mamba2_segments
+            m = mamba2_segments(cfg, "w_conv", len(ax))
+        elif mesh.model > 1 and "heads" in ax:
+            kind = "kv" if path.rsplit("/", 1)[-1] in _KV_CACHE else "heads"
+            m = (kind, ax.index("heads"))
+        out.append(CacheCut(b, m))
+    return out
+
+
+def cut_cache(cfg: ModelConfig, cache, dims, mesh, coords):
+    """The block of the whole decode ``cache`` the rank at ``coords``
+    holds (``dims`` from ``cache_dims``), each leaf a tensor of its
+    own."""
+    from repro_torch.core.arena import tree_flatten, tree_unflatten
+    leaves, treedef = tree_flatten(cache)
+    ax = ModelAxis(None, mesh.model, coords.get("model", 0))
+    out = []
+    for leaf, cut in zip(leaves, dims):
+        if cut.batch is not None:
+            size = leaf.shape[cut.batch] // mesh.data
+            leaf = leaf.narrow(cut.batch, coords["data"] * size, size)
+        if isinstance(cut.model, Segments):
+            leaf = cut.model.cut(leaf, ax.n, ax.rank)
+        elif cut.model is not None:
+            kind, dim = cut.model
+            if kind == "kv":
+                _, kv0, size, whole = local_heads(cfg, ax)
+                start = kv0 if whole else ax.rank * size
+            else:
+                size = leaf.shape[dim] // ax.n
+                start = ax.rank * size
+            leaf = leaf.narrow(dim, start, size)
+        out.append(leaf.clone())
+    return tree_unflatten(treedef, out)
+
+
+def local_kv_heads(cfg: ModelConfig, tp: Optional[TensorParallel]) -> int:
+    """The kv heads a rank's attention (and its KV cache) holds."""
+    return cfg.n_kv_heads if tp is None else local_heads(cfg, tp.ax)[2]
+
+
+def vocab_argmax(logits: torch.Tensor, ax: Optional[ModelAxis] = None):
+    """The index over the whole padded vocab of the largest logit of each
+    row of ``logits`` (the last dim: under ``ax`` the rank's vocab block,
+    rank order along the vocab), the first of equal maxima as
+    ``jnp.argmax`` takes it: each rank's max and its first index, as an
+    f64 (value, global index) pair, all-gathered over ``model``
+    ("tp_logits"), and the lowest rank holding the max wins. Returns
+    int64 indices."""
+    if ax is None:
+        return torch.argmax(logits, dim=-1)
+    from repro_torch.dist.collectives import all_gather
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    pair = torch.stack([val.to(torch.float64),
+                        (idx + ax.rank * logits.shape[-1]).to(torch.float64)],
+                       dim=-1)
+    pairs = all_gather(pair, ax.group, ax.n, axis="model", tag="tp_logits")
+    vals = pairs[..., 0]
+    first = torch.argmax((vals == vals.amax(0)).to(torch.int32), dim=0)
+    return torch.gather(pairs[..., 1], 0, first[None])[0].to(torch.int64)
+
+
+def gather_slots(x: torch.Tensor, rows: SlotRows) -> torch.Tensor:
+    """Every slot's ``x`` from each data rank's rows (``x`` this rank's,
+    (rows.size, ...)), all-gathered over ``data`` ("slots"); ``x``
+    itself where every rank holds every slot."""
+    if rows.n == 1:
+        return x
+    from repro_torch.dist.collectives import all_gather_rows
+    return all_gather_rows(x.contiguous(), rows.group, rows.n, axis="data",
+                           tag="slots")

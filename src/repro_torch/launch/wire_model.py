@@ -30,6 +30,11 @@ formulas, so a run holds census == model with ``==``, no tolerance.
 ``model_axis_bytes``  one AMB-DG step of an LM under tensor
     parallelism, on the ``model`` axis (``dist.tensor_parallel`` and
     ``core.ambdg``'s bridges), keyed by (census tag, dtype).
+
+``decode_axis_bytes``  one continuous-batching decode step of an LM on
+    the serve profile's layout (``serve.engine``), keyed by (census tag,
+    dtype): the blocks' all-reduces and gathers over ``model``, the
+    argmax's exchange, the next tokens' gather over ``data``.
 """
 from __future__ import annotations
 
@@ -304,4 +309,66 @@ def model_axis_bytes(cfg, layout, dims, micro_batch: int, seq: int,
                 _allreduce(m, (layout.n_leaves + 1) * 4))
         if n_pods == 1:
             add("pod_counts", "float32", (m - 1) * 8)
+    return out
+
+
+def decode_axis_bytes(cfg, slots: int, n_model: int, n_data: int = 1
+                      ) -> Dict[Tuple[str, str], int]:
+    """One decode step of the LM ``cfg`` a rank (``serve.engine``'s
+    ``continuous_decode_step``) serving ``slots`` slots on a mesh with
+    ``n_model`` model and ``n_data`` data ranks: {(census tag, dtype):
+    bytes}, counted from the shapes. A rank holds b = slots / n_data
+    rows where ``n_data`` divides the slots, else every slot. The step
+    runs forward only, one token a row (X = b d), without
+    ``seq_parallel``: a block's ``enter`` is a copy and moves nothing.
+
+      tp_act    each block's exit, an f32 all-reduce of X: a dense / MoE
+                / VLM layer's attention and FFN, a decoder layer's self-
+                and cross-attention and MLP (the encoder does not run),
+                each Mamba2 layer and each application of zamba2's
+                shared attention and MLP, each mLSTM block (an sLSTM
+                block has no exit: its FFN runs whole on every rank);
+      tp_norm   the Mamba2 gated norm's and the mLSTM norm's f32
+                all-reduce of (b,);
+      tp_feat   the mLSTM's ``a`` (b, d_in) and the sLSTM's output
+                (b, d) all-gathered in the compute dtype;
+      tp_logits the argmax's (value, index) f64 pair a row, all-gathered
+                over ``model``;
+      slots     the next tokens, (b,) s32, all-gathered over ``data``
+                (where ``data`` splits the slots)."""
+    from repro_torch.configs.base import ENCDEC, HYBRID, SSM
+    m = n_model
+    split = n_data > 1 and slots % n_data == 0
+    b = slots // n_data if split else slots
+    act = cfg.compute_dtype
+    L, d = cfg.n_layers, cfg.d_model
+    out: Dict[Tuple[str, str], int] = {}
+
+    def add(tag, dtype, n):
+        if n:
+            key = (tag, _SHORT.get(dtype, dtype))
+            out[key] = out.get(key, 0) + n
+
+    if split:
+        add("slots", "s32", _allgather(n_data, n_data * b * 4))
+    if m <= 1:
+        return out
+    x = _allreduce(m, b * d * 4)
+    if cfg.family == HYBRID:
+        n_apps = L // cfg.shared_attn_every
+        add("tp_act", "float32", (L + 2 * n_apps) * x)
+        add("tp_norm", "float32", L * _allreduce(m, b * 4))
+    elif cfg.family == ENCDEC:
+        add("tp_act", "float32", 3 * L * x)
+    elif cfg.family == SSM:
+        from repro_torch.models.xlstm import mlstm_dims, n_blocks
+        n_ml, n_sl = n_blocks(cfg)
+        add("tp_act", "float32", n_ml * x)
+        add("tp_norm", "float32", n_ml * _allreduce(m, b * 4))
+        add("tp_feat", act, n_ml * _allgather(
+            m, b * mlstm_dims(cfg)[0] * _BYTES[act])
+            + n_sl * _allgather(m, b * d * _BYTES[act]))
+    else:
+        add("tp_act", "float32", 2 * L * x)
+    add("tp_logits", "f64", _allgather(m, m * b * 16))
     return out

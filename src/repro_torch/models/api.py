@@ -22,10 +22,15 @@ zamba2 and the VLM paligemma (``models.transformer``, functions over
 the tree), and the ENCDEC seamless-m4t (``models.encdec``). The decode
 path (``init_decode_state``, ``decode_step``) serves the LM families.
 
-Under an active mesh with ``model > 1`` (``launch.mesh``; the dense,
-MoE and hybrid families) ``init``, ``param_shapes`` and ``loss`` work
-on the rank's blocks of the parameters (``dist.tensor_parallel``);
-``dummy_batch`` stays the global batch.
+Under an active mesh with ``model > 1`` (``launch.mesh``; every LM
+family) ``init``, ``param_shapes`` and ``loss`` work on the rank's
+blocks of the parameters (``dist.tensor_parallel``); ``dummy_batch``
+stays the global batch. Under an active mesh ``init_decode_state`` gives
+the rank's block of the decode cache on the serve profile's layout (its
+rows of the slots where ``data`` splits them, its heads at ``model >
+1``), ``decode_step`` takes the rank's rows of the tokens and positions
+and, at ``model > 1``, returns the rank's vocab block of the logits
+(``tensor_parallel.vocab_argmax`` takes their argmax over every rank's).
 """
 from __future__ import annotations
 
@@ -145,13 +150,16 @@ class Model:
                           dtype=torch.bfloat16):
         """(the decode cache on the model's device, its logical-axes
         tree) for ``batch`` slots of ``max_len`` positions (the LM
-        families; KV entries in ``dtype``)."""
+        families; KV entries in ``dtype``); under an active mesh the
+        rank's block of it."""
         return self._decoder().init_decode_state(self.cfg, batch, max_len,
                                                  dtype, self.device)
 
     def decode_step(self, params: Dict, cache: Dict, tokens, pos):
         """One token for every slot: (logits (B, 1, padded vocab), the
-        cache, updated in place)."""
+        cache, updated in place); under an active mesh B is the rank's
+        rows of the cache and, at ``model > 1``, the logits its vocab
+        block (B, 1, padded vocab / model)."""
         return self._decoder().decode_step(params, self.cfg, cache, tokens,
                                            pos)
 

@@ -49,7 +49,9 @@ positions}, the self-attention's slice of it written in place. As in
 JAX, nothing fills ``mem_k``/``mem_v`` on the serve path: the engine
 decodes against the zero memory the cache starts with (ROADMAP C.17).
 The decode's cross-attention is ``gqa_attend`` under either knob, as
-``decode_attention`` is.
+``decode_attention`` is. At ``model > 1`` the decode runs the rank's
+heads against its kv heads of the cache and of the memory
+(``tensor_parallel.active_decode``), as the training forward does.
 """
 from __future__ import annotations
 
@@ -290,26 +292,23 @@ def loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
 # ---------------------------------------------------------------------------
 # Decode (serve step)
 # ---------------------------------------------------------------------------
-def check_decode(cfg: ModelConfig) -> None:
-    """``check_supported``, and no decoding under ``model > 1``
-    (``transformer.refuse_model_axis_decode``)."""
-    check_supported(cfg)
-    tf.refuse_model_axis_decode()
-
-
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cpu"
                       ) -> Tuple[Dict, Dict]:
     """(the decode cache, its logical-axes tree): {"self": the decoder's
     KV cache, "mem_k", "mem_v": the cross-attention's K/V, each
     (n_layers, batch, max_len, n_kv_heads, head_dim) zeros in
-    ``dtype``}. Raises under ``model > 1`` (ROADMAP A.11 part 2, item
-    6)."""
-    check_decode(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
+    ``dtype``}. Under an active mesh the rank's block of it
+    (``transformer.init_decode_state``): its rows of the slots where
+    ``data`` splits them, at ``model > 1`` the kv heads its
+    attention reads."""
+    check_supported(cfg)
+    tp = tensor_parallel.active_decode(cfg)
+    batch = tensor_parallel.slot_rows(batch).size
+    shape = (cfg.n_layers, batch, max_len,
+             tensor_parallel.local_kv_heads(cfg, tp), cfg.resolved_head_dim)
     cache = {"self": init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype,
-                                   device),
+                                   device, tp),
              "mem_k": torch.zeros(shape, dtype=dtype, device=device),
              "mem_v": torch.zeros(shape, dtype=dtype, device=device)}
     ax = ("layers", "batch", "kv_seq", "heads", None)
@@ -320,8 +319,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One-token decode through the decoder: tokens (B, 1) int; pos a
     scalar (lockstep) or (B,) per-slot positions. The self-attention's
     cache is written in place, layer by layer; the cross-attention reads
-    ``mem_k``/``mem_v``. Returns (logits (B, 1, padded vocab), cache)."""
-    check_decode(cfg)
+    ``mem_k``/``mem_v``. Returns (logits (B, 1, padded vocab), cache).
+    Under an active mesh B is the rank's rows of the cache; at ``model >
+    1`` the self- and cross-attention run the rank's query heads against
+    its kv heads of the cache and of the memory, the MLP its "mlp"
+    columns, and the logits are its vocab block."""
+    check_supported(cfg)
+    tp = tensor_parallel.active_decode(cfg)
     dtype = tf._dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
@@ -329,12 +333,13 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     for i, layer_p in enumerate(tf.unbind_layers(params["decoder"])):
         y, _, _ = decode_attention(layer_p["attn"], cfg,
                                    rmsnorm(h, layer_p["ln1"], cfg.norm_eps),
-                                   pos, kv["k"][i], kv["v"][i])
+                                   pos, kv["k"][i], kv["v"][i], tp)
         h = h + y
         h = h + _cross_attention(layer_p["xattn"], cfg,
                                  rmsnorm(h, layer_p["ln_x"], cfg.norm_eps),
-                                 cache["mem_k"][i], cache["mem_v"][i], "xla")
+                                 cache["mem_k"][i], cache["mem_v"][i], "xla",
+                                 tp)
         h = h + mlp_apply(layer_p["mlp"], cfg,
-                          rmsnorm(h, layer_p["ln2"], cfg.norm_eps))
+                          rmsnorm(h, layer_p["ln2"], cfg.norm_eps), tp)
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
-    return output_logits(params, cfg, h), cache
+    return output_logits(params, cfg, h, tp), cache

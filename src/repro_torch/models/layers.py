@@ -23,12 +23,13 @@ q-blocks (``chunked_gqa_attend``), as JAX does, so it never forms the
 whole (S, S) score tensor there.
 
 Under tensor parallelism (``tp``, a ``dist.tensor_parallel.
-TensorParallel``; the dense, MoE and hybrid families on a mesh with
-``model > 1``) the parameters are the rank's blocks: attention runs the
-rank's query heads and the kv heads they group with (sliced from whole
-kv leaves where the kv heads do not split), the MLP its "mlp" columns,
-the head its vocab block; ``tp.enter`` / ``tp.exit`` carry the
-activations in and out of the column- and row-parallel products.
+TensorParallel``; every LM family on a mesh with ``model > 1``) the
+parameters are the rank's blocks: attention runs the rank's query heads
+and the kv heads they group with (sliced from whole kv leaves where the
+kv heads do not split), the MLP its "mlp" columns, the head its vocab
+block; ``tp.enter`` / ``tp.exit`` carry the activations in and out of
+the column- and row-parallel products. The decode does the same against
+the rank's block of the KV cache (its kv heads).
 """
 from __future__ import annotations
 
@@ -300,13 +301,17 @@ def attention_apply(p, cfg: ModelConfig, x, positions, mask, mask_fn=None,
 # KV-cache decode
 # ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu"):
+                  dtype=torch.bfloat16, device="cpu", tp=None):
     """The stacked cache {"k", "v"}, each (n_layers, batch, slots,
     n_kv_heads, head_dim) zeros: ``max_len`` slots, or with a sliding
-    window a rolling buffer of min(window, max_len) slots."""
+    window a rolling buffer of min(window, max_len) slots; under ``tp``
+    the kv heads the rank's attention reads
+    (``tensor_parallel.local_kv_heads``)."""
+    from repro_torch.dist.tensor_parallel import local_kv_heads
     slots = (min(cfg.sliding_window, max_len) if cfg.sliding_window
              else max_len)
-    shape = (n_layers, batch, slots, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (n_layers, batch, slots, local_kv_heads(cfg, tp),
+             cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -316,7 +321,8 @@ def cache_axes(cfg: ModelConfig):
     return {"k": ax, "v": ax}
 
 
-def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
+def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache,
+                     tp=None):
     """One-token decode step against one layer's cache, written in place.
 
     x (B, 1, d); k_cache, v_cache (B, slots, Hkv, D), views into the
@@ -330,15 +336,20 @@ def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
     rolling buffer: position pos writes column pos % slots, and once
     pos + 1 >= slots every column holds one of the window's latest
     positions and all are attended. K and V are rounded to the cache
-    dtype on write and read back in q's dtype. Returns (out, k_cache,
-    v_cache)."""
+    dtype on write and read back in q's dtype. Under ``tp`` the rank's
+    query heads against its block of the cache (its kv heads; on the
+    whole-kv route the one its heads read, projected from the whole
+    ``wk`` / ``wv`` and sliced), ``wo`` row-parallel and ``tp.exit``
+    summing the ranks' parts. Returns (out, k_cache, v_cache)."""
+    if tp is not None:
+        x = tp.enter(x)
     B = x.shape[0]
     slots = k_cache.shape[1]
     kv_pos = torch.arange(slots, device=x.device)
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     col = pos % slots if cfg.sliding_window else pos
     if pos.dim() == 0:
-        q, k, v = _project_qkv(p, cfg, x, pos.expand(B, 1))
+        q, k, v = _project_qkv(p, cfg, x, pos.expand(B, 1), tp)
         k_cache[:, col] = k[:, 0].to(k_cache.dtype)
         v_cache[:, col] = v[:, 0].to(v_cache.dtype)
         valid = kv_pos <= pos
@@ -346,7 +357,7 @@ def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
             valid = valid | (pos + 1 >= slots)
         mask = valid[None, None, None, None, :]
     else:
-        q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+        q, k, v = _project_qkv(p, cfg, x, pos[:, None], tp)
         rows = torch.arange(B, device=x.device)
         k_cache[rows, col] = k[:, 0].to(k_cache.dtype)
         v_cache[rows, col] = v[:, 0].to(v_cache.dtype)
@@ -357,7 +368,7 @@ def decode_attention(p, cfg: ModelConfig, x, pos, k_cache, v_cache):
     out = gqa_attend(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask,
                      cfg.logit_softcap)
     out = out.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
-    return out, k_cache, v_cache
+    return (out if tp is None else tp.exit(out)), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------

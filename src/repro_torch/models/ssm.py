@@ -22,7 +22,9 @@ of the x channels of the conv, with the B and C columns whole
 (``tensor_parallel.Segments``; their gradient, like that of ``a_log``,
 ``dt_bias`` and ``d_skip``, which it slices to its heads, summed over
 the ranks), the scan on its heads, the gated norm's sum of squares
-summed over the ranks (``tp.sum``), and ``w_out`` row-parallel.
+summed over the ranks (``tp.sum``), and ``w_out`` row-parallel; the
+decode the same on the rank's block of the state (its heads of ``ssm``,
+the ``conv`` state cut as ``w_conv``).
 """
 from __future__ import annotations
 
@@ -261,14 +263,18 @@ def mamba2_apply(p, cfg: ModelConfig, u, tp=None):
 # Decode (the O(1) recurrence)
 # ---------------------------------------------------------------------------
 def mamba2_state_init(cfg: ModelConfig, n_layers: int, batch: int,
-                      dtype=torch.float32, device="cpu"):
+                      dtype=torch.float32, device="cpu", tp=None):
     """The stacked decode state: "ssm" (n_layers, batch, nh, head_dim,
     d_state) and "conv" (n_layers, batch, d_conv - 1, conv_dim), zeros
-    in ``dtype`` (f32, as in JAX)."""
+    in ``dtype`` (f32, as in JAX); under ``tp`` the rank's nh / M heads
+    and its conv channels (its x block, B and C whole: the ``Segments``
+    of ``w_conv``)."""
     s = cfg.ssm
     if s is None:
         raise ValueError("the Mamba2 decode state needs an ssm config")
     d_in, nh = mamba2_dims(cfg)
+    if tp is not None:
+        d_in, nh = d_in // tp.ax.n, nh // tp.ax.n
     conv_dim = d_in + 2 * s.n_groups * s.d_state
     return {
         "ssm": torch.zeros((n_layers, batch, nh, s.head_dim, s.d_state),
@@ -283,19 +289,27 @@ def mamba2_state_axes():
             "conv": ("layers", "batch", None, "mlp")}
 
 
-def mamba2_decode(p, cfg: ModelConfig, u, ssm_state, conv_state):
+def mamba2_decode(p, cfg: ModelConfig, u, ssm_state, conv_state, tp=None):
     """One token. u (B, 1, d); ssm_state (B, nh, hd, ds) and conv_state
     (B, d_conv - 1, conv_dim), one layer's views into the stacked state,
     are overwritten with the new state (JAX returns it). The rounding
     points are JAX's: x * dt in the compute dtype, the outer product
     with B and the decay in f32, the read-out with C in the compute
-    dtype. Returns (y, ssm_state, conv_state)."""
+    dtype. Under ``tp`` the rank's heads (the states its blocks: the
+    ``ssm`` heads, the ``conv`` state's x block with B and C whole), the
+    gated norm's sum of squares summed over the ranks and ``w_out``
+    row-parallel. Returns (y, ssm_state, conv_state)."""
     s = cfg.ssm
     if u.shape[1] != 1:
         raise ValueError(f"mamba2_decode takes one token, got {u.shape[1]}")
     d_in, nh = mamba2_dims(cfg)
+    d_whole = d_in
+    if tp is not None:
+        p = _rank_params(p, cfg, tp)
+        d_in, nh = d_in // tp.ax.n, nh // tp.ax.n
+        u = tp.enter(u)
     gs = s.n_groups * s.d_state
-    z, xBC, dt = _split_proj(p, cfg, u)
+    z, xBC, dt = _split_proj(p, cfg, u, (d_in, nh))
     xBC, new_conv = _causal_conv(p, xBC, conv_state)
     x = xBC[..., :d_in].reshape(-1, nh, s.head_dim)
     Bmat = xBC[..., d_in:d_in + gs].reshape(-1, s.n_groups, s.d_state)
@@ -312,7 +326,8 @@ def mamba2_decode(p, cfg: ModelConfig, u, ssm_state, conv_state):
     new_ssm = ssm_state * decay[:, :, None, None] + upd
     y = torch.einsum("bhds,bhs->bhd", new_ssm.to(x.dtype), Cfull.to(x.dtype))
     y = y + x * p["d_skip"].to(x.dtype)[None, :, None]
-    y = _gated_norm(p, y.reshape(-1, 1, d_in), z, cfg.norm_eps)
+    y = _gated_norm(p, y.reshape(-1, 1, d_in), z, cfg.norm_eps, tp, d_whole)
     ssm_state.copy_(new_ssm)
     conv_state.copy_(new_conv)
-    return y @ p["w_out"].to(u.dtype), ssm_state, conv_state
+    out = y @ p["w_out"].to(u.dtype)
+    return (out if tp is None else tp.exit(out)), ssm_state, conv_state

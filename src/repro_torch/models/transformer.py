@@ -52,8 +52,11 @@ and ``lm_loss`` takes the vocab-parallel cross entropy.
 ``seq_parallel`` then splits the residual stream over the sequence
 between blocks (the identity at ``model = 1`` or at one token, as JAX's
 ``_sp``; the VLM's split covers the patches and the text together; the
-xLSTM refuses it at ``model > 1``, as JAX places no boundary in its
-forward). Decoding raises there (ROADMAP A.11 part 2, item 6).
+xLSTM's training forward refuses it at ``model > 1``, as JAX places no
+boundary in its forward). Decoding runs on the serve profile's layout
+(``tensor_parallel.active_decode``): the rank's rows of the slots where
+``data`` splits them and its heads of the cache; ``decode_step`` returns
+the rank's vocab block of the logits.
 
 Knobs the slice does not carry raise ``NotImplementedError`` naming
 their ROADMAP item (``check_supported``).
@@ -136,10 +139,11 @@ def model_size() -> int:
 def check_knobs(cfg: ModelConfig) -> None:
     """The checks every LM family shares (``models/encdec.py`` runs them
     too): the active mesh's ``model`` axis must carry the family and its
-    widths (``tensor_parallel.check_model_axis``), the remat, attention
+    widths (``tensor_parallel.check_model_blocks``; the training forward
+    checks the rest, ``check_model_axis``), the remat, attention
     and scan knobs and the dtypes must be known, and the flash kernels
     must compute the config's masks."""
-    tensor_parallel.check_model_axis(cfg, model_size())
+    tensor_parallel.check_model_blocks(cfg, model_size())
     if cfg.block_remat not in BLOCK_REMATS:
         raise ValueError(f"unknown block_remat {cfg.block_remat!r}; "
                          f"expected one of {BLOCK_REMATS}")
@@ -443,43 +447,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     applications of the shared block}; SSM, {"mlstm": {"C", "n", "m"},
     "slstm": {"h", "c", "n", "m"}}, the f32 recurrent states of each
     stack (``dtype`` and ``max_len`` unused, as in JAX; each ``m`` starts
-    at its block's own floor, NEG_INF and SLSTM_M0)."""
-    check_decode(cfg)
+    at its block's own floor, NEG_INF and SLSTM_M0). Under an active
+    mesh: the rank's block of the cache of ``batch`` slots
+    (``tensor_parallel.cache_dims``: its rows of the slots where
+    ``data`` splits them, ``slot_rows``; its heads at ``model > 1``)."""
+    check_supported(cfg)
+    tp = tensor_parallel.active_decode(cfg)
+    batch = tensor_parallel.slot_rows(batch).size
     if cfg.family == SSM:
         n_ml, n_sl = xlstm_mod.n_blocks(cfg)
         cache = {"mlstm": xlstm_mod.mlstm_state_init(cfg, n_ml, batch,
-                                                     device),
+                                                     device, tp),
                  "slstm": xlstm_mod.slstm_state_init(cfg, n_sl, batch,
-                                                     device)}
+                                                     device, tp)}
         return cache, xlstm_mod.state_axes()
     if cfg.family == HYBRID:
         cache = {
             "mamba": ssm_mod.mamba2_state_init(cfg, cfg.n_layers, batch,
-                                               device=device),
+                                               device=device, tp=tp),
             "shared": init_kv_cache(cfg, cfg.n_layers // cfg.shared_attn_every,
-                                    batch, max_len, dtype, device),
+                                    batch, max_len, dtype, device, tp),
         }
         return cache, {"mamba": ssm_mod.mamba2_state_axes(),
                        "shared": cache_axes(cfg)}
-    return (init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device),
+    return (init_kv_cache(cfg, cfg.n_layers, batch, max_len, dtype, device,
+                          tp),
             cache_axes(cfg))
-
-
-def check_decode(cfg: ModelConfig) -> None:
-    """``check_supported``, and no decoding under ``model > 1``
-    (``refuse_model_axis_decode``)."""
-    check_supported(cfg)
-    refuse_model_axis_decode()
-
-
-def refuse_model_axis_decode() -> None:
-    """No decoding under ``model > 1``: JAX serves on its serve profile,
-    another layout than the train profile's tensor parallelism (ROADMAP
-    A.11 part 2, item 6)."""
-    if model_size() > 1:
-        raise NotImplementedError(
-            f"decoding on a mesh with model={model_size()}: the serve "
-            "profile's layout over 'model' is ROADMAP A.11 part 2, item 6")
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
@@ -487,59 +480,67 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     (B,) per-slot positions (continuous batching; see
     ``layers.decode_attention``). The cache is updated in place, layer
     by layer (the xLSTM's recurrence reads no position). Returns
-    (logits (B, 1, padded vocab), cache)."""
-    check_decode(cfg)
+    (logits (B, 1, padded vocab), cache). Under an active mesh B is the
+    rank's rows of the cache (``init_decode_state``); at ``model > 1``
+    every block runs the rank's heads and "mlp" columns
+    (``tensor_parallel.active_decode``) and the logits are the rank's
+    vocab block (B, 1, padded vocab / model), whose argmax over every
+    rank's is ``tensor_parallel.vocab_argmax``."""
+    check_supported(cfg)
+    tp = tensor_parallel.active_decode(cfg)
     dtype = _dtype(cfg.compute_dtype)
     h = embed_tokens(params, tokens, dtype) * scalar(math.sqrt(cfg.d_model),
                                                      dtype)
     if cfg.family == SSM:
-        h = _xlstm_decode(params, cfg, h, cache)
+        h = _xlstm_decode(params, cfg, h, cache, tp)
     elif cfg.family == HYBRID:
-        h = _hybrid_decode(params, cfg, h, cache, pos)
+        h = _hybrid_decode(params, cfg, h, cache, pos, tp)
     else:
         for i, layer_p in enumerate(unbind_layers(params["layers"])):
             hn = rmsnorm(h, layer_p["ln1"], cfg.norm_eps)
             y, _, _ = decode_attention(layer_p["attn"], cfg, hn, pos,
-                                       cache["k"][i], cache["v"][i])
+                                       cache["k"][i], cache["v"][i], tp)
             h = h + y
             hn = rmsnorm(h, layer_p["ln2"], cfg.norm_eps)
             if cfg.family == MOE:
                 # the (B, 1, d) step routed as a group of B tokens; its
                 # aux loss is dropped, as in JAX
-                y, _ = moe_mod.moe_apply(layer_p["moe"], cfg, hn)
+                y, _ = moe_mod.moe_apply(layer_p["moe"], cfg, hn, tp)
             else:
-                y = mlp_apply(layer_p["mlp"], cfg, hn)
+                y = mlp_apply(layer_p["mlp"], cfg, hn, tp)
             h = h + y
     h = rmsnorm(h, params["ln_final"], cfg.norm_eps)
-    return output_logits(params, cfg, h), cache
+    return output_logits(params, cfg, h, tp), cache
 
 
-def _hybrid_decode(params, cfg: ModelConfig, h, cache, pos):
+def _hybrid_decode(params, cfg: ModelConfig, h, cache, pos, tp=None):
     """zamba2's decode: each Mamba2 layer's recurrence, the shared block
     after every ``shared_attn_every`` layers with its own KV cache per
-    application."""
+    application (under ``tp`` on the rank's heads)."""
     k = cfg.shared_attn_every
     sh = params["shared_attn"]
     mamba, shared = cache["mamba"], cache["shared"]
     for i, layer_p in enumerate(unbind_layers(params["layers"])):
         hn = rmsnorm(h, layer_p["ln1"], cfg.norm_eps)
         y, _, _ = ssm_mod.mamba2_decode(layer_p["mamba"], cfg, hn,
-                                        mamba["ssm"][i], mamba["conv"][i])
+                                        mamba["ssm"][i], mamba["conv"][i],
+                                        tp)
         h = h + y
         if (i + 1) % k == 0:
             g = i // k
             hn = rmsnorm(h, sh["ln1"], cfg.norm_eps)
             y, _, _ = decode_attention(sh["attn"], cfg, hn, pos,
-                                       shared["k"][g], shared["v"][g])
+                                       shared["k"][g], shared["v"][g], tp)
             h = h + y
             h = h + mlp_apply(sh["mlp"], cfg,
-                              rmsnorm(h, sh["ln2"], cfg.norm_eps))
+                              rmsnorm(h, sh["ln2"], cfg.norm_eps), tp)
     return h
 
 
-def _xlstm_decode(params, cfg: ModelConfig, h, cache):
+def _xlstm_decode(params, cfg: ModelConfig, h, cache, tp=None):
     """The xLSTM's decode: each block's recurrence in layer order, its
-    slice of the stacked state updated in place."""
+    slice of the stacked state updated in place (under ``tp`` the rank's
+    heads; an sLSTM block's output is gathered whole for its FFN)."""
     ml = unbind_layers(params["mlstm_layers"])
     sl = unbind_layers(params["slstm_layers"])
     m_st, s_st = cache["mlstm"], cache["slstm"]
@@ -549,7 +550,8 @@ def _xlstm_decode(params, cfg: ModelConfig, h, cache):
             lp = sl[sl_i]
             st = tuple(s_st[k][sl_i] for k in ("h", "c", "n", "m"))
             y, out = xlstm_mod.slstm_block_apply(
-                lp["slstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps), st)
+                lp["slstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps), st,
+                tp)
             for view, new in zip(st, out):
                 view.copy_(new)
             sl_i += 1
@@ -557,7 +559,7 @@ def _xlstm_decode(params, cfg: ModelConfig, h, cache):
             lp = ml[ml_i]
             y, _ = xlstm_mod.mlstm_block_decode(
                 lp["mlstm"], cfg, rmsnorm(h, lp["ln1"], cfg.norm_eps),
-                {k: m_st[k][ml_i] for k in ("C", "n", "m")})
+                {k: m_st[k][ml_i] for k in ("C", "n", "m")}, tp)
             ml_i += 1
         h = h + y
     return h

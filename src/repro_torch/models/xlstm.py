@@ -59,8 +59,9 @@ The sLSTM's recurrence leaves its output in head blocks; its FFN reads
 the whole width, so the output is gathered whole
 (``tp.whole_features``; every rank then computes the FFN alike and its
 output needs no reduce, and the gather's backward keeps the rank's own
-block). ``seq_parallel`` is refused at ``model > 1``
-(``tensor_parallel.check_model_axis``).
+block). ``seq_parallel`` is refused at ``model > 1`` by the training
+forward (``tensor_parallel.check_model_axis``); such a config still
+decodes and serves, one token a step.
 """
 from __future__ import annotations
 
@@ -256,11 +257,12 @@ def mlstm_block_apply(p, cfg: ModelConfig, x, tp=None):
 
 
 def mlstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
-                     device="cpu"):
+                     device="cpu", tp=None):
     """The stacked decode state, f32: C (n_layers, B, nh, hd, hd) and n
-    (n_layers, B, nh, hd) zeros, m (n_layers, B, nh) at NEG_INF."""
+    (n_layers, B, nh, hd) zeros, m (n_layers, B, nh) at NEG_INF; under
+    ``tp`` the rank's nh / M heads."""
     _, nh, hd = mlstm_dims(cfg)
-    lead = (n_layers, batch, nh)
+    lead = (n_layers, batch, nh if tp is None else nh // tp.ax.n)
     return {
         "C": torch.zeros(lead + (hd, hd), dtype=torch.float32, device=device),
         "n": torch.zeros(lead + (hd,), dtype=torch.float32, device=device),
@@ -268,16 +270,22 @@ def mlstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
     }
 
 
-def mlstm_block_decode(p, cfg: ModelConfig, x, state):
+def mlstm_block_decode(p, cfg: ModelConfig, x, state, tp=None):
     """One token. x (B, 1, d); state {"C", "n", "m"}, one layer's views
     into the stacked state, overwritten with the new state (JAX returns
-    it). Returns (y (B, 1, d), state)."""
+    it). Under ``tp`` the rank's heads (its block of the state), the
+    up-projection's ``a`` gathered along the features, the norm spanning
+    every rank's heads and the down-projection's parts summed. Returns
+    (y (B, 1, d), state)."""
     d_in, nh, hd = mlstm_dims(cfg)
     B = x.shape[0]
     if x.shape[1] != 1:
         raise ValueError(f"mlstm_block_decode takes one token, got "
                          f"{x.shape[1]}")
-    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x)
+    if tp is not None:
+        d_in, nh = d_in // tp.ax.n, nh // tp.ax.n
+        x = tp.enter(x)
+    q, k, v, logi, logf, gate = _mlstm_proj(p, cfg, x, tp)
     q, k, v = (t.reshape(B, nh, hd) for t in (q, k, v))
     logi, logf = logi.reshape(B, nh), logf.reshape(B, nh)
     C_st, n_st, m_st = state["C"], state["n"], state["m"]
@@ -296,7 +304,7 @@ def mlstm_block_decode(p, cfg: ModelConfig, x, state):
     state["C"].copy_(C_new)
     state["n"].copy_(n_new)
     state["m"].copy_(m_new)
-    return _mlstm_out(p, cfg, y, gate, x), state
+    return _mlstm_out(p, cfg, y, gate, x, tp), state
 
 
 # ---------------------------------------------------------------------------
@@ -323,11 +331,11 @@ def slstm_init(f: ParamFactory, cfg: ModelConfig, name: str = "slstm"):
 
 
 def slstm_state_init(cfg: ModelConfig, n_layers: int, batch: int,
-                     device="cpu"):
+                     device="cpu", tp=None):
     """The stacked decode state, f32, each (n_layers, B, nh, hd): h, c
-    and n zeros, m at SLSTM_M0."""
+    and n zeros, m at SLSTM_M0; under ``tp`` the rank's nh / M heads."""
     nh, hd, _ = slstm_dims(cfg)
-    shape = (n_layers, batch, nh, hd)
+    shape = (n_layers, batch, nh if tp is None else nh // tp.ax.n, hd)
     state = {k: torch.zeros(shape, dtype=torch.float32, device=device)
              for k in ("h", "c", "n")}
     state["m"] = torch.full(shape, SLSTM_M0, dtype=torch.float32,

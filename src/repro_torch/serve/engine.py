@@ -19,9 +19,24 @@ Weights arrive through the bounded-staleness channel
 (``serve.publisher``): ``refresh_weights(now)`` pops the freshest due
 ``w = -alpha z`` snapshot and threads the observed staleness into
 ``ServeStats``.
+
+On a mesh (an engine built under an entered ``launch.mesh.Mesh``, on
+every rank of its world) the engine serves on JAX's serve profile
+(``dist.tensor_parallel``'s decode layout), entering the mesh under
+that profile for each of its calls: the model's init keeps the rank's
+weight blocks (each leaf cut as it is drawn), the cache is the rank's
+block, data rank d holding the slots [d B/D, (d+1) B/D) where ``data``
+(D) divides the B slots (else every slot) and model rank m its heads;
+each step feeds the rank's rows of the tokens, positions and active
+mask, takes the argmax over every model rank's vocab block and gathers
+the next tokens over ``data``, so every rank's host sees every slot.
+The host's bookkeeping (the seeded queue, admits, evicts, stats) is
+global and the same on every rank; pods run the same slots.
+``refresh_weights`` cuts the popped whole tree to the rank's blocks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -30,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.arena import tree_flatten
+from repro_torch.dist import tensor_parallel
 from repro_torch.models.api import Model
 from repro_torch.serve.request_queue import Request
 
@@ -54,23 +70,35 @@ class ServeStats:
         return self.staleness_sum / max(self.publish_pops, 1)
 
 
-def continuous_decode_step(decode_fn, params, cache, tokens, pos, active):
+def continuous_decode_step(decode_fn, params, cache, tokens, pos, active,
+                           rows=None):
     """One continuous-batching decode step.
 
     tokens (B, 1) int, the token each slot feeds; pos (B,) per-slot
     positions; active (B,) bool. Returns (next-token ids (B,) int32,
     the cache). Inactive slots emit 0. The argmax takes the first of
-    equal maxima, as ``jnp.argmax`` does."""
+    equal maxima, as ``jnp.argmax`` does. Under an active mesh tokens,
+    pos and active are the rank's rows ``rows`` (a
+    ``tensor_parallel.SlotRows``) of the slots; the argmax spans every
+    ``model`` rank's vocab block (``tensor_parallel.vocab_argmax``) and
+    the next tokens of every slot are gathered over ``data``
+    (``tensor_parallel.gather_slots``)."""
     logits, cache = decode_fn(params, cache, tokens, pos)
-    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-    return torch.where(active, nxt, torch.zeros_like(nxt)), cache
+    nxt = tensor_parallel.vocab_argmax(
+        logits[:, -1, :], tensor_parallel.model_axis()).to(torch.int32)
+    nxt = torch.where(active, nxt, torch.zeros_like(nxt))
+    if rows is not None:
+        nxt = tensor_parallel.gather_slots(nxt, rows)
+    return nxt, cache
 
 
 def _make_slot_reset(caxes):
     """Admit-time cache reset: the init template's values on the batch
     rows of the freshly admitted slots, for any decode-state tree (KV,
     SSM recurrent state, hybrid), each leaf's batch axis read from the
-    logical-axes tree. Only the admitted rows are copied, in place."""
+    logical-axes tree. Only the admitted rows are copied, in place. On
+    a mesh ``admit`` is the rank's rows of the admit mask (the rows of
+    its block of the cache)."""
     axes, _ = tree_flatten(caxes)
 
     def reset(cache, cache0, admit: np.ndarray):
@@ -113,19 +141,35 @@ class Engine:
     sequences, returning an event record (admits/evicts/active) that the
     golden serve trace pins. ``serve(queue, n)`` drives the seeded
     arrival process for n steps. The engine's own weights are the
-    model's init from a CPU generator seeded ``seed``."""
+    model's init from a CPU generator seeded ``seed`` (under a mesh the
+    rank's blocks of it)."""
 
     def __init__(self, model: Model, batch_slots: int, max_len: int,
                  seed: int = 0):
+        from repro_torch.dist.context import active_device_mesh, active_mesh
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
         self.slots = batch_slots
         self.max_len = max_len
-        self.params = model.init(torch.Generator().manual_seed(seed))
-        self.cache, self.caxes = model.init_decode_state(batch_slots, max_len)
-        # the init template for admit-time slot resets
-        self._cache0, _ = model.init_decode_state(batch_slots, max_len)
+        # the mesh the engine was built under (its config and DeviceMesh)
+        self._mesh = ((active_mesh(), active_device_mesh())
+                      if active_device_mesh() is not None else None)
+        with self._serving():
+            # this rank's rows of the slots
+            self.rows = tensor_parallel.slot_rows(batch_slots)
+            self.params = model.init(torch.Generator().manual_seed(seed))
+            self.cache, self.caxes = model.init_decode_state(batch_slots,
+                                                             max_len)
+            # the init template for admit-time slot resets
+            self._cache0, _ = model.init_decode_state(batch_slots, max_len)
+            # how a popped whole tree is cut to the rank's blocks
+            self._cut = None
+            if tensor_parallel.model_axis() is not None:
+                from repro_torch.core.arena import make_layout
+                self._cut = tensor_parallel.model_dims(
+                    self.cfg, make_layout(model.whole_param_shapes()),
+                    model.param_axes(), self._mesh[0])
         self._reset = _make_slot_reset(self.caxes)
         # per-slot host state
         self._req: List[Optional[Request]] = [None] * batch_slots
@@ -137,6 +181,18 @@ class Engine:
         self.publisher = None
         self.stats = ServeStats()
 
+    def _serving(self):
+        """The mesh the engine was built under, entered on the serve
+        profile (nothing without one)."""
+        stack = contextlib.ExitStack()
+        if self._mesh is not None:
+            from repro_torch.dist.context import (sharding_profile,
+                                                  use_device_mesh)
+            mesh_cfg, device_mesh = self._mesh
+            stack.enter_context(sharding_profile(mesh_cfg, "serve"))
+            stack.enter_context(use_device_mesh(device_mesh))
+        return stack
+
     # -- weight publication ------------------------------------------------
     def attach_publisher(self, publisher):
         self.publisher = publisher
@@ -145,13 +201,18 @@ class Engine:
         """Pop the freshest due snapshot at master step ``now``; swap it
         in and return the observed staleness, or None on a miss (the
         engine keeps serving its previous weights, so every served
-        snapshot satisfies the bound)."""
+        snapshot satisfies the bound). At ``model > 1`` the popped tree
+        is the whole one: the engine keeps the rank's blocks of it."""
         if self.publisher is None:
             return None
         params, stale = self.publisher.pop(now)
         if params is None:
             self.stats.publish_misses += 1
             return None
+        if self._cut is not None:
+            with self._serving():
+                params = tensor_parallel.cut_params(
+                    params, self._cut, tensor_parallel.model_axis())
         self.params = params
         self.stats.publish_pops += 1
         self.stats.staleness_last = stale
@@ -188,8 +249,9 @@ class Engine:
                 admit_mask[i] = True
                 admits.append(req.rid)
                 self.stats.admitted += 1
-        if admit_mask.any():
-            self.cache = self._reset(self.cache, self._cache0, admit_mask)
+        mine = self.rows.of(admit_mask)
+        if mine.any():
+            self.cache = self._reset(self.cache, self._cache0, mine)
         active = np.array([r is not None for r in self._req])
         self.stats.steps += 1
         if not active.any():
@@ -198,11 +260,13 @@ class Engine:
                     "queued": len(queue) if queue is not None else 0}
         toks = np.where(active, self._next_tok, 0).astype(np.int32)
         pos = np.where(active, self._n_fed, 0).astype(np.int32)
-        with torch.no_grad():
+        rows = self.rows
+        with torch.no_grad(), self._serving():
             nxt, self.cache = continuous_decode_step(
                 self.model.decode_step, self.params, self.cache,
-                self._to_device(toks[:, None]), self._to_device(pos),
-                self._to_device(active))
+                self._to_device(rows.of(toks)[:, None]),
+                self._to_device(rows.of(pos)),
+                self._to_device(rows.of(active)), rows)
         nxt = nxt.cpu().numpy()          # the step's one read back
         for i in range(self.slots):
             req = self._req[i]

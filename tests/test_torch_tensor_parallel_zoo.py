@@ -30,9 +30,10 @@ without ``seq_parallel``, and the xLSTM (``seq_parallel`` refused):
     model_axis_bytes`` times the steps;
   * an xLSTM 1x1x2 checkpoint restores on 1x1x1, and a 1x1x1 one on
     1x1x2;
-  * decoding and ``api.serve`` raise at ``model > 1`` for each family,
-    the xLSTM under ``seq_parallel`` raises, and so does a seamless
-    source length that does not split;
+  * decoding and ``api.serve`` run at ``model > 1`` for each family
+    (once refused there; the xLSTM with ``seq_parallel``), the xLSTM's
+    training forward under ``seq_parallel`` raises, and so does a
+    seamless source length that does not split;
   * the train CLI with ``--mesh 1x1x2`` on each family.
 World 4: paligemma on ``1x1x4`` (its one kv head: the whole-kv route),
 seamless and the xLSTM on ``1x2x2`` (the rows over data x model), each
@@ -227,22 +228,39 @@ def _train_case(rank, model, shape, compression, sp, ckpt_dir):
             "state": _ckpt_leaves(ckpt_dir) if rank == 0 else None}
 
 
-def _refusals():
-    """On 1x1x2: decoding and serving (each family), the xLSTM under
-    ``seq_parallel``, seamless's source of 15 frames under it."""
+def _decode_once(m):
+    """One decode step on the rank's blocks: its logits must be the
+    rank's vocab block."""
+    params = m.init()
+    cache, _ = m.init_decode_state(2, 8)
+    logits, _ = m.decode_step(params, cache,
+                              torch.zeros((2, 1), dtype=torch.int64),
+                              torch.zeros((2,), dtype=torch.int64))
+    assert logits.shape == (2, 1, m.cfg.padded_vocab_size // 2)
+
+
+def _serve_twice(m, rc):
     from repro_torch import api
+    engine, queue = api.serve(m, rc, device="cpu")
+    engine.serve(queue, 2)
+
+
+def _refusals():
+    """On 1x1x2: decoding and serving (each family, the xLSTM with
+    ``seq_parallel``, which serves), once refused there; the xLSTM's
+    training forward under ``seq_parallel``, seamless's source of 15
+    frames under it."""
     from repro_torch.launch.mesh import make_mesh
     errors = {}
     with make_mesh(MeshConfig(1, 1, 2), "cpu"):
         for model in ("seamless", "paligemma", "xlstm"):
-            rc = _rc(model, (1, 1, 2), "none")
+            rc = _rc(model, (1, 1, 2), "none", sp=model == "xlstm")
             m = _build(rc.model)
-            errors[(model, "decode")] = _catch(
-                lambda: m.init_decode_state(2, 8))
-            errors[(model, "serve")] = _catch(
-                lambda: api.serve(m, rc, device="cpu"))
-        errors["xlstm-sp"] = _catch(
-            lambda: _build(_cfg("xlstm", sp=True)).init())
+            errors[(model, "decode")] = _catch(lambda: _decode_once(m))
+            errors[(model, "serve")] = _catch(lambda: _serve_twice(m, rc))
+        m = _build(_cfg("xlstm", sp=True))
+        batch = m.dummy_batch(2, 16, torch.Generator().manual_seed(0))
+        errors["xlstm-sp"] = _catch(lambda: m.loss(m.init(), batch))
         m = _build(_cfg("seamless", sp=True))
         batch = m.dummy_batch(2, 16, torch.Generator().manual_seed(0))
         batch["frames"] = batch["frames"][:, :15]
@@ -643,9 +661,13 @@ def test_checkpoint_restores_across_the_model_axis(ref, way):
 @pytest.mark.parametrize("what", ["decode", "serve"])
 @pytest.mark.parametrize("model", ["seamless", "paligemma", "xlstm"])
 def test_decoding_and_serving_refuse_the_model_axis(ref, model, what):
+    """Decoding and ``api.serve`` at ``model > 1``, refused here until
+    the serve profile's layout was ported (ROADMAP A.11 part 2, item 6),
+    now run on 1x1x2 (the xLSTM with ``seq_parallel=True``): one decode
+    step on the rank's blocks, two engine steps (their parity is
+    ``test_torch_tp_serve``'s)."""
     msg = ref["w2"][0]["errors"][(model, what)]
-    assert msg is not None and msg.startswith("NotImplementedError") and \
-        "A.11 part 2, item 6" in msg, msg
+    assert msg is None, msg
 
 
 @pytest.mark.parametrize("what, exc, text", [
@@ -653,9 +675,10 @@ def test_decoding_and_serving_refuse_the_model_axis(ref, model, what):
     ("seamless-src", "ValueError", "15 tokens"),
 ])
 def test_sequence_parallel_refusals(ref, what, exc, text):
-    """The xLSTM refuses ``seq_parallel`` at ``model > 1`` (JAX places no
-    boundary in its forward); seamless's source must split as its target
-    must."""
+    """The xLSTM's training forward refuses ``seq_parallel`` at ``model
+    > 1`` (JAX places no boundary in its forward; building and init
+    accept it, so the config serves); seamless's source must split as
+    its target must."""
     msg = ref["w2"][0]["errors"][what]
     assert msg is not None and msg.startswith(exc) and text in msg, msg
 
